@@ -1,0 +1,110 @@
+"""Guards of the port: no JAX, explicit devices, no silent fallback, no
+build at import."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from biahub_tpu_torch import DeconvolveDeskew, module_from_reference
+from biahub_tpu_torch.kernels import _build, chain, deconvolve, deskew, fft
+from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "biahub_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = {"jax", "jaxlib", "biahub_tpu"}
+
+
+def imported_roots(path: pathlib.Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_neither_jax_nor_the_reference(path):
+    # Exact top-level names: biahub_tpu_torch itself must not match.
+    assert not imported_roots(path) & FORBIDDEN
+
+
+def test_import_scan_matches_names_exactly(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import biahub_tpu_torch\nfrom biahub_tpu.kernels import x\n")
+    assert imported_roots(src) & FORBIDDEN == {"biahub_tpu"}
+
+
+SHAPE = (8, 6, 10)
+TF = np.ones((8, 6, 6), np.float32)
+VOL = np.zeros(SHAPE, np.float32)
+ENTRY_POINTS = {
+    "deconvolve_zyx": lambda: deconvolve.deconvolve_zyx(VOL, TF),
+    "deconvolve_czyx": lambda: deconvolve.deconvolve_czyx(VOL[None], TF),
+    "deskew_zyx": lambda: deskew.deskew_zyx(VOL, 30.0, 0.4, False),
+    "deskew_zyx_batched": lambda: deskew.deskew_zyx_batched(VOL[None], 30.0, 0.4, False),
+    "deconvolve_then_deskew": lambda: chain.deconvolve_then_deskew(VOL, TF, 1e-3, 30.0, 0.4),
+    "deconvolve_then_deskew_batched": lambda: chain.deconvolve_then_deskew_batched(
+        VOL[None], TF, 1e-3, 30.0, 0.4),
+    "DeconvolveDeskew": lambda: DeconvolveDeskew(TF, SHAPE, 1e-3, 30.0, 0.4),
+    "module_from_reference": lambda: module_from_reference(
+        TF, {"pixel_size_um": 0.116, "ls_angle_deg": 30.0, "px_to_scan_ratio": 0.4},
+        {}, SHAPE),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_default_device_raises_without_cuda(name, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[name]()
+
+
+def test_cpu_path_takes_plain_versions_and_counts_no_launch():
+    _build.reset_launch_counts()
+    out = chain.deconvolve_then_deskew_batched(VOL[None], TF, 1e-3, 30.0, 0.4,
+                                               device="cpu")
+    assert out.shape == (1,) + deskew.deskew_geometry(SHAPE, 30.0, 0.4, False).out_shape
+    assert _build.launch_counts == {}
+
+
+def test_wrappers_raise_on_other_devices():
+    meta = torch.empty(SHAPE, device="meta")
+    spec = torch.empty((8, 6, 6), dtype=torch.complex64, device="meta")
+    geo = deskew.deskew_geometry(SHAPE, 30.0, 0.4, False)
+    for call in (
+        lambda: fft.fwd_yx(meta),
+        lambda: fft.z_filter_(spec, torch.empty((8, 6, 6), device="meta")),
+        lambda: fft.inv_yx(spec),
+        lambda: deskew_kernel(meta[None], geo),
+    ):
+        with pytest.raises(ValueError, match="no kernel or plain version"):
+            call()
+
+
+@pytest.mark.parametrize("shape", [(16, 14, 40), (1, 16, 16), (16, 16, 16384)])
+def test_cuda_shape_gate_rejects_what_the_kernels_do_not_take(shape):
+    with pytest.raises(ValueError, match="power-of-two"):
+        fft._check_cuda_shape(shape, "fwd_yx")
+
+
+def test_import_does_not_build():
+    """Importing every module of the port starts no process (no nvcc)."""
+    code = (
+        "import subprocess\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'process started at import: {a}')\n"
+        "subprocess.Popen = refuse\n"
+        "import importlib, pkgutil, biahub_tpu_torch\n"
+        "for m in pkgutil.walk_packages(biahub_tpu_torch.__path__, 'biahub_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "from biahub_tpu_torch.kernels import _build\n"
+        "assert not _build._libs\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
