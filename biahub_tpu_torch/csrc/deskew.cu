@@ -28,14 +28,23 @@
 //   average_n_slices does.
 // - The output Y axis reads the input X axis reversed unless skip_flip.
 //
-// Bound on one H100 SXM (3.35 TB/s) at the headline 256x256x1024 volume,
-// avg 3, X_out 484: 268.4 MB read + 170.5 MB written (86 x 1024 x 484 f32) =
-// 438.9 MB, 0.131 ms per volume; bytes-bound (about 10 flop per output
-// voxel). Design: a block owns a 32 (yo) x 32 (xo) output tile of one
-// group. Threads run along yo, which is the input's contiguous X axis, so
-// every tap load is 128 B of one input row; the tile goes through shared
-// memory so the stores run along X_out, also 128 B per warp. The taps of
-// neighbouring xo share input rows, which L1 serves.
+// out_layout: with xzy = 1 the same values are stored as (B, X_out, G, X_in),
+// the layout of _deskew_kernel_t and _deskew_kernel_manual (pallas_deskew.py
+// :95, :137; launched at :626 and :475), which the warp's input_xzy read
+// takes. Only the store differs, so the two layouts agree to the bit.
+//
+// Bound on one H100 SXM (3.35 TB/s): bytes (about 10 flop per output voxel).
+// The kernel must read the scan rows the geometry touches, once: for each
+// tilt row the span of floor(in_z) over X_out (about 181 of 256 at the
+// headline 256x256x1024 volume, avg 3, X_out 484), 190.0 MB per volume, and
+// write 170.5 MB (86 x 1024 x 484 f32): 0.108 ms per volume, 0.861 ms per
+// batch of 8, as chip_smoke.py computes it. Design: a block owns a 32 (yo)
+// x 32 (xo) output tile of one group. Threads run along yo, which is the
+// input's contiguous X axis, so every tap load is 128 B of one input row. In
+// the zyx layout the tile goes through shared memory so the stores run along
+// X_out, also 128 B per warp; in the xzy layout yo is the contiguous output
+// axis and each thread stores its value directly. The taps of neighbouring
+// xo share input rows, which L1 serves.
 
 #include <cuda_runtime.h>
 
@@ -44,6 +53,7 @@ namespace {
 constexpr int kTile = 32;
 constexpr int kRows = 8;
 
+template <bool kXzy>
 __global__ void __launch_bounds__(kTile * kRows)
 deskew_kernel(const float* __restrict__ in, float* __restrict__ out, int Z_in,
               int Y_in, int X_in, int X_out, int groups, int avg, float px,
@@ -76,8 +86,16 @@ deskew_kernel(const float* __restrict__ in, float* __restrict__ out, int Z_in,
                                        __fmul_rn(v1, frac)));
       }
     }
-    tile[r][threadIdx.x] = avg == 1 ? acc : __fmul_rn(acc, inv_avg);
+    const float v = avg == 1 ? acc : __fmul_rn(acc, inv_avg);
+    if (kXzy) {
+      if (yo < X_in && xo < X_out) {
+        out[((static_cast<size_t>(b) * X_out + xo) * groups + g) * X_in + yo] = v;
+      }
+    } else {
+      tile[r][threadIdx.x] = v;
+    }
   }
+  if (kXzy) return;
   __syncthreads();
 
   const size_t out_plane = static_cast<size_t>(X_in) * X_out;
@@ -96,15 +114,17 @@ extern "C" {
 
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
-// in: (B, Z_in, Y_in, X_in) float32; out: (B, groups, X_in, X_out) float32.
-// px, pxct, offset: float32 casts of px_to_scan_ratio, px*cos(angle) and the
-// centring offset (deskew.py:240-242).
+// in: (B, Z_in, Y_in, X_in) float32; out: (B, groups, X_in, X_out) float32,
+// or (B, X_out, groups, X_in) with xzy = 1. px, pxct, offset: float32 casts
+// of px_to_scan_ratio, px*cos(angle) and the centring offset
+// (deskew.py:240-242).
 int deskew(const void* in, void* out, int B, int Z_in, int Y_in, int X_in,
            int X_out, int avg, float px, float pxct, float offset,
-           float inv_avg, int skip_flip, void* stream) {
+           float inv_avg, int skip_flip, int xzy, void* stream) {
   const int groups = (Y_in + avg - 1) / avg;
   const dim3 grid((X_out + kTile - 1) / kTile, (X_in + kTile - 1) / kTile, B * groups);
-  deskew_kernel<<<grid, dim3(kTile, kRows), 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = xzy ? deskew_kernel<true> : deskew_kernel<false>;
+  kernel<<<grid, dim3(kTile, kRows), 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out), Z_in, Y_in, X_in,
       X_out, groups, avg, px, pxct, offset, inv_avg, skip_flip);
   return static_cast<int>(cudaGetLastError());

@@ -1,0 +1,261 @@
+"""In-plane affine warp: register and stabilize as one z-decoupled affine.
+
+Counterpart of ``biahub_tpu/kernels/affine.py``. A homogeneous 4x4 matrix
+maps OUTPUT (z, y, x) index coordinates to INPUT index coordinates, as
+``scipy.ndimage.affine_transform`` does with order 1 and constant fill. A
+z-decoupled ("in-plane") matrix factors into two passes, as in the
+reference's ``inplane_affine_warp_zyx_pallas{,_batched}`` (affine.py:
+350-357, 402-456):
+
+- pass 1 (kernel E, :func:`~biahub_tpu_torch.kernels.warp_cuda.warp_zy`):
+  for each output (zo, yo) and each input column x, a lerp along z at
+  ``zi = (mzz*zo + 0*x) + tz``, then along y at ``yi = (b0*yo + b1*x) + b2``;
+- pass 2 (kernel F, :func:`~biahub_tpu_torch.kernels.warp_cuda.warp_x`): a
+  lerp along x at ``xi = (mxx*xo + mxy*yo) + tx``, then the exact
+  constant-fill mask of the original matrix.
+
+Taps clamp to the frame edge in both passes; the mask is the only fill.
+Every coordinate is float32 arithmetic on the float32 coefficients of
+:func:`inplane_coefficients`, in the reference's operand order. The TPU's
+(Xi, Zi, Yi) and (Yo, Xi, Zo) layouts exist for its lane tiling; here pass 1
+reads (B, Zi, Yi, Xi) (or the deskew's (B, Xi, Zi, Yi) with ``input_xzy``)
+and writes (B, Zo, Yo, Xi), and pass 2 writes (B, Zo, Yo, Xo).
+
+General 3D affines and order 3 need the multipass warp, which is not ported
+yet (ROADMAP queue 1, "General 3D warps"): they raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from biahub_tpu_torch.device import as_tensor, resolve_device
+
+__all__ = [
+    "matrix_4x4",
+    "is_translation_matrix",
+    "is_inplane_matrix",
+    "inplane_coefficients",
+    "exact_domain_mask",
+    "warp_zy_plain",
+    "warp_x_plain",
+    "inplane_affine_warp_zyx",
+    "inplane_affine_warp_zyx_batched",
+    "affine_warp_auto",
+    "require_inplane",
+]
+
+# inplane_coefficients' layout: pass 1's z and y coefficient triples, pass
+# 2's x triple, then the mask's (m[i,1], m[i,0], m[i,2], m[i,3]) per axis.
+N_COEFFS = 21
+_Z, _Y, _X, _MASK = slice(0, 3), slice(3, 6), slice(6, 9), 9
+
+
+def matrix_4x4(matrix=None) -> np.ndarray:
+    """Coerce None / 3x3 / 4x4 input into a homogeneous 4x4 float matrix."""
+    if matrix is None:
+        return np.eye(4)
+    m = np.asarray(matrix, dtype=np.float64)
+    if m.shape == (4, 4):
+        return m
+    if m.shape == (3, 3):
+        out = np.eye(4)
+        out[:3, :3] = m
+        return out
+    raise ValueError(f"Expected a 3x3 or 4x4 matrix, got shape {m.shape}")
+
+
+def is_translation_matrix(matrix, atol: float = 1e-9) -> bool:
+    """True when the matrix is identity-linear: a pure translation."""
+    m = np.asarray(matrix, dtype=np.float64)
+    return bool(np.allclose(m[:3, :3], np.eye(3), atol=atol))
+
+
+def is_inplane_matrix(matrix, atol: float = 1e-9) -> bool:
+    """True when z decouples from (y, x) and the in-plane map is factorable:
+    z row (mzz, 0, 0), no z coefficient in the y and x rows, and a nonzero
+    xx entry (the x pass's pivot)."""
+    m = np.asarray(matrix, dtype=np.float64)
+    return bool(
+        np.allclose([m[0, 1], m[0, 2], m[1, 0], m[2, 0]], 0.0, atol=atol)
+        and abs(m[2, 2]) > atol
+        and abs(m[0, 0]) > atol
+    )
+
+
+def inplane_coefficients(matrix) -> torch.Tensor:
+    """The two passes' coefficients of an in-plane ``matrix`` as one float32
+    (21,) CPU tensor: ``(mzz, 0, tz, b0, b1, b2, mxx, mxy, tx)`` then, for
+    each axis i, ``(m[i,1], m[i,0], m[i,2], m[i,3])`` for the mask. Formed in
+    float64 as the reference does (affine.py:350-357) and cast to float32
+    once."""
+    m = matrix_4x4(matrix)
+    if not is_inplane_matrix(m):
+        raise ValueError(f"not an in-plane (z-decoupled) matrix:\n{m}")
+    b1 = m[1, 2] / m[2, 2]
+    b0 = m[1, 1] - b1 * m[2, 1]
+    b2 = m[1, 3] - b1 * m[2, 3]
+    passes = [m[0, 0], 0.0, m[0, 3], b0, b1, b2, m[2, 2], m[2, 1], m[2, 3]]
+    mask = [c for i in range(3) for c in (m[i, 1], m[i, 0], m[i, 2], m[i, 3])]
+    return torch.tensor(np.asarray(passes + mask, dtype=np.float32))
+
+
+def _ramp(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.float32, device=device)
+
+
+def _taps(c: torch.Tensor, n: int):
+    """Both taps of a lerp at ``c``, clamped to [0, n-1], and the upper
+    tap's weight ``c - floor(c)``."""
+    fl = torch.floor(c)
+    i0 = fl.to(torch.int64)
+    return i0.clamp(0, n - 1), (i0 + 1).clamp(0, n - 1), c - fl
+
+
+def _lerp(v0: torch.Tensor, v1: torch.Tensor, f: torch.Tensor) -> torch.Tensor:
+    return v0 * (1.0 - f) + v1 * f
+
+
+def exact_domain_mask(coeffs: torch.Tensor, in_shape, out_shape) -> torch.Tensor:
+    """(Zo, Yo, Xo) bool: True where the output voxel's exact input
+    coordinate lies inside the ``in_shape`` (logical ZYX) domain on all three
+    axes, ``c_i = ((m[i,1]*yo + m[i,0]*zo) + m[i,2]*xo) + m[i,3]`` in float32
+    (the mask of pallas_resample.py ``_resample_t_body``, :404-422)."""
+    dev = coeffs.device
+    zo = _ramp(out_shape[0], dev)[:, None, None]
+    yo = _ramp(out_shape[1], dev)[None, :, None]
+    xo = _ramp(out_shape[2], dev)[None, None, :]
+    inside = None
+    for i in range(3):
+        a = coeffs[_MASK + 4 * i: _MASK + 4 * i + 4]
+        c = ((a[0] * yo + a[1] * zo) + a[2] * xo) + a[3]
+        ok = (c >= 0) & (c <= float(in_shape[i] - 1))
+        inside = ok if inside is None else inside & ok
+    return inside
+
+
+def warp_zy_plain(volumes: torch.Tensor, coeffs: torch.Tensor, out_zy,
+                  input_xzy: bool = False) -> torch.Tensor:
+    """Plain version of kernel E: (B, Zi, Yi, Xi) float32 (or (B, Xi, Zi, Yi)
+    with ``input_xzy``) -> (B, Zo, Yo, Xi), a clamped lerp along z, then
+    along y with the x-dependent shear."""
+    if input_xzy:
+        volumes = volumes.permute(0, 2, 3, 1)
+    batch, zi_n, yi_n, xi_n = volumes.shape
+    z_out, y_out = (int(s) for s in out_zy)
+    dev = volumes.device
+    x = _ramp(xi_n, dev)[None, :]
+    cz, cy = coeffs[_Z], coeffs[_Y]
+    z0, z1, fz = _taps((cz[0] * _ramp(z_out, dev)[:, None] + cz[1] * x) + cz[2], zi_n)
+    y0, y1, fy = _taps((cy[0] * _ramp(y_out, dev)[:, None] + cy[1] * x) + cy[2], yi_n)
+
+    def along_z(idx):  # (Zo, Xi) -> (B, Zo, Yi, Xi)
+        return torch.gather(volumes, 1, idx[None, :, None, :].expand(
+            batch, z_out, yi_n, xi_n))
+
+    a = _lerp(along_z(z0), along_z(z1), fz[None, :, None, :])
+
+    def along_y(idx):  # (Yo, Xi) -> (B, Zo, Yo, Xi)
+        return torch.gather(a, 2, idx[None, None].expand(batch, z_out, y_out, xi_n))
+
+    return _lerp(along_y(y0), along_y(y1), fy[None, None])
+
+
+def warp_x_plain(inter: torch.Tensor, coeffs: torch.Tensor, x_out: int,
+                 in_shape, fill: float = 0.0) -> torch.Tensor:
+    """Plain version of kernel F: (B, Zo, Yo, Xi) float32 -> (B, Zo, Yo,
+    Xo), a clamped lerp along x, then ``fill`` outside
+    :func:`exact_domain_mask` of the warp's logical input ``in_shape``."""
+    batch, z_out, y_out, xi_n = inter.shape
+    dev = inter.device
+    cx = coeffs[_X]
+    x0, x1, fx = _taps((cx[0] * _ramp(x_out, dev)[None, :]
+                        + cx[1] * _ramp(y_out, dev)[:, None]) + cx[2], xi_n)
+
+    def along_x(idx):  # (Yo, Xo) -> (B, Zo, Yo, Xo)
+        return torch.gather(inter, 3, idx[None, None].expand(batch, z_out, y_out, x_out))
+
+    out = _lerp(along_x(x0), along_x(x1), fx)
+    inside = exact_domain_mask(coeffs, in_shape, (z_out, y_out, x_out))
+    return torch.where(inside, out, torch.tensor(float(fill), dtype=out.dtype, device=dev))
+
+
+def inplane_affine_warp_zyx_batched(
+    volumes,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    input_xzy: bool = False,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Warp a (B, Z, Y, X) batch by an in-plane output->input ``matrix`` ->
+    (B, Zo, Yo, Xo) float32, kernels E then F (counterpart of
+    ``inplane_affine_warp_zyx_pallas_batched``). ``input_xzy``: the batch
+    arrives as (B, X, Z, Y) of the logical volumes, the layout of the
+    deskew's ``out_layout="xzy"``."""
+    from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
+
+    dev = resolve_device(device)
+    data = as_tensor(volumes, dev)
+    if data.ndim != 4:
+        raise ValueError(f"want a (B, Z, Y, X) batch, got {tuple(data.shape)}")
+    coeffs = inplane_coefficients(matrix).to(dev)
+    z_out, y_out, x_out = (int(s) for s in output_shape)
+    shape = tuple(int(s) for s in data.shape[1:])
+    in_shape = (shape[1], shape[2], shape[0]) if input_xzy else shape
+    inter = warp_zy(data, coeffs, (z_out, y_out), input_xzy=input_xzy)
+    return warp_x(inter, coeffs, x_out, in_shape, fill)
+
+
+def inplane_affine_warp_zyx(
+    volume,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    input_xzy: bool = False,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """One volume -> (Zo, Yo, Xo) float32 (see
+    :func:`inplane_affine_warp_zyx_batched`)."""
+    dev = resolve_device(device)
+    return inplane_affine_warp_zyx_batched(
+        as_tensor(volume, dev)[None], matrix, output_shape, fill, input_xzy, dev,
+    )[0]
+
+
+def affine_warp_auto(
+    volume,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    order: int = 1,
+    input_xzy: bool = False,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Warp one volume by ``matrix`` with the port's kernel for it.
+
+    Every in-plane matrix, pure translations included, takes the in-plane
+    warp: for a translation its coefficients are the reference's separable
+    translation warp's (``translation_warp_zyx``), and its mask is that
+    warp's per-axis fill. General 3D affines and order 3 raise
+    ``NotImplementedError`` until the multipass warp is ported.
+    """
+    m = require_inplane(matrix, order)
+    return inplane_affine_warp_zyx(volume, m, output_shape, fill, input_xzy, device)
+
+
+def require_inplane(matrix, order: int = 1) -> np.ndarray:
+    """``matrix`` as a 4x4; raises ``NotImplementedError`` unless it is an
+    in-plane matrix and ``order`` is 1, the warps the port has kernels
+    for."""
+    m = matrix_4x4(matrix)
+    if order != 1 or not is_inplane_matrix(m):
+        raise NotImplementedError(
+            "biahub_tpu_torch: only order-1 in-plane (z-decoupled) warps are "
+            "ported; general 3D affines and order 3 need the multipass warp "
+            "(ROADMAP queue 1, 'General 3D warps'), not ported yet "
+            f"(order={order}, matrix=\n{m})"
+        )
+    return m

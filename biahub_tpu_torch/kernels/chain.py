@@ -1,21 +1,40 @@
-"""Deconvolve, then deskew: the headline step as one chain of kernels.
+"""Deconvolve, deskew and warp: the repo's main path as chains of kernels.
 
-Counterpart of ``biahub_tpu/kernels/chain.py``'s ``deconvolve_then_deskew``
-and ``deconvolve_then_deskew_batched``. On the card each volume runs
-kernels A -> B -> C into one deconvolved batch buffer, and kernel D deskews
-the batch; on the CPU the same wrappers run their plain versions. The
-result equals ``deskew_zyx(deconvolve_zyx(v))`` in the standard frame, or
-with Y reversed under ``skip_flip``. uint16 volumes go into pass A as they
-are.
+Counterpart of ``biahub_tpu/kernels/chain.py``:
+
+- the headline step ``deconvolve_then_deskew{,_batched}``: on the card each
+  volume runs kernels A -> B -> C into one deconvolved batch buffer, and
+  kernel D deskews the batch (:func:`run_chain`). The result equals
+  ``deskew_zyx(deconvolve_zyx(v))`` in the standard frame, or with Y
+  reversed under ``skip_flip``;
+- the full chain ``deconvolve_deskew_warp{,_batched}`` and
+  ``deskew_then_warp``: the deskew keeps Y reversed (``skip_flip``) and its
+  flip rides the in-plane warp's matrix, ``flip_y_matrix(Y) @ M``
+  (chain.py:299-304, :521); kernels E and F then warp the whole batch once
+  each (:func:`run_chain_warp`).
+
+On the CPU the same wrappers run their plain versions. uint16 volumes go
+into pass A as they are.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from biahub_tpu_torch.device import resolve_device
+from biahub_tpu_torch.device import as_tensor, resolve_device
+from biahub_tpu_torch.kernels.affine import (
+    affine_warp_auto,
+    inplane_coefficients,
+    matrix_4x4,
+    require_inplane,
+)
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
-from biahub_tpu_torch.kernels.deskew import DeskewGeometry, deskew_geometry
+from biahub_tpu_torch.kernels.deskew import (
+    DeskewGeometry,
+    deskew_geometry,
+    deskew_zyx,
+)
 from biahub_tpu_torch.kernels.deskew_cuda import deskew
 from biahub_tpu_torch.kernels.fft import (
     fwd_yx,
@@ -25,15 +44,25 @@ from biahub_tpu_torch.kernels.fft import (
     z_filter_,
 )
 
-__all__ = ["deconvolve_then_deskew", "deconvolve_then_deskew_batched",
-           "run_chain"]
+__all__ = [
+    "flip_y_matrix",
+    "deconvolve_then_deskew",
+    "deconvolve_then_deskew_batched",
+    "deskew_then_warp",
+    "deconvolve_deskew_warp",
+    "deconvolve_deskew_warp_batched",
+    "chain_warp_coefficients",
+    "run_chain",
+    "run_chain_warp",
+]
 
 
 def run_chain(volumes: torch.Tensor, filt: torch.Tensor,
-              geo: DeskewGeometry) -> torch.Tensor:
+              geo: DeskewGeometry, out_layout: str = "zyx") -> torch.Tensor:
     """A -> B -> C per volume, then D over the batch: (B, Z, Y, X) float32
-    or uint16 on one device -> (B, groups, Y_out, X_out) float32. One
-    spectrum buffer serves every volume."""
+    or uint16 on one device -> (B, groups, Y_out, X_out) float32, or (B,
+    X_out, groups, Y_out) with ``out_layout="xzy"``. One spectrum buffer
+    serves every volume."""
     batch = volumes.shape[0]
     decon = torch.empty((batch,) + tuple(volumes.shape[1:]), dtype=torch.float32,
                         device=volumes.device)
@@ -43,7 +72,40 @@ def run_chain(volumes: torch.Tensor, filt: torch.Tensor,
         fwd_yx(volumes[b], out=spectrum)
         z_filter_(spectrum, filt)
         inv_yx(spectrum, out=decon[b])
-    return deskew(decon, geo)
+    return deskew(decon, geo, out_layout)
+
+
+def run_chain_warp(volumes: torch.Tensor, filt: torch.Tensor, geo: DeskewGeometry,
+                   coeffs: torch.Tensor, output_shape, fill: float = 0.0,
+                   out_layout: str = "zyx") -> torch.Tensor:
+    """:func:`run_chain` (``geo.skip_flip`` set), then kernels E and F once
+    each over the batch -> (B, Zo, Yo, Xo) float32. ``coeffs``: the
+    :func:`chain_warp_coefficients` of the warp, on the volumes' device.
+    ``out_layout="xzy"`` hands the deskew to the warp in (B, X', Z', Y')
+    (the reference's xzy handoff); the output is the same to the bit."""
+    from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
+
+    z_out, y_out, x_out = (int(s) for s in output_shape)
+    deskewed = run_chain(volumes, filt, geo, out_layout)
+    inter = warp_zy(deskewed, coeffs, (z_out, y_out), input_xzy=out_layout == "xzy")
+    return warp_x(inter, coeffs, x_out, geo.out_shape, fill)
+
+
+def flip_y_matrix(y_size: int) -> np.ndarray:
+    """OUTPUT->INPUT affine flipping the Y axis of a ``y_size`` volume."""
+    f = np.eye(4)
+    f[1, 1] = -1.0
+    f[1, 3] = float(y_size - 1)
+    return f
+
+
+def chain_warp_coefficients(matrix, geo: DeskewGeometry) -> torch.Tensor:
+    """The in-plane coefficients of ``flip_y_matrix(Y_out) @ matrix``: the
+    warp ``matrix`` of the standard deskewed frame, applied to the deskew
+    that keeps Y reversed (``skip_flip``). Raises ``NotImplementedError``
+    for a matrix that is not in-plane (the multipass warp is not ported)."""
+    return inplane_coefficients(
+        require_inplane(flip_y_matrix(geo.zyx_shape[2]) @ matrix_4x4(matrix)))
 
 
 def deconvolve_then_deskew_batched(
@@ -92,4 +154,85 @@ def deconvolve_then_deskew(
         volume_tensor(volume, dev)[None], transfer_function_half,
         regularization_strength, ls_angle_deg, px_to_scan_ratio,
         keep_overhang, average_window, prepared, skip_flip, dev,
+    )[0]
+
+
+def deskew_then_warp(
+    volume,
+    ls_angle_deg: float,
+    px_to_scan_ratio: float,
+    matrix,
+    output_shape: tuple[int, int, int] | None = None,
+    keep_overhang: bool = False,
+    average_window: int = 1,
+    fill: float = 0.0,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Deskew one ZYX volume, then warp it by ``matrix`` (an output->input
+    affine of the standard deskewed frame) -> (Zo, Yo, Xo) float32; the
+    deskew's Y flip rides the warp (chain.py:307). ``output_shape``
+    defaults to the deskewed shape."""
+    dev = resolve_device(device)
+    deskewed = deskew_zyx(as_tensor(volume, dev), ls_angle_deg, px_to_scan_ratio,
+                          keep_overhang, average_window, skip_flip=True, device=dev)
+    out_shape = tuple(int(s) for s in (
+        output_shape if output_shape is not None else deskewed.shape))
+    m = flip_y_matrix(int(deskewed.shape[1])) @ matrix_4x4(matrix)
+    return affine_warp_auto(deskewed, m, out_shape, fill=fill, device=dev)
+
+
+def deconvolve_deskew_warp_batched(
+    volumes,
+    transfer_function_half,
+    regularization_strength: float,
+    ls_angle_deg: float,
+    px_to_scan_ratio: float,
+    matrix,
+    output_shape: tuple[int, int, int] | None = None,
+    keep_overhang: bool = False,
+    average_window: int = 1,
+    fill: float = 0.0,
+    prepared: torch.Tensor | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Deconvolve, deskew and warp a (B, Z, Y, X) batch -> (B, Zo, Yo, Xo)
+    float32 (chain.py:475). ``matrix``: an in-plane output->input affine of
+    the standard deskewed frame (register and stabilize composed);
+    ``output_shape`` defaults to the deskewed (groups, Y_out, X_out);
+    ``prepared``: a hoisted
+    :func:`~biahub_tpu_torch.kernels.fft.prepare_fourier_filter` result."""
+    dev = resolve_device(device)
+    data = volume_tensor(volumes, dev)
+    zyx = tuple(data.shape[1:])
+    geo = deskew_geometry(zyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+                          average_window, skip_flip=True)
+    coeffs = chain_warp_coefficients(matrix, geo).to(dev)
+    filt = prepared if prepared is not None else prepare_fourier_filter(
+        zyx, transfer_function_half, regularization_strength, dev
+    )
+    out_shape = output_shape if output_shape is not None else geo.out_shape
+    return run_chain_warp(data, filt.to(dev), geo, coeffs, out_shape, fill)
+
+
+def deconvolve_deskew_warp(
+    volume,
+    transfer_function_half,
+    regularization_strength: float,
+    ls_angle_deg: float,
+    px_to_scan_ratio: float,
+    matrix,
+    output_shape: tuple[int, int, int] | None = None,
+    keep_overhang: bool = False,
+    average_window: int = 1,
+    fill: float = 0.0,
+    prepared: torch.Tensor | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """One ZYX volume -> (Zo, Yo, Xo) float32 (see
+    :func:`deconvolve_deskew_warp_batched`)."""
+    dev = resolve_device(device)
+    return deconvolve_deskew_warp_batched(
+        volume_tensor(volume, dev)[None], transfer_function_half,
+        regularization_strength, ls_angle_deg, px_to_scan_ratio, matrix,
+        output_shape, keep_overhang, average_window, fill, prepared, dev,
     )[0]

@@ -1,8 +1,13 @@
-"""The headline deconvolve -> deskew step as a module that holds its state.
+"""The main path's steps as modules that hold their per-acquisition state.
 
-What ``biahub_tpu/fuse.py:540-600`` and bench.py's headline set up around
-``kernels/chain.py::deconvolve_then_deskew_batched``: the prepared Tikhonov
-filter, hoisted once per acquisition, and the deskew geometry.
+- :class:`DeconvolveDeskew`: what ``biahub_tpu/fuse.py:540-600`` and
+  bench.py's headline set up around
+  ``kernels/chain.py::deconvolve_then_deskew_batched``: the prepared
+  Tikhonov filter, hoisted once per acquisition, and the deskew geometry.
+- :class:`DeconvolveDeskewWarp`: the full chain of bench.py's end-to-end
+  metric (``bench.py:893-901``) and of the fused pipeline with a
+  registration block (``fuse.py:604-660``): the same, plus the warp's
+  coefficients.
 """
 
 from __future__ import annotations
@@ -11,12 +16,16 @@ import torch
 from torch import nn
 
 from biahub_tpu_torch.device import resolve_device
-from biahub_tpu_torch.kernels.chain import run_chain
+from biahub_tpu_torch.kernels.chain import (
+    chain_warp_coefficients,
+    run_chain,
+    run_chain_warp,
+)
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
 from biahub_tpu_torch.kernels.deskew import deskew_geometry
 from biahub_tpu_torch.kernels.fft import prepare_fourier_filter
 
-__all__ = ["DeconvolveDeskew"]
+__all__ = ["DeconvolveDeskew", "DeconvolveDeskewWarp"]
 
 
 class DeconvolveDeskew(nn.Module):
@@ -53,8 +62,64 @@ class DeconvolveDeskew(nn.Module):
         ))
 
     def forward(self, volumes) -> torch.Tensor:
-        data = volume_tensor(volumes, self.filter.device)
-        if tuple(data.shape[1:]) != self.geometry.zyx_shape or data.ndim != 4:
-            raise ValueError(f"DeconvolveDeskew: built for (B,) + "
-                             f"{self.geometry.zyx_shape}, got {tuple(data.shape)}")
-        return run_chain(data, self.filter, self.geometry)
+        return run_chain(_batch(self, volumes), self.filter, self.geometry)
+
+
+def _batch(module: nn.Module, volumes) -> torch.Tensor:
+    """``volumes`` on the module's device; raises unless they are a batch of
+    the volumes the module was built for."""
+    data = volume_tensor(volumes, module.filter.device)
+    if tuple(data.shape[1:]) != module.geometry.zyx_shape or data.ndim != 4:
+        raise ValueError(f"{type(module).__name__}: built for (B,) + "
+                         f"{module.geometry.zyx_shape}, got {tuple(data.shape)}")
+    return data
+
+
+class DeconvolveDeskewWarp(nn.Module):
+    """``forward(volumes)``: (B, Z, Y, X) uint16 or float32 -> (B, Zo, Yo,
+    Xo) float32, deconvolved, deskewed and warped by ``matrix``, an in-plane
+    output->input affine of the standard deskewed frame (register and
+    stabilize composed, ``M_reg @ M_stab[t]``).
+
+    Buffers: the prepared filter ``filter`` and the warp's coefficients
+    ``warp`` (:func:`~biahub_tpu_torch.kernels.chain.chain_warp_coefficients`,
+    the deskew's Y flip folded in). Attributes: the deskew ``geometry``
+    (``skip_flip`` set), the warp's logical input ``logical_zyx_shape`` (the
+    deskewed (groups, Y_out, X_out)), ``output_shape`` (default the same)
+    and ``fill``. Raises ``NotImplementedError`` for a matrix that is not
+    in-plane.
+    """
+
+    def __init__(
+        self,
+        transfer_function_half,
+        zyx_shape: tuple[int, int, int],
+        regularization_strength: float,
+        ls_angle_deg: float,
+        px_to_scan_ratio: float,
+        matrix,
+        output_shape: tuple[int, int, int] | None = None,
+        keep_overhang: bool = False,
+        average_window: int = 1,
+        fill: float = 0.0,
+        overhang_fill: str | float = 0,
+        device: str | torch.device = "cuda",
+    ):
+        super().__init__()
+        dev = resolve_device(device)
+        self.geometry = deskew_geometry(
+            zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+            average_window, overhang_fill, skip_flip=True,
+        )
+        self.logical_zyx_shape = self.geometry.out_shape
+        self.output_shape = tuple(int(s) for s in (
+            output_shape if output_shape is not None else self.logical_zyx_shape))
+        self.fill = float(fill)
+        self.register_buffer("filter", prepare_fourier_filter(
+            zyx_shape, transfer_function_half, regularization_strength, dev
+        ))
+        self.register_buffer("warp", chain_warp_coefficients(matrix, self.geometry).to(dev))
+
+    def forward(self, volumes) -> torch.Tensor:
+        return run_chain_warp(_batch(self, volumes), self.filter, self.geometry,
+                              self.warp, self.output_shape, self.fill)

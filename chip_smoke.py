@@ -1,16 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's headline step on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``biahub_tpu_torch/csrc`` (into
-``build/biahub_tpu_torch/``), holds each kernel against its plain PyTorch
-version at the headline volume (256x256x1024), then runs the headline
-deconvolve -> deskew step (``DeconvolveDeskew``: batch 8, Tikhonov reg 1e-3,
-deskew at 36.17 deg, px_to_scan_ratio 0.371, average_window 3,
-keep_overhang False, skip_flip True) against the plain chain, checks that
-uint16 input gives the bits of its float32 copy, and that every kernel of
-the path was launched. Times are CUDA-event medians on this card.
+``build/biahub_tpu_torch/``), then, at the headline volume (256x256x1024,
+batch 8, Tikhonov reg 1e-3, deskew at 36.17 deg, px_to_scan_ratio 0.371,
+average_window 3, keep_overhang False, skip_flip True) and bench.py's
+register+stabilize matrix ``reg_stab``:
+
+1. holds each kernel against its plain PyTorch version: A, B, C (the FFT
+   deconvolution), D (deskew, both stores), E and F (the in-plane warp,
+   F's fill mask voxel for voxel, and once more with fill -1 and another
+   output shape);
+2. runs the headline step deconvolve -> deskew (``DeconvolveDeskew``);
+3. runs the full chain deconvolve -> deskew -> warp
+   (``DeconvolveDeskewWarp``), and the same through the xzy handoff;
+
+each path against the plain chain, with uint16 input bit-identical to its
+float32 copy, and with the launches of each kernel counted over that path
+alone. Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 per-kernel numbers, and last ``{"ok": true, "device": {...}}``. Exits
@@ -38,8 +47,10 @@ ANGLE, RATIO, AVG = 36.17, 0.371, 3
 # bandwidth, and float32 outside the tensor cores (the kernels use none).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
-FFT_TOL = 2e-5     # max |kernel - plain| / max |plain| for A, B, C and the step
+FFT_TOL = 2e-5     # max |kernel - plain| / max |plain| for A, B, C, the step and the chain
 DESKEW_TOL = 1e-5  # max |kernel - plain| for D on unit-range data
+WARP_TOL = 1e-5    # max |kernel - plain| / max |plain| for E and F (the warp's envelope)
+OTHER_OUT = (80, 1000, 500)  # an output shape other than the deskewed (86, 1024, 484)
 REPS, WARMUP = 7, 2
 # Samples of the whole step: the median, and p75 with ten samples beyond it.
 STEP_REPS = 40
@@ -83,17 +94,45 @@ def require(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+def reg_stab_matrix() -> np.ndarray:
+    """bench.py's register+stabilize warp (bench.py:757-763): a 2 deg
+    in-plane rotation scaled by 1.01, then a shift, in float32 entries."""
+    theta = np.deg2rad(2.0)
+    m = np.eye(4, dtype=np.float32)
+    m[1:3, 1:3] = 1.01 * np.array(
+        [[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]], np.float32)
+    m[:3, 3] = [0.5, -1.25, 2.0]
+    return m.astype(np.float64)
+
+
+def lerp_grid(c: torch.Tensor, size: int) -> torch.Tensor:
+    """Coordinates as grid_sample's align_corners=True normalised grid."""
+    return c * (2.0 / (size - 1)) - 1.0
+
+
+def describe(rec: dict) -> str:
+    return ", ".join(f"{k} {rec[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "bound_ms")
+                     if rec[k] is not None)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from biahub_tpu_torch import DeconvolveDeskew, gpu_info
+    from biahub_tpu_torch import DeconvolveDeskew, DeconvolveDeskewWarp, gpu_info
     from biahub_tpu_torch.kernels import _build
     from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.affine import (
+        inplane_coefficients,
+        warp_x_plain,
+        warp_zy_plain,
+    )
+    from biahub_tpu_torch.kernels.chain import flip_y_matrix, run_chain_warp
     from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function
     from biahub_tpu_torch.kernels.deskew import deskew_geometry, deskew_plain
     from biahub_tpu_torch.kernels.deskew_cuda import deskew
+    from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -137,9 +176,7 @@ def main() -> int:
         max_abs_err=err_abs, ms=time_ms(lambda: kfft.fwd_yx(vol, out=spec)),
         plain_ms=time_ms(lambda: kfft.fwd_yx_plain(vol)), bound_ms=bms, bound_by=bby,
         library_ms=time_ms(lambda: torch.fft.rfft2(vol)))
-    print(f"A fwd_yx f32: rel err {err:.3g} (tol {FFT_TOL}), "
-          + ", ".join(f"{k} {records['fwd_yx'][k]:.4f}" for k in
-                      ("ms", "plain_ms", "library_ms", "bound_ms")))
+    print(f"A fwd_yx f32: rel err {err:.3g} (tol {FFT_TOL}), " + describe(records["fwd_yx"]))
 
     spec16 = torch.empty_like(spec)
     kfft.fwd_yx(vol_u16, out=spec16)
@@ -169,9 +206,7 @@ def main() -> int:
         plain_ms=time_ms(lambda: kfft.z_filter_plain_(work, filt),
                          setup=lambda: work.copy_(spec)),
         bound_ms=bms, bound_by=bby, library_ms=None)
-    print(f"B z_filter: rel err {err:.3g} (tol {FFT_TOL}), "
-          + ", ".join(f"{k} {records['z_filter'][k]:.4f}" for k in
-                      ("ms", "plain_ms", "bound_ms")))
+    print(f"B z_filter: rel err {err:.3g} (tol {FFT_TOL}), " + describe(records["z_filter"]))
 
     decon = torch.empty(SHAPE, dtype=torch.float32, device=dev)
     work.copy_(spec_b)
@@ -189,9 +224,7 @@ def main() -> int:
         bound_ms=bms, bound_by=bby,
         library_ms=time_ms(lambda: torch.fft.irfft2(spec_b, s=(y, x))))
     require(rel_err(want, decon)[1] <= FFT_TOL, "kernel C disagrees with irfft2")
-    print(f"C inv_yx: rel err {err:.3g} (tol {FFT_TOL}), "
-          + ", ".join(f"{k} {records['inv_yx'][k]:.4f}" for k in
-                      ("ms", "plain_ms", "library_ms", "bound_ms")))
+    print(f"C inv_yx: rel err {err:.3g} (tol {FFT_TOL}), " + describe(records["inv_yx"]))
     del spec16, spec16f, spec_b, work, want
 
     # D on the batch the main path gives it: unit-range data for the
@@ -219,9 +252,104 @@ def main() -> int:
         bound_ms=bms, bound_by=bby, library_ms=None)
     print(f"D deskew (batch {BATCH}): abs err {err_abs:.3g} (tol {DESKEW_TOL}), "
           f"on a deconvolved volume rel err {err_real:.3g}, "
-          + ", ".join(f"{k} {records['deskew'][k]:.4f}" for k in
-                      ("ms", "plain_ms", "bound_ms")))
-    del batch_in, got, decon, vol, vol_u16, vol_u16f, spec
+          + describe(records["deskew"]))
+
+    # D's xzy store, the layout the warp's input_xzy read takes.
+    got_xzy = deskew(batch_in, geo, "xzy")
+    err_abs = float((got_xzy - deskew_plain(batch_in, geo).permute(0, 3, 1, 2)).abs().max())
+    require(err_abs <= DESKEW_TOL, f"kernel D xzy abs err {err_abs:.3g} > {DESKEW_TOL}")
+    require(torch.equal(got_xzy, got.permute(0, 3, 1, 2)), "kernel D: xzy store differs from zyx")
+    records["deskew_xzy"] = dict(
+        replaces="biahub_tpu/kernels/pallas_deskew.py:137", source="biahub_tpu_torch/csrc/deskew.cu",
+        max_abs_err=err_abs, ms=time_ms(lambda: deskew(batch_in, geo, "xzy")),
+        plain_ms=time_ms(lambda: deskew_plain(batch_in, geo).permute(0, 3, 1, 2).contiguous()),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    print(f"D deskew xzy (batch {BATCH}): abs err {err_abs:.3g} (tol {DESKEW_TOL}), "
+          f"equal to the zyx store permuted, " + describe(records["deskew_xzy"]))
+
+    # E and F on the deskewed batch the chain gives them, (8, 86, 1024, 484),
+    # with the chain's matrix: reg_stab after the deskew's Y flip.
+    desk = got
+    b_, zi, yi, xi = desk.shape
+    coeffs = inplane_coefficients(flip_y_matrix(yi) @ reg_stab_matrix()).to(dev)
+    inter = warp_zy(desk, coeffs, (zi, yi))
+    inter_p = warp_zy_plain(desk, coeffs, (zi, yi))
+    err_abs, err = rel_err(inter, inter_p)
+    require(err <= WARP_TOL, f"kernel E rel err {err:.3g} > {WARP_TOL}")
+    require(torch.equal(warp_zy(got_xzy, coeffs, (zi, yi), input_xzy=True), inter),
+            "kernel E: the xzy read differs from the zyx read")
+    # One library call for E's function: grid_sample over B*Xi images of
+    # (Zi, Yi), which are the xzy store's rows; border padding clamps.
+    c = coeffs.cpu()
+    xs = torch.arange(xi, dtype=torch.float32)[None, :]
+    zc = (c[0] * torch.arange(zi, dtype=torch.float32)[:, None] + c[1] * xs) + c[2]
+    yc = (c[3] * torch.arange(yi, dtype=torch.float32)[:, None] + c[4] * xs) + c[5]
+    grid = torch.stack(torch.broadcast_tensors(
+        lerp_grid(yc, yi).T[:, None, :], lerp_grid(zc, zi).T[:, :, None]), -1).to(dev)
+    grid = grid.expand(b_, xi, zi, yi, 2).reshape(b_ * xi, zi, yi, 2)
+    img = got_xzy.reshape(b_ * xi, 1, zi, yi)
+
+    def library_zy():
+        return torch.nn.functional.grid_sample(
+            img, grid, mode="bilinear", padding_mode="border", align_corners=True)
+
+    _, lib_err = rel_err(library_zy().reshape(b_, xi, zi, yi).permute(0, 2, 3, 1), inter)
+    vol_bytes = desk.numel() * 4
+    bms_w, bby_w = bound(2 * vol_bytes, desk.numel() * 15)
+    records["warp_zy"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:857", source="biahub_tpu_torch/csrc/warp.cu",
+        max_abs_err=err_abs, ms=time_ms(lambda: warp_zy(desk, coeffs, (zi, yi))),
+        plain_ms=time_ms(lambda: warp_zy_plain(desk, coeffs, (zi, yi))),
+        bound_ms=bms_w, bound_by=bby_w, library_ms=time_ms(library_zy))
+    xzy_read_ms = time_ms(lambda: warp_zy(got_xzy, coeffs, (zi, yi), input_xzy=True))
+    print(f"E warp_zy (batch {BATCH}): rel err {err:.3g} (tol {WARP_TOL}), grid_sample "
+          f"within {lib_err:.3g} of it, " + describe(records["warp_zy"])
+          + f"; the xzy read bit-equal, ms {xzy_read_ms:.4f}")
+    del grid, img, inter_p
+
+    # F with fill NaN, so that its mask reads off its output, voxel for voxel.
+    nan = float("nan")
+    out_k = warp_x(inter, coeffs, xi, geo.out_shape, nan)
+    out_p = warp_x_plain(inter, coeffs, xi, geo.out_shape, nan)
+    mask_k, mask_p = torch.isnan(out_k), torch.isnan(out_p)
+    require(torch.equal(mask_k, mask_p), "kernel F: fill mask differs from the plain mask")
+    n_masked = int(mask_k.sum())
+    err_abs, err = rel_err(out_k[~mask_p], out_p[~mask_p])
+    require(err <= WARP_TOL, f"kernel F rel err {err:.3g} > {WARP_TOL}")
+    # grid_sample computes F's lerp (not its mask) over B*Zo images of (Yo, Xi).
+    xc = (c[6] * torch.arange(xi, dtype=torch.float32)[None, :]
+          + c[7] * torch.arange(yi, dtype=torch.float32)[:, None]) + c[8]
+    grid = torch.stack(torch.broadcast_tensors(
+        lerp_grid(xc, xi), lerp_grid(torch.arange(yi, dtype=torch.float32), yi)[:, None]),
+        -1).to(dev)
+    grid = grid.expand(b_ * zi, yi, xi, 2)
+    img = inter.reshape(b_ * zi, 1, yi, xi)
+    lerp_only_ms = time_ms(lambda: torch.nn.functional.grid_sample(
+        img, grid, mode="bilinear", padding_mode="border", align_corners=True))
+    records["warp_x"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:426", source="biahub_tpu_torch/csrc/warp.cu",
+        max_abs_err=err_abs, ms=time_ms(lambda: warp_x(inter, coeffs, xi, geo.out_shape)),
+        plain_ms=time_ms(lambda: warp_x_plain(inter, coeffs, xi, geo.out_shape)),
+        bound_ms=bms_w, bound_by=bby_w, library_ms=None)
+    print(f"F warp_x (batch {BATCH}): rel err {err:.3g} (tol {WARP_TOL}), fill mask equal "
+          f"({n_masked} masked voxels in both), " + describe(records["warp_x"])
+          + f", grid_sample lerp only (no mask) {lerp_only_ms:.4f}")
+    del grid, img, out_k, out_p, mask_k, mask_p
+
+    # E and F once more with fill -1 and another output shape.
+    inter2 = warp_zy(desk, coeffs, OTHER_OUT[:2])
+    _, err2 = rel_err(inter2, warp_zy_plain(desk, coeffs, OTHER_OUT[:2]))
+    require(err2 <= WARP_TOL, f"kernel E to {OTHER_OUT}: rel err {err2:.3g}")
+    out_k = warp_x(inter2, coeffs, OTHER_OUT[2], geo.out_shape, -1.0)
+    out_p = warp_x_plain(inter2, coeffs, OTHER_OUT[2], geo.out_shape, -1.0)
+    fill_k, fill_p = out_k == -1.0, out_p == -1.0
+    require(torch.equal(fill_k, fill_p), f"kernel F to {OTHER_OUT}: fill mask differs")
+    _, err3 = rel_err(out_k, out_p)
+    require(err3 <= WARP_TOL, f"kernel F to {OTHER_OUT}, fill -1: rel err {err3:.3g}")
+    print(f"E, F to {OTHER_OUT} with fill -1: rel err {err2:.3g}, {err3:.3g} "
+          f"(tol {WARP_TOL}), {int(fill_k.sum())} fill voxels in both")
+    del batch_in, got, got_xzy, desk, inter, inter2, out_k, out_p, fill_k, fill_p
+    del decon, vol, vol_u16, vol_u16f, spec
 
     # -- 3. the headline step end to end -------------------------------------
     step = DeconvolveDeskew(tf_half, SHAPE, REG, ANGLE, RATIO, keep_overhang=False,
@@ -263,11 +391,60 @@ def main() -> int:
     print(f"step: rel err {step_err:.3g} vs the plain chain (tol {FFT_TOL}); uint16 "
           f"input bit-exact vs its float32 copy (launches {launches_u})")
 
-    # -- 4. launch counts on the path ----------------------------------------
+    step_want = {"fwd_yx": BATCH, "z_filter": BATCH, "inv_yx": BATCH, "deskew": 1}
+    require(launches == step_want, f"step launches {launches}, want {step_want}")
+    print(f"step launches (float32 batch of {BATCH}): {launches}")
+    del out_f, out_u
+
+    # -- 4. the full chain end to end, and through the xzy handoff ---------
+    chain = DeconvolveDeskewWarp(tf_half, SHAPE, REG, ANGLE, RATIO, reg_stab_matrix(),
+                                 keep_overhang=False, average_window=AVG, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out_c = chain(vols_f)
+    torch.cuda.synchronize()
+    launches_c = dict(_build.launch_counts)
+    chain_want = dict(step_want, warp_zy=1, warp_x=1)
+    require(launches_c == chain_want, f"chain launches {launches_c}, want {chain_want}")
+
+    zo_, yo_, xo_ = chain.output_shape
+    ref_c = warp_x_plain(warp_zy_plain(ref, chain.warp, (zo_, yo_)), chain.warp, xo_,
+                         chain.logical_zyx_shape, chain.fill)
+    require(out_c.shape == (BATCH,) + chain.output_shape, f"chain output shape {tuple(out_c.shape)}")
+    require(bool(torch.isfinite(out_c).all()), "chain output is not finite")
+    chain_abs, chain_err = rel_err(out_c, ref_c)
+    require(chain_err <= FFT_TOL, f"chain rel err {chain_err:.3g} > {FFT_TOL}")
+    del ref_c, ref
+
+    out_cu = chain(vols_u)
+    require(torch.equal(out_cu.view(torch.int32), out_c.view(torch.int32)),
+            "chain: uint16 input differs from its float32 copy")
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out_x = run_chain_warp(vols_f, chain.filter, chain.geometry, chain.warp,
+                           chain.output_shape, chain.fill, out_layout="xzy")
+    torch.cuda.synchronize()
+    launches_x = dict(_build.launch_counts)
+    xzy_want = dict(chain_want, deskew_xzy=1)
+    del xzy_want["deskew"]
+    require(launches_x == xzy_want, f"xzy chain launches {launches_x}, want {xzy_want}")
+    require(torch.equal(out_x.view(torch.int32), out_c.view(torch.int32)),
+            "chain: the xzy route differs from the zyx route")
+    for dtype, vols in (("float32", vols_f), ("uint16", vols_u)):
+        q = statistics.quantiles(samples_ms(lambda: chain(vols), reps=STEP_REPS), n=4)
+        print(f"chain (batch {BATCH}, {SHAPE}, {dtype} in, reg_stab): "
+              f"{q[1] / BATCH:.4f} ms/volume median, {q[2] / BATCH:.4f} p75 "
+              f"({STEP_REPS} samples), {BATCH * nvox / (q[1] / 1e3):.4g} input voxels/s")
+    print(f"chain: rel err {chain_err:.3g} vs the plain chain (tol {FFT_TOL}); uint16 "
+          "input bit-exact vs its float32 copy; the xzy route bit-equal to the zyx route")
+    print(f"chain launches (float32 batch of {BATCH}): {launches_c}; xzy route: {launches_x}")
+
+    # -- 5. the per-kernel line: launches from the chain's run, D's xzy store's
+    # from the xzy route's --------------------------------------------------
     for name in records:
-        require(launches.get(name, 0) >= 1, f"kernel {name} was not launched on the path")
-        records[name]["launches"] = launches[name]
-    print(f"launches on the path (float32 batch of {BATCH}): {launches}")
+        runs = launches_x if name == "deskew_xzy" else launches_c
+        require(runs.get(name, 0) >= 1, f"kernel {name} was not launched on its path")
+        records[name]["launches"] = runs[name]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": rec["source"], "replaces": rec["replaces"],
          "launches": rec["launches"], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],

@@ -37,6 +37,7 @@ def pallas_route(monkeypatch):
     monkeypatch.setenv("BIAHUB_TPU_FORCE_PALLAS", "1")
     monkeypatch.setenv("BIAHUB_TPU_FFT_RADIX_MIN", "16")
     monkeypatch.setenv("BIAHUB_TPU_FFT_PRECISION", "highest")
+    monkeypatch.setenv("BIAHUB_TPU_WARP_PRECISION", "highest")
     jax.clear_caches()
     yield
     jax.clear_caches()

@@ -16,6 +16,7 @@ import torch
 from biahub_tpu.kernels import deskew as jdk
 from biahub_tpu.kernels.pallas_deskew import deskew_zyx_pallas_batched
 from biahub_tpu_torch.kernels import deskew as tdk
+from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -94,3 +95,24 @@ def test_overhang_fill_is_not_ported_yet(fill):
     # Without keep_overhang the reference ignores the fill, and so does the port.
     assert tdk.deskew_zyx(vol, ANGLE, RATIO, False, overhang_fill=fill,
                           device="cpu").shape == (14, 40, 22)
+
+
+@pytest.mark.parametrize("avg,keep_overhang", [(1, False), (3, True)])
+def test_deskew_xzy_layout_matches_pallas_batched(avg, keep_overhang, monkeypatch):
+    """Kernel D's ``out_layout="xzy"`` (its plain version here) against the
+    reference's xzy store, (B, X_out, groups, Y_out)."""
+    monkeypatch.setenv("BIAHUB_TPU_FORCE_PALLAS", "1")
+    jax.clear_caches()
+    vols = np.random.default_rng(14).random((2,) + SHAPE, dtype=np.float32)
+    want = np.asarray(deskew_zyx_pallas_batched(
+        vols, ANGLE, RATIO, keep_overhang, average_window=avg, skip_flip=True,
+        out_layout="xzy",
+    ))
+    geo = tdk.deskew_geometry(SHAPE, ANGLE, RATIO, keep_overhang, avg, skip_flip=True)
+    got = deskew_kernel(torch.from_numpy(vols), geo, out_layout="xzy")
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+    assert torch.equal(got, deskew_kernel(torch.from_numpy(vols), geo).permute(0, 3, 1, 2))
+    with pytest.raises(ValueError, match="skip_flip"):
+        deskew_kernel(torch.from_numpy(vols), geo._replace(skip_flip=False), "xzy")
+    jax.clear_caches()

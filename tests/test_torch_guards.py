@@ -10,9 +10,15 @@ import numpy as np
 import pytest
 import torch
 
-from biahub_tpu_torch import DeconvolveDeskew, module_from_reference
-from biahub_tpu_torch.kernels import _build, chain, deconvolve, deskew, fft
+from biahub_tpu_torch import (
+    DeconvolveDeskew,
+    DeconvolveDeskewWarp,
+    chain_from_reference,
+    module_from_reference,
+)
+from biahub_tpu_torch.kernels import _build, affine, chain, deconvolve, deskew, fft
 from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
+from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "biahub_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -44,6 +50,8 @@ def test_import_scan_matches_names_exactly(tmp_path):
 SHAPE = (8, 6, 10)
 TF = np.ones((8, 6, 6), np.float32)
 VOL = np.zeros(SHAPE, np.float32)
+SHIFT = np.eye(4)
+SHIFT[:3, 3] = [0.5, -1.0, 2.0]
 ENTRY_POINTS = {
     "deconvolve_zyx": lambda: deconvolve.deconvolve_zyx(VOL, TF),
     "deconvolve_czyx": lambda: deconvolve.deconvolve_czyx(VOL[None], TF),
@@ -56,6 +64,20 @@ ENTRY_POINTS = {
     "module_from_reference": lambda: module_from_reference(
         TF, {"pixel_size_um": 0.116, "ls_angle_deg": 30.0, "px_to_scan_ratio": 0.4},
         {}, SHAPE),
+    "inplane_affine_warp_zyx": lambda: affine.inplane_affine_warp_zyx(VOL, SHIFT, SHAPE),
+    "inplane_affine_warp_zyx_batched": lambda: affine.inplane_affine_warp_zyx_batched(
+        VOL[None], SHIFT, SHAPE),
+    "affine_warp_auto": lambda: affine.affine_warp_auto(VOL, SHIFT, SHAPE),
+    "deskew_then_warp": lambda: chain.deskew_then_warp(VOL, 30.0, 0.4, SHIFT),
+    "deconvolve_deskew_warp": lambda: chain.deconvolve_deskew_warp(
+        VOL, TF, 1e-3, 30.0, 0.4, SHIFT),
+    "deconvolve_deskew_warp_batched": lambda: chain.deconvolve_deskew_warp_batched(
+        VOL[None], TF, 1e-3, 30.0, 0.4, SHIFT),
+    "DeconvolveDeskewWarp": lambda: DeconvolveDeskewWarp(TF, SHAPE, 1e-3, 30.0, 0.4, SHIFT),
+    "chain_from_reference": lambda: chain_from_reference(
+        TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
+                                           "px_to_scan_ratio": 0.4},
+             "registration": {"affine_transform_zyx": SHIFT.tolist()}}, SHAPE),
 }
 
 
@@ -72,17 +94,26 @@ def test_cpu_path_takes_plain_versions_and_counts_no_launch():
                                                device="cpu")
     assert out.shape == (1,) + deskew.deskew_geometry(SHAPE, 30.0, 0.4, False).out_shape
     assert _build.launch_counts == {}
+    out = chain.deconvolve_deskew_warp_batched(VOL[None], TF, 1e-3, 30.0, 0.4, SHIFT,
+                                               device="cpu")
+    assert out.shape == (1,) + deskew.deskew_geometry(SHAPE, 30.0, 0.4, False).out_shape
+    assert _build.launch_counts == {}
 
 
 def test_wrappers_raise_on_other_devices():
     meta = torch.empty(SHAPE, device="meta")
     spec = torch.empty((8, 6, 6), dtype=torch.complex64, device="meta")
     geo = deskew.deskew_geometry(SHAPE, 30.0, 0.4, False)
+    coeffs = affine.inplane_coefficients(SHIFT).to("meta")
     for call in (
         lambda: fft.fwd_yx(meta),
         lambda: fft.z_filter_(spec, torch.empty((8, 6, 6), device="meta")),
         lambda: fft.inv_yx(spec),
         lambda: deskew_kernel(meta[None], geo),
+        lambda: deskew_kernel(meta[None], geo._replace(skip_flip=True), "xzy"),
+        lambda: warp_zy(meta[None], coeffs, (8, 6)),
+        lambda: warp_zy(meta[None], coeffs, (8, 6), input_xzy=True),
+        lambda: warp_x(meta[None], coeffs, 10, SHAPE),
     ):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             call()
