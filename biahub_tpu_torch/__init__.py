@@ -13,22 +13,45 @@ that does register and stabilize
 step deconvolve -> deskew
 (:class:`~biahub_tpu_torch.pipeline.DeconvolveDeskew`); the functions are
 in :mod:`biahub_tpu_torch.kernels.chain` and
-:mod:`biahub_tpu_torch.kernels.affine`.
+:mod:`biahub_tpu_torch.kernels.affine`. Beside it, the drift path on
+arrays in memory: estimate-stabilization
+(:func:`~biahub_tpu_torch.estimate_stabilization.
+estimate_stabilization_arrays`: phase cross-correlation through kernels A,
+Bx and C, focus finding) and stabilize
+(:func:`~biahub_tpu_torch.stabilize.stabilize_tczyx`: kernels E and F with
+one matrix per volume).
 """
 
-from biahub_tpu_torch.convert import chain_from_reference, module_from_reference
+from biahub_tpu_torch.convert import (
+    chain_from_reference,
+    module_from_reference,
+    stabilization_settings_from_reference,
+)
 from biahub_tpu_torch.device import gpu_info, resolve_device
+from biahub_tpu_torch.estimate_stabilization import (
+    ArrayPosition,
+    estimate_stabilization_arrays,
+)
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
     inplane_affine_warp_zyx,
     inplane_affine_warp_zyx_batched,
+    translation_warp_zyx,
+    translation_warp_zyx_batched,
 )
 from biahub_tpu_torch.kernels.chain import (
     deconvolve_deskew_warp,
     deconvolve_deskew_warp_batched,
     deskew_then_warp,
 )
+from biahub_tpu_torch.kernels.pcc import (
+    pcc_corr,
+    phase_cross_corr,
+    phase_cross_corr_padding,
+    subpixel_shift_2d,
+)
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
+from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
 __all__ = [
     "DeconvolveDeskew",
@@ -41,6 +64,17 @@ __all__ = [
     "deskew_then_warp",
     "deconvolve_deskew_warp",
     "deconvolve_deskew_warp_batched",
+    "translation_warp_zyx",
+    "translation_warp_zyx_batched",
+    "pcc_corr",
+    "phase_cross_corr",
+    "phase_cross_corr_padding",
+    "subpixel_shift_2d",
+    "ArrayPosition",
+    "estimate_stabilization_arrays",
+    "stabilization_settings_from_reference",
+    "apply_stabilization_transform",
+    "stabilize_tczyx",
     "gpu_info",
     "resolve_device",
 ]

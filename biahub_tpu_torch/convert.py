@@ -7,7 +7,10 @@ settings dicts with the field names of ``biahub_tpu/settings.py``'s
 their defaults and their rounding, without pydantic. ``chain_from_reference``
 builds :class:`~biahub_tpu_torch.pipeline.DeconvolveDeskewWarp` from a fused
 pipeline's settings (``FusePipelineSettings``, settings.py:557-620) as a
-plain dict. The port reads no YAML itself.
+plain dict. ``stabilization_settings_from_reference`` validates
+estimate-stabilization's settings (``EstimateStabilizationSettings``,
+settings.py:324) into a plain dict with their defaults. The port reads no
+YAML itself.
 """
 
 from __future__ import annotations
@@ -17,7 +20,8 @@ import torch
 
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 
-__all__ = ["module_from_reference", "chain_from_reference"]
+__all__ = ["module_from_reference", "chain_from_reference",
+           "stabilization_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -153,3 +157,181 @@ def chain_from_reference(
         output_shape=None if out is None else tuple(int(s) for s in out),
         device=device, **_deskew_settings(fuse_settings["deskew"]),
     )
+
+
+# -- estimate-stabilization settings (settings.py:237-340), without pydantic --
+
+_REQUIRED = object()
+
+
+def _literal(*choices):
+    def check(v, name):
+        if v not in choices:
+            raise ValueError(f"{name}: must be one of {list(choices)}, got {v!r}")
+        return v
+    return check
+
+
+def _typed(kind):
+    def check(v, name):
+        if not isinstance(v, kind):
+            raise ValueError(f"{name}: want {kind.__name__}, got {v!r}")
+        return v
+    return check
+
+
+_BOOL_WORDS = {"0": False, "off": False, "f": False, "false": False, "n": False,
+               "no": False, "1": True, "on": True, "t": True, "true": True, "y": True,
+               "yes": True}
+
+
+def _lax_bool(v, name):
+    """pydantic's lax bool: a bool, 0 or 1, or one of its words."""
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, int) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in _BOOL_WORDS:
+        return _BOOL_WORDS[v.lower()]
+    raise ValueError(f"{name}: want bool, got {v!r}")
+
+
+def _lax_number(kind):
+    """pydantic's lax int or float: a number (an int only when integral) or
+    a string of one; never a bool."""
+    def check(v, name):
+        try:
+            if isinstance(v, bool):
+                raise ValueError
+            x = float(v) if isinstance(v, str) else v
+            if not isinstance(x, (int, float)) or (kind is int and x != int(x)):
+                raise ValueError
+            return kind(x)
+        except (TypeError, ValueError, OverflowError):
+            raise ValueError(f"{name}: want {kind.__name__}, got {v!r}") from None
+    return check
+
+
+def _int_list(v, name):
+    if not isinstance(v, list) or not all(
+            isinstance(i, int) and not isinstance(i, bool) for i in v):
+        raise ValueError(f"{name}: want a list of integers, got {v!r}")
+    return list(v)
+
+
+def _slice_spec(v, name):
+    if v != "all" and not isinstance(v, list):
+        raise ValueError(f"{name}: must be 'all' or a list, got {v!r}")
+    return v
+
+
+def _matrix_4x4(v, name):
+    if not isinstance(v, list):
+        raise ValueError(f"{name}: must be a list")
+    _matrix(v, name)
+    return v
+
+
+def _optional(check):
+    return lambda v, name: None if v is None else check(v, name)
+
+
+def _model(schema):
+    """A checker of a settings block: unknown fields raise, absent ones take
+    their defaults (a callable default is a factory)."""
+    def check(d, name):
+        if not isinstance(d, dict):
+            raise ValueError(f"{name}: want a mapping, got {d!r}")
+        _unknown(d, set(schema), name)
+        out = {}
+        for field, (default, check_field) in schema.items():
+            if field in d:
+                out[field] = check_field(d[field], f"{name}.{field}")
+            elif default is _REQUIRED:
+                raise ValueError(f"{name}: field {field!r} is required")
+            else:
+                out[field] = default() if callable(default) else default
+        return out
+    return check
+
+
+_T_REFERENCE = ("first", _literal("first", "previous"))
+_SKIP_BEADS = ("0", _typed(str))
+_SLICE = ("all", _slice_spec)
+_PHASE_CROSS_CORR = _model({
+    "normalization": (None, _literal("magnitude", "classic", None)),
+    "maximum_shift": (1.2, _lax_number(float)),
+    "function_type": ("custom", _literal("custom_padding", "custom")),
+    "t_reference": _T_REFERENCE,
+    "skip_beads_fov": _SKIP_BEADS,
+    "center_crop_xy": (None, _optional(_int_list)),
+    "X_slice": _SLICE,
+    "Y_slice": _SLICE,
+    "Z_slice": _SLICE,
+})
+_FOCUS_FINDING = _model({
+    "average_across_wells": (False, _lax_bool),
+    "average_across_wells_method": ("mean", _literal("mean", "median")),
+    "skip_beads_fov": _SKIP_BEADS,
+    "center_crop_xy": (lambda: [800, 800], _int_list),
+})
+_STACK_REG = _model({
+    "center_crop_xy": (lambda: [800, 800], _int_list),
+    "skip_beads_fov": _SKIP_BEADS,
+    "focus_finding_settings": (lambda: _FOCUS_FINDING({}, "focus_finding_settings"),
+                               _optional(_FOCUS_FINDING)),
+    "t_reference": _T_REFERENCE,
+})
+_EVAL_TRANSFORM = _model({
+    "validation_window_size": (10, _lax_number(int)),
+    "validation_tolerance": (1000.0, _lax_number(float)),
+    "interpolation_window_size": (3, _lax_number(int)),
+    "interpolation_type": ("linear", _literal("linear", "cubic")),
+})
+_AFFINE_TRANSFORM = _model({
+    "t_reference": _T_REFERENCE,
+    "transform_type": ("euclidean", _literal("euclidean", "similarity", "affine")),
+    "approx_transform": (lambda: np.eye(4).tolist(), _optional(_matrix_4x4)),
+    "use_prev_t_transform": (True, _lax_bool),
+    "compute_approx_transform": (False, _lax_bool),
+})
+_ESTIMATE_STABILIZATION = _model({
+    "stabilization_estimation_channel": (_REQUIRED, _typed(str)),
+    "stabilization_channels": (_REQUIRED, _typed(list)),
+    "stabilization_type": (_REQUIRED, _literal("z", "xy", "xyz")),
+    "stabilization_method": ("focus-finding",
+                             _literal("beads", "phase-cross-corr", "focus-finding")),
+    # Beads are not ported (ROADMAP queue 1 item 3): kept as given.
+    "beads_match_settings": (None, _optional(_typed(dict))),
+    "phase_cross_corr_settings": (None, _optional(_PHASE_CROSS_CORR)),
+    "stack_reg_settings": (None, _optional(_STACK_REG)),
+    "focus_finding_settings": (None, _optional(_FOCUS_FINDING)),
+    "affine_transform_settings": (lambda: _AFFINE_TRANSFORM({}, "affine_transform_settings"),
+                                  _AFFINE_TRANSFORM),
+    "eval_transform_settings": (None, _optional(_EVAL_TRANSFORM)),
+    "verbose": (False, _lax_bool),
+})
+
+
+def stabilization_settings_from_reference(settings: dict) -> dict:
+    """estimate-stabilization's settings as a plain dict, validated and
+    defaulted as ``EstimateStabilizationSettings`` and its nested
+    ``PhaseCrossCorrSettings``, ``FocusFindingSettings``,
+    ``StackRegSettings`` and ``EvalTransformSettings`` do (settings.py:
+    237-340): literals checked, unknown fields refused, and the method's
+    settings block created with its defaults when absent. The result has
+    the layout of the reference model's ``model_dump()`` and reads back
+    unchanged. ``beads_match_settings`` is kept as given (beads are not
+    ported)."""
+    out = _ESTIMATE_STABILIZATION(settings, "estimate-stabilization settings")
+    method, kind = out["stabilization_method"], out["stabilization_type"]
+    if method == "beads" and out["beads_match_settings"] is None:
+        out["beads_match_settings"] = {}
+    elif method == "phase-cross-corr" and out["phase_cross_corr_settings"] is None:
+        out["phase_cross_corr_settings"] = _PHASE_CROSS_CORR({}, "phase_cross_corr_settings")
+    elif method == "focus-finding":
+        if kind in ("z", "xyz") and out["focus_finding_settings"] is None:
+            out["focus_finding_settings"] = _FOCUS_FINDING({}, "focus_finding_settings")
+        if kind in ("xy", "xyz") and out["stack_reg_settings"] is None:
+            out["stack_reg_settings"] = _STACK_REG({}, "stack_reg_settings")
+    return out

@@ -12,6 +12,12 @@
 //   C  inv_yx_kernel    <- _inv_yx_kernel (pallas_fft.py:530, launched from
 //                          _run_pass_c): inverse DFT along Y, then irfft
 //                          along X, per z slice; writes plain ZYX float32.
+//   Bx z_cross_kernel   <- _pass_b_cross_kernel (pallas_fft.py:1338, launched
+//                          from _run_pass_b_cross): DFT along Z of two
+//                          spectra, the phase cross-power H_ref*conj(H_mov)
+//                          (none / magnitude / classic, _cross_power
+//                          :1317), inverse DFT along Z. A, A, Bx, C is the
+//                          phase cross-correlation of pcc_corr_pallas.
 //
 // The spectrum between the passes is the rfft half-spectrum (Z, Y, X/2+1)
 // as interleaved complex64, the layout of torch.fft.rfftn, so each pass has
@@ -32,6 +38,9 @@
 //      FFT work is 0.045 ms at the 67 Tflop/s float32 rate.
 //   B  269.0 MB spectrum in and out + 134.5 MB filter = 672.4 MB, 0.201 ms
 //   C  269.0 MB spectrum in + 268.4 MB volume out = 537.4 MB, 0.160 ms
+//   Bx at the stabilization crop 64x1024x256: two 67.6 MB spectra in, one
+//      out = 202.9 MB, 0.061 ms (B's design: one read, one write; its
+//      arithmetic is double, ~0.8 Gflop, 0.024 ms at 34 Tflop/s).
 // What the design does about them: every global access is a row segment
 // of 32 consecutive elements (256 B of complex64) read or written by one
 // warp, and every FFT stage stays in shared memory. A and C are one block
@@ -59,6 +68,10 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
   return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
 // tw[k] = exp(-2 pi i k / n) for k < n / 2 (n a power of two, so the
 // argument of sincospif is exact).
 __device__ void make_twiddles(float2* tw, int n) {
@@ -69,6 +82,14 @@ __device__ void make_twiddles(float2* tw, int n) {
   }
 }
 
+__device__ void make_twiddles(double2* tw, int n) {
+  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
+    double s, c;
+    sincospi(-2.0 * static_cast<double>(k) / static_cast<double>(n), &s, &c);
+    tw[k] = make_double2(c, s);
+  }
+}
+
 // In-place radix-2 FFTs of `nlines` lines of length n = 1 << log2n held in
 // shared memory; element e of line l is buf[l * lstride + e * estride].
 // DIF: natural order in, bit-reversed out. DIT: bit-reversed in, natural
@@ -76,10 +97,10 @@ __device__ void make_twiddles(float2* tw, int n) {
 // consecutive threads take consecutive lines (column tiles: lstride 1,
 // nlines = 1 << log2lines), else consecutive butterflies of one line (rows:
 // estride 1), so a warp touches consecutive words in both layouts. Ends on
-// a __syncthreads().
-template <bool DIF>
-__device__ void block_fft(float2* buf, int log2n, int nlines, int log2lines,
-                          int lstride, int estride, const float2* tw,
+// a __syncthreads(). C is float2, or double2 for kernel Bx.
+template <bool DIF, typename C>
+__device__ void block_fft(C* buf, int log2n, int nlines, int log2lines,
+                          int lstride, int estride, const C* tw,
                           bool inverse, bool line_fast) {
   const int half = 1 << (log2n - 1);
   const int total = nlines * half;
@@ -98,18 +119,18 @@ __device__ void block_fft(float2* buf, int log2n, int nlines, int log2lines,
       }
       const int k = b & (m - 1);
       const int i = ((b >> log2m) << (log2m + 1)) + k;
-      float2 w = tw[k << tshift];
+      C w = tw[k << tshift];
       if (inverse) w.y = -w.y;
-      float2* p = buf + l * lstride;
-      const float2 a = p[i * estride];
-      float2 c = p[(i + m) * estride];
+      C* p = buf + l * lstride;
+      const C a = p[i * estride];
+      C c = p[(i + m) * estride];
       if (DIF) {
-        p[i * estride] = make_float2(a.x + c.x, a.y + c.y);
-        p[(i + m) * estride] = cmul(make_float2(a.x - c.x, a.y - c.y), w);
+        p[i * estride] = C{a.x + c.x, a.y + c.y};
+        p[(i + m) * estride] = cmul(C{a.x - c.x, a.y - c.y}, w);
       } else {
         c = cmul(c, w);
-        p[i * estride] = make_float2(a.x + c.x, a.y + c.y);
-        p[(i + m) * estride] = make_float2(a.x - c.x, a.y - c.y);
+        p[i * estride] = C{a.x + c.x, a.y + c.y};
+        p[(i + m) * estride] = C{a.x - c.x, a.y - c.y};
       }
     }
     __syncthreads();
@@ -231,6 +252,71 @@ z_filter_kernel(float2* __restrict__ spec, const float* __restrict__ filt,
   }
 }
 
+constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's clamp
+
+// Kernel Bx. One block per (ky, tile of tk kx columns), as B. The tile's
+// Z-lines of both spectra sit side by side in shared memory (ref in columns
+// [0, tk), mov in [tk, 2tk)) and ride one forward DIF transform of 2tk
+// lines, so both hold frequency kz at position brev(kz) and the cross-power
+// is pointwise. It replaces the ref columns, which go back through the
+// inverse (DIT, with 1/Z) and are stored into out. ref is only read (the
+// vs-first path reuses it); out may be mov: a block reads its whole tile
+// before it writes it, and tiles are disjoint. norm: 0 none, 1 magnitude
+// (|c|), 2 classic (sqrt(|H1|^2 |H2|^2), the Pallas kernel's operands).
+//
+// Between the load and the store everything is double: the normalizations
+// divide by |c|, and a bin near zero beside a large one in the same Z-line
+// (the DC column's) turns float32 rounding of the transform into an error
+// of order one in its phase. In double the result is the exact function of
+// the complex64 spectra to float32 rounding. The pass stays bytes-bound
+// (~0.8 Gflop of double at the stabilization crop), at half the tile.
+__global__ void __launch_bounds__(kThreads)
+z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
+               int log2z, int Y, int xh, int log2tk, int norm) {
+  extern __shared__ double2 dsmem[];
+  const int Z = 1 << log2z, tk = 1 << log2tk, w = 2 * tk;
+  double2* twz = dsmem;
+  double2* buf = twz + Z / 2;
+  make_twiddles(twz, Z);
+  const int k0 = blockIdx.x * tk;
+  const size_t zstride = static_cast<size_t>(Y) * xh;
+  const size_t base = static_cast<size_t>(blockIdx.y) * xh + k0;
+  for (int t = threadIdx.x; t < (Z << (log2tk + 1)); t += blockDim.x) {
+    const int z = t >> (log2tk + 1), c = t & (w - 1), col = c & (tk - 1);
+    const float2* src = c < tk ? ref : mov;
+    const float2 v = k0 + col < xh ? src[z * zstride + base + col] : make_float2(0.f, 0.f);
+    buf[t] = make_double2(v.x, v.y);
+  }
+  __syncthreads();
+  block_fft<true>(buf, log2z, w, log2tk + 1, 1, w, twz, false, true);
+  for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
+    double2* p = buf + (t >> log2tk) * w + (t & (tk - 1));
+    const double2 a = p[0], b = p[tk];
+    double cr = a.x * b.x + a.y * b.y;
+    double ci = a.y * b.x - a.x * b.y;
+    if (norm != 0) {
+      const double d = fmax(
+          norm == 1 ? sqrt(cr * cr + ci * ci)
+                    : sqrt((a.x * a.x + a.y * a.y) * (b.x * b.x + b.y * b.y)),
+          kEps);
+      cr = cr / d;
+      ci = ci / d;
+    }
+    p[0] = make_double2(cr, ci);
+  }
+  __syncthreads();
+  block_fft<false>(buf, log2z, tk, log2tk, 1, w, twz, true, true);
+  const double inv_z = 1.0 / static_cast<double>(Z);
+  for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
+    const int z = t >> log2tk, c = t & (tk - 1);
+    if (k0 + c < xh) {
+      const double2 v = buf[z * w + c];
+      out[z * zstride + base + c] = make_float2(static_cast<float>(v.x * inv_z),
+                                                static_cast<float>(v.y * inv_z));
+    }
+  }
+}
+
 // Kernel C. One block per z slice. Phase 1: inverse DFT along Y over kx
 // column tiles, in place (the spectrum is scratch afterwards). Phase 2: rows
 // 2q and 2q+1 ride one complex inverse FFT of S = F0 + i*F1 built from their
@@ -291,6 +377,15 @@ int tile_log2(int n) {
   return l;
 }
 
+// log2 of Bx's column tile: two spectra's Z-lines of double2 share the
+// budget, so Z <= kTileBytes / 32 = 3072 at one column; -1 when even that
+// does not fit.
+int cross_tile_log2(int z) {
+  int l = 5;
+  while (l >= 0 && (static_cast<size_t>(z) << (l + 1)) * sizeof(double2) > kTileBytes) --l;
+  return l;
+}
+
 // Row pairs per phase-1 chunk of rows of length x.
 int row_pairs(int x) {
   return std::max(1, std::min(8, kTileBytes / static_cast<int>(x * sizeof(float2))));
@@ -338,6 +433,24 @@ int z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
   const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
   z_filter_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float2*>(spec), static_cast<const float*>(filt), lz, Y, xh, ltk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref. Z a power
+// of two in [2, 2048] (the largest whose two Z-lines fit the tile budget),
+// Y <= 65535; norm 0 none, 1 magnitude, 2 classic.
+int z_cross(const void* ref, const void* mov, void* out, int Z, int Y, int xh,
+            int norm, void* stream) {
+  const int lz = log2i(Z), ltk = cross_tile_log2(Z);
+  if (ltk < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = (Z / 2 + (static_cast<size_t>(Z) << (ltk + 1))) * sizeof(double2);
+  cudaError_t e = cudaFuncSetAttribute(
+      z_cross_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
+  z_cross_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(ref), static_cast<const float2*>(mov),
+      static_cast<float2*>(out), lz, Y, xh, ltk, norm);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,7 +30,15 @@
 //
 // The coefficients are read from device memory (21 float32, the layout of
 // biahub_tpu_torch/kernels/affine.py inplane_coefficients), so one build
-// serves every matrix and no host sync is needed to change them.
+// serves every matrix and no host sync is needed to change them. With
+// cstride = 21 each volume b of the batch reads its own row b of a (B, 21)
+// table, F's mask included: this replaces the traced-coefficient forms
+// pallas_resample.py:862 _resample2_kernel_t_dyn (launched at :969), :430
+// _resample_kernel_t_dyn (:526), and the untransposed :643 _resample2_kernel
+// and :648 _resample2_kernel_dyn (:720, :777) that stabilize's batches of
+// per-timepoint matrices run (make_batched_inplane_kernel,
+// translation_warp_zyx's mask_oob route). cstride = 0 is one matrix for the
+// whole batch.
 //
 // Bound on one H100 SXM (3.35 TB/s): bytes. At the headline deskewed batch
 // (8, 86, 1024, 484) each pass reads and writes one 170.5 MB volume per
@@ -76,15 +84,16 @@ __device__ __forceinline__ float lerp(float v0, float v1, float f) {
 // out: (B, Zo, Yo, Xi) contiguous. One block per output row on gridDim.x.
 __global__ void __launch_bounds__(kThreads)
 warp_zy_kernel(const float* __restrict__ in, float* __restrict__ out,
-               const float* __restrict__ coeffs, int Zi, int Yi, int Xi, int Zo,
-               int Yo, long long sb, long long sz, long long sy, long long sx) {
+               const float* __restrict__ coeffs, int cstride, int Zi, int Yi, int Xi,
+               int Zo, int Yo, long long sb, long long sz, long long sy, long long sx) {
   const long long row = blockIdx.x;
   const int yo = static_cast<int>(row % Yo);
   const long long bz = row / Yo;
   const int zo = static_cast<int>(bz % Zo);
   const int b = static_cast<int>(bz / Zo);
-  const float mzz = __ldg(coeffs + 0), zco = __ldg(coeffs + 1), tz = __ldg(coeffs + 2);
-  const float b0 = __ldg(coeffs + 3), b1 = __ldg(coeffs + 4), b2 = __ldg(coeffs + 5);
+  const float* cb = coeffs + b * cstride;
+  const float mzz = __ldg(cb + 0), zco = __ldg(cb + 1), tz = __ldg(cb + 2);
+  const float b0 = __ldg(cb + 3), b1 = __ldg(cb + 4), b2 = __ldg(cb + 5);
   const float* vol = in + b * sb;
   float* o = out + row * Xi;
   for (int x = threadIdx.x; x < Xi; x += kThreads) {
@@ -104,12 +113,13 @@ warp_zy_kernel(const float* __restrict__ in, float* __restrict__ out,
 // hi_*: in_shape - 1 of the warp's logical ZYX input, as float32.
 __global__ void __launch_bounds__(kThreads)
 warp_x_masked_kernel(const float* __restrict__ in, float* __restrict__ out,
-                     const float* __restrict__ coeffs, int Zo, int Yo, int Xi,
-                     int Xo, float hi_z, float hi_y, float hi_x, float fill) {
+                     const float* __restrict__ coeffs, int cstride, int Zo, int Yo,
+                     int Xi, int Xo, float hi_z, float hi_y, float hi_x, float fill) {
   __shared__ float c[kCoeffs];
-  if (threadIdx.x < kCoeffs) c[threadIdx.x] = coeffs[threadIdx.x];
-  __syncthreads();
   const long long row = blockIdx.x;
+  const int b = static_cast<int>(row / (static_cast<long long>(Yo) * Zo));
+  if (threadIdx.x < kCoeffs) c[threadIdx.x] = coeffs[b * cstride + threadIdx.x];
+  __syncthreads();
   const float yo = static_cast<float>(row % Yo);
   const float zo = static_cast<float>((row / Yo) % Zo);
   const float* src = in + row * Xi;
@@ -140,9 +150,10 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // E. in: (B, Zi, Yi, Xi) float32, or (B, Xi, Zi, Yi) with xzy = 1;
-// out: (B, Zo, Yo, Xi) float32; coeffs: 21 float32 on the device.
-int warp_zy(const void* in, void* out, const void* coeffs, int B, int Zi, int Yi,
-            int Xi, int Zo, int Yo, int xzy, void* stream) {
+// out: (B, Zo, Yo, Xi) float32; coeffs: 21 float32 on the device
+// (cstride = 0), or a (B, 21) table, one row per volume (cstride = 21).
+int warp_zy(const void* in, void* out, const void* coeffs, int cstride, int B, int Zi,
+            int Yi, int Xi, int Zo, int Yo, int xzy, void* stream) {
   const long long plane = static_cast<long long>(Zi) * Yi * Xi;
   const long long sz = xzy ? Yi : static_cast<long long>(Yi) * Xi;
   const long long sy = xzy ? 1 : Xi;
@@ -151,19 +162,22 @@ int warp_zy(const void* in, void* out, const void* coeffs, int B, int Zi, int Yi
   warp_zy_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out),
-      static_cast<const float*>(coeffs), Zi, Yi, Xi, Zo, Yo, plane, sz, sy, sx);
+      static_cast<const float*>(coeffs), cstride, Zi, Yi, Xi, Zo, Yo, plane, sz, sy,
+      sx);
   return static_cast<int>(cudaGetLastError());
 }
 
-// F. in: (B, Zo, Yo, Xi) float32; out: (B, Zo, Yo, Xo) float32.
-int warp_x_masked(const void* in, void* out, const void* coeffs, int B, int Zo,
-                  int Yo, int Xi, int Xo, float hi_z, float hi_y, float hi_x,
+// F. in: (B, Zo, Yo, Xi) float32; out: (B, Zo, Yo, Xo) float32; coeffs
+// and cstride as for E.
+int warp_x_masked(const void* in, void* out, const void* coeffs, int cstride, int B,
+                  int Zo, int Yo, int Xi, int Xo, float hi_z, float hi_y, float hi_x,
                   float fill, void* stream) {
   const long long rows = static_cast<long long>(B) * Zo * Yo;
   warp_x_masked_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(in), static_cast<float*>(out),
-      static_cast<const float*>(coeffs), Zo, Yo, Xi, Xo, hi_z, hi_y, hi_x, fill);
+      static_cast<const float*>(coeffs), cstride, Zo, Yo, Xi, Xo, hi_z, hi_y, hi_x,
+      fill);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,12 +21,20 @@ Every coordinate is float32 arithmetic on the float32 coefficients of
 reads (B, Zi, Yi, Xi) (or the deskew's (B, Xi, Zi, Yi) with ``input_xzy``)
 and writes (B, Zo, Yo, Xi), and pass 2 writes (B, Zo, Yo, Xo).
 
+A batch may carry one matrix per volume (the stabilize batches, the
+counterpart of the reference's ``make_batched_inplane_kernel``, affine.py:
+459): the coefficients are then a (B, 21) table, one row per volume, F's
+mask included. Pure translations also have the reference's separable warp,
+:func:`translation_warp_zyx` (affine.py:629).
+
 General 3D affines and order 3 need the multipass warp, which is not ported
 yet (ROADMAP queue 1, "General 3D warps"): they raise
 ``NotImplementedError``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -43,6 +51,9 @@ __all__ = [
     "warp_x_plain",
     "inplane_affine_warp_zyx",
     "inplane_affine_warp_zyx_batched",
+    "translation_matrix",
+    "translation_warp_zyx",
+    "translation_warp_zyx_batched",
     "affine_warp_auto",
     "require_inplane",
 ]
@@ -102,6 +113,26 @@ def inplane_coefficients(matrix) -> torch.Tensor:
     return torch.tensor(np.asarray(passes + mask, dtype=np.float32))
 
 
+def coefficient_table(matrix) -> torch.Tensor:
+    """:func:`inplane_coefficients` of one matrix, (21,), or of a (B, 4, 4)
+    stack, (B, 21): the kernels' per-volume table."""
+    if np.ndim(matrix) == 3:
+        return torch.stack([inplane_coefficients(m) for m in matrix])
+    return inplane_coefficients(matrix)
+
+
+def _per_volume(plain):
+    """Run a plain pass volume by volume when its coefficients are a (B, 21)
+    table (the kernels read row b for volume b)."""
+    @functools.wraps(plain)
+    def run(data, coeffs, *args, **kwargs):
+        if coeffs.ndim == 1:
+            return plain(data, coeffs, *args, **kwargs)
+        return torch.cat([plain(data[b:b + 1], coeffs[b], *args, **kwargs)
+                          for b in range(data.shape[0])])
+    return run
+
+
 def _ramp(n: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device)
 
@@ -136,11 +167,12 @@ def exact_domain_mask(coeffs: torch.Tensor, in_shape, out_shape) -> torch.Tensor
     return inside
 
 
+@_per_volume
 def warp_zy_plain(volumes: torch.Tensor, coeffs: torch.Tensor, out_zy,
                   input_xzy: bool = False) -> torch.Tensor:
     """Plain version of kernel E: (B, Zi, Yi, Xi) float32 (or (B, Xi, Zi, Yi)
     with ``input_xzy``) -> (B, Zo, Yo, Xi), a clamped lerp along z, then
-    along y with the x-dependent shear."""
+    along y with the x-dependent shear; ``coeffs`` (21,) or (B, 21)."""
     if input_xzy:
         volumes = volumes.permute(0, 2, 3, 1)
     batch, zi_n, yi_n, xi_n = volumes.shape
@@ -163,11 +195,13 @@ def warp_zy_plain(volumes: torch.Tensor, coeffs: torch.Tensor, out_zy,
     return _lerp(along_y(y0), along_y(y1), fy[None, None])
 
 
+@_per_volume
 def warp_x_plain(inter: torch.Tensor, coeffs: torch.Tensor, x_out: int,
                  in_shape, fill: float = 0.0) -> torch.Tensor:
     """Plain version of kernel F: (B, Zo, Yo, Xi) float32 -> (B, Zo, Yo,
     Xo), a clamped lerp along x, then ``fill`` outside
-    :func:`exact_domain_mask` of the warp's logical input ``in_shape``."""
+    :func:`exact_domain_mask` of the warp's logical input ``in_shape``;
+    ``coeffs`` (21,) or (B, 21)."""
     batch, z_out, y_out, xi_n = inter.shape
     dev = inter.device
     cx = coeffs[_X]
@@ -192,16 +226,20 @@ def inplane_affine_warp_zyx_batched(
 ) -> torch.Tensor:
     """Warp a (B, Z, Y, X) batch by an in-plane output->input ``matrix`` ->
     (B, Zo, Yo, Xo) float32, kernels E then F (counterpart of
-    ``inplane_affine_warp_zyx_pallas_batched``). ``input_xzy``: the batch
-    arrives as (B, X, Z, Y) of the logical volumes, the layout of the
-    deskew's ``out_layout="xzy"``."""
+    ``inplane_affine_warp_zyx_pallas_batched``). ``matrix`` is one 4x4 for
+    the whole batch, or a (B, 4, 4) stack, one per volume (counterpart of
+    ``make_batched_inplane_kernel``'s per-matrix kernel; still one launch of
+    E and one of F). ``input_xzy``: the batch arrives as (B, X, Z, Y) of the
+    logical volumes, the layout of the deskew's ``out_layout="xzy"``."""
     from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 
     dev = resolve_device(device)
     data = as_tensor(volumes, dev)
     if data.ndim != 4:
         raise ValueError(f"want a (B, Z, Y, X) batch, got {tuple(data.shape)}")
-    coeffs = inplane_coefficients(matrix).to(dev)
+    coeffs = coefficient_table(matrix).to(dev)
+    if coeffs.ndim == 2 and coeffs.shape[0] != data.shape[0]:
+        raise ValueError(f"{coeffs.shape[0]} matrices for a batch of {data.shape[0]}")
     z_out, y_out, x_out = (int(s) for s in output_shape)
     shape = tuple(int(s) for s in data.shape[1:])
     in_shape = (shape[1], shape[2], shape[0]) if input_xzy else shape
@@ -222,6 +260,92 @@ def inplane_affine_warp_zyx(
     dev = resolve_device(device)
     return inplane_affine_warp_zyx_batched(
         as_tensor(volume, dev)[None], matrix, output_shape, fill, input_xzy, dev,
+    )[0]
+
+
+def translation_matrix(shift_zyx) -> np.ndarray:
+    """The 4x4 output->input map ``input = output + shift``."""
+    m = np.eye(4)
+    m[:3, 3] = np.asarray(shift_zyx, dtype=np.float64)
+    return m
+
+
+def _resample_axis(data: torch.Tensor, axis: int, size_out: int,
+                   delta: torch.Tensor, fill: float) -> torch.Tensor:
+    """The reference's per-axis translation pass (affine.py:717-741) on a
+    (B, Z, Y, X) batch along ``axis`` (1-3), ``delta`` (B,) float32: a
+    clamped lerp at ``arange(size_out) + delta``, ``fill`` where that
+    coordinate leaves [0, size_in - 1]."""
+    size_in = data.shape[axis]
+    coords = _ramp(size_out, data.device)[None, :] + delta[:, None]  # (B, n)
+    fl = torch.floor(coords)
+    frac = coords - fl
+    i0 = fl.to(torch.int64)
+    inside = (coords >= 0) & (coords <= size_in - 1)
+    shape = [data.shape[0], 1, 1, 1]
+    shape[axis] = size_out
+    full = list(data.shape)
+    full[axis] = size_out
+
+    def take(idx):
+        return torch.gather(data, axis, idx.clamp(0, size_in - 1).reshape(shape).expand(full))
+
+    frac = frac.reshape(shape)
+    out = take(i0) * (1 - frac) + take(i0 + 1) * frac
+    return torch.where(inside.reshape(shape), out,
+                       torch.tensor(float(fill), dtype=out.dtype, device=out.device))
+
+
+def translation_warp_zyx_batched(
+    volumes,
+    shifts,
+    output_shape: tuple[int, int, int] | None = None,
+    fill: float = 0.0,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Translate each volume of a (B, Z, Y, X) batch by its own ``shifts``
+    row (B, 3) (``input = output + shift``, float32) -> (B, Zo, Yo, Xo)
+    float32 (counterpart of ``translation_warp_zyx``, affine.py:629).
+
+    With ``fill == 0`` the batch takes kernels E and F with one coefficient
+    row per volume, the route of the reference's Pallas passes: for a
+    translation their per-axis ``mask_oob`` zeros never reach a voxel whose
+    three coordinates lie in the frame, so the result is F's exact-domain
+    mask. Another fill runs the reference's separable formulation
+    (affine.py:717-741) as torch ops, which the reference also computes
+    outside Pallas: there a voxel outside the frame on one axis is a lerp of
+    fills, not the fill itself.
+    """
+    dev = resolve_device(device)
+    data = as_tensor(volumes, dev)
+    if data.ndim != 4:
+        raise ValueError(f"want a (B, Z, Y, X) batch, got {tuple(data.shape)}")
+    shifts = np.asarray(shifts, dtype=np.float64).reshape(-1, 3)
+    if shifts.shape[0] != data.shape[0]:
+        raise ValueError(f"{shifts.shape[0]} shifts for a batch of {data.shape[0]}")
+    out_shape = tuple(int(s) for s in (output_shape or data.shape[1:]))
+    if float(fill) == 0.0:
+        mats = np.stack([translation_matrix(s) for s in shifts])
+        return inplane_affine_warp_zyx_batched(data, mats, out_shape, 0.0, device=dev)
+    delta = torch.tensor(shifts.astype(np.float32), device=dev)
+    out = data
+    for axis in range(3):
+        out = _resample_axis(out, axis + 1, out_shape[axis], delta[:, axis], fill)
+    return out
+
+
+def translation_warp_zyx(
+    volume,
+    shift_zyx,
+    output_shape: tuple[int, int, int] | None = None,
+    fill: float = 0.0,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """One volume -> (Zo, Yo, Xo) float32 (see
+    :func:`translation_warp_zyx_batched`)."""
+    dev = resolve_device(device)
+    return translation_warp_zyx_batched(
+        as_tensor(volume, dev)[None], np.asarray(shift_zyx)[None], output_shape, fill, dev,
     )[0]
 
 

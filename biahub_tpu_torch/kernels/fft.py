@@ -7,7 +7,11 @@ Counterpart of ``biahub_tpu/kernels/pallas_fft.py``'s Tikhonov engine:
 - :func:`z_filter_` (kernel B, for ``_pass_b_kernel``): DFT along Z, times
   the prepared real filter, inverse DFT along Z, in place;
 - :func:`inv_yx` (kernel C, for ``_inv_yx_kernel``): inverse DFT along Y
-  and irfft along X of each z slice, real ZYX out.
+  and irfft along X of each z slice, real ZYX out;
+- :func:`z_cross_` (kernel Bx, for ``_pass_b_cross_kernel``): DFT along Z
+  of two spectra, their phase cross-power, inverse DFT along Z. A, A, Bx
+  and C are the phase cross-correlation (:mod:`biahub_tpu_torch.kernels.
+  pcc`).
 
 The spectrum is the (Z, Y, X//2+1) complex64 rfft half-spectrum, the layout
 of ``torch.fft.rfftn``; the TPU engine's split re/im arrays, Nyquist peel,
@@ -26,9 +30,10 @@ import torch
 from biahub_tpu_torch.kernels import _build
 
 __all__ = [
-    "fwd_yx", "z_filter_", "inv_yx",
-    "fwd_yx_plain", "z_filter_plain_", "inv_yx_plain",
-    "prepare_fourier_filter", "PASS_A_DTYPES", "half_spectrum_shape",
+    "fwd_yx", "z_filter_", "inv_yx", "z_cross_",
+    "fwd_yx_plain", "z_filter_plain_", "inv_yx_plain", "z_cross_plain_",
+    "cross_power", "prepare_fourier_filter", "PASS_A_DTYPES", "half_spectrum_shape",
+    "NORMALIZATIONS", "MAX_CROSS_Z",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -36,10 +41,17 @@ _SIGNATURES = {
     "fwd_yx": [_P, _I, _P, _I, _I, _I, _P],
     "z_filter": [_P, _P, _I, _I, _I, _P],
     "inv_yx": [_P, _P, _I, _I, _I, _P],
+    "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
 # The kernels' radix-2 FFTs take power-of-two axes; one row (X) or column
 # tile (Y, Z) must fit the kernels' shared-memory budget.
 _MAX_AXIS = 8192
+# Kernel Bx holds the Z-lines of two spectra in that budget (96 KB) in
+# double precision: at most 3072 per line at one column, so Z <= 2048.
+MAX_CROSS_Z = 2048
+# The phase cross-power's normalizations, by kernel Bx's code.
+NORMALIZATIONS = {None: 0, "magnitude": 1, "classic": 2}
+_F32_EPS = float(np.finfo(np.float32).eps)
 
 
 def half_spectrum_shape(shape) -> tuple[int, int, int]:
@@ -89,6 +101,40 @@ def inv_yx_plain(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> tor
     spectrum.copy_(torch.fft.ifft(spectrum, dim=1))
     real = torch.fft.irfft(spectrum, n=x, dim=2)
     return real if out is None else out.copy_(real)
+
+
+def _norm_code(normalization) -> int:
+    if normalization not in NORMALIZATIONS:
+        raise ValueError(f"normalization must be one of {list(NORMALIZATIONS)}, "
+                         f"got {normalization!r}")
+    return NORMALIZATIONS[normalization]
+
+
+def cross_power(h1: torch.Tensor, h2: torch.Tensor, normalization) -> torch.Tensor:
+    """``h1 * conj(h2)``, divided by ``max(|c|, eps)`` ("magnitude") or by
+    ``max(sqrt(|h1|^2 |h2|^2), eps)`` ("classic"), formed as the reference's
+    Pallas ``_cross_power`` (pallas_fft.py:1317-1335) and kernel Bx form
+    them; eps is float32's."""
+    _norm_code(normalization)
+    prod = h1 * h2.conj()
+    if normalization is None:
+        return prod
+    cr, ci = prod.real, prod.imag
+    if normalization == "magnitude":
+        denom = torch.sqrt(cr * cr + ci * ci)
+    else:
+        denom = torch.sqrt((h1.real * h1.real + h1.imag * h1.imag)
+                           * (h2.real * h2.real + h2.imag * h2.imag))
+    denom = denom.clamp_min(_F32_EPS)
+    return torch.complex(cr / denom, ci / denom)
+
+
+def z_cross_plain_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
+                   normalization=None) -> torch.Tensor:
+    """Plain version of kernel Bx (into ``out``; ``ref_spec`` is kept)."""
+    h1 = torch.fft.fft(ref_spec, dim=0)
+    h2 = torch.fft.fft(mov_spec, dim=0)
+    return out.copy_(torch.fft.ifft(cross_power(h1, h2, normalization), dim=0))
 
 
 def _lib():
@@ -188,3 +234,44 @@ def inv_yx(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
     _build.check(rc, lib, "inv_yx")
     _build.count_launch("inv_yx")
     return out
+
+
+def z_cross_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
+             normalization=None) -> torch.Tensor:
+    """Kernel Bx: ``out = ifft(cross_power(fft(ref_spec, Z), fft(mov_spec,
+    Z)), Z)`` (with the inverse's 1/Z) for two (Z, Y, X//2+1) complex64
+    spectra of kernel A. ``out`` may be ``mov_spec``; ``ref_spec`` is never
+    written. Launches count as ``z_cross``."""
+    for t in (ref_spec, mov_spec, out):
+        _check(t, "z_cross_", 3, (torch.complex64,))
+    if not (ref_spec.shape == mov_spec.shape == out.shape
+            and ref_spec.device == mov_spec.device == out.device):
+        raise ValueError(f"z_cross_: spectra {tuple(ref_spec.shape)}, "
+                         f"{tuple(mov_spec.shape)} and out {tuple(out.shape)} must "
+                         "match in shape and device")
+    on_card = _build.on_card(ref_spec, "z_cross_")
+    if out.data_ptr() == ref_spec.data_ptr():
+        raise ValueError("z_cross_: out must not be ref_spec (it is kept)")
+    code = _norm_code(normalization)
+    if not on_card:
+        return z_cross_plain_(ref_spec, mov_spec, out, normalization)
+    z, y, xh = ref_spec.shape
+    _check_cross_z(z)
+    if y > 65535:
+        raise ValueError(f"z_cross_: Y = {y} exceeds the kernel's grid (65535)")
+    lib = _lib()
+    with torch.cuda.device(ref_spec.device):
+        rc = lib.z_cross(_build.ptr(ref_spec), _build.ptr(mov_spec), _build.ptr(out),
+                         z, y, xh, code, _build.stream_of(ref_spec))
+    _build.check(rc, lib, "z_cross_")
+    _build.count_launch("z_cross")
+    return out
+
+
+def _check_cross_z(z: int) -> None:
+    """Kernel Bx's Z: a power of two in [2, MAX_CROSS_Z]."""
+    _check_cuda_shape((z,), "z_cross_")
+    if z > MAX_CROSS_Z:
+        raise ValueError(f"z_cross_: Z = {z} exceeds the kernel's limit of "
+                         f"{MAX_CROSS_Z} (two spectra's Z-lines, in double, in "
+                         "one shared-memory tile)")

@@ -5,9 +5,13 @@
 ``biahub_tpu/kernels/pallas_resample.py``'s ``shear_resample2_pallas_t``
 and ``shear_resample2_pallas_t_batched`` (warp pass 1), :func:`warp_x`
 (kernel F) of ``shear_resample_pallas_t`` and
-``shear_resample_pallas_t_batched`` with their mask (warp pass 2). A CPU
-tensor takes the plain version in :mod:`biahub_tpu_torch.kernels.affine`; a
-CUDA tensor launches the kernel or raises.
+``shear_resample_pallas_t_batched`` with their mask (warp pass 2). With a
+(B, 21) coefficient table, one row per volume, they are also the
+counterparts of the traced-coefficient forms ``shear_resample2_pallas_t_dyn``
+and ``shear_resample_pallas_t_dyn`` (and their mask_oob use) that
+stabilize's per-timepoint batches run. A CPU tensor takes the plain version
+in :mod:`biahub_tpu_torch.kernels.affine`; a CUDA tensor launches the kernel
+or raises.
 """
 
 from __future__ import annotations
@@ -23,23 +27,29 @@ __all__ = ["warp_zy", "warp_x"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "warp_zy": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    "warp_x_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
+    "warp_zy": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "warp_x_masked": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _P],
 }
 # One block per output row on gridDim.x.
 _MAX_ROWS = 2**31 - 1
 
 
-def _check(t: torch.Tensor, coeffs: torch.Tensor, what: str) -> None:
+def _check(t: torch.Tensor, coeffs: torch.Tensor, what: str) -> int:
+    """Checks a batch and its coefficients; returns the kernel's coefficient
+    stride (0: one set for the batch, N_COEFFS: one row per volume)."""
     if t.ndim != 4 or t.dtype != torch.float32:
         raise ValueError(f"{what}: want a 4-d float32 tensor, got "
                          f"{tuple(t.shape)} {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{what}: tensor must be contiguous")
-    if (coeffs.shape != (N_COEFFS,) or coeffs.dtype != torch.float32
-            or coeffs.device != t.device):
-        raise ValueError(f"{what}: coefficients must be a ({N_COEFFS},) float32 "
-                         f"tensor on {t.device} (inplane_coefficients)")
+    if (coeffs.shape not in ((N_COEFFS,), (t.shape[0], N_COEFFS))
+            or coeffs.dtype != torch.float32 or coeffs.device != t.device
+            or not coeffs.is_contiguous()):
+        raise ValueError(f"{what}: coefficients must be a contiguous ({N_COEFFS},) "
+                         f"or ({t.shape[0]}, {N_COEFFS}) float32 tensor on "
+                         f"{t.device} (inplane_coefficients), got "
+                         f"{tuple(coeffs.shape)} {coeffs.dtype} on {coeffs.device}")
+    return 0 if coeffs.ndim == 1 else N_COEFFS
 
 
 def _check_grid(batch: int, z_out: int, y_out: int, what: str) -> None:
@@ -53,8 +63,9 @@ def warp_zy(volumes: torch.Tensor, coeffs: torch.Tensor, out_zy,
     """Kernel E: (B, Zi, Yi, Xi) float32, or (B, Xi, Zi, Yi) with
     ``input_xzy`` -> (B, Zo, Yo, Xi) float32, warp pass 1 with the
     coefficients of :func:`~biahub_tpu_torch.kernels.affine.
-    inplane_coefficients`. Launches count as ``warp_zy``."""
-    _check(volumes, coeffs, "warp_zy")
+    inplane_coefficients`, one set for the batch or a (B, 21) table, one row
+    per volume. Launches count as ``warp_zy``."""
+    cstride = _check(volumes, coeffs, "warp_zy")
     z_out, y_out = (int(s) for s in out_zy)
     if not _build.on_card(volumes, "warp_zy"):
         return warp_zy_plain(volumes, coeffs, (z_out, y_out), input_xzy)
@@ -71,7 +82,7 @@ def warp_zy(volumes: torch.Tensor, coeffs: torch.Tensor, out_zy,
     lib = _build.library("warp", _SIGNATURES)
     with torch.cuda.device(volumes.device):
         rc = lib.warp_zy(_build.ptr(volumes), _build.ptr(out), _build.ptr(coeffs),
-                         batch, zi, yi, xi, z_out, y_out, int(input_xzy),
+                         cstride, batch, zi, yi, xi, z_out, y_out, int(input_xzy),
                          _build.stream_of(volumes))
     _build.check(rc, lib, "warp_zy")
     _build.count_launch("warp_zy")
@@ -82,8 +93,9 @@ def warp_x(inter: torch.Tensor, coeffs: torch.Tensor, x_out: int, in_shape,
            fill: float = 0.0) -> torch.Tensor:
     """Kernel F: (B, Zo, Yo, Xi) float32 (kernel E's output) -> (B, Zo, Yo,
     Xo) float32, warp pass 2 and the exact constant-fill mask of the warp's
-    logical ZYX input ``in_shape``. Launches count as ``warp_x``."""
-    _check(inter, coeffs, "warp_x")
+    logical ZYX input ``in_shape``, each volume's from its own coefficients
+    with a (B, 21) table. Launches count as ``warp_x``."""
+    cstride = _check(inter, coeffs, "warp_x")
     x_out = int(x_out)
     in_shape = tuple(int(s) for s in in_shape)
     if not _build.on_card(inter, "warp_x"):
@@ -97,7 +109,7 @@ def warp_x(inter: torch.Tensor, coeffs: torch.Tensor, x_out: int, in_shape,
     lib = _build.library("warp", _SIGNATURES)
     with torch.cuda.device(inter.device):
         rc = lib.warp_x_masked(_build.ptr(inter), _build.ptr(out), _build.ptr(coeffs),
-                               batch, z_out, y_out, xi, x_out,
+                               cstride, batch, z_out, y_out, xi, x_out,
                                *(float(s - 1) for s in in_shape), float(fill),
                                _build.stream_of(inter))
     _build.check(rc, lib, "warp_x")

@@ -1,0 +1,171 @@
+"""Transform QC: outlier validation and interpolation of per-timepoint
+transforms.
+
+Counterpart of ``biahub_tpu/registration/utils.py:38-180``, on numpy and
+``scipy.interpolate``: a moving-window mean of accepted transforms is the
+reference; a candidate whose mean grid-point displacement against it
+exceeds the tolerance is dropped and filled by local (or global)
+interpolation over the 4x4 entries. ``save_transforms`` and the plots need
+YAML and matplotlib, which wait for the I/O layer (ROADMAP queue 1).
+"""
+
+from __future__ import annotations
+
+from typing import Literal
+
+import numpy as np
+
+__all__ = [
+    "check_transforms_difference",
+    "validate_transforms",
+    "interpolate_transforms",
+    "evaluate_transforms",
+]
+
+
+def check_transforms_difference(
+    tform1,
+    tform2,
+    shape_zyx: tuple[int, int, int],
+    threshold: float = 5.0,
+    verbose: bool = False,
+) -> bool:
+    """True when the mean displacement of a 10^3 grid under the two transforms
+    is within the threshold."""
+    tform1 = np.array(tform1)
+    tform2 = np.array(tform2)
+    Z, Y, X = shape_zyx
+    zz, yy, xx = np.meshgrid(
+        np.linspace(0, Z - 1, 10), np.linspace(0, Y - 1, 10), np.linspace(0, X - 1, 10)
+    )
+    grid = np.vstack([zz.ravel(), yy.ravel(), xx.ravel(), np.ones(zz.size)]).T
+    p1 = (tform1 @ grid.T).T
+    p2 = (tform2 @ grid.T).T
+    mse = np.mean(np.linalg.norm(p1[:, :3] - p2[:, :3], axis=1))
+    if verbose:
+        print(f"MSE of transformed points: {mse:.2f}; threshold: {threshold:.2f}")
+    return mse <= threshold
+
+
+def validate_transforms(
+    transforms: list,
+    shape_zyx: tuple[int, int, int],
+    window_size: int = 10,
+    tolerance: float = 100.0,
+    verbose: bool = False,
+) -> list:
+    """Mark outlier transforms as None (in place) by windowed-mean deviation."""
+    valid: list = []
+    reference = None
+    for i, transform in enumerate(transforms):
+        if transform is None:
+            if verbose:
+                print(f"Transform at timepoint {i} is None and will be interpolated")
+            continue
+        if len(valid) < window_size:
+            valid.append(transform)
+            reference = np.mean(valid, axis=0)
+            if verbose:
+                print(f"[Bootstrap] Accepting transform at timepoint {i} (no validation)")
+        elif check_transforms_difference(transform, reference, shape_zyx, tolerance, verbose):
+            valid.append(transform)
+            if len(valid) > window_size:
+                valid.pop(0)
+            reference = np.mean(valid, axis=0)
+            if verbose:
+                print(f"Transform at timepoint {i} is valid")
+        else:
+            transforms[i] = None
+            if verbose:
+                print(f"Transform at timepoint {i} is invalid and will be interpolated")
+    return transforms
+
+
+def interpolate_transforms(
+    transforms: list,
+    window_size: int = 3,
+    interpolation_type: Literal["linear", "cubic"] = "linear",
+    verbose: bool = False,
+) -> list:
+    """Fill None entries by interpolating the 4x4 entries over time."""
+    # scipy is imported at call time: its import starts a process (numpy's
+    # CPU probe), and importing the port starts none.
+    from scipy.interpolate import interp1d
+
+    n = len(transforms)
+    valid_indices = [i for i, t in enumerate(transforms) if t is not None]
+    valid = [np.array(transforms[i]) for i in valid_indices]
+    if len(valid_indices) < 2:
+        raise ValueError("At least two valid transforms are required for interpolation.")
+
+    missing = [i for i in range(n) if transforms[i] is None]
+    if not missing:
+        return transforms
+    if verbose:
+        print(f"Interpolating missing transforms at timepoints: {missing}")
+
+    if window_size > 0:
+        for idx in missing:
+            start = max(0, idx - window_size)
+            end = min(n, idx + window_size + 1)
+            local_x = [j for j in range(start, end) if j in valid_indices]
+            local_y = [np.array(transforms[j]) for j in local_x]
+            if len(local_x) < 2:
+                closest = valid_indices[
+                    int(np.argmin(np.abs(np.asarray(valid_indices) - idx)))
+                ]
+                transforms[idx] = transforms[closest]
+                if verbose:
+                    print(
+                        f"Not enough interpolation neighbors were found for timepoint "
+                        f"{idx} using closest valid transform at timepoint {closest}"
+                    )
+                continue
+            kind = interpolation_type if len(local_x) > 3 else "linear"
+            f = interp1d(local_x, local_y, axis=0, kind=kind, fill_value="extrapolate")
+            transforms[idx] = f(idx).tolist()
+            if verbose:
+                print(f"Interpolated timepoint {idx} using neighbors: {local_x}")
+    else:
+        f = interp1d(valid_indices, valid, axis=0, kind="linear", fill_value="extrapolate")
+        transforms = [
+            f(i).tolist() if transforms[i] is None else transforms[i] for i in range(n)
+        ]
+    return transforms
+
+
+def evaluate_transforms(
+    transforms,
+    shape_zyx: tuple[int, int, int],
+    validation_window_size: int = 10,
+    validation_tolerance: float = 100.0,
+    interpolation_window_size: int = 3,
+    interpolation_type: Literal["linear", "cubic"] = "linear",
+    verbose: bool = False,
+):
+    """Validate then interpolate a per-timepoint transform list."""
+    if not isinstance(transforms, list):
+        transforms = transforms.tolist()
+    if len(transforms) < validation_window_size:
+        raise Warning(
+            f"Not enough transforms for validation and interpolation. "
+            f"Required: {validation_window_size}, Provided: {len(transforms)}"
+        )
+    transforms = validate_transforms(
+        transforms=transforms,
+        window_size=validation_window_size,
+        tolerance=validation_tolerance,
+        shape_zyx=shape_zyx,
+        verbose=verbose,
+    )
+    if len(transforms) < interpolation_window_size:
+        raise Warning(
+            f"Not enough transforms for interpolation. "
+            f"Required: {interpolation_window_size}, Provided: {len(transforms)}"
+        )
+    return interpolate_transforms(
+        transforms=transforms,
+        window_size=interpolation_window_size,
+        interpolation_type=interpolation_type,
+        verbose=verbose,
+    )

@@ -1,0 +1,122 @@
+"""stabilize on arrays in memory: per-timepoint 4x4 transforms.
+
+Counterpart of ``biahub_tpu/stabilize.py`` without its plate I/O: the
+first transform's rotation decides whether the output YX axes swap
+(:func:`_output_yx`), every channel of a timepoint is warped by that
+timepoint's matrix, and the kernel is chosen from the whole matrix list
+(:160-215): all translations take :func:`~biahub_tpu_torch.kernels.affine.
+translation_warp_zyx_batched`, all in-plane matrices the in-plane warp with
+one matrix per volume; both run kernels E and F once per batch, with a
+(B, 21) coefficient table. General 3D matrices need the multipass warp
+(ROADMAP queue 1 item 4) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from biahub_tpu_torch.device import as_tensor, resolve_device
+from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
+from biahub_tpu_torch.kernels.affine import (
+    affine_warp_auto,
+    inplane_affine_warp_zyx_batched,
+    is_inplane_matrix,
+    is_translation_matrix,
+    translation_warp_zyx_batched,
+)
+
+__all__ = ["apply_stabilization_transform", "stabilize_tczyx", "stabilize_batch_size"]
+
+
+def apply_stabilization_transform(
+    zyx_data,
+    list_of_shifts: list,
+    input_time_index: int,
+    output_shape: tuple[int, int, int] | None = None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Warp one (Z, Y, X) volume, or each of a (C, Z, Y, X) stack, by the
+    transform of its time index (NaN read as 0)."""
+    dev = resolve_device(device)
+    data = torch.nan_to_num(as_tensor(zyx_data, dev), nan=0.0)
+    if output_shape is None:
+        output_shape = tuple(data.shape[-3:])
+    matrix = np.asarray(list_of_shifts[input_time_index], dtype=np.float64)
+    if data.ndim == 4:
+        return torch.stack([affine_warp_auto(c, matrix, tuple(output_shape), device=dev)
+                            for c in data])
+    return affine_warp_auto(data, matrix, tuple(output_shape), device=dev)
+
+
+def _output_yx(matrices, Y: int, X: int) -> tuple[int, int]:
+    """(Yo, Xo): swapped when the first transform is a ~90 deg rotation
+    about the first axis (the reference's :71)."""
+    # scipy is imported at call time: its import starts a process (numpy's
+    # CPU probe), and importing the port starts none.
+    from scipy.linalg import svd
+    from scipy.spatial.transform import Rotation
+
+    r_matrix = np.asarray(matrices[0], dtype=np.float64)[:3, :3]
+    u, _, vt = svd(r_matrix)
+    euler = Rotation.from_matrix(u @ vt).as_euler("xyz", degrees=True)
+    if np.isclose(euler[0], 90, atol=10):
+        return X, Y
+    return Y, X
+
+
+def stabilize_batch_size(in_zyx, out_zyx, n_volumes: int,
+                         max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES) -> int:
+    """Volumes per batch: as many as fit ``max_batch_bytes`` counting each
+    volume's float32 input and output (the reference runner's rule for one
+    chunk in flight, runtime/executor.py:264-300)."""
+    unit = 4 * (int(np.prod(in_zyx)) + int(np.prod(out_zyx)))
+    return int(max(1, min(n_volumes, max_batch_bytes // unit)))
+
+
+def stabilize_tczyx(
+    tczyx,
+    matrices,
+    time_indices="all",
+    max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Stabilize a (T, C, Z, Y, X) timelapse by one 4x4 output->input
+    matrix per raw timepoint -> (len(time_indices), C, Z, Yo, Xo) float32,
+    fill 0. ``time_indices``: ``"all"``, a list, or one index. The (t, c)
+    volumes run in batches of :func:`stabilize_batch_size`, one launch of
+    kernels E and F per batch."""
+    dev = resolve_device(device)
+    T, C, Z, Y, X = tczyx.shape
+    mats = np.asarray(matrices, dtype=np.float64)
+    if mats.ndim != 3 or mats.shape[1:] != (4, 4) or len(mats) < T:
+        raise ValueError(f"want one 4x4 matrix per timepoint ({T}), got "
+                         f"{mats.shape}")
+    if time_indices == "all":
+        times = list(range(T))
+    elif isinstance(time_indices, list):
+        times = [int(t) for t in time_indices]
+    else:
+        times = [int(time_indices)]
+    out_y, out_x = _output_yx(mats, Y, X)
+    out_zyx = (Z, out_y, out_x)
+    units = [(t, c) for t in times for c in range(C)]
+    used = mats[times]
+    if all(is_translation_matrix(m) for m in used):
+        def warp(vols, ms):
+            return translation_warp_zyx_batched(vols, ms[:, :3, 3], out_zyx, device=dev)
+    elif all(is_inplane_matrix(m) for m in used):
+        def warp(vols, ms):
+            return inplane_affine_warp_zyx_batched(vols, ms, out_zyx, device=dev)
+    else:
+        raise NotImplementedError(
+            "biahub_tpu_torch: stabilize with general 3D matrices needs the "
+            "multipass warp (ROADMAP queue 1 item 4), not ported yet")
+    out = torch.empty((len(times), C) + out_zyx, dtype=torch.float32, device=dev)
+    flat = out.view(len(units), *out_zyx)
+    step = stabilize_batch_size((Z, Y, X), out_zyx, len(units), max_batch_bytes)
+    for i in range(0, len(units), step):
+        batch = units[i:i + step]
+        vols = torch.stack([as_tensor(tczyx[t, c], dev) for t, c in batch])
+        flat[i:i + len(batch)] = warp(vols, mats[[t for t, _ in batch]])
+    return out

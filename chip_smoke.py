@@ -19,7 +19,22 @@ register+stabilize matrix ``reg_stab``:
 
 each path against the plain chain, with uint16 input bit-identical to its
 float32 copy, and with the launches of each kernel counted over that path
-alone. Times are CUDA-event medians on this card.
+alone. Then, on a timelapse of 12 deskewed volumes (86, 1024, 484), each a
+smooth random volume rolled by a known integer drift, with the settings of
+settings/example_estimate_stabilization_settings_xyz_pcc.yml cropped to a
+(64, 1024, 256) PCC window:
+
+4. holds kernel Bx (the PCC cross-power) against its plain version for
+   all three normalizations;
+5. runs estimate-stabilization (``estimate_stabilization_arrays``): the
+   drift recovered exactly, the transforms equal to the plain route's,
+   launches A 11 + one per chunk, Bx 11, C 11;
+6. runs stabilize (``stabilize_tczyx``) with those transforms: equal to the
+   base volume inside the frame and 0 outside, and to the plain warp; then
+   with 12 in-plane matrices, E and F reading one coefficient row per
+   volume (F's mask voxel for voxel); E and F once per batch.
+
+Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
 per-kernel numbers, and last ``{"ok": true, "device": {...}}``. Exits
@@ -54,6 +69,35 @@ OTHER_OUT = (80, 1000, 500)  # an output shape other than the deskewed (86, 1024
 REPS, WARMUP = 7, 2
 # Samples of the whole step: the median, and p75 with ten samples beyond it.
 STEP_REPS = 40
+# The stabilization timelapse: T volumes of the deskewed headline shape,
+# drifts |dz| <= 4, |dy|, |dx| <= 12 (zero at t = 0). T = 12 because
+# evaluate_transforms needs validation_window_size (10) transforms.
+T_LAPSE = 12
+LAPSE_SHAPE = (86, 1024, 484)
+MAX_DRIFT = (4, 12, 12)
+# settings/example_estimate_stabilization_settings_xyz_pcc.yml, with Z and X
+# slices that make the PCC crop (64, 1024, 256), a power of two.
+PCC_SETTINGS = {
+    "stabilization_estimation_channel": "Phase3D",
+    "stabilization_channels": ["Phase3D"],
+    "stabilization_type": "xyz",
+    "stabilization_method": "phase-cross-corr",
+    "phase_cross_corr_settings": {
+        "normalization": "magnitude", "t_reference": "first", "function_type": "custom",
+        "X_slice": [114, 370], "Y_slice": "all", "Z_slice": [11, 75],
+    },
+    "affine_transform_settings": {"transform_type": "euclidean"},
+    "eval_transform_settings": {
+        "validation_window_size": 10, "validation_tolerance": 1000.0,
+        "interpolation_window_size": 3, "interpolation_type": "linear",
+    },
+    "verbose": False,
+}
+NORMS = (None, "magnitude", "classic")
+# The chain's E and F with one coefficient set, per batch of 8, as PERF.md
+# records them from before the per-volume table; this run's times are
+# printed beside them.
+RECORDED_WARP_MS = {"warp_zy": 1.733, "warp_x": 1.214}
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -110,9 +154,252 @@ def lerp_grid(c: torch.Tensor, size: int) -> torch.Tensor:
     return c * (2.0 / (size - 1)) - 1.0
 
 
+def host_ms(fn, reps: int = 3) -> float:
+    """Median host-clock time of ``fn`` ending in a synchronize, after one
+    warm-up run (for calls that read results back to the host)."""
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def counted(fn) -> tuple[object, dict]:
+    """``fn()``'s result and the kernel launches it made, counted from 0."""
+    from biahub_tpu_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launch_counts)
+
+
+def zy_grid(c: torch.Tensor, zi: int, yi: int, xi: int) -> torch.Tensor:
+    """grid_sample's grid for E's function over the (Zi, Yi) images of each
+    input column x: (B*Xi, Zi, Yi, 2) from a (B, 21) coefficient table."""
+    xs = torch.arange(xi, dtype=torch.float32, device=c.device)[None, None, :]
+    zo = torch.arange(zi, dtype=torch.float32, device=c.device)[None, :, None]
+    yo = torch.arange(yi, dtype=torch.float32, device=c.device)[None, :, None]
+    zc = (c[:, 0, None, None] * zo + c[:, 1, None, None] * xs) + c[:, 2, None, None]
+    yc = (c[:, 3, None, None] * yo + c[:, 4, None, None] * xs) + c[:, 5, None, None]
+    zg = lerp_grid(zc, zi).permute(0, 2, 1)[:, :, :, None]  # (B, Xi, Zo, 1)
+    yg = lerp_grid(yc, yi).permute(0, 2, 1)[:, :, None, :]  # (B, Xi, 1, Yo)
+    return torch.stack(torch.broadcast_tensors(yg, zg), -1).reshape(-1, zi, yi, 2)
+
+
 def describe(rec: dict) -> str:
     return ", ".join(f"{k} {rec[k]:.4f}" for k in ("ms", "plain_ms", "library_ms", "bound_ms")
                      if rec[k] is not None)
+
+
+def stabilization_phases(dev: torch.device, records: dict) -> None:
+    """Phases 4-6 on the timelapse: Bx against its plain version,
+    estimate-stabilization, stabilize; adds the records of Bx and of E and F
+    with a per-volume coefficient table."""
+    from biahub_tpu_torch import ArrayPosition, estimate_stabilization_arrays, stabilize_tczyx
+    from biahub_tpu_torch.estimate_stabilization import (
+        DEFAULT_MAX_BATCH_BYTES,
+        get_tform_from_pcc,
+    )
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import pcc as kpcc
+    from biahub_tpu_torch.kernels.affine import coefficient_table, warp_x_plain, warp_zy_plain
+    from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
+    from biahub_tpu_torch.registration.utils import evaluate_transforms
+    from biahub_tpu_torch.stabilize import stabilize_batch_size
+
+    z, y, x = LAPSE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # Noise blurred by a 3-voxel box: a correlation length of a few voxels.
+    # Heavier blurs leave too little high-frequency power for the
+    # magnitude-normalized PCC, which then locks onto the crop's edges.
+    base = torch.nn.functional.avg_pool3d(
+        torch.rand(LAPSE_SHAPE, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
+    rng = np.random.default_rng(0)
+    drift = np.stack([rng.integers(-m, m + 1, T_LAPSE) for m in MAX_DRIFT], axis=1)
+    drift[0] = 0
+    lapse = torch.stack([torch.roll(base, tuple(int(d) for d in dt), (0, 1, 2))
+                         for dt in drift])[:, None]  # (T, C=1, Z, Y, X)
+    pcc = PCC_SETTINGS["phase_cross_corr_settings"]
+    zs, xs = slice(*pcc["Z_slice"]), slice(*pcc["X_slice"])
+    crop = lapse[:, 0, zs, :, xs].contiguous()  # (T, 64, 1024, 256)
+    cz, cy, cx = crop.shape[1:]
+    cxh = cx // 2 + 1
+    print(f"timelapse: {T_LAPSE} x {LAPSE_SHAPE}, drift (dz, dy, dx) {drift[1:].tolist()}; "
+          f"PCC crop {tuple(crop.shape[1:])}")
+
+    # -- 4. Bx against its plain version, all three normalizations ----------
+    ref_spec, mov_spec = kfft.fwd_yx(crop[0]), kfft.fwd_yx(crop[1])
+    kept = ref_spec.clone()
+    out = torch.empty_like(mov_spec)
+    # The plain version runs on the same spectra promoted to complex128, as
+    # the kernel computes in double: the normalizations divide by |c|, so
+    # a bin near zero beside a large one turns float32 rounding of the
+    # Z-transform into an error of order one in its phase, and the plain
+    # version in float32 (cuFFT) is itself ~2e-5 of max|ref| from exact
+    # with magnitude. Its distance is printed beside the kernel's.
+    worst = 0.0
+    for norm in NORMS:
+        kfft.z_cross_(ref_spec, mov_spec, out, norm)
+        want = kfft.z_cross_plain_(ref_spec.to(torch.complex128),
+                                   mov_spec.to(torch.complex128),
+                                   torch.empty_like(mov_spec), norm)
+        err_abs, err = rel_err(out, want)
+        require(err <= FFT_TOL, f"kernel Bx ({norm}) rel err {err:.3g} > {FFT_TOL}")
+        _, err32 = rel_err(kfft.z_cross_plain_(ref_spec, mov_spec,
+                                               torch.empty_like(mov_spec), norm), want)
+        worst = max(worst, err_abs)
+        alias = mov_spec.clone()
+        kfft.z_cross_(ref_spec, alias, alias, norm)
+        require(torch.equal(alias, out), f"kernel Bx ({norm}): out = mov differs")
+        print(f"Bx z_cross ({norm}): rel err {err:.3g} (tol {FFT_TOL}) vs the plain "
+              f"version in float64; the plain version in float32 {err32:.3g} from it")
+    require(torch.equal(ref_spec, kept), "kernel Bx wrote the reference spectrum")
+    cspec = cz * cy * cxh * 8
+    bms, bby = bound(3 * cspec, 3 * cy * cxh * 5 * cz * math.log2(cz) + 20 * cz * cy * cxh)
+    records["z_cross"] = dict(
+        replaces="biahub_tpu/kernels/pallas_fft.py:1338", source="biahub_tpu_torch/csrc/fft.cu",
+        max_abs_err=worst,
+        ms=time_ms(lambda: kfft.z_cross_(ref_spec, mov_spec, out, "magnitude")),
+        plain_ms=time_ms(lambda: kfft.z_cross_plain_(ref_spec, mov_spec, out, "magnitude")),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    print("Bx z_cross (magnitude, the settings'): " + describe(records["z_cross"])
+          + "; no single PyTorch call computes it")
+    pair_ms = time_ms(lambda: kpcc.pcc_corr(crop[0], crop[1], "magnitude"))
+    a_ms = time_ms(lambda: kfft.fwd_yx(crop[0], out=mov_spec))
+    print(f"one PCC pair (A, A, Bx, C): {pair_ms:.4f} ms; A at the crop {a_ms:.4f} ms, "
+          f"bound {bound(cz * cy * cx * 4 + cspec, 0)[0]:.4f}")
+    del ref_spec, mov_spec, kept, out, want, alias
+
+    # -- 5. estimate-stabilization ------------------------------------------
+    positions = {"A/1/0": ArrayPosition(lapse, [1.0] * 5, ["Phase3D"])}
+
+    def estimate():
+        return estimate_stabilization_arrays(positions, PCC_SETTINGS, device=dev)
+
+    result, launches_e = counted(estimate)
+    transforms = result["xyz"]["A_1_0"]
+    got_shift = np.asarray(transforms)[:, :3, 3]
+    require(np.array_equal(got_shift, drift), f"estimated drift {got_shift.tolist()} "
+            f"differs from {drift.tolist()}")
+    t_chunk = max(1, DEFAULT_MAX_BATCH_BYTES // (crop[0].numel() * 4 * 8))
+    chunks = math.ceil((T_LAPSE - 1) / t_chunk)
+    want_e = {"fwd_yx": T_LAPSE - 1 + chunks, "z_cross": T_LAPSE - 1, "inv_yx": T_LAPSE - 1}
+    require(launches_e == want_e, f"estimate launches {launches_e}, want {want_e}")
+    # The plain route on the card: torch.fft's correlation per pair.
+    plain = [np.eye(4).tolist()] + [
+        get_tform_from_pcc(kpcc._shift_of(kpcc._pcc_core(crop[0], crop[t], "magnitude"))
+                           .cpu().numpy().astype(np.float64))
+        for t in range(1, T_LAPSE)]
+    ev = PCC_SETTINGS["eval_transform_settings"]
+    plain = evaluate_transforms(plain, LAPSE_SHAPE, ev["validation_window_size"],
+                                ev["validation_tolerance"], ev["interpolation_window_size"],
+                                ev["interpolation_type"])
+    require(transforms == plain, "estimate: transforms differ from the plain route's")
+    est_ms = host_ms(estimate)
+    print(f"estimate-stabilization ({T_LAPSE} timepoints, {T_LAPSE - 1} pairs in {chunks} "
+          f"chunks of <= {t_chunk}): drift recovered exactly, transforms equal to the "
+          f"plain route's; {est_ms:.3f} ms for the call, {est_ms / (T_LAPSE - 1):.4f} ms "
+          f"per pair; launches {launches_e}")
+    del crop
+
+    # -- 6. stabilize with those transforms, then 12 in-plane matrices -------
+    batches = math.ceil(T_LAPSE / stabilize_batch_size(LAPSE_SHAPE, LAPSE_SHAPE, T_LAPSE))
+    want_s = {"warp_zy": batches, "warp_x": batches}
+    stab, launches_s = counted(lambda: stabilize_tczyx(lapse, transforms, device=dev))
+    require(launches_s == want_s, f"stabilize launches {launches_s}, want {want_s}")
+    require(stab.shape == lapse.shape, f"stabilize output shape {tuple(stab.shape)}")
+    vols = lapse[:, 0]
+    table = coefficient_table(np.asarray(transforms)).to(dev)
+    ref_s = warp_x_plain(warp_zy_plain(vols, table, (z, y)), table, x, LAPSE_SHAPE)
+    _, err_s = rel_err(stab[:, 0], ref_s)
+    require(err_s <= WARP_TOL, f"stabilize rel err {err_s:.3g} > {WARP_TOL}")
+    grid = [torch.arange(n, device=dev).reshape([-1 if i == a else 1 for i in range(3)])
+            for a, n in enumerate(LAPSE_SHAPE)]
+    n_out = 0
+    for t in range(T_LAPSE):
+        inside = torch.ones(LAPSE_SHAPE, dtype=torch.bool, device=dev)
+        for g, d, n in zip(grid, drift[t], LAPSE_SHAPE):
+            inside &= (g + int(d) >= 0) & (g + int(d) <= n - 1)
+        require(torch.equal(stab[t, 0][inside], base[inside]),
+                f"stabilize: timepoint {t} differs from the base inside the frame")
+        require(bool((stab[t, 0][~inside] == 0).all()),
+                f"stabilize: timepoint {t} is not 0 outside the frame")
+        n_out += int((~inside).sum())
+    stab_ms = host_ms(lambda: stabilize_tczyx(lapse, transforms, device=dev))
+    print(f"stabilize (translations): equal to the base inside the frame, 0 on the "
+          f"{n_out} voxels outside; rel err {err_s:.3g} vs the plain warp (tol {WARP_TOL}); "
+          f"{stab_ms:.3f} ms for {T_LAPSE} volumes; launches {launches_s}")
+    del stab, ref_s
+
+    theta = rng.uniform(-1.0, 1.0, T_LAPSE)
+    mats = np.stack([np.eye(4)] * T_LAPSE)
+    for m, th, sh in zip(mats, np.deg2rad(theta), rng.uniform(-3.0, 3.0, (T_LAPSE, 3))):
+        m[1:3, 1:3] = [[np.cos(th), -np.sin(th)], [np.sin(th), np.cos(th)]]
+        m[:3, 3] = sh
+    stab_ip, launches_ip = counted(lambda: stabilize_tczyx(lapse, mats, device=dev))
+    require(launches_ip == want_s, f"in-plane stabilize launches {launches_ip}, want {want_s}")
+    table_ip = coefficient_table(mats).to(dev)
+    inter = warp_zy(vols, table_ip, (z, y))
+    _, err_e = rel_err(inter, warp_zy_plain(vols, table_ip, (z, y)))
+    require(err_e <= WARP_TOL, f"per-volume E rel err {err_e:.3g} > {WARP_TOL}")
+    nan = float("nan")
+    out_k = warp_x(inter, table_ip, x, LAPSE_SHAPE, nan)
+    out_p = warp_x_plain(inter, table_ip, x, LAPSE_SHAPE, nan)
+    mask_k, mask_p = torch.isnan(out_k), torch.isnan(out_p)
+    require(torch.equal(mask_k, mask_p), "per-volume F: fill mask differs from the plain mask")
+    _, err_f = rel_err(out_k[~mask_p], out_p[~mask_p])
+    require(err_f <= WARP_TOL, f"per-volume F rel err {err_f:.3g} > {WARP_TOL}")
+    ref_ip = torch.nan_to_num(out_p, nan=0.0)
+    err_abs_ip, err_ip = rel_err(stab_ip[:, 0], ref_ip)
+    require(err_ip <= WARP_TOL, f"in-plane stabilize rel err {err_ip:.3g} > {WARP_TOL}")
+    print(f"stabilize (12 in-plane matrices): rel err {err_ip:.3g} (tol {WARP_TOL}); "
+          f"per-volume E {err_e:.3g}, F {err_f:.3g}, F's mask equal on "
+          f"{int(mask_k.sum())} voxels; launches {launches_ip}")
+    del stab_ip, out_k, out_p, mask_k, mask_p, ref_ip, inter
+
+    # The per-volume E and F on the translation batch stabilize ran.
+    vol_bytes = vols.numel() * 4
+    bms_w, bby_w = bound(2 * vol_bytes, vols.numel() * 15)
+    img = vols.permute(0, 3, 1, 2).reshape(-1, 1, z, y)
+    grid_zy = zy_grid(table, z, y, x)
+
+    def library_zy():
+        return torch.nn.functional.grid_sample(
+            img, grid_zy, mode="bilinear", padding_mode="border", align_corners=True)
+
+    inter = warp_zy(vols, table, (z, y))
+    inter_p = warp_zy_plain(vols, table, (z, y))
+    err_abs, err = rel_err(inter, inter_p)
+    _, lib_err = rel_err(library_zy().reshape(T_LAPSE, x, z, y).permute(0, 2, 3, 1), inter)
+    records["warp_zy_per_volume"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:862",
+        source="biahub_tpu_torch/csrc/warp.cu", counter="warp_zy", runs=launches_s,
+        max_abs_err=err_abs, ms=time_ms(lambda: warp_zy(vols, table, (z, y))),
+        plain_ms=time_ms(lambda: warp_zy_plain(vols, table, (z, y))),
+        bound_ms=bms_w, bound_by=bby_w, library_ms=time_ms(library_zy))
+    print(f"E warp_zy, one row per volume (batch {T_LAPSE}): rel err {err:.3g}, grid_sample "
+          f"within {lib_err:.3g}, " + describe(records["warp_zy_per_volume"]))
+    del img, grid_zy, inter_p
+    out_p = warp_x_plain(inter, table, x, LAPSE_SHAPE)
+    err_abs, err = rel_err(warp_x(inter, table, x, LAPSE_SHAPE), out_p)
+    require(err <= WARP_TOL, f"per-volume F on translations: rel err {err:.3g}")
+    records["warp_x_per_volume"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:430",
+        source="biahub_tpu_torch/csrc/warp.cu", counter="warp_x", runs=launches_s,
+        max_abs_err=err_abs, ms=time_ms(lambda: warp_x(inter, table, x, LAPSE_SHAPE)),
+        plain_ms=time_ms(lambda: warp_x_plain(inter, table, x, LAPSE_SHAPE)),
+        bound_ms=bms_w, bound_by=bby_w, library_ms=None)
+    print(f"F warp_x, one row per volume (batch {T_LAPSE}): rel err {err:.3g}, "
+          + describe(records["warp_x_per_volume"]))
+    records["z_cross"].update(runs=launches_e)
+    del lapse, vols, inter, out_p, base
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -438,13 +725,24 @@ def main() -> int:
     print(f"chain: rel err {chain_err:.3g} vs the plain chain (tol {FFT_TOL}); uint16 "
           "input bit-exact vs its float32 copy; the xzy route bit-equal to the zyx route")
     print(f"chain launches (float32 batch of {BATCH}): {launches_c}; xzy route: {launches_x}")
+    for name, ms in RECORDED_WARP_MS.items():
+        print(f"chain {name} with one coefficient set: {records[name]['ms']:.4f} ms per "
+              f"batch of {BATCH} (PERF.md: {ms}, {records[name]['ms'] / ms - 1:+.1%})")
+    del vols_f, vols_u, out_c, out_cu, out_x, chain, step
+    torch.cuda.empty_cache()
+    for rec in records.values():
+        rec["runs"] = launches_c
+    records["deskew_xzy"]["runs"] = launches_x
 
-    # -- 5. the per-kernel line: launches from the chain's run, D's xzy store's
-    # from the xzy route's --------------------------------------------------
-    for name in records:
-        runs = launches_x if name == "deskew_xzy" else launches_c
-        require(runs.get(name, 0) >= 1, f"kernel {name} was not launched on its path")
-        records[name]["launches"] = runs[name]
+    stabilization_phases(dev, records)
+
+    # -- the per-kernel line: launches from each kernel's path (the chain's,
+    # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
+    # the per-volume E and F from stabilize) --------------------------------
+    for name, rec in records.items():
+        counter = rec.get("counter", name)
+        require(rec["runs"].get(counter, 0) >= 1, f"kernel {name} was not launched on its path")
+        rec["launches"] = rec["runs"][counter]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": rec["source"], "replaces": rec["replaces"],
          "launches": rec["launches"], "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
