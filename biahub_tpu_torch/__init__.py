@@ -19,7 +19,11 @@ arrays in memory: estimate-stabilization
 estimate_stabilization_arrays`: phase cross-correlation through kernels A,
 Bx and C, focus finding) and stabilize
 (:func:`~biahub_tpu_torch.stabilize.stabilize_tczyx`: kernels E and F with
-one matrix per volume).
+one matrix per volume, or the multipass warp's kernel H for general 3D
+matrices). Bead detection (kernel G, :func:`~biahub_tpu_torch.kernels.peaks.
+detect_peaks`) serves estimate-stabilization's ``beads`` method
+(:mod:`biahub_tpu_torch.registration.beads`) and estimate-psf
+(:func:`~biahub_tpu_torch.estimate_psf.estimate_psf_arrays`).
 """
 
 from biahub_tpu_torch.convert import (
@@ -28,12 +32,14 @@ from biahub_tpu_torch.convert import (
     stabilization_settings_from_reference,
 )
 from biahub_tpu_torch.device import gpu_info, resolve_device
+from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
 from biahub_tpu_torch.estimate_stabilization import (
     ArrayPosition,
     estimate_stabilization_arrays,
 )
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
+    affine_warp_zyx,
     inplane_affine_warp_zyx,
     inplane_affine_warp_zyx_batched,
     translation_warp_zyx,
@@ -44,12 +50,17 @@ from biahub_tpu_torch.kernels.chain import (
     deconvolve_deskew_warp_batched,
     deskew_then_warp,
 )
+from biahub_tpu_torch.kernels.multipass_warp import (
+    multipass_affine_warp_zyx,
+    multipass_affine_warp_zyx_batched,
+)
 from biahub_tpu_torch.kernels.pcc import (
     pcc_corr,
     phase_cross_corr,
     phase_cross_corr_padding,
     subpixel_shift_2d,
 )
+from biahub_tpu_torch.kernels.peaks import detect_peaks
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
@@ -59,6 +70,11 @@ __all__ = [
     "module_from_reference",
     "chain_from_reference",
     "affine_warp_auto",
+    "affine_warp_zyx",
+    "multipass_affine_warp_zyx",
+    "multipass_affine_warp_zyx_batched",
+    "detect_peaks",
+    "estimate_psf_arrays",
     "inplane_affine_warp_zyx",
     "inplane_affine_warp_zyx_batched",
     "deskew_then_warp",

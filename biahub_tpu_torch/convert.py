@@ -21,7 +21,8 @@ import torch
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 
 __all__ = ["module_from_reference", "chain_from_reference",
-           "stabilization_settings_from_reference"]
+           "stabilization_settings_from_reference", "beads_match_settings_from_reference",
+           "affine_transform_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -295,14 +296,104 @@ _AFFINE_TRANSFORM = _model({
     "use_prev_t_transform": (True, _lax_bool),
     "compute_approx_transform": (False, _lax_bool),
 })
+_DETECT_PEAKS = _model({
+    "threshold_abs": (110, _lax_number(float)),
+    "nms_distance": (16, _lax_number(int)),
+    "min_distance": (0, _lax_number(int)),
+    "block_size": (lambda: [8, 8, 8], _int_list),
+})
+_EDGE_GRAPH_METHODS = _literal("knn", "radius", "full")
+
+
+def _edge_graph(d, name):
+    """``EdgeGraphSettings``: a plain pydantic model (unknown fields are
+    dropped, not refused), with the method's defaults applied and the other
+    methods' fields cleared."""
+    if not isinstance(d, dict):
+        raise ValueError(f"{name}: want a mapping, got {d!r}")
+    method = _EDGE_GRAPH_METHODS(d.get("method", "knn"), f"{name}.method")
+    k = _optional(_lax_number(int))(d.get("k"), f"{name}.k")
+    radius = _optional(_lax_number(float))(d.get("radius"), f"{name}.radius")
+    if method == "knn":
+        return {"method": method, "k": 5 if k is None else k, "radius": None}
+    if method == "radius":
+        return {"method": method, "k": None, "radius": 30.0 if radius is None else radius}
+    return {"method": method, "k": None, "radius": None}
+
+
+def _weights(v, name):
+    if not isinstance(v, dict) or not all(isinstance(k, str) for k in v):
+        raise ValueError(f"{name}: want a mapping of names to numbers, got {v!r}")
+    return {k: _lax_number(float)(w, f"{name}.{k}") for k, w in v.items()}
+
+
+_METRIC = ("euclidean", _literal("euclidean", "cosine", "cityblock"))
+_COST_MATRIX = _model({
+    "weights": (lambda: {"dist": 0.5, "edge_angle": 1.0, "edge_length": 1.0,
+                         "pca_dir": 0.0, "pca_aniso": 0.0, "edge_descriptor": 0.0},
+                _weights),
+    "normalize": (False, _lax_bool),
+})
+_HUNGARIAN_MATCH = _model({
+    "distance_metric": _METRIC,
+    "cost_threshold": (0.10, _lax_number(float)),
+    "max_ratio": (0.8, _lax_number(float)),
+    "cross_check": (False, _lax_bool),
+    "edge_graph_settings": (lambda: _edge_graph({}, "edge_graph_settings"), _edge_graph),
+    "cost_matrix_settings": (lambda: _COST_MATRIX({}, "cost_matrix_settings"),
+                             _COST_MATRIX),
+})
+_MATCH_DESCRIPTOR = _model({
+    "distance_metric": _METRIC,
+    "max_ratio": (0.8, _lax_number(float)),
+    "cross_check": (False, _lax_bool),
+})
+_FILTER_MATCHES = _model({
+    "angle_threshold": (0, _lax_number(float)),
+    "direction_threshold": (0, _lax_number(float)),
+    "min_distance_quantile": (0.01, _lax_number(float)),
+    "max_distance_quantile": (0.95, _lax_number(float)),
+})
+_QC_BEADS = _model({
+    "iterations": (2, _lax_number(int)),
+    "score_threshold": (0.40, _lax_number(float)),
+    "score_centroid_mask_radius": (6, _lax_number(int)),
+})
+_BEADS_MATCH = _model({
+    "algorithm": ("hungarian", _literal("hungarian", "match_descriptor")),
+    "source_peaks_settings": (lambda: _DETECT_PEAKS({}, "source_peaks_settings"),
+                              _optional(_DETECT_PEAKS)),
+    "target_peaks_settings": (lambda: _DETECT_PEAKS({}, "target_peaks_settings"),
+                              _optional(_DETECT_PEAKS)),
+    "match_descriptor_settings": (lambda: _MATCH_DESCRIPTOR({}, "match_descriptor_settings"),
+                                  _MATCH_DESCRIPTOR),
+    "hungarian_match_settings": (lambda: _HUNGARIAN_MATCH({}, "hungarian_match_settings"),
+                                 _HUNGARIAN_MATCH),
+    "filter_matches_settings": (lambda: _FILTER_MATCHES({}, "filter_matches_settings"),
+                                _FILTER_MATCHES),
+    "qc_settings": (lambda: _QC_BEADS({}, "qc_settings"), _QC_BEADS),
+})
+
+
+def beads_match_settings_from_reference(settings: dict | None = None) -> dict:
+    """``BeadsMatchSettings`` (settings.py:150-234) as a plain dict,
+    validated and defaulted as the model and its nested models do; reads
+    back unchanged."""
+    return _BEADS_MATCH(settings or {}, "beads_match_settings")
+
+
+def affine_transform_settings_from_reference(settings: dict | None = None) -> dict:
+    """``AffineTransformSettings`` (settings.py:274-286) as a plain dict."""
+    return _AFFINE_TRANSFORM(settings or {}, "affine_transform_settings")
+
+
 _ESTIMATE_STABILIZATION = _model({
     "stabilization_estimation_channel": (_REQUIRED, _typed(str)),
     "stabilization_channels": (_REQUIRED, _typed(list)),
     "stabilization_type": (_REQUIRED, _literal("z", "xy", "xyz")),
     "stabilization_method": ("focus-finding",
                              _literal("beads", "phase-cross-corr", "focus-finding")),
-    # Beads are not ported (ROADMAP queue 1 item 3): kept as given.
-    "beads_match_settings": (None, _optional(_typed(dict))),
+    "beads_match_settings": (None, _optional(_BEADS_MATCH)),
     "phase_cross_corr_settings": (None, _optional(_PHASE_CROSS_CORR)),
     "stack_reg_settings": (None, _optional(_STACK_REG)),
     "focus_finding_settings": (None, _optional(_FOCUS_FINDING)),
@@ -317,16 +408,16 @@ def stabilization_settings_from_reference(settings: dict) -> dict:
     """estimate-stabilization's settings as a plain dict, validated and
     defaulted as ``EstimateStabilizationSettings`` and its nested
     ``PhaseCrossCorrSettings``, ``FocusFindingSettings``,
-    ``StackRegSettings`` and ``EvalTransformSettings`` do (settings.py:
-    237-340): literals checked, unknown fields refused, and the method's
-    settings block created with its defaults when absent. The result has
-    the layout of the reference model's ``model_dump()`` and reads back
-    unchanged. ``beads_match_settings`` is kept as given (beads are not
-    ported)."""
+    ``StackRegSettings``, ``EvalTransformSettings``,
+    ``AffineTransformSettings`` and ``BeadsMatchSettings`` with its nested
+    models do (settings.py:150-340): literals checked, unknown fields
+    refused, and the method's settings block created with its defaults when
+    absent. The result has the layout of the reference model's
+    ``model_dump()`` and reads back unchanged."""
     out = _ESTIMATE_STABILIZATION(settings, "estimate-stabilization settings")
     method, kind = out["stabilization_method"], out["stabilization_type"]
     if method == "beads" and out["beads_match_settings"] is None:
-        out["beads_match_settings"] = {}
+        out["beads_match_settings"] = beads_match_settings_from_reference()
     elif method == "phase-cross-corr" and out["phase_cross_corr_settings"] is None:
         out["phase_cross_corr_settings"] = _PHASE_CROSS_CORR({}, "phase_cross_corr_settings")
     elif method == "focus-finding":

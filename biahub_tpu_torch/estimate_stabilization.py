@@ -1,7 +1,7 @@
 """estimate-stabilization on arrays in memory: per-position drift transforms.
 
-Counterpart of ``biahub_tpu/estimate_stabilization.py`` for the three
-methods that need no beads:
+Counterpart of ``biahub_tpu/estimate_stabilization.py`` for its four
+methods:
 
 - focus-finding, z: the in-focus z-index per timepoint from transverse
   mid-band power (:mod:`biahub_tpu_torch.kernels.focus`);
@@ -9,14 +9,16 @@ methods that need no beads:
   slices;
 - phase-cross-corr, xyz: volumetric PCC of every timepoint against the
   first or the previous one, through kernels A, Bx and C
-  (:mod:`biahub_tpu_torch.kernels.pcc`).
+  (:mod:`biahub_tpu_torch.kernels.pcc`);
+- beads, xyz: bead detection, matching and fitting on the first position
+  (:mod:`biahub_tpu_torch.registration.beads`; kernels G and H).
 
 Each per-position function takes a *position-like* object: anything with
 ``.data`` (an indexable (T, C, Z, Y, X) array: numpy or a tensor),
 ``.scale`` and ``.channel_names``, the only attributes the reference's
 per-position functions read. :class:`ArrayPosition` is one in memory. The
 OME-Zarr reader, the CSV, YAML and plot outputs and the CLI wait for the
-I/O layer (ROADMAP queue 1); ``beads`` waits for queue 1 item 3.
+I/O layer (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from biahub_tpu_torch.kernels.pcc import (
     pcc_shifts_vs_first,
     subpixel_shift_2d,
 )
+from biahub_tpu_torch.registration.beads import estimate_tczyx
 from biahub_tpu_torch.registration.utils import evaluate_transforms
 
 __all__ = [
@@ -414,10 +417,16 @@ def estimate_stabilization_arrays(
         fov_focus = _focus_per_position(chosen, channel_index, focus_settings, verbose, dev)
         return fov_focus, _z_dict(fov_focus, focus_settings)
 
-    if method == "beads":
-        raise NotImplementedError(
-            "biahub_tpu_torch: estimate-stabilization with beads needs peak "
-            "detection and bead matching, not ported yet (ROADMAP queue 1 item 3)")
+    if kind == "xyz" and method == "beads":
+        # The first position is the beads FOV; its transforms are the run's.
+        key, pos = next(iter(positions.items()))
+        transforms = estimate_tczyx(
+            mov_tczyx=pos.data, ref_tczyx=pos.data, mov_channel_index=channel_index,
+            ref_channel_index=channel_index,
+            beads_match_settings=s["beads_match_settings"],
+            affine_transform_settings=s["affine_transform_settings"],
+            verbose=verbose, mode="stabilization", device=dev)
+        return {"xyz": evaluate({_fov_name(key): transforms})}
     if kind == "xyz" and method == "focus-finding":
         fov_focus, z_dict = z_focus()
         xy = xy_dict(s["stack_reg_settings"], fov_focus)

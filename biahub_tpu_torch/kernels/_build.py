@@ -26,7 +26,7 @@ import torch
 __all__ = ["SOURCES", "build", "library", "check", "on_card", "launch_counts",
            "count_launch", "reset_launch_counts", "ptr", "stream_of"]
 
-SOURCES = ("fft", "deskew", "warp")
+SOURCES = ("fft", "deskew", "warp", "peaks", "multipass")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

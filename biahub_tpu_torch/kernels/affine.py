@@ -27,9 +27,12 @@ counterpart of the reference's ``make_batched_inplane_kernel``, affine.py:
 mask included. Pure translations also have the reference's separable warp,
 :func:`translation_warp_zyx` (affine.py:629).
 
-General 3D affines and order 3 need the multipass warp, which is not ported
-yet (ROADMAP queue 1, "General 3D warps"): they raise
-``NotImplementedError``.
+Other matrices take the general branch of the reference's
+``affine_warp_auto`` (affine.py:609-625): order 1 the multipass warp
+(:mod:`biahub_tpu_torch.kernels.multipass_warp`, kernel H), and the exact
+8-corner gather :func:`affine_warp_zyx` (torch ops, XLA in the reference)
+when a pivot vanishes or for order 0 (any other order takes its trilinear
+sample, as the reference's does).
 """
 
 from __future__ import annotations
@@ -54,8 +57,9 @@ __all__ = [
     "translation_matrix",
     "translation_warp_zyx",
     "translation_warp_zyx_batched",
+    "exact_domain_mask_general",
+    "affine_warp_zyx",
     "affine_warp_auto",
-    "require_inplane",
 ]
 
 # inplane_coefficients' layout: pass 1's z and y coefficient triples, pass
@@ -349,6 +353,72 @@ def translation_warp_zyx(
     )[0]
 
 
+def exact_domain_mask_general(matrices, in_shape, out_shape, device) -> torch.Tensor:
+    """(B, Zo, Yo, Xo) bool for a (B, 4, 4) stack (or (Zo, Yo, Xo) for one
+    4x4): True where the output voxel's exact input coordinate lies inside
+    the ``in_shape`` domain on all three axes, ``c_i = ((m[i,0]*zo +
+    m[i,1]*yo) + m[i,2]*xo) + m[i,3]`` in float32 from the float32 matrix
+    (the reference's ``_exact_domain_mask``, affine.py:246)."""
+    mats = np.asarray(matrices, dtype=np.float64)
+    one = mats.ndim == 2
+    m = torch.tensor(mats.reshape(-1, 4, 4).astype(np.float32), device=device)
+    zo = _ramp(out_shape[0], device)[None, :, None, None]
+    yo = _ramp(out_shape[1], device)[None, None, :, None]
+    xo = _ramp(out_shape[2], device)[None, None, None, :]
+    inside = None
+    for ax in range(3):
+        a = m[:, ax].reshape(-1, 4, 1, 1, 1)
+        c = ((a[:, 0] * zo + a[:, 1] * yo) + a[:, 2] * xo) + a[:, 3]
+        ok = (c >= 0) & (c <= in_shape[ax] - 1)
+        inside = ok if inside is None else inside & ok
+    return inside[0] if one else inside
+
+
+def affine_warp_zyx(
+    volume,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    order: int = 1,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """The exact warp of one (Z, Y, X) volume by an output->input ``matrix``
+    -> (Zo, Yo, Xo) float32, as torch ops (the reference's
+    ``affine_warp_zyx``, affine.py:85, an XLA gather): nearest neighbour for
+    order 0, else the 8-corner trilinear sample, and scipy's constant fill
+    where the input coordinate leaves the domain. Coordinates are float32
+    from the float32 matrix, ``((m[i,0]*zo + m[i,1]*yo) + m[i,2]*xo) +
+    m[i,3]``."""
+    dev = resolve_device(device)
+    data = as_tensor(volume, dev)
+    zi_n, yi_n, xi_n = data.shape
+    m = torch.tensor(matrix_4x4(matrix).astype(np.float32), device=dev)
+    zo = _ramp(output_shape[0], dev)[:, None, None]
+    yo = _ramp(output_shape[1], dev)[None, :, None]
+    xo = _ramp(output_shape[2], dev)[None, None, :]
+    zi, yi, xi = (((m[a, 0] * zo + m[a, 1] * yo) + m[a, 2] * xo) + m[a, 3] for a in range(3))
+    fillv = torch.tensor(float(fill), dtype=torch.float32, device=dev)
+    in_domain = ((zi >= 0) & (zi <= zi_n - 1) & (yi >= 0) & (yi <= yi_n - 1)
+                 & (xi >= 0) & (xi <= xi_n - 1))
+    if order == 0:
+        sample = data[torch.round(zi).to(torch.int64).clamp(0, zi_n - 1),
+                      torch.round(yi).to(torch.int64).clamp(0, yi_n - 1),
+                      torch.round(xi).to(torch.int64).clamp(0, xi_n - 1)]
+        return torch.where(in_domain, sample, fillv)
+    z0, y0, x0 = torch.floor(zi), torch.floor(yi), torch.floor(xi)
+    fz, fy, fx = zi - z0, yi - y0, xi - x0
+    z0, y0, x0 = z0.to(torch.int64), y0.to(torch.int64), x0.to(torch.int64)
+    wz, wy, wx = (1.0 - fz, fz), (1.0 - fy, fy), (1.0 - fx, fx)
+    out = torch.zeros(tuple(int(s) for s in output_shape), dtype=torch.float32, device=dev)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                corner = data[(z0 + dz).clamp(0, zi_n - 1), (y0 + dy).clamp(0, yi_n - 1),
+                              (x0 + dx).clamp(0, xi_n - 1)]
+                out = out + wz[dz] * wy[dy] * wx[dx] * corner
+    return torch.where(in_domain, out, fillv)
+
+
 def affine_warp_auto(
     volume,
     matrix,
@@ -358,28 +428,29 @@ def affine_warp_auto(
     input_xzy: bool = False,
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
-    """Warp one volume by ``matrix`` with the port's kernel for it.
+    """Warp one volume by ``matrix`` with the port's kernel for it (the
+    reference's ``affine_warp_auto``, affine.py:560-625).
 
-    Every in-plane matrix, pure translations included, takes the in-plane
-    warp: for a translation its coefficients are the reference's separable
-    translation warp's (``translation_warp_zyx``), and its mask is that
-    warp's per-axis fill. General 3D affines and order 3 raise
-    ``NotImplementedError`` until the multipass warp is ported.
+    Order 1: every in-plane matrix, pure translations included, takes the
+    in-plane warp (for a translation its coefficients are the reference's
+    separable translation warp's, and its mask is that warp's per-axis
+    fill); any other matrix the multipass warp, or the exact gather when a
+    pivot vanishes. Other orders take the exact gather. ``input_xzy``: the
+    volume arrives as (X, Z, Y); only the in-plane warp reads it as it is.
     """
-    m = require_inplane(matrix, order)
-    return inplane_affine_warp_zyx(volume, m, output_shape, fill, input_xzy, device)
-
-
-def require_inplane(matrix, order: int = 1) -> np.ndarray:
-    """``matrix`` as a 4x4; raises ``NotImplementedError`` unless it is an
-    in-plane matrix and ``order`` is 1, the warps the port has kernels
-    for."""
+    dev = resolve_device(device)
     m = matrix_4x4(matrix)
-    if order != 1 or not is_inplane_matrix(m):
-        raise NotImplementedError(
-            "biahub_tpu_torch: only order-1 in-plane (z-decoupled) warps are "
-            "ported; general 3D affines and order 3 need the multipass warp "
-            "(ROADMAP queue 1, 'General 3D warps'), not ported yet "
-            f"(order={order}, matrix=\n{m})"
-        )
-    return m
+    out_shape = tuple(int(s) for s in output_shape)
+    if order == 1 and is_inplane_matrix(m):
+        return inplane_affine_warp_zyx(volume, m, out_shape, fill, input_xzy, dev)
+    data = as_tensor(volume, dev)
+    if input_xzy:
+        data = data.permute(1, 2, 0).contiguous()
+    if order == 1:
+        from biahub_tpu_torch.kernels.multipass_warp import multipass_affine_warp_zyx
+
+        try:
+            return multipass_affine_warp_zyx(data, m, out_shape, fill, device=dev)
+        except ValueError:
+            pass  # a vanishing pivot (e.g. a 90 degree rotation): the exact gather
+    return affine_warp_zyx(data, m, out_shape, fill, order, dev)

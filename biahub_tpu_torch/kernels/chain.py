@@ -11,7 +11,9 @@ Counterpart of ``biahub_tpu/kernels/chain.py``:
   ``deskew_then_warp``: the deskew keeps Y reversed (``skip_flip``) and its
   flip rides the in-plane warp's matrix, ``flip_y_matrix(Y) @ M``
   (chain.py:299-304, :521); kernels E and F then warp the whole batch once
-  each (:func:`run_chain_warp`).
+  each (:func:`run_chain_warp`). A general 3D matrix takes the reference's
+  other route (chain.py:439-472): the deskew in the zyx store, then the
+  multipass warp, kernel H (:func:`run_chain_warp_general`).
 
 On the CPU the same wrappers run their plain versions. uint16 volumes go
 into pass A as they are.
@@ -25,9 +27,10 @@ import torch
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
+    affine_warp_zyx,
     inplane_coefficients,
+    is_inplane_matrix,
     matrix_4x4,
-    require_inplane,
 )
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
 from biahub_tpu_torch.kernels.deskew import (
@@ -51,9 +54,11 @@ __all__ = [
     "deskew_then_warp",
     "deconvolve_deskew_warp",
     "deconvolve_deskew_warp_batched",
+    "chain_warp_matrix",
     "chain_warp_coefficients",
     "run_chain",
     "run_chain_warp",
+    "run_chain_warp_general",
 ]
 
 
@@ -91,6 +96,27 @@ def run_chain_warp(volumes: torch.Tensor, filt: torch.Tensor, geo: DeskewGeometr
     return warp_x(inter, coeffs, x_out, geo.out_shape, fill)
 
 
+def run_chain_warp_general(volumes: torch.Tensor, filt: torch.Tensor,
+                           geo: DeskewGeometry, matrix: np.ndarray, output_shape,
+                           fill: float = 0.0) -> torch.Tensor:
+    """:func:`run_chain` (``geo.skip_flip`` set), then a general 3D warp of
+    the batch by ``matrix`` (:func:`chain_warp_matrix`) -> (B, Zo, Yo, Xo)
+    float32: the multipass warp with the one matrix for every volume (H
+    once per canonical slot), or the exact gather when a pivot vanishes,
+    as the reference's ``affine_warp_auto`` warps each volume."""
+    from biahub_tpu_torch.kernels.multipass_warp import multipass_affine_warp_zyx_batched
+
+    out_shape = tuple(int(s) for s in output_shape)
+    deskewed = run_chain(volumes, filt, geo)
+    try:
+        return multipass_affine_warp_zyx_batched(
+            deskewed, np.stack([matrix] * len(deskewed)), out_shape, fill,
+            device=deskewed.device)
+    except ValueError:  # a vanishing pivot
+        return torch.stack([affine_warp_zyx(v, matrix, out_shape, fill, device=v.device)
+                            for v in deskewed])
+
+
 def flip_y_matrix(y_size: int) -> np.ndarray:
     """OUTPUT->INPUT affine flipping the Y axis of a ``y_size`` volume."""
     f = np.eye(4)
@@ -99,13 +125,17 @@ def flip_y_matrix(y_size: int) -> np.ndarray:
     return f
 
 
+def chain_warp_matrix(matrix, geo: DeskewGeometry) -> np.ndarray:
+    """``flip_y_matrix(Y_out) @ matrix``: the warp ``matrix`` of the
+    standard deskewed frame, applied to the deskew that keeps Y reversed
+    (``skip_flip``)."""
+    return flip_y_matrix(geo.zyx_shape[2]) @ matrix_4x4(matrix)
+
+
 def chain_warp_coefficients(matrix, geo: DeskewGeometry) -> torch.Tensor:
-    """The in-plane coefficients of ``flip_y_matrix(Y_out) @ matrix``: the
-    warp ``matrix`` of the standard deskewed frame, applied to the deskew
-    that keeps Y reversed (``skip_flip``). Raises ``NotImplementedError``
-    for a matrix that is not in-plane (the multipass warp is not ported)."""
-    return inplane_coefficients(
-        require_inplane(flip_y_matrix(geo.zyx_shape[2]) @ matrix_4x4(matrix)))
+    """The in-plane coefficients of :func:`chain_warp_matrix`; raises
+    ValueError for a matrix that is not in-plane."""
+    return inplane_coefficients(chain_warp_matrix(matrix, geo))
 
 
 def deconvolve_then_deskew_batched(
@@ -196,8 +226,9 @@ def deconvolve_deskew_warp_batched(
     device: str | torch.device = "cuda",
 ) -> torch.Tensor:
     """Deconvolve, deskew and warp a (B, Z, Y, X) batch -> (B, Zo, Yo, Xo)
-    float32 (chain.py:475). ``matrix``: an in-plane output->input affine of
-    the standard deskewed frame (register and stabilize composed);
+    float32 (chain.py:475). ``matrix``: an output->input affine of the
+    standard deskewed frame (register and stabilize composed), in-plane
+    (kernels E and F) or general (:func:`run_chain_warp_general`);
     ``output_shape`` defaults to the deskewed (groups, Y_out, X_out);
     ``prepared``: a hoisted
     :func:`~biahub_tpu_torch.kernels.fft.prepare_fourier_filter` result."""
@@ -206,11 +237,14 @@ def deconvolve_deskew_warp_batched(
     zyx = tuple(data.shape[1:])
     geo = deskew_geometry(zyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
                           average_window, skip_flip=True)
-    coeffs = chain_warp_coefficients(matrix, geo).to(dev)
+    m = chain_warp_matrix(matrix, geo)
     filt = prepared if prepared is not None else prepare_fourier_filter(
         zyx, transfer_function_half, regularization_strength, dev
     )
     out_shape = output_shape if output_shape is not None else geo.out_shape
+    if not is_inplane_matrix(m):
+        return run_chain_warp_general(data, filt.to(dev), geo, m, out_shape, fill)
+    coeffs = inplane_coefficients(m).to(dev)
     return run_chain_warp(data, filt.to(dev), geo, coeffs, out_shape, fill)
 
 

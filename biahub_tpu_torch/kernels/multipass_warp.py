@@ -1,0 +1,360 @@
+"""General 3D affine warp as a product of elementary resampling passes.
+
+Counterpart of the forward half of ``biahub_tpu/kernels/multipass_warp.py``:
+an affine's linear part factors (LU) into the fixed :data:`CANONICAL_SLOTS`
+of elementary passes, each resampling ONE axis r at ``(cr*i_r + tau) +
+co*i_o``; all passes run in one common integer frame, the union box of
+every stage's sampling range with a 2-voxel margin, into which the volume
+is embedded by edge replication; the output is a slice of the last stage,
+and the exact constant-fill mask of the original matrix (a general 3x4
+form of :func:`~biahub_tpu_torch.kernels.affine.exact_domain_mask_general`)
+gives scipy's fill. Each pass is Catmull-Rom (order 3) by default.
+
+One pass is kernel H (``csrc/multipass.cu``, through
+:mod:`biahub_tpu_torch.kernels.multipass_cuda`) for a CUDA tensor and
+:func:`resample_pass_plain` for a CPU tensor. Its coefficients are a device
+table: one row set for a single concrete matrix, or a (B, 7, 3) table, one
+row set per volume, for the batched form (the reference's
+``make_batched_multipass_kernel``).
+
+Not ported yet: the traced warp with its custom VJP
+(``make_traced_multipass_warp``, ``_pallas_pass_ad``) and the chunked
+warps.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from biahub_tpu_torch.device import as_tensor, resolve_device
+
+__all__ = [
+    "CANONICAL_SLOTS",
+    "factor_affine",
+    "common_frame_bytes",
+    "resample_pass_plain",
+    "multipass_affine_warp_zyx",
+    "multipass_affine_warp_zyx_batched",
+    "union_frame",
+]
+
+
+def _pass_matrix(r: int, o: int, cr: float, co: float, tau: float) -> np.ndarray:
+    e = np.eye(4)
+    e[r, r] = cr
+    if o != r:
+        e[r, o] = co
+    e[r, 3] = tau
+    return e
+
+
+# Fixed slot order shared by every factorization: the batched warp runs one
+# pass per slot with a coefficient row per volume, so all matrices of a
+# batch take the same passes (identity slots are exact no-ops).
+CANONICAL_SLOTS: tuple[tuple[int, int], ...] = (
+    (1, 0), (2, 0), (2, 1),  # L = E(1,0) E(2,0) E(2,1) exactly
+    (0, 1), (0, 2), (1, 2), (2, 2),  # U row passes + final z scale
+)
+
+
+def _factor_canonical(matrix: np.ndarray) -> list[list[float]]:
+    """Factor into the 7 CANONICAL_SLOTS passes; returns [cr, co, tau] each.
+
+    The product of the slot pass matrices in order equals ``matrix``. Raises
+    ValueError on vanishing pivots (e.g. exact 90-degree rotations)."""
+    m = np.asarray(matrix, dtype=np.float64)
+    a = m[:3, :3]
+    if abs(np.linalg.det(a)) < 1e-12:
+        raise ValueError("Singular linear part")
+
+    lower = np.eye(3)
+    upper = a.copy()
+    for col in range(2):
+        if abs(upper[col, col]) < 1e-9:
+            raise ValueError("Zero pivot; permute axes before factoring")
+        for row in range(col + 1, 3):
+            f = upper[row, col] / upper[col, col]
+            lower[row, col] = f
+            upper[row] -= f * upper[col]
+    u00, u01, u02 = upper[0]
+    u11, u12 = upper[1, 1], upper[1, 2]
+    u22 = upper[2, 2]
+    if abs(u11) < 1e-9 or abs(u22) < 1e-9 or abs(u00) < 1e-9:
+        raise ValueError("Zero pivot; permute axes before factoring")
+
+    # U = E(0,1,u00,alpha) E(0,2,1,beta) E(1,2,u11,gamma) D(2,u22).
+    alpha = u01 / u11
+    gamma = u12 / u22
+    beta = (u02 / u22 - alpha * gamma) / u00
+    coeffs = [
+        [1.0, float(lower[1, 0]), 0.0],
+        [1.0, float(lower[2, 0]), 0.0],
+        [1.0, float(lower[2, 1]), 0.0],
+        [float(u00), float(alpha), 0.0],
+        [1.0, float(beta), 0.0],
+        [float(u11), float(gamma), 0.0],
+        [float(u22), 0.0, 0.0],
+    ]
+
+    # Translations: each axis's unknown goes to the first slot on its row
+    # (slots 0, 1, 3 for rows 1, 2, 0); the prefix-column system is
+    # solvable for nonsingular linear parts.
+    first_for_row = {1: 0, 2: 1, 0: 3}
+    rows = sorted(first_for_row)
+    cols = []
+    for row_axis in rows:
+        slot = first_for_row[row_axis]
+        prefix = np.eye(4)
+        for (r, o), (cr, co, tau) in zip(CANONICAL_SLOTS[:slot], coeffs[:slot]):
+            prefix = prefix @ _pass_matrix(r, o, cr, co, tau)
+        cols.append(prefix[:3, row_axis])
+    taus = np.linalg.solve(np.stack(cols, axis=1), m[:3, 3])
+    for row_axis, tau in zip(rows, taus):
+        coeffs[first_for_row[row_axis]][2] = float(tau)
+
+    full = np.eye(4)
+    for (r, o), (cr, co, tau) in zip(CANONICAL_SLOTS, coeffs):
+        full = full @ _pass_matrix(r, o, cr, co, tau)
+    if not np.allclose(full, m, atol=1e-6):
+        raise ValueError("Affine factorization self-check failed")
+    return coeffs
+
+
+def factor_affine(matrix: np.ndarray) -> list[tuple[int, int, float, float, float]]:
+    """Factor a 4x4 affine into elementary (r, o, cr, co, tau) passes whose
+    product in list order is ``matrix``, exact identity slots dropped.
+    Raises ValueError on vanishing pivots."""
+    coeffs = _factor_canonical(matrix)
+    passes = [
+        (r, o, cr, co, tau)
+        for (r, o), (cr, co, tau) in zip(CANONICAL_SLOTS, coeffs)
+        if not (cr == 1.0 and (o == r or co == 0.0) and tau == 0.0)
+    ]
+    return passes or [(0, 0, 1.0, 0.0, 0.0)]
+
+
+def _coord_bounds(passes, in_shape, out_shape) -> tuple[np.ndarray, np.ndarray]:
+    """Float (lo, hi) coordinate bounds any stage touches, the input extent
+    included: each stage's sampling box, back-propagated from the output
+    box through the passes."""
+    in_shape = np.asarray(in_shape)
+    out_shape = np.asarray(out_shape)
+    n = len(passes)
+    boxes = [None] * (n + 1)
+    boxes[n] = (np.zeros(3), out_shape.astype(np.float64) - 1)
+    for k in range(n - 1, -1, -1):
+        r, o, cr, co, tau = passes[k]
+        lo, hi = boxes[k + 1]
+        vals = [
+            cr * v + (co * w if o != r else 0.0) + tau
+            for v in (lo[r], hi[r])
+            for w in ((lo[o], hi[o]) if o != r else (0.0,))
+        ]
+        new_lo, new_hi = lo.copy(), hi.copy()
+        new_lo[r], new_hi[r] = min(vals), max(vals)
+        boxes[k] = (new_lo, new_hi)
+    los = np.stack([b[0] for b in boxes] + [np.zeros(3)])
+    his = np.stack([b[1] for b in boxes] + [in_shape.astype(np.float64) - 1])
+    return los.min(axis=0), his.max(axis=0)
+
+
+def _frame_from_bounds(lo: np.ndarray, hi: np.ndarray):
+    """(offset, frame shape): common index = coordinate - offset, with 2
+    margin voxels per side for the Catmull-Rom taps."""
+    off = np.floor(lo).astype(int) - 2
+    size = (np.ceil(hi).astype(int) - off) + 4
+    return off, tuple(int(s) for s in size)
+
+
+def _slot_passes(coeffs):
+    return [(r, o, cr, co, tau) for (r, o), (cr, co, tau) in zip(CANONICAL_SLOTS, coeffs)]
+
+
+def common_frame_bytes(matrices, in_shape, out_shape) -> int:
+    """Per-volume device working footprint of the batched multipass warp:
+    two float32 frames of the union box of every matrix's bounds (the
+    reference's ``common_frame_bytes``). 0 when no matrix needs the frame
+    (all translations or in-plane, or none factorable)."""
+    from biahub_tpu_torch.kernels.affine import is_inplane_matrix, is_translation_matrix
+
+    mats = np.asarray(matrices, dtype=np.float64).reshape(-1, 4, 4)
+    if all(is_translation_matrix(m) or is_inplane_matrix(m) for m in mats):
+        return 0
+    factorable = []
+    for m in mats:
+        try:
+            _factor_canonical(m)
+        except ValueError:  # vanishing pivot: the exact gather, no frame
+            continue
+        factorable.append(m)
+    if not factorable:
+        return 0
+    _, frame_shape = union_frame(factorable, in_shape, out_shape)
+    return 2 * 4 * int(np.prod(frame_shape))
+
+
+def _tau_eff(r, o, cr, co, tau, off) -> float:
+    """The pass's offset in common-frame indices (coordinate - off)."""
+    return cr * off[r] + (co * off[o] if o != r else 0.0) + tau - off[r]
+
+
+def _axis_ramp(n: int, axis: int, device) -> torch.Tensor:
+    shape = [1, 1, 1, 1]
+    shape[axis + 1] = n
+    return torch.arange(n, dtype=torch.float32, device=device).reshape(shape)
+
+
+def resample_pass_plain(src: torch.Tensor, coeffs: torch.Tensor, slot: int, r: int,
+                        o: int, order: int = 3, fill: float = 0.0) -> torch.Tensor:
+    """Plain version of kernel H: one pass over a (B, F0, F1, F2) float32
+    frame -> the same shape. ``coeffs``: float32 (S, 3), one matrix for the
+    batch, or (B, S, 3), a row set per volume; row ``slot`` holds (cr, co,
+    tau). Each step is one float32 op in the reference's operand order
+    (``_apply_pass``, multipass_warp.py:153-209)."""
+    batch = src.shape[0]
+    dev = src.device
+    row = coeffs[slot] if coeffs.ndim == 2 else coeffs[:, slot]
+    row = row.reshape(-1, 3).expand(batch, 3)
+    cr, co, tau = (row[:, j].reshape(batch, 1, 1, 1) for j in range(3))
+    size_in = src.shape[r + 1]
+    coords = cr * _axis_ramp(size_in, r, dev) + tau
+    if o != r:
+        coords = coords + co * _axis_ramp(src.shape[o + 1], o, dev)
+    i0 = torch.floor(coords)
+    t = coords - i0
+    i0 = i0.to(torch.int64)
+    in_domain = (coords >= 0) & (coords <= size_in - 1)
+    if order == 1:
+        bands = ((0, 1.0 - t), (1, t))
+    else:
+        t2 = t * t
+        t3 = t2 * t
+        bands = (
+            (-1, -0.5 * t3 + t2 - 0.5 * t),
+            (0, 1.5 * t3 - 2.5 * t2 + 1.0),
+            (1, -1.5 * t3 + 2.0 * t2 + 0.5 * t),
+            (2, 0.5 * t3 - 0.5 * t2),
+        )
+    full = src.shape
+    out = None
+    for k, w in bands:
+        idx = (i0 + k).clamp(0, size_in - 1).expand(full)
+        v = torch.gather(src, r + 1, idx)
+        out = w * v if out is None else out + w * v
+    return torch.where(in_domain, out, torch.tensor(float(fill), dtype=out.dtype, device=dev))
+
+
+def _run_passes(frame: torch.Tensor, table: torch.Tensor, slots, order: int,
+                fill: float) -> torch.Tensor:
+    """Every pass of ``slots`` ((r, o) per row of ``table``) in turn, kernel
+    H ping-ponging two frame buffers on the card."""
+    from biahub_tpu_torch.kernels import multipass_cuda
+
+    spare = torch.empty_like(frame) if frame.device.type == "cuda" else None
+    for k, (r, o) in enumerate(slots):
+        out = multipass_cuda.resample_pass(frame, table, k, r, o, order, fill, out=spare)
+        frame, spare = out, frame
+    return frame
+
+
+def _embed(volumes: torch.Tensor, off, frame_shape) -> torch.Tensor:
+    """(B, Z, Y, X) -> (B, F0, F1, F2), edge-replicated into the frame."""
+    size = np.asarray(frame_shape)
+    in_shape = volumes.shape[1:]
+    lo = [int(-off[ax]) for ax in range(3)]
+    hi = [int(size[ax] - in_shape[ax] + off[ax]) for ax in range(3)]
+    pad = (lo[2], hi[2], lo[1], hi[1], lo[0], hi[0])
+    return torch.nn.functional.pad(volumes[:, None], pad, mode="replicate")[:, 0].contiguous()
+
+
+def _crop_and_mask(frame: torch.Tensor, off, matrices, in_shape, out_shape,
+                   fill: float) -> torch.Tensor:
+    from biahub_tpu_torch.kernels.affine import exact_domain_mask_general
+
+    start = (-np.asarray(off)).astype(int)
+    out = frame[:, start[0]:start[0] + out_shape[0], start[1]:start[1] + out_shape[1],
+                start[2]:start[2] + out_shape[2]]
+    inside = exact_domain_mask_general(matrices, in_shape, out_shape, frame.device)
+    return torch.where(inside, out, torch.tensor(float(fill), dtype=out.dtype,
+                                                 device=out.device)).contiguous()
+
+
+def multipass_affine_warp_zyx(
+    volume,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    order: int = 3,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Warp one (Z, Y, X) volume by a general output->input ``matrix`` ->
+    (Zo, Yo, Xo) float32, through its factored passes in the common frame
+    (the reference's ``multipass_affine_warp_zyx``; identity slots
+    dropped, one launch of H per remaining pass). Raises ValueError on a
+    vanishing pivot."""
+    dev = resolve_device(device)
+    matrix = np.asarray(matrix, dtype=np.float64)
+    data = as_tensor(volume, dev)
+    in_shape = tuple(int(s) for s in data.shape)
+    out_shape = tuple(int(s) for s in output_shape)
+    passes = factor_affine(matrix)
+    lo, hi = _coord_bounds(passes, in_shape, out_shape)
+    off, frame_shape = _frame_from_bounds(lo, hi)
+    table = torch.tensor(
+        [[cr, co, _tau_eff(r, o, cr, co, tau, off)] for r, o, cr, co, tau in passes],
+        dtype=torch.float32).to(dev)
+    # A shear whose off-diagonal coefficient is 0 resamples along r alone.
+    slots = [(r, r if co == 0.0 else o) for r, o, _, co, _ in passes]
+    frame = _run_passes(_embed(data[None], off, frame_shape), table, slots, order, fill)
+    return _crop_and_mask(frame, off, matrix[None], in_shape, out_shape, fill)[0]
+
+
+def union_frame(matrices, in_shape, out_shape):
+    """(offset, frame shape) of the frame spanning every matrix's bounds
+    through the canonical slots (the frame of the reference's
+    ``make_batched_multipass_kernel``). Raises ValueError when a matrix has
+    a vanishing pivot."""
+    lo = np.full(3, np.inf)
+    hi = np.full(3, -np.inf)
+    for m in np.asarray(matrices, dtype=np.float64).reshape(-1, 4, 4):
+        m_lo, m_hi = _coord_bounds(_slot_passes(_factor_canonical(m)), in_shape, out_shape)
+        lo = np.minimum(lo, m_lo)
+        hi = np.maximum(hi, m_hi)
+    return _frame_from_bounds(lo, hi)
+
+
+def multipass_affine_warp_zyx_batched(
+    volumes,
+    matrices,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    frame=None,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Warp each volume of a (B, Z, Y, X) batch by its own general matrix
+    -> (B, Zo, Yo, Xo) float32 (the reference's
+    ``make_batched_multipass_kernel`` and its kernel): every matrix takes
+    the 7 :data:`CANONICAL_SLOTS` with a (B, 7, 3) coefficient table, one
+    launch of H per slot over the batch, in one frame: ``frame`` (the
+    :func:`union_frame` of a larger set, so that every batch of a run
+    computes alike) or the union of these matrices' bounds. Raises
+    ValueError when a matrix has a vanishing pivot."""
+    dev = resolve_device(device)
+    data = as_tensor(volumes, dev)
+    if data.ndim != 4:
+        raise ValueError(f"want a (B, Z, Y, X) batch, got {tuple(data.shape)}")
+    mats = np.asarray(matrices, dtype=np.float64).reshape(-1, 4, 4)
+    if len(mats) != data.shape[0]:
+        raise ValueError(f"{len(mats)} matrices for a batch of {data.shape[0]}")
+    in_shape = tuple(int(s) for s in data.shape[1:])
+    out_shape = tuple(int(s) for s in output_shape)
+    all_coeffs = [_factor_canonical(m) for m in mats]
+    off, frame_shape = frame if frame is not None else union_frame(mats, in_shape, out_shape)
+    params = np.zeros((len(mats), len(CANONICAL_SLOTS), 3), dtype=np.float32)
+    for i, coeffs in enumerate(all_coeffs):
+        for k, (r, o, cr, co, tau) in enumerate(_slot_passes(coeffs)):
+            params[i, k] = (cr, co, _tau_eff(r, o, cr, co, tau, off))
+    table = torch.from_numpy(params).to(dev)
+    frame = _run_passes(_embed(data, off, frame_shape), table, CANONICAL_SLOTS, 3, fill)
+    return _crop_and_mask(frame, off, mats, in_shape, out_shape, fill)

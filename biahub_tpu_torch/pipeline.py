@@ -16,10 +16,12 @@ import torch
 from torch import nn
 
 from biahub_tpu_torch.device import resolve_device
+from biahub_tpu_torch.kernels.affine import inplane_coefficients, is_inplane_matrix
 from biahub_tpu_torch.kernels.chain import (
-    chain_warp_coefficients,
+    chain_warp_matrix,
     run_chain,
     run_chain_warp,
+    run_chain_warp_general,
 )
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
 from biahub_tpu_torch.kernels.deskew import deskew_geometry
@@ -77,17 +79,17 @@ def _batch(module: nn.Module, volumes) -> torch.Tensor:
 
 class DeconvolveDeskewWarp(nn.Module):
     """``forward(volumes)``: (B, Z, Y, X) uint16 or float32 -> (B, Zo, Yo,
-    Xo) float32, deconvolved, deskewed and warped by ``matrix``, an in-plane
+    Xo) float32, deconvolved, deskewed and warped by ``matrix``, an
     output->input affine of the standard deskewed frame (register and
     stabilize composed, ``M_reg @ M_stab[t]``).
 
-    Buffers: the prepared filter ``filter`` and the warp's coefficients
-    ``warp`` (:func:`~biahub_tpu_torch.kernels.chain.chain_warp_coefficients`,
-    the deskew's Y flip folded in). Attributes: the deskew ``geometry``
-    (``skip_flip`` set), the warp's logical input ``logical_zyx_shape`` (the
-    deskewed (groups, Y_out, X_out)), ``output_shape`` (default the same)
-    and ``fill``. Raises ``NotImplementedError`` for a matrix that is not
-    in-plane.
+    Buffers: the prepared filter ``filter`` and, for an in-plane matrix,
+    the warp's coefficients ``warp`` (kernels E and F). Attributes: the
+    warp's ``matrix`` (:func:`~biahub_tpu_torch.kernels.chain.
+    chain_warp_matrix`, the deskew's Y flip folded in; a general one takes
+    the multipass warp), the deskew ``geometry`` (``skip_flip`` set), the
+    warp's logical input ``logical_zyx_shape`` (the deskewed (groups,
+    Y_out, X_out)), ``output_shape`` (default the same) and ``fill``.
     """
 
     def __init__(
@@ -118,8 +120,13 @@ class DeconvolveDeskewWarp(nn.Module):
         self.register_buffer("filter", prepare_fourier_filter(
             zyx_shape, transfer_function_half, regularization_strength, dev
         ))
-        self.register_buffer("warp", chain_warp_coefficients(matrix, self.geometry).to(dev))
+        self.matrix = chain_warp_matrix(matrix, self.geometry)
+        self.register_buffer("warp", inplane_coefficients(self.matrix).to(dev)
+                             if is_inplane_matrix(self.matrix) else None)
 
     def forward(self, volumes) -> torch.Tensor:
+        if self.warp is None:
+            return run_chain_warp_general(_batch(self, volumes), self.filter, self.geometry,
+                                          self.matrix, self.output_shape, self.fill)
         return run_chain_warp(_batch(self, volumes), self.filter, self.geometry,
                               self.warp, self.output_shape, self.fill)

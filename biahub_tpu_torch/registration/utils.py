@@ -6,7 +6,10 @@ Counterpart of ``biahub_tpu/registration/utils.py:38-180``, on numpy and
 reference; a candidate whose mean grid-point displacement against it
 exceeds the tolerance is dropped and filled by local (or global)
 interpolation over the 4x4 entries. ``save_transforms`` and the plots need
-YAML and matplotlib, which wait for the I/O layer (ROADMAP queue 1).
+YAML and matplotlib, which wait for the I/O layer (ROADMAP queue 1). Also
+the approximate source->target transform from voxel sizes
+(:func:`approx_transform_from_scale`, utils.py:236) with its matrix helpers
+(the reference's ``register.py:47-95``).
 """
 
 from __future__ import annotations
@@ -20,6 +23,10 @@ __all__ = [
     "validate_transforms",
     "interpolate_transforms",
     "evaluate_transforms",
+    "approx_transform_from_scale",
+    "get_3D_rescaling_matrix",
+    "get_3D_rotation_matrix",
+    "get_3D_fliplr_matrix",
 ]
 
 
@@ -169,3 +176,85 @@ def evaluate_transforms(
         interpolation_type=interpolation_type,
         verbose=verbose,
     )
+
+
+def get_3D_rescaling_matrix(start_shape_zyx, scaling_factor_zyx=(1, 1, 1), end_shape_zyx=None):
+    """YX-centered anisotropic rescale (the reference's register.py:47)."""
+    center_y_start, center_x_start = np.array(start_shape_zyx)[-2:] / 2
+    if end_shape_zyx is None:
+        center_y_end, center_x_end = center_y_start, center_x_start
+    else:
+        center_y_end, center_x_end = np.array(end_shape_zyx)[-2:] / 2
+    sz, sy, sx = scaling_factor_zyx[-3], scaling_factor_zyx[-2], scaling_factor_zyx[-1]
+    return np.array(
+        [
+            [sz, 0, 0, 0],
+            [0, sy, 0, -center_y_start * sy + center_y_end],
+            [0, 0, sx, -center_x_start * sx + center_x_end],
+            [0, 0, 0, 1],
+        ]
+    )
+
+
+def get_3D_rotation_matrix(start_shape_zyx, angle: float = 0.0, end_shape_zyx=None):
+    """In-plane (YX) rotation about the volume center (register.py:65)."""
+    center_y_start, center_x_start = np.array(start_shape_zyx)[-2:] / 2
+    if end_shape_zyx is None:
+        center_y_end, center_x_end = center_y_start, center_x_start
+    else:
+        center_y_end, center_x_end = np.array(end_shape_zyx)[-2:] / 2
+    theta = np.radians(angle)
+    c, s = np.cos(theta), np.sin(theta)
+    return np.array(
+        [
+            [1, 0, 0, 0],
+            [0, c, -s, -center_y_start * c + s * center_x_start + center_y_end],
+            [0, s, c, -center_y_start * s - center_x_start * c + center_x_end],
+            [0, 0, 0, 1],
+        ]
+    )
+
+
+def get_3D_fliplr_matrix(start_shape_zyx, end_shape_zyx=None):
+    """Left-right (X) flip about the volume center (register.py:84)."""
+    center_x_start = start_shape_zyx[-1] / 2
+    center_x_end = center_x_start if end_shape_zyx is None else end_shape_zyx[-1] / 2
+    return np.array(
+        [
+            [1, 0, 0, 0],
+            [0, 1, 0, 0],
+            [0, 0, -1, 2 * center_x_end],
+            [0, 0, 0, 1],
+        ]
+    )
+
+
+def approx_transform_from_scale(
+    source_scale_zyx,
+    target_scale_zyx,
+    rotation_90_count: int = 0,
+    flip: tuple[bool, bool, bool] = (False, False, False),
+    source_shape_zyx=None,
+    target_shape_zyx=None,
+) -> np.ndarray:
+    """Approximate source->target transform from voxel-size scaling, a
+    90-degree in-plane rotation count and axis flips (the reference's
+    utils.py:236)."""
+    scale = np.asarray(source_scale_zyx, dtype=float) / np.asarray(
+        target_scale_zyx, dtype=float
+    )
+    out = get_3D_rescaling_matrix(
+        source_shape_zyx or (1, 1, 1), scale, target_shape_zyx or source_shape_zyx
+    )
+    if rotation_90_count:
+        out = (
+            get_3D_rotation_matrix(
+                target_shape_zyx or source_shape_zyx or (1, 1, 1),
+                90.0 * rotation_90_count,
+            )
+            @ out
+        )
+    if any(flip):
+        if flip[-1]:
+            out = get_3D_fliplr_matrix(target_shape_zyx or source_shape_zyx or (1, 1, 1)) @ out
+    return out

@@ -7,8 +7,11 @@ timepoint's matrix, and the kernel is chosen from the whole matrix list
 (:160-215): all translations take :func:`~biahub_tpu_torch.kernels.affine.
 translation_warp_zyx_batched`, all in-plane matrices the in-plane warp with
 one matrix per volume; both run kernels E and F once per batch, with a
-(B, 21) coefficient table. General 3D matrices need the multipass warp
-(ROADMAP queue 1 item 4) and raise ``NotImplementedError``.
+(B, 21) coefficient table. Any other set takes the batched multipass warp
+(:func:`~biahub_tpu_torch.kernels.multipass_warp.
+multipass_affine_warp_zyx_batched`: kernel H once per canonical slot and
+batch, with a (B, 7, 3) table, in one frame for the whole run), or the
+exact gather when a matrix has a vanishing pivot.
 """
 
 from __future__ import annotations
@@ -20,10 +23,16 @@ from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
+    affine_warp_zyx,
     inplane_affine_warp_zyx_batched,
     is_inplane_matrix,
     is_translation_matrix,
     translation_warp_zyx_batched,
+)
+from biahub_tpu_torch.kernels.multipass_warp import (
+    common_frame_bytes,
+    multipass_affine_warp_zyx_batched,
+    union_frame,
 )
 
 __all__ = ["apply_stabilization_transform", "stabilize_tczyx", "stabilize_batch_size"]
@@ -66,11 +75,14 @@ def _output_yx(matrices, Y: int, X: int) -> tuple[int, int]:
 
 
 def stabilize_batch_size(in_zyx, out_zyx, n_volumes: int,
-                         max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES) -> int:
+                         max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                         workspace_bytes: int = 0) -> int:
     """Volumes per batch: as many as fit ``max_batch_bytes`` counting each
-    volume's float32 input and output (the reference runner's rule for one
-    chunk in flight, runtime/executor.py:264-300)."""
-    unit = 4 * (int(np.prod(in_zyx)) + int(np.prod(out_zyx)))
+    volume's float32 input and output and the warp's ``workspace_bytes``
+    (the multipass warp's common frames, :func:`~biahub_tpu_torch.kernels.
+    multipass_warp.common_frame_bytes`), the reference runner's rule for one
+    chunk in flight (runtime/executor.py:264-300, stabilize.py:216-229)."""
+    unit = 4 * (int(np.prod(in_zyx)) + int(np.prod(out_zyx))) + int(workspace_bytes)
     return int(max(1, min(n_volumes, max_batch_bytes // unit)))
 
 
@@ -84,8 +96,9 @@ def stabilize_tczyx(
     """Stabilize a (T, C, Z, Y, X) timelapse by one 4x4 output->input
     matrix per raw timepoint -> (len(time_indices), C, Z, Yo, Xo) float32,
     fill 0. ``time_indices``: ``"all"``, a list, or one index. The (t, c)
-    volumes run in batches of :func:`stabilize_batch_size`, one launch of
-    kernels E and F per batch."""
+    volumes run in batches of :func:`stabilize_batch_size`: one launch of
+    kernels E and F per batch, or of H per canonical slot for general
+    matrices."""
     dev = resolve_device(device)
     T, C, Z, Y, X = tczyx.shape
     mats = np.asarray(matrices, dtype=np.float64)
@@ -109,12 +122,21 @@ def stabilize_tczyx(
         def warp(vols, ms):
             return inplane_affine_warp_zyx_batched(vols, ms, out_zyx, device=dev)
     else:
-        raise NotImplementedError(
-            "biahub_tpu_torch: stabilize with general 3D matrices needs the "
-            "multipass warp (ROADMAP queue 1 item 4), not ported yet")
+        try:
+            # One frame for every batch, spanning all the matrices' bounds.
+            frame = union_frame(mats, (Z, Y, X), out_zyx)
+
+            def warp(vols, ms):
+                return multipass_affine_warp_zyx_batched(vols, ms, out_zyx, frame=frame,
+                                                         device=dev)
+        except ValueError:  # a vanishing pivot (e.g. a 90 degree permutation)
+            def warp(vols, ms):
+                return torch.stack([affine_warp_zyx(v, m, out_zyx, device=dev)
+                                    for v, m in zip(vols, ms)])
     out = torch.empty((len(times), C) + out_zyx, dtype=torch.float32, device=dev)
     flat = out.view(len(units), *out_zyx)
-    step = stabilize_batch_size((Z, Y, X), out_zyx, len(units), max_batch_bytes)
+    step = stabilize_batch_size((Z, Y, X), out_zyx, len(units), max_batch_bytes,
+                                common_frame_bytes(mats, (Z, Y, X), out_zyx))
     for i in range(0, len(units), step):
         batch = units[i:i + step]
         vols = torch.stack([as_tensor(tczyx[t, c], dev) for t, c in batch])

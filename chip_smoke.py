@@ -34,6 +34,27 @@ settings/example_estimate_stabilization_settings_xyz_pcc.yml cropped to a
    with 12 in-plane matrices, E and F reading one coefficient row per
    volume (F's mask voxel for voxel); E and F once per batch.
 
+Then, at the same deskewed shape:
+
+7. holds kernel G (bead-peak candidates: 3^3 blur, block max, smallest
+   index among ties) against its plain version on integer-valued data,
+   values and indices equal, for (8, 8, 8) and estimate-psf's (64, 64, 32)
+   blocks, blurred and not;
+8. holds kernel H (one multipass pass) against its plain version for each
+   canonical slot of a 3D euclidean matrix (1 deg about each axis and a
+   subvoxel shift), then the whole multipass warp, and the batched form
+   with a 6-row table of translations and rotations (the translation rows
+   bit-equal to the plain route);
+9. renders a beads timelapse (6 volumes, ~200 Gaussian beads in integer
+   counts, each timepoint a known small rigid drift, rendered anew) and
+   runs estimate-stabilization with
+   settings/example_estimate_stabilization_settings_xyz_beads.yml: the
+   transforms within 0.5 voxel and 0.05 (linear part) of the truth and
+   equal to the same call with G and H replaced by their plain versions;
+   then stabilize with them through H (launches counted per phase);
+10. runs estimate-psf (``estimate_psf_arrays``) on two bead positions,
+   equal to the plain route within 1e-6.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -44,6 +65,7 @@ package is missing, or any check fails. Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -98,6 +120,33 @@ NORMS = (None, "magnitude", "classic")
 # records them from before the per-volume table; this run's times are
 # printed beside them.
 RECORDED_WARP_MS = {"warp_zy": 1.733, "warp_x": 1.214}
+# Kernel G's block geometries: beads' (DetectPeaksSettings) and
+# estimate-psf's (estimate_psf.py:61-69).
+PEAK_BLOCKS = ((8, 8, 8), (64, 64, 32))
+# The beads timelapse (phases 9-10): T volumes of the deskewed headline
+# shape, N Gaussian beads of peak BEAD_PEAK counts and BEAD_SIGMA voxels
+# over a background of 20 +- 2 counts (DetectPeaksSettings' threshold_abs
+# is 110), each timepoint a rigid drift of up to DRIFT_DEG about each axis
+# and DRIFT_SHIFT voxels, about the volume's centre.
+T_BEADS = 6
+N_BEADS = 200
+BEAD_PEAK = 1500.0
+BEAD_SIGMA = (1.2, 1.5, 1.5)
+DRIFT_DEG, DRIFT_SHIFT = 0.5, 3.0
+TRUTH_SHIFT_TOL, TRUTH_LINEAR_TOL = 0.5, 0.05
+# settings/example_estimate_stabilization_settings_xyz_beads.yml
+BEADS_SETTINGS = {
+    "stabilization_estimation_channel": "GFP",
+    "stabilization_channels": ["GFP"],
+    "stabilization_type": "xyz",
+    "stabilization_method": "beads",
+    "beads_match_settings": {"algorithm": "hungarian"},
+    "affine_transform_settings": {"transform_type": "euclidean", "t_reference": "first"},
+    "verbose": False,
+}
+# estimate-psf's patch in voxels (PsfFromBeadsSettings axis{0,1,2}_patch_size).
+PSF_PATCH = (21, 41, 41)
+PSF_TOL = 1e-6
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -399,6 +448,287 @@ def stabilization_phases(dev: torch.device, records: dict) -> None:
           + describe(records["warp_x_per_volume"]))
     records["z_cross"].update(runs=launches_e)
     del lapse, vols, inter, out_p, base
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Kernels G and H replaced by their plain PyTorch versions on the card,
+    for the plain route of a whole call (the wrappers are looked up at each
+    call); nothing is counted."""
+    from biahub_tpu_torch.kernels import multipass_cuda, multipass_warp, peaks, peaks_cuda
+
+    saved = multipass_cuda.resample_pass, peaks_cuda.block_max_argmin
+    multipass_cuda.resample_pass = (
+        lambda frame, coeffs, slot, r, o, order=3, fill=0.0, out=None:
+        multipass_warp.resample_pass_plain(frame, coeffs, slot, r, o, order, fill))
+    peaks_cuda.block_max_argmin = peaks.block_max_candidates_plain
+    try:
+        yield
+    finally:
+        multipass_cuda.resample_pass, peaks_cuda.block_max_argmin = saved
+
+
+def rigid_about_centre(angles_deg, shift, shape) -> np.ndarray:
+    """The output->input warp of a rotation by ``angles_deg`` about the x,
+    y and z axes in turn (in ZYX index space), about the volume's centre,
+    then ``shift``."""
+    rot = np.eye(3)
+    for axis, deg in zip((2, 1, 0), angles_deg):
+        i, j = (a for a in range(3) if a != axis)
+        c, s_ = np.cos(np.deg2rad(deg)), np.sin(np.deg2rad(deg))
+        r = np.eye(3)
+        r[i, i], r[i, j], r[j, i], r[j, j] = c, -s_, s_, c
+        rot = r @ rot
+    centre = (np.asarray(shape) - 1) / 2
+    m = np.eye(4)
+    m[:3, :3] = rot
+    m[:3, 3] = centre - rot @ centre + np.asarray(shift)
+    return m
+
+
+def render_beads(points: torch.Tensor, shape, gen: torch.Generator) -> torch.Tensor:
+    """(Z, Y, X) float32 camera counts: a Gaussian bead at each of the (N, 3)
+    float64 ``points`` (11^3 voxels around it), plus noise of 20 +- 2,
+    rounded and clipped at 0."""
+    dev = points.device
+    r = torch.arange(-5, 6, device=dev)
+    off = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(-1, 3)
+    cells = torch.floor(points).long()[:, None, :] + off[None]
+    sig = torch.tensor(BEAD_SIGMA, dtype=torch.float64, device=dev)
+    val = BEAD_PEAK * torch.exp(-0.5 * (((cells.double() - points[:, None]) / sig) ** 2).sum(-1))
+    ok = ((cells >= 0) & (cells < torch.tensor(shape, device=dev))).all(-1)
+    flat = (cells[..., 0] * shape[1] + cells[..., 1]) * shape[2] + cells[..., 2]
+    vol = torch.normal(20.0, 2.0, (math.prod(shape),), generator=gen, device=dev,
+                       dtype=torch.float64)
+    vol.index_add_(0, flat[ok], val[ok])
+    return torch.round(vol).clamp_(min=0).float().reshape(shape)
+
+
+def peaks_phase(dev: torch.device, records: dict) -> None:
+    """Phase 7: kernel G against its plain version on integer-valued data."""
+    import torch.nn.functional as F
+
+    from biahub_tpu_torch.kernels.peaks import block_grid, block_max_candidates_plain
+    from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    vol = torch.randint(0, 4096, LAPSE_SHAPE, generator=gen, device=dev).float()
+    worst = 0.0
+    for block in PEAK_BLOCKS:
+        for blur in (3, 0):
+            gv, gi = block_max_argmin(vol, block, blur)
+            pv, pi = block_max_candidates_plain(vol, block, blur)
+            worst = max(worst, float((gv - pv).abs().max()))
+            require(torch.equal(gv, pv) and torch.equal(gi, pi),
+                    f"kernel G {block} blur {blur}: {int((gv != pv).sum())} values and "
+                    f"{int((gi != pi).sum())} indices differ from the plain version")
+            n = gv.numel()
+            ms = time_ms(lambda: block_max_argmin(vol, block, blur))
+            print(f"G block_max_argmin {block} blur {blur}: {n} blocks, values and indices "
+                  f"equal to the plain version; ms {ms:.4f}")
+    block = PEAK_BLOCKS[0]
+    n = math.prod(block_grid(LAPSE_SHAPE, block))
+    # Bytes: the volume once, a value and an index per block; operations:
+    # 26 adds, 3 multiplies and a divide per voxel for the blur.
+    bms, bby = bound(vol.numel() * 4 + n * 8, vol.numel() * 30)
+
+    def two_calls():
+        smooth = F.avg_pool3d(vol[None, None], 3, 1, 1, count_include_pad=False)
+        return F.max_pool3d(smooth, block, block, [b // 2 for b in block], return_indices=True)
+
+    lib_v, lib_i = two_calls()
+    gv, gi = block_max_argmin(vol, block, 3)
+    same = int((lib_i.flatten().to(torch.int32) == gi).sum())
+    records["block_max_argmin"] = dict(
+        replaces="biahub_tpu/kernels/pallas_peaks.py:125", source="biahub_tpu_torch/csrc/peaks.cu",
+        max_abs_err=worst, ms=time_ms(lambda: block_max_argmin(vol, block, 3)),
+        plain_ms=time_ms(lambda: block_max_candidates_plain(vol, block, 3)),
+        bound_ms=bms, bound_by=bby, library_ms=time_ms(two_calls))
+    print(f"G block_max_argmin {block} blur 3 (beads'): " + describe(records["block_max_argmin"])
+          + f"; library = two calls, avg_pool3d(count_include_pad=False) then "
+          f"max_pool3d(return_indices=True), whose indices agree on {same} of {n} blocks")
+    del vol, lib_v, lib_i, gv, gi
+    torch.cuda.empty_cache()
+
+
+def multipass_phase(dev: torch.device, records: dict) -> None:
+    """Phase 8: kernel H against its plain version for each canonical slot
+    of a 3D euclidean matrix, the whole warp, and the batched form."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+    from biahub_tpu_torch.kernels.multipass_cuda import resample_pass
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    vol = torch.nn.functional.avg_pool3d(
+        torch.rand(LAPSE_SHAPE, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
+    m = rigid_about_centre((1.0, 1.0, 1.0), (0.3, -0.4, 0.25), LAPSE_SHAPE)
+    coeffs = mw._factor_canonical(m)
+    off, frame_shape = mw.union_frame(m, LAPSE_SHAPE, LAPSE_SHAPE)
+    frame = mw._embed(vol[None], off, frame_shape)
+    table = torch.tensor([[cr, co, mw._tau_eff(r, o, cr, co, tau, off)]
+                          for (r, o), (cr, co, tau) in zip(mw.CANONICAL_SLOTS, coeffs)],
+                         dtype=torch.float32, device=dev)
+    out = torch.empty_like(frame)
+    worst, bit_equal, ms, plain_ms = 0.0, 0, [], []
+    for k, (r, o) in enumerate(mw.CANONICAL_SLOTS):
+        got = resample_pass(frame, table, k, r, o, out=out)
+        want = mw.resample_pass_plain(frame, table, k, r, o)
+        err_abs, err = rel_err(got, want)
+        require(err <= WARP_TOL, f"kernel H slot {k} ({r}, {o}): rel err {err:.3g} > {WARP_TOL}")
+        worst = max(worst, err_abs)
+        bit_equal += int(torch.equal(got, want))
+        ms.append(time_ms(lambda: resample_pass(frame, table, k, r, o, out=out)))
+        plain_ms.append(time_ms(lambda: mw.resample_pass_plain(frame, table, k, r, o)))
+        print(f"H resample_pass slot {k} (r {r}, o {o}; cr {coeffs[k][0]:.6f}, co "
+              f"{coeffs[k][1]:.6f}): rel err {err:.3g} (tol {WARP_TOL}), ms {ms[-1]:.4f}, "
+              f"plain {plain_ms[-1]:.4f}")
+        del want
+    fbytes = frame.numel() * 4
+    bms, bby = bound(2 * fbytes, frame.numel() * 30)
+    records["resample_pass"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:129",
+        source="biahub_tpu_torch/csrc/multipass.cu", max_abs_err=worst,
+        ms=statistics.mean(ms), plain_ms=statistics.mean(plain_ms),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    print(f"H resample_pass, mean of the 7 slots on the {frame_shape} frame of {LAPSE_SHAPE} "
+          f"({bit_equal} of 7 bit-equal to the plain version): "
+          + describe(records["resample_pass"]) + "; no PyTorch call computes a Catmull-Rom pass")
+    del frame, out, got
+
+    warped, launches = counted(lambda: mw.multipass_affine_warp_zyx(vol, m, LAPSE_SHAPE,
+                                                                     device=dev))
+    with plain_kernels():
+        want = mw.multipass_affine_warp_zyx(vol, m, LAPSE_SHAPE, device=dev)
+    _, err = rel_err(warped, want)
+    require(err <= WARP_TOL, f"multipass warp rel err {err:.3g} > {WARP_TOL}")
+    require(bool(torch.isfinite(warped).all()), "multipass warp is not finite")
+    warp_ms = time_ms(lambda: mw.multipass_affine_warp_zyx(vol, m, LAPSE_SHAPE, device=dev))
+    print(f"multipass warp ({LAPSE_SHAPE}, 1 deg about each axis): rel err {err:.3g} vs the "
+          f"plain route (bit-equal: {torch.equal(warped, want)}), {warp_ms:.4f} ms; "
+          f"launches {launches}")
+    del warped, want
+
+    mats = [np.eye(4) for _ in range(3)] + [
+        rigid_about_centre(a, s_, LAPSE_SHAPE)
+        for a, s_ in (((1.0, 1.0, 1.0), (0.3, -0.4, 0.25)), ((-0.5, 0.8, 0.3), (1.5, 2.0, -1.0)),
+                      ((0.2, -1.0, 0.6), (-2.0, 0.5, 3.0)))]
+    for mt, sh in zip(mats[:3], ((0.5, -1.25, 2.0), (-1.0, 3.0, 0.25), (2.0, 0.0, -0.75))):
+        mt[:3, 3] = sh
+    vols = torch.stack([torch.roll(vol, (i, 2 * i, -i), (0, 1, 2)) for i in range(len(mats))])
+    got, launches_b = counted(lambda: mw.multipass_affine_warp_zyx_batched(
+        vols, np.stack(mats), LAPSE_SHAPE, device=dev))
+    with plain_kernels():
+        want = mw.multipass_affine_warp_zyx_batched(vols, np.stack(mats), LAPSE_SHAPE,
+                                                    device=dev)
+    for i in range(3):
+        require(torch.equal(got[i], want[i]), f"batched multipass: translation row {i} "
+                "differs from the plain route")
+    _, err = rel_err(got, want)
+    require(err <= WARP_TOL, f"batched multipass rel err {err:.3g} > {WARP_TOL}")
+    batch_ms = time_ms(lambda: mw.multipass_affine_warp_zyx_batched(
+        vols, np.stack(mats), LAPSE_SHAPE, device=dev))
+    print(f"batched multipass (6 rows: 3 translations, 3 rotations): translation rows "
+          f"bit-equal to the plain route, rel err {err:.3g}, {batch_ms:.4f} ms; "
+          f"launches {launches_b}")
+    del vol, vols, got, want
+    torch.cuda.empty_cache()
+
+
+def beads_phases(dev: torch.device, records: dict) -> None:
+    """Phases 9-10: estimate-stabilization with beads, stabilize with its
+    transforms, and estimate-psf, on rendered beads."""
+    from biahub_tpu_torch import (
+        ArrayPosition,
+        estimate_psf_arrays,
+        estimate_stabilization_arrays,
+        stabilize_tczyx,
+    )
+    from biahub_tpu_torch.kernels.peaks import detect_peaks
+    from biahub_tpu_torch.registration.beads import overlap_score
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    rng = np.random.default_rng(9)
+    lo = np.array([10.0, 10.0, 10.0])
+    hi = np.asarray(LAPSE_SHAPE) - 10.0
+    points = rng.uniform(lo, hi, (N_BEADS, 3))
+    truth = [np.eye(4)] + [
+        rigid_about_centre(rng.uniform(-DRIFT_DEG, DRIFT_DEG, 3),
+                           rng.uniform(-DRIFT_SHIFT, DRIFT_SHIFT, 3), LAPSE_SHAPE)
+        for _ in range(T_BEADS - 1)]
+    lapse = torch.stack([
+        render_beads(torch.tensor(points @ w[:3, :3].T + w[:3, 3], device=dev), LAPSE_SHAPE,
+                     gen) for w in truth])[:, None]
+    print(f"beads timelapse: {T_BEADS} x {LAPSE_SHAPE}, {N_BEADS} beads, drifts up to "
+          f"{DRIFT_DEG} deg and {DRIFT_SHIFT} voxels")
+
+    # -- 9. estimate-stabilization with beads, then stabilize ---------------
+    positions = {"A/1/0": ArrayPosition(lapse, [1.0] * 5, ["GFP"])}
+
+    def estimate():
+        return estimate_stabilization_arrays(positions, BEADS_SETTINGS, device=dev)
+
+    result, launches_e = counted(estimate)
+    transforms = result["xyz"]["A_1_0"]
+    got = np.asarray(transforms)
+    worst_shift = float(np.abs(got[:, :3, 3] - np.stack(truth)[:, :3, 3]).max())
+    worst_lin = float(np.abs(got[:, :3, :3] - np.stack(truth)[:, :3, :3]).max())
+    require(worst_shift <= TRUTH_SHIFT_TOL and worst_lin <= TRUTH_LINEAR_TOL,
+            f"beads estimate: {worst_shift:.3g} voxels and {worst_lin:.3g} (linear part) from "
+            f"the truth (tol {TRUTH_SHIFT_TOL}, {TRUTH_LINEAR_TOL})")
+    with plain_kernels():
+        plain = estimate()["xyz"]["A_1_0"]
+    require(transforms == plain, "beads estimate: transforms differ from the plain route's")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    estimate()
+    torch.cuda.synchronize()
+    est_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"estimate-stabilization (beads, {T_BEADS} timepoints): within {worst_shift:.3g} "
+          f"voxels and {worst_lin:.3g} (linear part) of the truth, equal to the plain route's; "
+          f"{est_ms:.1f} ms for the call (host clock, one run); launches {launches_e}")
+
+    stab, launches_s = counted(lambda: stabilize_tczyx(lapse, transforms, device=dev))
+    with plain_kernels():
+        stab_p = stabilize_tczyx(lapse, transforms, device=dev)
+    _, err_s = rel_err(stab, stab_p)
+    require(err_s <= WARP_TOL, f"beads stabilize rel err {err_s:.3g} > {WARP_TOL}")
+    require(stab.shape == lapse.shape and bool(torch.isfinite(stab).all()),
+            f"beads stabilize output {tuple(stab.shape)} is not finite and of the input's shape")
+    del stab_p
+    peak_kw = dict(block_size=(8, 8, 8), threshold_abs=110, nms_distance=16, min_distance=0,
+                   device=dev)
+    ref_peaks = detect_peaks(lapse[0, 0], **peak_kw)
+    scores = [overlap_score(detect_peaks(stab[t, 0], **peak_kw), ref_peaks)
+              for t in range(T_BEADS)]
+    require(min(scores) >= 0.9, f"stabilized beads overlap the first frame's: {scores}")
+    stab_ms = host_ms(lambda: stabilize_tczyx(lapse, transforms, device=dev), reps=1)
+    print(f"stabilize (beads transforms): rel err {err_s:.3g} vs the plain route, bead "
+          f"overlap with t = 0 {min(scores):.3f}-{max(scores):.3f}; {stab_ms:.1f} ms for "
+          f"{T_BEADS} volumes; launches {launches_s}")
+    runs = dict(launches_e)
+    for k, v in launches_s.items():
+        runs[k] = runs.get(k, 0) + v
+    records["block_max_argmin"]["runs"] = runs
+    records["resample_pass"]["runs"] = runs
+    del stab
+
+    # -- 10. estimate-psf on two bead positions -----------------------------
+    pzyx = lapse[:2, 0]
+    psf, launches_p = counted(lambda: estimate_psf_arrays(pzyx, (1.0, 1.0, 1.0), PSF_PATCH,
+                                                          device=dev))
+    with plain_kernels():
+        psf_p = estimate_psf_arrays(pzyx, (1.0, 1.0, 1.0), PSF_PATCH, device=dev)
+    err_p = float((psf - psf_p).abs().max())
+    require(err_p <= PSF_TOL, f"estimate-psf: {err_p:.3g} from the plain route (tol {PSF_TOL})")
+    require(psf.shape == PSF_PATCH and bool(torch.isfinite(psf).all())
+            and float(psf.max()) == 1.0, f"estimate-psf output {tuple(psf.shape)}")
+    centre = np.unravel_index(int(psf.argmax()), PSF_PATCH)
+    require(all(abs(c - n // 2) <= 1 for c, n in zip(centre, PSF_PATCH)),
+            f"estimate-psf: peak at {centre}, not the patch centre")
+    psf_ms = host_ms(lambda: estimate_psf_arrays(pzyx, (1.0, 1.0, 1.0), PSF_PATCH, device=dev))
+    print(f"estimate-psf (2 positions, patch {PSF_PATCH}): {err_p:.3g} from the plain route "
+          f"(tol {PSF_TOL}), peak at the centre; {psf_ms:.1f} ms; launches {launches_p}")
+    del lapse, pzyx, psf, psf_p
     torch.cuda.empty_cache()
 
 
@@ -735,10 +1065,14 @@ def main() -> int:
     records["deskew_xzy"]["runs"] = launches_x
 
     stabilization_phases(dev, records)
+    peaks_phase(dev, records)
+    multipass_phase(dev, records)
+    beads_phases(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
-    # the per-volume E and F from stabilize) --------------------------------
+    # the per-volume E and F from stabilize, G and H from the beads estimate
+    # and the stabilize that follows it) ------------------------------------
     for name, rec in records.items():
         counter = rec.get("counter", name)
         require(rec["runs"].get(counter, 0) >= 1, f"kernel {name} was not launched on its path")

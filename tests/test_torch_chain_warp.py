@@ -96,12 +96,28 @@ def test_uint16_chain_equals_its_float32_copy():
     assert torch.equal(chain(vols), chain(vols.astype(np.float32)))
 
 
-def test_chain_raises_for_a_general_affine():
+def test_chain_raises_for_a_general_affine(monkeypatch):
+    """A general affine no longer raises: the chain takes the reference's
+    other route (chain.py:439-472), the deskew, then affine_warp_auto's
+    multipass warp (the reference's accelerator route, patched in here as
+    in tests/test_torch_beads.py)."""
+    from biahub_tpu.kernels import affine as jaff
+    from tests.test_torch_beads import accelerator_warp
+
+    monkeypatch.setattr(jaff, "affine_warp_auto", accelerator_warp)
     rot = np.eye(4)
     rot[0, 2] = rot[2, 0] = 0.1  # mixes z and x
-    with pytest.raises(NotImplementedError, match="multipass"):
-        DeconvolveDeskewWarp(tf_half(SHAPE), SHAPE, 1e-3, ANGLE, RATIO, rot,
-                             device="cpu")
+    vols = np.random.default_rng(44).random((2,) + SHAPE, dtype=np.float32)
+    tf = tf_half(SHAPE)
+    want = np.asarray(jchain.deconvolve_deskew_warp_batched(
+        vols, tf, 1e-3, ANGLE, RATIO, rot, average_window=3))
+    chain = DeconvolveDeskewWarp(tf, SHAPE, 1e-3, ANGLE, RATIO, rot, average_window=3,
+                                 device="cpu")
+    assert chain.warp is None and set(chain.state_dict()) == {"filter"}
+    got = chain(vols)
+    assert_close(got, want)
+    assert torch.equal(tchain.deconvolve_deskew_warp_batched(
+        vols, tf, 1e-3, ANGLE, RATIO, rot, average_window=3, device="cpu"), got)
 
 
 def fuse_settings(stabilization: bool) -> dict:

@@ -16,9 +16,22 @@ from biahub_tpu_torch import (
     chain_from_reference,
     module_from_reference,
 )
-from biahub_tpu_torch.kernels import _build, affine, chain, deconvolve, deskew, fft
+from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
+from biahub_tpu_torch.kernels import (
+    _build,
+    affine,
+    chain,
+    deconvolve,
+    deskew,
+    fft,
+    multipass_warp,
+    peaks,
+)
 from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
+from biahub_tpu_torch.kernels.multipass_cuda import resample_pass
+from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
 from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
+from biahub_tpu_torch.registration import beads
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "biahub_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -52,6 +65,8 @@ TF = np.ones((8, 6, 6), np.float32)
 VOL = np.zeros(SHAPE, np.float32)
 SHIFT = np.eye(4)
 SHIFT[:3, 3] = [0.5, -1.0, 2.0]
+TILT = np.eye(4)
+TILT[0, 2] = TILT[2, 0] = 0.1  # mixes z and x: a general 3D matrix
 ENTRY_POINTS = {
     "deconvolve_zyx": lambda: deconvolve.deconvolve_zyx(VOL, TF),
     "deconvolve_czyx": lambda: deconvolve.deconvolve_czyx(VOL[None], TF),
@@ -74,6 +89,15 @@ ENTRY_POINTS = {
     "deconvolve_deskew_warp_batched": lambda: chain.deconvolve_deskew_warp_batched(
         VOL[None], TF, 1e-3, 30.0, 0.4, SHIFT),
     "DeconvolveDeskewWarp": lambda: DeconvolveDeskewWarp(TF, SHAPE, 1e-3, 30.0, 0.4, SHIFT),
+    "affine_warp_zyx": lambda: affine.affine_warp_zyx(VOL, TILT, SHAPE),
+    "multipass_affine_warp_zyx": lambda: multipass_warp.multipass_affine_warp_zyx(
+        VOL, TILT, SHAPE),
+    "multipass_affine_warp_zyx_batched": lambda: (
+        multipass_warp.multipass_affine_warp_zyx_batched(VOL[None], TILT[None], SHAPE)),
+    "detect_peaks": lambda: peaks.detect_peaks(VOL),
+    "estimate_psf_arrays": lambda: estimate_psf_arrays(VOL[None]),
+    "beads.estimate": lambda: beads.estimate(VOL, VOL),
+    "beads.estimate_tczyx": lambda: beads.estimate_tczyx(VOL[None, None], VOL[None, None], 0),
     "chain_from_reference": lambda: chain_from_reference(
         TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
                                            "px_to_scan_ratio": 0.4},
@@ -98,6 +122,9 @@ def test_cpu_path_takes_plain_versions_and_counts_no_launch():
                                                device="cpu")
     assert out.shape == (1,) + deskew.deskew_geometry(SHAPE, 30.0, 0.4, False).out_shape
     assert _build.launch_counts == {}
+    assert multipass_warp.multipass_affine_warp_zyx(VOL, TILT, SHAPE, device="cpu").shape == SHAPE
+    assert peaks.detect_peaks(VOL, device="cpu").shape == (0, 3)
+    assert _build.launch_counts == {}
 
 
 def test_wrappers_raise_on_other_devices():
@@ -114,6 +141,8 @@ def test_wrappers_raise_on_other_devices():
         lambda: warp_zy(meta[None], coeffs, (8, 6)),
         lambda: warp_zy(meta[None], coeffs, (8, 6), input_xzy=True),
         lambda: warp_x(meta[None], coeffs, 10, SHAPE),
+        lambda: block_max_argmin(meta),
+        lambda: resample_pass(meta[None], torch.empty((7, 3), device="meta"), 0, 1, 0),
     ):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             call()

@@ -19,6 +19,7 @@ import torch
 
 from biahub_tpu import stabilize as jstab
 from biahub_tpu.kernels import affine as jaff
+from biahub_tpu.kernels import multipass_warp as jmp
 from biahub_tpu_torch import (
     ArrayPosition,
     estimate_stabilization_arrays,
@@ -116,9 +117,13 @@ def test_output_yx_and_what_is_not_ported():
     for m in (np.eye(4), quarter):
         assert tstab._output_yx([m], 24, 20) == jstab._output_yx(
             SimpleNamespace(affine_transform_zyx_list=[m.tolist()]), 24, 20)
-    tilt = jaff.rotation_matrix_zyx(10.0, axis=1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        stabilize_tczyx(np.zeros((1, 1) + SHAPE, np.float32), [tilt], device="cpu")
+    # A general 3D matrix now takes the batched multipass warp, as the
+    # reference's kernel choice does (tests/test_torch_multipass.py).
+    tilt = jaff.rotation_matrix_zyx(10.0, axis=1).astype(np.float32)
+    vol = np.random.default_rng(47).random(SHAPE, dtype=np.float32)
+    kernel, params = jmp.make_batched_multipass_kernel([tilt], SHAPE, SHAPE)
+    want = np.asarray(kernel(vol, tilt, params[0]))
+    assert_close(stabilize_tczyx(vol[None, None], [tilt], device="cpu")[0, 0], want)
 
 
 def test_estimate_then_stabilize_roundtrip():

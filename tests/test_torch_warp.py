@@ -19,6 +19,7 @@ import torch
 
 from biahub_tpu.kernels import affine as jaff
 from biahub_tpu.kernels.chain import flip_y_matrix
+from biahub_tpu.kernels.multipass_warp import multipass_affine_warp_zyx
 from biahub_tpu.kernels.pallas_resample import (
     shear_resample2_pallas_t,
     shear_resample_pallas_t,
@@ -157,9 +158,17 @@ def test_matrix_helpers_match_reference():
     (3, REG_STAB),
 ])
 def test_affine_warp_auto_raises_for_what_is_not_ported(order, matrix):
-    vol = np.zeros((4, 8, 8), np.float32)
-    with pytest.raises(NotImplementedError, match="multipass"):
-        taff.affine_warp_auto(vol, matrix, (4, 8, 8), order=order, device="cpu")
+    """Nothing here is left unported: the general branch of
+    affine_warp_auto takes, for order 1, the multipass warp (the
+    reference's accelerator route), for another order the exact gather
+    (its trilinear sample, as the reference's)."""
+    vol = np.random.default_rng(36).random((4, 8, 8), dtype=np.float32)
+    got = taff.affine_warp_auto(vol, matrix, (4, 8, 8), order=order, device="cpu")
+    if order == 1:
+        want = multipass_affine_warp_zyx(vol, matrix, (4, 8, 8))
+    else:
+        want = jaff.affine_warp_auto(vol, matrix, (4, 8, 8), order=order)
+    assert_close(got, np.asarray(want))
 
 
 def test_pass1_clamps_to_the_frame_past_the_reference_window(pallas_route):
