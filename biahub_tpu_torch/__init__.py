@@ -23,16 +23,25 @@ one matrix per volume, or the multipass warp's kernel H for general 3D
 matrices). Bead detection (kernel G, :func:`~biahub_tpu_torch.kernels.peaks.
 detect_peaks`) serves estimate-stabilization's ``beads`` method
 (:mod:`biahub_tpu_torch.registration.beads`) and estimate-psf
-(:func:`~biahub_tpu_torch.estimate_psf.estimate_psf_arrays`).
+(:func:`~biahub_tpu_torch.estimate_psf.estimate_psf_arrays`). Intensity
+registration (:mod:`biahub_tpu_torch.registration.intensity`: Adam through
+the traced multipass warp, kernel H forward and kernels I and J backward)
+serves optimize-registration
+(:func:`~biahub_tpu_torch.optimize_registration.
+optimize_registration_arrays`) and estimate-registration's ``ants`` and
+``beads`` methods (:func:`~biahub_tpu_torch.estimate_registration.
+estimate_registration_arrays`).
 """
 
 from biahub_tpu_torch.convert import (
     chain_from_reference,
     module_from_reference,
+    registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
 )
 from biahub_tpu_torch.device import gpu_info, resolve_device
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
+from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
 from biahub_tpu_torch.estimate_stabilization import (
     ArrayPosition,
     estimate_stabilization_arrays,
@@ -51,6 +60,7 @@ from biahub_tpu_torch.kernels.chain import (
     deskew_then_warp,
 )
 from biahub_tpu_torch.kernels.multipass_warp import (
+    make_traced_multipass_warp,
     multipass_affine_warp_zyx,
     multipass_affine_warp_zyx_batched,
 )
@@ -61,6 +71,7 @@ from biahub_tpu_torch.kernels.pcc import (
     subpixel_shift_2d,
 )
 from biahub_tpu_torch.kernels.peaks import detect_peaks
+from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
@@ -73,6 +84,7 @@ __all__ = [
     "affine_warp_zyx",
     "multipass_affine_warp_zyx",
     "multipass_affine_warp_zyx_batched",
+    "make_traced_multipass_warp",
     "detect_peaks",
     "estimate_psf_arrays",
     "inplane_affine_warp_zyx",
@@ -89,6 +101,9 @@ __all__ = [
     "ArrayPosition",
     "estimate_stabilization_arrays",
     "stabilization_settings_from_reference",
+    "registration_estimate_settings_from_reference",
+    "optimize_registration_arrays",
+    "estimate_registration_arrays",
     "apply_stabilization_transform",
     "stabilize_tczyx",
     "gpu_info",

@@ -9,8 +9,9 @@ builds :class:`~biahub_tpu_torch.pipeline.DeconvolveDeskewWarp` from a fused
 pipeline's settings (``FusePipelineSettings``, settings.py:557-620) as a
 plain dict. ``stabilization_settings_from_reference`` validates
 estimate-stabilization's settings (``EstimateStabilizationSettings``,
-settings.py:324) into a plain dict with their defaults. The port reads no
-YAML itself.
+settings.py:324) and ``registration_estimate_settings_from_reference``
+estimate-registration's (``EstimateRegistrationSettings``, settings.py:299)
+into plain dicts with their defaults. The port reads no YAML itself.
 """
 
 from __future__ import annotations
@@ -22,7 +23,8 @@ from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 
 __all__ = ["module_from_reference", "chain_from_reference",
            "stabilization_settings_from_reference", "beads_match_settings_from_reference",
-           "affine_transform_settings_from_reference"]
+           "affine_transform_settings_from_reference",
+           "registration_estimate_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -425,4 +427,43 @@ def stabilization_settings_from_reference(settings: dict) -> dict:
             out["focus_finding_settings"] = _FOCUS_FINDING({}, "focus_finding_settings")
         if kind in ("xy", "xyz") and out["stack_reg_settings"] is None:
             out["stack_reg_settings"] = _STACK_REG({}, "stack_reg_settings")
+    return out
+
+
+_ANTS_REGISTRATION = _model({"sobel_filter": (False, _lax_bool)})
+_MANUAL_REGISTRATION = _model({
+    "time_index": (0, _lax_number(int)),
+    "affine_90degree_rotation": (0, _lax_number(int)),
+    "affine_fliplr": (False, _lax_bool),
+})
+_ESTIMATE_REGISTRATION = _model({
+    "target_channel_name": (_REQUIRED, _typed(str)),
+    "source_channel_name": (_REQUIRED, _typed(str)),
+    "estimation_method": ("manual", _literal("manual", "beads", "ants")),
+    "beads_match_settings": (None, _optional(_BEADS_MATCH)),
+    "focus_finding_settings": (None, _optional(_FOCUS_FINDING)),
+    "affine_transform_settings": (lambda: _AFFINE_TRANSFORM({}, "affine_transform_settings"),
+                                  _AFFINE_TRANSFORM),
+    "eval_transform_settings": (None, _optional(_EVAL_TRANSFORM)),
+    "ants_registration_settings": (None, _optional(_ANTS_REGISTRATION)),
+    "manual_registration_settings": (None, _optional(_MANUAL_REGISTRATION)),
+    "verbose": (False, _lax_bool),
+})
+
+
+def registration_estimate_settings_from_reference(settings: dict) -> dict:
+    """estimate-registration's settings as a plain dict, validated and
+    defaulted as ``EstimateRegistrationSettings`` and its nested models do
+    (settings.py:150-321): unknown fields refused, ``approx_transform`` a
+    4x4, and the method's settings block (``manual_registration_settings``,
+    ``beads_match_settings`` or ``ants_registration_settings``) created with
+    its defaults when absent. The result has the layout of the reference
+    model's ``model_dump()`` and reads back unchanged."""
+    out = _ESTIMATE_REGISTRATION(settings, "estimate-registration settings")
+    block = {"manual": ("manual_registration_settings", _MANUAL_REGISTRATION),
+             "beads": ("beads_match_settings", _BEADS_MATCH),
+             "ants": ("ants_registration_settings", _ANTS_REGISTRATION)}
+    name, model = block[out["estimation_method"]]
+    if out[name] is None:
+        out[name] = model({}, name)
     return out

@@ -358,10 +358,16 @@ def exact_domain_mask_general(matrices, in_shape, out_shape, device) -> torch.Te
     4x4): True where the output voxel's exact input coordinate lies inside
     the ``in_shape`` domain on all three axes, ``c_i = ((m[i,0]*zo +
     m[i,1]*yo) + m[i,2]*xo) + m[i,3]`` in float32 from the float32 matrix
-    (the reference's ``_exact_domain_mask``, affine.py:246)."""
-    mats = np.asarray(matrices, dtype=np.float64)
-    one = mats.ndim == 2
-    m = torch.tensor(mats.reshape(-1, 4, 4).astype(np.float32), device=device)
+    (the reference's ``_exact_domain_mask``, affine.py:246). ``matrices``
+    may be a float32 tensor: the mask is then built on the device from it,
+    detached, with no copy to the host."""
+    if isinstance(matrices, torch.Tensor):
+        one = matrices.ndim == 2
+        m = matrices.detach().to(device=device, dtype=torch.float32).reshape(-1, 4, 4)
+    else:
+        mats = np.asarray(matrices, dtype=np.float64)
+        one = mats.ndim == 2
+        m = torch.tensor(mats.reshape(-1, 4, 4).astype(np.float32), device=device)
     zo = _ramp(out_shape[0], device)[None, :, None, None]
     yo = _ramp(out_shape[1], device)[None, None, :, None]
     xo = _ramp(out_shape[2], device)[None, None, None, :]

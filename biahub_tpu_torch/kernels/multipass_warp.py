@@ -17,9 +17,15 @@ table: one row set for a single concrete matrix, or a (B, 7, 3) table, one
 row set per volume, for the batched form (the reference's
 ``make_batched_multipass_kernel``).
 
-Not ported yet: the traced warp with its custom VJP
-(``make_traced_multipass_warp``, ``_pallas_pass_ad``) and the chunked
-warps.
+The traced warp (:func:`make_traced_multipass_warp`, the reference's
+:474-587) takes the matrix as a tensor and is differentiable in it: each
+pass is a :class:`ResamplePass`, whose backward runs kernel I (the
+coefficient gradient, :func:`resample_pass_deriv_plain`) and kernel J (the
+data adjoint, :func:`resample_pass_adjoint_plain`). Its pass is the XLA
+form ``_apply_pass`` (per-pass fill, taps clamped to the frame), so I and J
+give that form's exact gradient.
+
+Not ported yet: the chunked warps.
 """
 
 from __future__ import annotations
@@ -34,6 +40,12 @@ __all__ = [
     "factor_affine",
     "common_frame_bytes",
     "resample_pass_plain",
+    "resample_pass_deriv_plain",
+    "resample_pass_adjoint_plain",
+    "ResamplePass",
+    "make_traced_multipass_warp",
+    "traced_frame",
+    "traced_pass_rows",
     "multipass_affine_warp_zyx",
     "multipass_affine_warp_zyx_batched",
     "union_frame",
@@ -205,6 +217,55 @@ def _axis_ramp(n: int, axis: int, device) -> torch.Tensor:
     return torch.arange(n, dtype=torch.float32, device=device).reshape(shape)
 
 
+def _pass_coords(shape, coeffs: torch.Tensor, slot: int, r: int, o: int) -> torch.Tensor:
+    """The pass's sampling coordinate ``(cr*i_r + tau) + co*i_o`` in float32,
+    broadcastable to a (B, F0, F1, F2) frame of ``shape``."""
+    batch = shape[0]
+    dev = coeffs.device
+    row = coeffs[slot] if coeffs.ndim == 2 else coeffs[:, slot]
+    row = row.reshape(-1, 3).expand(batch, 3)
+    cr, co, tau = (row[:, j].reshape(batch, 1, 1, 1) for j in range(3))
+    coords = cr * _axis_ramp(shape[r + 1], r, dev) + tau
+    if o != r:
+        coords = coords + co * _axis_ramp(shape[o + 1], o, dev)
+    return coords
+
+
+def _band_weights(t: torch.Tensor, order: int):
+    """(tap offset, weight) of the linear (order 1) or Catmull-Rom band."""
+    if order == 1:
+        return ((0, 1.0 - t), (1, t))
+    t2 = t * t
+    t3 = t2 * t
+    return (
+        (-1, -0.5 * t3 + t2 - 0.5 * t),
+        (0, 1.5 * t3 - 2.5 * t2 + 1.0),
+        (1, -1.5 * t3 + 2.0 * t2 + 0.5 * t),
+        (2, 0.5 * t3 - 0.5 * t2),
+    )
+
+
+def _band_derivatives(t: torch.Tensor, order: int):
+    """(tap offset, d weight / d t) of the band (pallas_resample.py:1257-1265)."""
+    if order == 1:
+        return ((0, -1.0), (1, 1.0))
+    t2 = t * t
+    return (
+        (-1, -1.5 * t2 + 2.0 * t - 0.5),
+        (0, 4.5 * t2 - 5.0 * t),
+        (1, -4.5 * t2 + 4.0 * t + 0.5),
+        (2, 1.5 * t2 - 1.0 * t),
+    )
+
+
+def _taps(coords: torch.Tensor, size_in: int):
+    """floor(c) as int64, t = c - floor(c), and the domain [0, size_in - 1]."""
+    i0 = torch.floor(coords)
+    t = coords - i0
+    in_domain = (coords >= 0) & (coords <= size_in - 1)
+    return i0.to(torch.int64), t, in_domain
+
+
 def resample_pass_plain(src: torch.Tensor, coeffs: torch.Tensor, slot: int, r: int,
                         o: int, order: int = 3, fill: float = 0.0) -> torch.Tensor:
     """Plain version of kernel H: one pass over a (B, F0, F1, F2) float32
@@ -212,37 +273,56 @@ def resample_pass_plain(src: torch.Tensor, coeffs: torch.Tensor, slot: int, r: i
     batch, or (B, S, 3), a row set per volume; row ``slot`` holds (cr, co,
     tau). Each step is one float32 op in the reference's operand order
     (``_apply_pass``, multipass_warp.py:153-209)."""
-    batch = src.shape[0]
-    dev = src.device
-    row = coeffs[slot] if coeffs.ndim == 2 else coeffs[:, slot]
-    row = row.reshape(-1, 3).expand(batch, 3)
-    cr, co, tau = (row[:, j].reshape(batch, 1, 1, 1) for j in range(3))
     size_in = src.shape[r + 1]
-    coords = cr * _axis_ramp(size_in, r, dev) + tau
-    if o != r:
-        coords = coords + co * _axis_ramp(src.shape[o + 1], o, dev)
-    i0 = torch.floor(coords)
-    t = coords - i0
-    i0 = i0.to(torch.int64)
-    in_domain = (coords >= 0) & (coords <= size_in - 1)
-    if order == 1:
-        bands = ((0, 1.0 - t), (1, t))
-    else:
-        t2 = t * t
-        t3 = t2 * t
-        bands = (
-            (-1, -0.5 * t3 + t2 - 0.5 * t),
-            (0, 1.5 * t3 - 2.5 * t2 + 1.0),
-            (1, -1.5 * t3 + 2.0 * t2 + 0.5 * t),
-            (2, 0.5 * t3 - 0.5 * t2),
-        )
-    full = src.shape
+    i0, t, in_domain = _taps(_pass_coords(src.shape, coeffs, slot, r, o), size_in)
     out = None
-    for k, w in bands:
-        idx = (i0 + k).clamp(0, size_in - 1).expand(full)
+    for k, w in _band_weights(t, order):
+        idx = (i0 + k).clamp(0, size_in - 1).expand(src.shape)
         v = torch.gather(src, r + 1, idx)
         out = w * v if out is None else out + w * v
-    return torch.where(in_domain, out, torch.tensor(float(fill), dtype=out.dtype, device=dev))
+    return torch.where(in_domain, out, torch.tensor(float(fill), dtype=out.dtype,
+                                                    device=src.device))
+
+
+def resample_pass_deriv_plain(src: torch.Tensor, ybar: torch.Tensor, coeffs: torch.Tensor,
+                              slot: int, r: int, o: int, order: int = 3) -> torch.Tensor:
+    """Plain version of kernel I: the pass's coefficient cotangents -> (B, 3)
+    float64, per volume ``(sum ybar*dy/dc*i_r, sum ybar*dy/dc*i_o, sum
+    ybar*dy/dc)`` (the second 0 when ``o == r``). ``dy/dc`` is the band
+    derivative resample of ``src`` at H's coordinates and clamped taps, 0
+    where H writes the fill. The coordinate is float32 as in H; the band
+    derivative, the products and the sums are float64."""
+    size_in = src.shape[r + 1]
+    dev = src.device
+    i0, t, in_domain = _taps(_pass_coords(src.shape, coeffs, slot, r, o), size_in)
+    dv = None
+    for k, dw in _band_derivatives(t.to(torch.float64), order):
+        idx = (i0 + k).clamp(0, size_in - 1).expand(src.shape)
+        v = torch.gather(src, r + 1, idx).to(torch.float64)
+        dv = dw * v if dv is None else dv + dw * v
+    g = torch.where(in_domain, ybar.to(torch.float64) * dv,
+                    torch.zeros((), dtype=torch.float64, device=dev))
+    axes = (1, 2, 3)
+    g_r = (g * _axis_ramp(size_in, r, dev).to(torch.float64)).sum(axes)
+    g_o = ((g * _axis_ramp(src.shape[o + 1], o, dev).to(torch.float64)).sum(axes)
+           if o != r else torch.zeros_like(g_r))
+    return torch.stack([g_r, g_o, g.sum(axes)], 1)
+
+
+def resample_pass_adjoint_plain(ybar: torch.Tensor, coeffs: torch.Tensor, slot: int, r: int,
+                                o: int, order: int = 3) -> torch.Tensor:
+    """Plain version of kernel J: the exact transpose of
+    :func:`resample_pass_plain` in its data, a (B, F0, F1, F2) float32
+    cotangent -> the same shape: each in-domain sample's ``w_k * ybar``
+    scatter-added onto its clamped tap index along ``r``."""
+    size_in = ybar.shape[r + 1]
+    i0, t, in_domain = _taps(_pass_coords(ybar.shape, coeffs, slot, r, o), size_in)
+    yb = torch.where(in_domain, ybar, torch.zeros((), dtype=ybar.dtype, device=ybar.device))
+    out = torch.zeros_like(ybar)
+    for k, w in _band_weights(t, order):
+        idx = (i0 + k).clamp(0, size_in - 1).expand(ybar.shape)
+        out.scatter_add_(r + 1, idx, w * yb)
+    return out
 
 
 def _run_passes(frame: torch.Tensor, table: torch.Tensor, slots, order: int,
@@ -358,3 +438,129 @@ def multipass_affine_warp_zyx_batched(
     table = torch.from_numpy(params).to(dev)
     frame = _run_passes(_embed(data, off, frame_shape), table, CANONICAL_SLOTS, 3, fill)
     return _crop_and_mask(frame, off, mats, in_shape, out_shape, fill)
+
+
+class ResamplePass(torch.autograd.Function):
+    """One pass of the traced warp, differentiable in the frame and in its
+    (3,) coefficient row (cr, co, tau): the reference's ``_pallas_pass_ad``
+    (:590-626) with ``_apply_pass``'s semantics. Forward: kernel H with a
+    one-row table. Backward: kernel I for the row's gradient and, when the
+    frame needs one, kernel J for the frame's."""
+
+    @staticmethod
+    def forward(ctx, frame, coeff_row, r: int, o: int, order: int, fill: float):
+        from biahub_tpu_torch.kernels import multipass_cuda
+
+        table = coeff_row.detach().reshape(1, 3).contiguous()
+        ctx.save_for_backward(frame, table)
+        ctx.pass_args = (r, o, order)
+        return multipass_cuda.resample_pass(frame, table, 0, r, o, order, fill)
+
+    @staticmethod
+    def backward(ctx, ybar):
+        from biahub_tpu_torch.kernels import multipass_cuda
+
+        frame, table = ctx.saved_tensors
+        r, o, order = ctx.pass_args
+        ybar = ybar.contiguous()
+        grad_frame = grad_row = None
+        if ctx.needs_input_grad[1]:
+            sums = multipass_cuda.resample_pass_deriv(frame, ybar, table, 0, r, o, order)
+            grad_row = sums.sum(0).to(table.dtype)
+        if ctx.needs_input_grad[0]:
+            grad_frame = multipass_cuda.resample_pass_adjoint(ybar, table, 0, r, o, order)
+        return grad_frame, grad_row, None, None, None, None
+
+
+def _traced_coefficients(matrix: torch.Tensor):
+    """The canonical slots' (cr, co, tau) of a float32 (4, 4) tensor, as
+    tensors: the Doolittle LU without pivoting and the closed-form
+    translations of the reference's traced warp (:530-556), op for op."""
+    a = matrix[:3, :3]
+    t = matrix[:3, 3]
+    l10 = a[1, 0] / a[0, 0]
+    l20 = a[2, 0] / a[0, 0]
+    u11 = a[1, 1] - l10 * a[0, 1]
+    u12 = a[1, 2] - l10 * a[0, 2]
+    l21 = (a[2, 1] - l20 * a[0, 1]) / u11
+    u22 = a[2, 2] - l20 * a[0, 2] - l21 * u12
+    u00, u01, u02 = a[0, 0], a[0, 1], a[0, 2]
+    alpha = u01 / u11
+    gamma = u12 / u22
+    beta = (u02 / u22 - alpha * gamma) / u00
+    tau_0 = t[0]
+    tau_1 = t[1] - t[0] * l10
+    tau_2 = t[2] - t[0] * (l20 + l21 * l10)
+    one = torch.ones((), dtype=matrix.dtype, device=matrix.device)
+    zero = torch.zeros((), dtype=matrix.dtype, device=matrix.device)
+    return (
+        (one, l10, tau_1),
+        (one, l20, tau_2),
+        (one, l21, zero),
+        (u00, alpha, tau_0),
+        (one, beta, zero),
+        (u11, gamma, zero),
+        (u22, zero, zero),
+    )
+
+
+def traced_frame(in_shape, out_shape, margin: float):
+    """(offset, frame shape, crop start) of the traced warp's static frame:
+    each axis padded by ``ceil(margin * extent) + 2`` voxels, the extent
+    being the larger of the input's and the output's."""
+    ext = np.maximum(np.asarray(in_shape), np.asarray(out_shape))
+    pad_n = np.ceil(margin * ext).astype(int) + 2
+    off = -pad_n
+    return off, tuple(int(s) for s in ext + 2 * pad_n + 2), (-off).astype(int)
+
+
+def traced_pass_rows(matrix: torch.Tensor, off):
+    """[(r, o, (3,) row (cr, co, tau))] of the canonical slots for a float32
+    (4, 4) tensor, tau in the frame's indices (the reference's ``tau_eff``,
+    :562), differentiable in the matrix."""
+    rows = []
+    for (r, o), (cr, co, tau) in zip(CANONICAL_SLOTS, _traced_coefficients(matrix)):
+        tau_eff = cr * int(off[r]) + (co * int(off[o]) if o != r else 0.0) + tau - int(off[r])
+        rows.append((r, o, torch.stack([cr, co, tau_eff])))
+    return rows
+
+
+def make_traced_multipass_warp(
+    in_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    margin: float = 0.25,
+    order: int = 3,
+    device: str | torch.device = "cuda",
+):
+    """Differentiable multipass warp for a matrix given as a tensor (the
+    reference's ``make_traced_multipass_warp``, :474-587, on its XLA pass).
+
+    Returns ``warp(volume, matrix) -> (Zo, Yo, Xo)`` float32: ``volume`` a
+    (Z, Y, X) tensor on ``device``, ``matrix`` a float32 (4, 4) tensor there,
+    output->input, which may require a gradient. The frame is static
+    (:func:`traced_frame`), the volume embedded in it by edge replication;
+    the 7 canonical passes run as :class:`ResamplePass` (7 launches of H
+    forward; 7 of I and, past the first pass, 6 of J backward); the exact
+    fill mask comes from the matrix, detached, on the device. Passes
+    sampling beyond the frame clamp to its edge, and vanishing pivots are
+    not caught: keep the matrix near the start of a registration, away from
+    90 degree permutations."""
+    from biahub_tpu_torch.kernels.affine import exact_domain_mask_general
+
+    dev = resolve_device(device)
+    in_shape = tuple(int(s) for s in in_shape)
+    out_shape = tuple(int(s) for s in out_shape)
+    off, frame_shape, start = traced_frame(in_shape, out_shape, margin)
+
+    def warp(volume: torch.Tensor, matrix: torch.Tensor) -> torch.Tensor:
+        matrix = matrix.to(device=dev, dtype=torch.float32)
+        data = _embed(volume.to(device=dev, dtype=torch.float32)[None], off, frame_shape)
+        for r, o, row in traced_pass_rows(matrix, off):
+            data = ResamplePass.apply(data, row, r, o, order, float(fill))
+        out = data[0, start[0]:start[0] + out_shape[0], start[1]:start[1] + out_shape[1],
+                   start[2]:start[2] + out_shape[2]]
+        inside = exact_domain_mask_general(matrix.detach(), in_shape, out_shape, dev)
+        return torch.where(inside, out, torch.tensor(float(fill), dtype=out.dtype, device=dev))
+
+    return warp

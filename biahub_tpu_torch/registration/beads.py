@@ -37,6 +37,7 @@ from biahub_tpu_torch.convert import (
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.affine import affine_warp_auto
 from biahub_tpu_torch.kernels.peaks import detect_peaks
+from biahub_tpu_torch.registration.utils import no_output
 from biahub_tpu_torch.transforms.fitting import fit_transform
 from biahub_tpu_torch.transforms.graph_matching import Graph, GraphMatcher
 
@@ -50,13 +51,6 @@ __all__ = [
     "estimate_tzyx",
     "estimate_tczyx",
 ]
-
-
-def _no_output(path, what: str) -> None:
-    if path is not None:
-        raise NotImplementedError(
-            f"biahub_tpu_torch: {what} (saving transforms) needs the I/O layer, "
-            "not ported yet (ROADMAP queue 1)")
 
 
 def _warp(mov: torch.Tensor, warp_matrix, out_shape, device) -> torch.Tensor:
@@ -205,7 +199,7 @@ def estimate(mov, ref, beads_match_settings: dict | None = None,
              device: str | torch.device = "cuda"):
     """Iteratively estimate the best warp between a moving and a reference
     (Z, Y, X) volume; None when either is all zeros or NaN."""
-    _no_output(output_filepath, "output_filepath")
+    no_output(output_filepath, "output_filepath")
     dev = resolve_device(device)
     bms = beads_match_settings_from_reference(beads_match_settings)
     ats = affine_transform_settings_from_reference(affine_transform_settings)
@@ -261,7 +255,7 @@ def estimate_tzyx(t_idx: int, mov_tzyx, ref_tzyx, beads_match_settings: dict | N
                   user_transform=None, device: str | torch.device = "cuda"):
     """The warp of one timepoint; in stabilization mode the reference volume
     is the first timepoint or the previous one (``t_reference``)."""
-    _no_output(output_folder_path, "output_folder_path")
+    no_output(output_folder_path, "output_folder_path")
     dev = resolve_device(device)
     ats = affine_transform_settings_from_reference(affine_transform_settings)
     if verbose:
@@ -305,7 +299,7 @@ def estimate_tczyx(
     """Per-timepoint beads warps (4x4 nested lists) of a whole (T, C, Z, Y,
     X) stack, numpy or a tensor; failed timepoints become the identity. With
     ``use_prev_t_transform`` each result seeds the next timepoint."""
-    _no_output(output_folder_path, "output_folder_path")
+    no_output(output_folder_path, "output_folder_path")
     dev = resolve_device(device)
     bms = beads_match_settings_from_reference(beads_match_settings)
     ats = affine_transform_settings_from_reference(affine_transform_settings)

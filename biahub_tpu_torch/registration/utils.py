@@ -24,10 +24,20 @@ __all__ = [
     "interpolate_transforms",
     "evaluate_transforms",
     "approx_transform_from_scale",
+    "no_output",
     "get_3D_rescaling_matrix",
     "get_3D_rotation_matrix",
     "get_3D_fliplr_matrix",
 ]
+
+
+def no_output(path, what: str) -> None:
+    """Raise when a caller asks to save transforms (``path`` not None):
+    that needs the I/O layer, which is not ported yet."""
+    if path is not None:
+        raise NotImplementedError(
+            f"biahub_tpu_torch: {what} (saving transforms) needs the I/O layer, "
+            "not ported yet (ROADMAP queue 1)")
 
 
 def check_transforms_difference(

@@ -114,11 +114,12 @@ def stabilize_tczyx(
     out_y, out_x = _output_yx(mats, Y, X)
     out_zyx = (Z, out_y, out_x)
     units = [(t, c) for t in times for c in range(C)]
-    used = mats[times]
-    if all(is_translation_matrix(m) for m in used):
+    # The kernel is chosen from every matrix given, as the reference's
+    # (:172-213), not only from the timepoints warped.
+    if all(is_translation_matrix(m) for m in mats):
         def warp(vols, ms):
             return translation_warp_zyx_batched(vols, ms[:, :3, 3], out_zyx, device=dev)
-    elif all(is_inplane_matrix(m) for m in used):
+    elif all(is_inplane_matrix(m) for m in mats):
         def warp(vols, ms):
             return inplane_affine_warp_zyx_batched(vols, ms, out_zyx, device=dev)
     else:

@@ -55,6 +55,29 @@ Then, at the same deskewed shape:
 10. runs estimate-psf (``estimate_psf_arrays``) on two bead positions,
    equal to the plain route within 1e-6.
 
+Then intensity registration, at the same deskewed shape:
+
+11. holds kernels I and J (the multipass pass's VJP) against their plain
+    versions in the traced warp's full-resolution frame (margin 0.15), for
+    each canonical slot of a similarity (1.5 deg about z, 0.5 deg about y,
+    scale 1.01), orders 1 and 3: I's three sums within 1e-6 relative of the
+    plain version in float64, J within 1e-5 of max|ref|; then the NCC
+    loss's 7-parameter gradient through the whole traced warp (H, I, J)
+    within 1e-4 of the same through the plain versions; times H, I, J, and
+    grid_sample forward and backward for one order-1 pass as the library;
+12. runs optimize-registration (``optimize_registration_arrays``, crop
+    True) on a rendered pair: zero-mean noise blurred by a Gaussian of 4
+    voxels, and that
+    volume warped by the inverse of a known similarity (1.5 deg about z,
+    0.5 deg about y, scale 1.01, shift (0.8, -2.5, 3.0)), from the truth
+    with its translation 2 voxels off on each axis: the result within 0.01
+    (linear part) of the truth, within 0.05 voxel of it at the volume's
+    centre and within 1 voxel at each of its corners (limits that the
+    start fails), and within 1e-3 and 0.05 voxel (translation column) of
+    the same call with H, I and J replaced by their plain versions;
+    launches per level (H 7, I 7, J 6 per step), ms per level and per
+    step, and ms per step at bench.py's optimizer shape (64, 256, 256).
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -147,6 +170,29 @@ BEADS_SETTINGS = {
 # estimate-psf's patch in voxels (PsfFromBeadsSettings axis{0,1,2}_patch_size).
 PSF_PATCH = (21, 41, 41)
 PSF_TOL = 1e-6
+# Intensity registration (phases 11-12): the truth's rotation (deg about z
+# and y), scale and shift; the initial transform's translation error per
+# axis; the reference volume's blur (zero-mean noise: a constant offset
+# would make the zero fill of the warp's out-of-domain voxels an outlier
+# that dominates the NCC as soon as Adam's first step rotates the edges
+# out); the traced warp's margin (intensity.py). The result is held to the
+# truth in its linear part, in its displacement at the volume's centre and
+# in its largest displacement over the volume's eight corners: on a
+# 1024-voxel axis a linear-part error of 1e-3 moves a corner by 0.5 voxel.
+# The start (2 voxels off everywhere) must fail the same limits.
+REG_ANGLES, REG_SCALE, REG_SHIFT = (1.5, 0.5), 1.01, (0.8, -2.5, 3.0)
+REG_START_ERROR = (2.0, -2.0, 2.0)
+REG_SIGMA, REG_MARGIN = 4.0, 0.15
+TRUTH_REG_LINEAR_TOL, TRUTH_REG_CENTRE_TOL, TRUTH_REG_CORNER_TOL = 0.01, 0.05, 1.0
+DERIV_TOL = 1e-6   # max |I - plain| / max |plain| (float64 sums)
+GRAD_TOL = 1e-4    # the whole warp's gradient, kernels vs plain versions
+PLAIN_LINEAR_TOL, PLAIN_SHIFT_TOL = 1e-3, 0.05
+# bench.py's intensity-registration optimizer shape (bench.py:366-387).
+BENCH_REG_SHAPE = (64, 256, 256)
+BENCH_REG_STEPS = 20
+# An H100 SXM's float64 rate outside the tensor cores (NVIDIA data sheet):
+# kernel I's band derivative and sums are double.
+F64_FLOP_PER_S = 34e12
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -171,9 +217,10 @@ def time_ms(fn, setup=None) -> float:
     return statistics.median(samples_ms(fn, setup))
 
 
-def bound(nbytes: float, flops: float) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, f64_flops: float = 0.0) -> tuple[float, str]:
     """Least time on the card (ms) for the work, and what bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / F32_FLOP_PER_S + f64_flops / F64_FLOP_PER_S
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -453,20 +500,26 @@ def stabilization_phases(dev: torch.device, records: dict) -> None:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Kernels G and H replaced by their plain PyTorch versions on the card,
-    for the plain route of a whole call (the wrappers are looked up at each
-    call); nothing is counted."""
+    """Kernels G, H, I and J replaced by their plain PyTorch versions on the
+    card, for the plain route of a whole call (the wrappers are looked up at
+    each call); nothing is counted."""
     from biahub_tpu_torch.kernels import multipass_cuda, multipass_warp, peaks, peaks_cuda
 
-    saved = multipass_cuda.resample_pass, peaks_cuda.block_max_argmin
+    saved = (multipass_cuda.resample_pass, multipass_cuda.resample_pass_deriv,
+             multipass_cuda.resample_pass_adjoint, peaks_cuda.block_max_argmin)
     multipass_cuda.resample_pass = (
         lambda frame, coeffs, slot, r, o, order=3, fill=0.0, out=None:
         multipass_warp.resample_pass_plain(frame, coeffs, slot, r, o, order, fill))
+    multipass_cuda.resample_pass_deriv = multipass_warp.resample_pass_deriv_plain
+    multipass_cuda.resample_pass_adjoint = (
+        lambda ybar, coeffs, slot, r, o, order=3, out=None:
+        multipass_warp.resample_pass_adjoint_plain(ybar, coeffs, slot, r, o, order))
     peaks_cuda.block_max_argmin = peaks.block_max_candidates_plain
     try:
         yield
     finally:
-        multipass_cuda.resample_pass, peaks_cuda.block_max_argmin = saved
+        (multipass_cuda.resample_pass, multipass_cuda.resample_pass_deriv,
+         multipass_cuda.resample_pass_adjoint, peaks_cuda.block_max_argmin) = saved
 
 
 def rigid_about_centre(angles_deg, shift, shape) -> np.ndarray:
@@ -729,6 +782,290 @@ def beads_phases(dev: torch.device, records: dict) -> None:
     print(f"estimate-psf (2 positions, patch {PSF_PATCH}): {err_p:.3g} from the plain route "
           f"(tol {PSF_TOL}), peak at the centre; {psf_ms:.1f} ms; launches {launches_p}")
     del lapse, pzyx, psf, psf_p
+    torch.cuda.empty_cache()
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+def similarity_about_centre(shape) -> np.ndarray:
+    """The registration truth: the output->input warp of REG_SCALE times a
+    rotation by REG_ANGLES (about z, then y) about the volume's centre,
+    then REG_SHIFT."""
+    rot = rigid_about_centre((0.0, REG_ANGLES[1], REG_ANGLES[0]), (0.0, 0.0, 0.0), shape)
+    lin = REG_SCALE * rot[:3, :3]
+    centre = (np.asarray(shape) - 1) / 2
+    m = np.eye(4)
+    m[:3, :3] = lin
+    m[:3, 3] = centre - lin @ centre + np.asarray(REG_SHIFT)
+    return m
+
+
+def gaussian_noise(shape, sigma: float, gen: torch.Generator) -> torch.Tensor:
+    """Zero-mean uniform noise blurred by a Gaussian of ``sigma`` voxels
+    (three 1D float32 convolutions, zero padding)."""
+    dev = gen.device
+    radius = int(math.ceil(3 * sigma))
+    x = torch.arange(-radius, radius + 1, dtype=torch.float32, device=dev)
+    k = torch.exp(-0.5 * (x / sigma) ** 2)
+    k = k / k.sum()
+    v = torch.rand(shape, generator=gen, device=dev)[None, None] - 0.5
+    for axis in range(3):
+        size, pad = [1, 1, 1], [0, 0, 0]
+        size[axis], pad[axis] = len(k), radius
+        v = torch.nn.functional.conv3d(v, k.reshape(1, 1, *size), padding=pad)
+    return v[0, 0].contiguous()
+
+
+def warp_trilinear(vol: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
+    """``vol`` warped by an output->input ``matrix``, trilinear, 0 outside
+    (grid_sample, independent of the port's warps)."""
+    shape = vol.shape
+    m = torch.tensor(matrix, dtype=torch.float64, device=vol.device)
+    ramps = [torch.arange(n, dtype=torch.float64, device=vol.device).reshape(
+        [-1 if i == a else 1 for i in range(3)]) for a, n in enumerate(shape)]
+    coords = [((m[a, 0] * ramps[0] + m[a, 1] * ramps[1]) + m[a, 2] * ramps[2]) + m[a, 3]
+              for a in range(3)]
+    grid = torch.stack([lerp_grid(coords[a], shape[a]).float().expand(shape)
+                        for a in (2, 1, 0)], -1)[None]
+    return torch.nn.functional.grid_sample(vol[None, None], grid, mode="bilinear",
+                                           padding_mode="zeros", align_corners=True)[0, 0]
+
+
+def vjp_phase(dev: torch.device, records: dict) -> None:
+    """Phase 11: kernels I and J against their plain versions in the traced
+    warp's full-resolution frame, each canonical slot of the registration
+    truth, orders 1 and 3; the whole warp's gradient; the library's pass."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+    from biahub_tpu_torch.kernels.multipass_cuda import (
+        resample_pass,
+        resample_pass_adjoint,
+        resample_pass_deriv,
+    )
+    from biahub_tpu_torch.registration import intensity as ti
+
+    shape = LAPSE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(11)
+    vol = torch.nn.functional.avg_pool3d(
+        torch.rand(shape, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
+    truth = torch.tensor(similarity_about_centre(shape), dtype=torch.float32, device=dev)
+    off, frame_shape, _ = mw.traced_frame(shape, shape, REG_MARGIN)
+    rows = mw.traced_pass_rows(truth, off)
+    table = torch.stack([row for _, _, row in rows]).contiguous()
+    frame = mw._embed(vol[None], off, frame_shape)
+    ybar = torch.randn(frame.shape, generator=gen, device=dev)
+    out = torch.empty_like(frame)
+    nvox = frame.numel()
+    print(f"traced frame of {shape} at margin {REG_MARGIN}: {frame_shape}, "
+          f"{frame.numel() * 4 / 1e6:.1f} MB")
+    worst_i, worst_j = 0.0, 0.0
+    ms = {name: [] for name in ("H", "I", "J", "H plain", "I plain", "J plain")}
+    for order in (1, 3):
+        for k, (r, o, _) in enumerate(rows):
+            got_i = resample_pass_deriv(frame, ybar, table, k, r, o, order)
+            want_i = mw.resample_pass_deriv_plain(frame, ybar, table, k, r, o, order)
+            err_i = float((got_i - want_i).abs().max() / want_i.abs().max())
+            require(err_i <= DERIV_TOL, f"kernel I slot {k} order {order}: rel err {err_i:.3g}")
+            worst_i = max(worst_i, float((got_i - want_i).abs().max()))
+            got_j = resample_pass_adjoint(ybar, table, k, r, o, order, out=out)
+            want_j = mw.resample_pass_adjoint_plain(ybar, table, k, r, o, order)
+            err_abs_j, err_j = rel_err(got_j, want_j)
+            require(err_j <= WARP_TOL, f"kernel J slot {k} order {order}: rel err {err_j:.3g}")
+            worst_j = max(worst_j, err_abs_j)
+            del want_j
+            line = f"slot {k} (r {r}, o {o}) order {order}: I rel err {err_i:.3g}, J {err_j:.3g}"
+            if order == 1:
+                times = {
+                    "H": time_ms(lambda: resample_pass(frame, table, k, r, o, 1, out=out)),
+                    "I": time_ms(lambda: resample_pass_deriv(frame, ybar, table, k, r, o, 1)),
+                    "J": time_ms(lambda: resample_pass_adjoint(ybar, table, k, r, o, 1, out=out)),
+                    "H plain": time_ms(lambda: mw.resample_pass_plain(frame, table, k, r, o, 1)),
+                    "I plain": time_ms(lambda: mw.resample_pass_deriv_plain(frame, ybar, table,
+                                                                            k, r, o, 1)),
+                    "J plain": time_ms(lambda: mw.resample_pass_adjoint_plain(ybar, table, k, r,
+                                                                              o, 1)),
+                }
+                for name, t in times.items():
+                    ms[name].append(t)
+                line += "; ms " + ", ".join(f"{n} {t:.4f}" for n, t in times.items())
+            print(line)
+    mean = {name: statistics.mean(v) for name, v in ms.items()}
+
+    # The library: grid_sample forward and backward (input and grid) for
+    # slot 0's order-1 pass on the same frame.
+    r, o, _ = rows[0]
+    zyx = [mw._pass_coords(frame.shape, table, 0, r, o) if a == r
+           else mw._axis_ramp(frame_shape[a], a, dev) for a in range(3)]
+    zyx = torch.broadcast_tensors(*zyx)
+    grid = torch.stack([lerp_grid(zyx[a][0], frame_shape[a]) for a in (2, 1, 0)], -1)[None]
+    inp = frame[:, None].clone().requires_grad_(True)
+    grid.requires_grad_(True)
+    del zyx
+
+    def library():
+        lib_out = torch.nn.functional.grid_sample(inp, grid, mode="bilinear",
+                                                  padding_mode="border", align_corners=True)
+        return torch.autograd.grad(lib_out, (inp, grid), ybar[:, None])
+
+    lib_ms = time_ms(library)
+    del grid, inp
+
+    fbytes = nvox * 4
+    bms_h, bby_h = bound(2 * fbytes, 12 * nvox)
+    # I: reads the frame and ybar once (and writes 3 doubles a row); the
+    # order-1 band derivative, product and three sums are ~9 double ops.
+    bms_i, bby_i = bound(2 * fbytes + frame_shape[0] * frame_shape[1] * 24, 0, 9 * nvox)
+    # J: reads ybar, writes dbar; each sample's 2 weights and 2 products.
+    bms_j, bby_j = bound(2 * fbytes, 6 * nvox)
+    records["resample_pass_deriv"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:1226",
+        source="biahub_tpu_torch/csrc/multipass.cu", max_abs_err=worst_i, ms=mean["I"],
+        plain_ms=mean["I plain"], bound_ms=bms_i, bound_by=bby_i, library_ms=lib_ms)
+    records["resample_pass_adjoint"] = dict(
+        replaces="biahub_tpu/kernels/pallas_resample.py:1271",
+        source="biahub_tpu_torch/csrc/multipass.cu", max_abs_err=worst_j, ms=mean["J"],
+        plain_ms=mean["J plain"], bound_ms=bms_j, bound_by=bby_j, library_ms=lib_ms)
+    print(f"order-1 passes in the {frame_shape} frame, mean of the 7 slots: H {mean['H']:.4f} "
+          f"ms (plain {mean['H plain']:.4f}, bound {bms_h:.4f} {bby_h}); I "
+          + describe(records["resample_pass_deriv"]) + "; J "
+          + describe(records["resample_pass_adjoint"])
+          + f"; library = grid_sample fwd+bwd, order 1 (slot 0): {lib_ms:.4f} ms")
+    del frame, ybar, out, got_i, got_j
+
+    # The NCC loss's gradient in the 7 similarity parameters through the
+    # whole traced warp, kernels against plain versions.
+    target = torch.nn.functional.avg_pool3d(
+        torch.rand(shape, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
+    center = (torch.tensor(shape, dtype=torch.float32, device=dev) - 1) / 2
+    p0 = torch.tensor([0.01, -0.005, 0.008, 0.005, 0.3, -0.2, 0.4], device=dev)
+    warp = mw.make_traced_multipass_warp(shape, shape, margin=REG_MARGIN, order=1, device=dev)
+
+    def gradient():
+        p = p0.clone().requires_grad_(True)
+        loss = ti._ncc_loss(warp(vol, ti._similarity_matrix(p, center)), target)
+        return torch.autograd.grad(loss, p)[0]
+
+    g_k, launches = counted(gradient)
+    with plain_kernels():
+        g_p = gradient()
+    err_g = float((g_k - g_p).abs().max() / g_p.abs().max())
+    require(err_g <= GRAD_TOL, f"warp gradient: rel err {err_g:.3g} > {GRAD_TOL}")
+    want_l = {"resample_pass": 7, "resample_pass_deriv": 7, "resample_pass_adjoint": 6}
+    require(launches == want_l, f"one gradient: launches {launches}, want {want_l}")
+    grad_ms = host_ms(gradient)
+    print(f"NCC gradient through the traced warp at {shape}: rel err {err_g:.3g} vs the plain "
+          f"versions (tol {GRAD_TOL}); {grad_ms:.3f} ms (host clock, loss and gradient); "
+          f"launches {launches}")
+    del vol, target
+    torch.cuda.empty_cache()
+
+
+def registration_phase(dev: torch.device, records: dict) -> None:
+    """Phase 12: optimize-registration on a rendered pair, against the truth
+    and the plain route; per-level launches and times; ms per step at
+    bench.py's optimizer shape."""
+    from biahub_tpu_torch import optimize_registration_arrays
+    from biahub_tpu_torch.kernels import _build
+    from biahub_tpu_torch.kernels.multipass_warp import traced_frame
+    from biahub_tpu_torch.registration import intensity as ti
+
+    shape = LAPSE_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ref = gaussian_noise(shape, REG_SIGMA, gen)
+    truth = similarity_about_centre(shape)
+    mov = warp_trilinear(ref, np.linalg.inv(truth))
+    initial = truth.copy()
+    initial[:3, 3] += REG_START_ERROR
+    print(f"registration pair: {shape}, noise blurred by sigma {REG_SIGMA}; truth "
+          f"{REG_ANGLES} deg about (z, y), scale {REG_SCALE}, shift {REG_SHIFT}; start "
+          f"{REG_START_ERROR} voxels off")
+
+    levels = []
+    level_fn = ti._optimize_level
+
+    def timed_level(mov_l, ref_l, params0, center, n_iters, out_shape):
+        sync()
+        before = dict(_build.launch_counts)
+        t0 = time.perf_counter()
+        result = level_fn(mov_l, ref_l, params0, center, n_iters, out_shape)
+        sync()
+        spent = 1e3 * (time.perf_counter() - t0)
+        after = dict(_build.launch_counts)
+        levels.append(dict(shape=tuple(mov_l.shape), steps=n_iters, ms=spent,
+                           launches={k: v - before.get(k, 0) for k, v in after.items()
+                                     if v != before.get(k, 0)}))
+        return result
+
+    def run():
+        return optimize_registration_arrays(mov[None], ref[None], initial, crop=True, device=dev)
+
+    ti._optimize_level = timed_level
+    try:
+        sync()
+        t0 = time.perf_counter()
+        got, launches = counted(run)
+        call_ms = 1e3 * (time.perf_counter() - t0)
+        kernel_levels = list(levels)
+        with plain_kernels():
+            plain = run()
+    finally:
+        ti._optimize_level = level_fn
+    centre = np.append((np.asarray(shape) - 1) / 2, 1.0)
+    corners = np.array([[z, y, x, 1.0] for z in (0, shape[0] - 1) for y in (0, shape[1] - 1)
+                        for x in (0, shape[2] - 1)])
+
+    def truth_errors(m):
+        """(linear part, voxels at the centre, voxels at the worst corner)."""
+        return (float(np.abs(m[:3, :3] - truth[:3, :3]).max()),
+                float(np.abs((m - truth) @ centre)[:3].max()),
+                float(np.abs((m - truth) @ corners.T)[:3].max()))
+
+    def near_truth(errs):
+        return (errs[0] <= TRUTH_REG_LINEAR_TOL and errs[1] <= TRUTH_REG_CENTRE_TOL
+                and errs[2] <= TRUTH_REG_CORNER_TOL)
+
+    lin_err, centre_err, corner_err = truth_errors(got)
+    column_err = float(np.abs(got[:3, 3] - truth[:3, 3]).max())
+    require(not near_truth(truth_errors(initial)), "optimize-registration: the start passes "
+            "the truth check, which therefore cannot fail")
+    require(near_truth((lin_err, centre_err, corner_err)),
+            f"optimize-registration: {lin_err:.3g} (linear part), {centre_err:.3g} voxels at the "
+            f"centre and {corner_err:.3g} at the worst corner from the truth (tol "
+            f"{TRUTH_REG_LINEAR_TOL}, {TRUTH_REG_CENTRE_TOL}, {TRUTH_REG_CORNER_TOL})")
+    lin_p = float(np.abs(got[:3, :3] - plain[:3, :3]).max())
+    shift_p = float(np.abs(got[:3, 3] - plain[:3, 3]).max())
+    require(lin_p <= PLAIN_LINEAR_TOL and shift_p <= PLAIN_SHIFT_TOL,
+            f"optimize-registration: {lin_p:.3g} and {shift_p:.3g} voxels from the plain route "
+            f"(tol {PLAIN_LINEAR_TOL}, {PLAIN_SHIFT_TOL})")
+    for lv in kernel_levels:
+        n = lv["steps"]
+        want = {"resample_pass": 7 * n, "resample_pass_deriv": 7 * n,
+                "resample_pass_adjoint": 6 * n}
+        require(lv["launches"] == want, f"level {lv['shape']}: launches {lv['launches']}, "
+                f"want {want}")
+    for name in ("resample_pass_deriv", "resample_pass_adjoint"):
+        records[name]["runs"] = launches
+    print(f"optimize-registration (crop): from the truth {lin_err:.3g} (linear part), "
+          f"{centre_err:.3g} voxels at the centre ({column_err:.3g} in the translation column, "
+          f"{corner_err:.3g} at the worst corner); {lin_p:.3g} and {shift_p:.3g} from the plain "
+          f"route; "
+          f"{call_ms:.1f} ms for the call (host clock, one run); launches {launches}")
+    for lv in kernel_levels:
+        print(f"  level {lv['shape']}: {lv['steps']} steps, {lv['ms']:.1f} ms, "
+              f"{lv['ms'] / lv['steps']:.3f} ms/step; launches {lv['launches']}")
+    del ref, mov
+
+    # bench.py's optimizer shape: Adam steps through the traced warp.
+    bref = gaussian_noise(BENCH_REG_SHAPE, REG_SIGMA, gen)
+    bmov = torch.roll(bref, (1, 2, -2), (0, 1, 2))
+    center = (torch.tensor(BENCH_REG_SHAPE, dtype=torch.float32, device=dev) - 1) / 2
+    zeros = torch.zeros(7, device=dev)
+    bench_ms = host_ms(lambda: ti._optimize_level(bmov, bref, zeros, center, BENCH_REG_STEPS,
+                                                  BENCH_REG_SHAPE), reps=1)
+    _, frame_shape, _ = traced_frame(BENCH_REG_SHAPE, BENCH_REG_SHAPE, REG_MARGIN)
+    print(f"Adam steps at bench.py's {BENCH_REG_SHAPE} (frame {frame_shape}): "
+          f"{bench_ms / BENCH_REG_STEPS:.3f} ms/step ({BENCH_REG_STEPS} steps, host clock)")
+    del bref, bmov
     torch.cuda.empty_cache()
 
 
@@ -1068,11 +1405,13 @@ def main() -> int:
     peaks_phase(dev, records)
     multipass_phase(dev, records)
     beads_phases(dev, records)
+    vjp_phase(dev, records)
+    registration_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
     # the per-volume E and F from stabilize, G and H from the beads estimate
-    # and the stabilize that follows it) ------------------------------------
+    # and the stabilize that follows it, I and J from optimize-registration)
     for name, rec in records.items():
         counter = rec.get("counter", name)
         require(rec["runs"].get(counter, 0) >= 1, f"kernel {name} was not launched on its path")

@@ -17,6 +17,7 @@ from biahub_tpu_torch import (
     module_from_reference,
 )
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
+from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
 from biahub_tpu_torch.kernels import (
     _build,
     affine,
@@ -28,10 +29,15 @@ from biahub_tpu_torch.kernels import (
     peaks,
 )
 from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
-from biahub_tpu_torch.kernels.multipass_cuda import resample_pass
+from biahub_tpu_torch.kernels.multipass_cuda import (
+    resample_pass,
+    resample_pass_adjoint,
+    resample_pass_deriv,
+)
 from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
 from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
-from biahub_tpu_torch.registration import beads
+from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
+from biahub_tpu_torch.registration import beads, intensity
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "biahub_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -98,6 +104,20 @@ ENTRY_POINTS = {
     "estimate_psf_arrays": lambda: estimate_psf_arrays(VOL[None]),
     "beads.estimate": lambda: beads.estimate(VOL, VOL),
     "beads.estimate_tczyx": lambda: beads.estimate_tczyx(VOL[None, None], VOL[None, None], 0),
+    "make_traced_multipass_warp": lambda: multipass_warp.make_traced_multipass_warp(
+        SHAPE, SHAPE),
+    "intensity.estimate": lambda: intensity.estimate(VOL, VOL),
+    "intensity.preprocess_czyx": lambda: intensity.preprocess_czyx(VOL[None], VOL[None],
+                                                                   TILT),
+    "intensity.estimate_czyx": lambda: intensity.estimate_czyx(VOL[None], VOL[None], TILT),
+    "intensity.estimate_tczyx": lambda: intensity.estimate_tczyx(VOL[None, None],
+                                                                 VOL[None, None], 0, 0),
+    "optimize_registration_arrays": lambda: optimize_registration_arrays(
+        VOL[None], VOL[None], TILT),
+    "estimate_registration_arrays": lambda: estimate_registration_arrays(
+        VOL[None, None], VOL[None, None], ["a"], ["b"],
+        {"source_channel_name": "a", "target_channel_name": "b", "estimation_method": "ants"},
+        [1.0] * 5),
     "chain_from_reference": lambda: chain_from_reference(
         TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
                                            "px_to_scan_ratio": 0.4},
@@ -124,6 +144,10 @@ def test_cpu_path_takes_plain_versions_and_counts_no_launch():
     assert _build.launch_counts == {}
     assert multipass_warp.multipass_affine_warp_zyx(VOL, TILT, SHAPE, device="cpu").shape == SHAPE
     assert peaks.detect_peaks(VOL, device="cpu").shape == (0, 3)
+    m = torch.tensor(TILT, dtype=torch.float32, requires_grad=True)
+    warp = multipass_warp.make_traced_multipass_warp(SHAPE, SHAPE, order=1, device="cpu")
+    warp(torch.ones(SHAPE), m).sum().backward()
+    assert m.grad is not None
     assert _build.launch_counts == {}
 
 
@@ -143,6 +167,9 @@ def test_wrappers_raise_on_other_devices():
         lambda: warp_x(meta[None], coeffs, 10, SHAPE),
         lambda: block_max_argmin(meta),
         lambda: resample_pass(meta[None], torch.empty((7, 3), device="meta"), 0, 1, 0),
+        lambda: resample_pass_deriv(meta[None], meta[None], torch.empty((7, 3), device="meta"),
+                                    0, 1, 0),
+        lambda: resample_pass_adjoint(meta[None], torch.empty((7, 3), device="meta"), 0, 1, 0),
     ):
         with pytest.raises(ValueError, match="no kernel or plain version"):
             call()

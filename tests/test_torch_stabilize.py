@@ -126,6 +126,20 @@ def test_output_yx_and_what_is_not_ported():
     assert_close(stabilize_tczyx(vol[None, None], [tilt], device="cpu")[0, 0], want)
 
 
+def test_kernel_is_chosen_from_every_matrix_not_the_selected_ones():
+    """time_indices select two in-plane timepoints while a later one is a
+    10 deg tilt: the reference chooses its kernel from every matrix
+    (stabilize.py:172-213), so all take the batched multipass warp."""
+    tilt = jaff.rotation_matrix_zyx(10.0, axis=1).astype(np.float32).astype(np.float64)
+    mats = np.concatenate([inplane_matrices(2, 48), tilt[None]])
+    tczyx = np.random.default_rng(49).random((3, 1) + SHAPE, dtype=np.float32)
+    kernel, params = jmp.make_batched_multipass_kernel(mats.astype(np.float32), SHAPE, SHAPE)
+    want = np.stack([np.asarray(kernel(tczyx[t, 0], mats[t].astype(np.float32), params[t]))
+                     for t in (0, 1)])
+    got = stabilize_tczyx(tczyx, mats, [0, 1], device="cpu")
+    assert_close(got[:, 0], want)
+
+
 def test_estimate_then_stabilize_roundtrip():
     """As tests/test_stabilization.py:98, on arrays: drift estimated by PCC,
     then corrected, gives the first frame back inside the frame."""
