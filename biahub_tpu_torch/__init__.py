@@ -30,14 +30,28 @@ serves optimize-registration
 (:func:`~biahub_tpu_torch.optimize_registration.
 optimize_registration_arrays`) and estimate-registration's ``ants`` and
 ``beads`` methods (:func:`~biahub_tpu_torch.estimate_registration.
-estimate_registration_arrays`).
+estimate_registration_arrays`). Reconstruction on arrays:
+compute-tf (:func:`~biahub_tpu_torch.compute_transfer_function.
+compute_transfer_function_arrays`: the phase WOTF and fluorescence OTF),
+apply-inv-tf (:func:`~biahub_tpu_torch.apply_inverse_transfer_function.
+apply_inverse_transfer_function_arrays`: birefringence, and phase and
+fluorescence as Tikhonov inverses through kernels A, Bc and C) and
+reconstruct (:func:`~biahub_tpu_torch.reconstruct.reconstruct_arrays`);
+the kernels take axes of any length up to their limits, so the deskewed
+FOV (86, 1024, 484) runs as it is.
 """
 
+from biahub_tpu_torch.apply_inverse_transfer_function import (
+    apply_inverse_transfer_function_arrays,
+)
+from biahub_tpu_torch.compute_transfer_function import compute_transfer_function_arrays
 from biahub_tpu_torch.convert import (
     chain_from_reference,
     module_from_reference,
+    reconstruction_settings_from_reference,
     registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
+    transfer_functions_from_reference,
 )
 from biahub_tpu_torch.device import gpu_info, resolve_device
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
@@ -73,6 +87,8 @@ from biahub_tpu_torch.kernels.pcc import (
 from biahub_tpu_torch.kernels.peaks import detect_peaks
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
+from biahub_tpu_torch.recon.settings import output_channel_names
+from biahub_tpu_torch.reconstruct import reconstruct_arrays
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
 __all__ = [
@@ -106,6 +122,12 @@ __all__ = [
     "estimate_registration_arrays",
     "apply_stabilization_transform",
     "stabilize_tczyx",
+    "compute_transfer_function_arrays",
+    "apply_inverse_transfer_function_arrays",
+    "reconstruct_arrays",
+    "reconstruction_settings_from_reference",
+    "transfer_functions_from_reference",
+    "output_channel_names",
     "gpu_info",
     "resolve_device",
 ]

@@ -11,7 +11,10 @@ plain dict. ``stabilization_settings_from_reference`` validates
 estimate-stabilization's settings (``EstimateStabilizationSettings``,
 settings.py:324) and ``registration_estimate_settings_from_reference``
 estimate-registration's (``EstimateRegistrationSettings``, settings.py:299)
-into plain dicts with their defaults. The port reads no YAML itself.
+into plain dicts with their defaults. ``reconstruction_settings_from_reference``
+validates the reconstruction verbs' settings (``ReconstructionSettings``,
+recon/settings.py) and ``transfer_functions_from_reference`` carries the
+reference's transfer functions into tensors. The port reads no YAML itself.
 """
 
 from __future__ import annotations
@@ -24,7 +27,8 @@ from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 __all__ = ["module_from_reference", "chain_from_reference",
            "stabilization_settings_from_reference", "beads_match_settings_from_reference",
            "affine_transform_settings_from_reference",
-           "registration_estimate_settings_from_reference"]
+           "registration_estimate_settings_from_reference",
+           "reconstruction_settings_from_reference", "transfer_functions_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -466,4 +470,129 @@ def registration_estimate_settings_from_reference(settings: dict) -> dict:
     name, model = block[out["estimation_method"]]
     if out[name] is None:
         out[name] = model({}, name)
+    return out
+
+
+# -- reconstruction settings (recon/settings.py), without pydantic ----------
+
+def _bounded(kind, ok, what):
+    """pydantic's lax ``kind`` with a constraint (PositiveFloat,
+    NonNegativeInt)."""
+    number = _lax_number(kind)
+
+    def check(v, name):
+        x = number(v, name)
+        if not ok(x):
+            raise ValueError(f"{name}: must be {what}, got {v!r}")
+        return x
+    return check
+
+
+_POSITIVE = _bounded(float, lambda x: x > 0, "greater than 0")
+_NON_NEGATIVE_INT = _bounded(int, lambda x: x >= 0, "greater than or equal to 0")
+
+
+def _str_list(v, name):
+    if not isinstance(v, (list, tuple)) or not all(isinstance(s, str) for s in v):
+        raise ValueError(f"{name}: want a list of strings, got {v!r}")
+    return list(v)
+
+
+def _time_indices(v, name):
+    """``int | list[int] | Literal["all"]``, as pydantic's smart union
+    reads it."""
+    if isinstance(v, str) and v == "all":
+        return v
+    if isinstance(v, (list, tuple)):
+        return [_lax_number(int)(i, f"{name}[{k}]") for k, i in enumerate(v)]
+    return _lax_number(int)(v, name)
+
+
+def _dimension(v, name):
+    """``Literal[2, 3]``: an int or an integral float, never a bool or a
+    string."""
+    if isinstance(v, bool) or not isinstance(v, (int, float)) or v not in (2, 3):
+        raise ValueError(f"{name}: must be 2 or 3, got {v!r}")
+    return int(v)
+
+
+def _block(transfer_function, apply_inverse):
+    """A modality: its transfer_function and apply_inverse blocks, each
+    created with its defaults when absent."""
+    return _model({
+        "transfer_function": (lambda: transfer_function({}, "transfer_function"),
+                              transfer_function),
+        "apply_inverse": (lambda: apply_inverse({}, "apply_inverse"), apply_inverse),
+    })
+
+
+_INVERSE = _model({
+    "reconstruction_algorithm": ("Tikhonov", _literal("Tikhonov", "TV")),
+    "regularization_strength": (0.001, _POSITIVE),
+    "TV_rho_strength": (0.001, _POSITIVE),
+    "TV_iterations": (1, _NON_NEGATIVE_INT),
+})
+_OPTICS = {
+    "yx_pixel_size": (0.325, _POSITIVE),
+    "z_pixel_size": (2.0, _POSITIVE),
+    "z_padding": (0, _NON_NEGATIVE_INT),
+    "index_of_refraction_media": (1.3, _POSITIVE),
+    "numerical_aperture_detection": (1.2, _POSITIVE),
+}
+_BIREFRINGENCE = _block(
+    _model({"swing": (0.1, _lax_number(float))}),
+    _model({
+        "wavelength_illumination": (0.532, _POSITIVE),
+        "background_path": ("", _typed(str)),
+        "remove_estimated_background": (False, _lax_bool),
+        "flip_orientation": (False, _lax_bool),
+        "rotate_orientation": (False, _lax_bool),
+    }))
+_PHASE = _block(
+    _model({
+        "wavelength_illumination": (0.532, _POSITIVE), **_OPTICS,
+        "numerical_aperture_illumination": (0.52, _POSITIVE),
+        "invert_phase_contrast": (False, _lax_bool),
+    }),
+    _INVERSE)
+_FLUORESCENCE = _block(
+    _model({"wavelength_emission": (0.507, _POSITIVE), **_OPTICS}), _INVERSE)
+_RECONSTRUCTION = _model({
+    "input_channel_names": (lambda: ["BF"], _str_list),
+    "time_indices": ("all", _time_indices),
+    "reconstruction_dimension": (3, _dimension),
+    "birefringence": (None, _optional(_BIREFRINGENCE)),
+    "phase": (None, _optional(_PHASE)),
+    "fluorescence": (None, _optional(_FLUORESCENCE)),
+})
+
+
+def reconstruction_settings_from_reference(settings: dict) -> dict:
+    """compute-tf's, apply-inv-tf's and reconstruct's settings as a plain
+    dict, validated and defaulted as ``ReconstructionSettings`` and its
+    nested models do (recon/settings.py:19-114): unknown fields refused,
+    literals, positive floats and non-negative ints checked, and each given
+    modality's ``transfer_function`` and ``apply_inverse`` blocks created
+    with their defaults when absent. The result has the layout of the
+    reference model's ``model_dump()`` and reads back unchanged. The
+    ``z_padding``, ``TV_*``, ``background_path`` and
+    ``remove_estimated_background`` fields and ``reconstruction_algorithm:
+    TV`` are accepted and, as in the reference, not used."""
+    return _RECONSTRUCTION(settings, "reconstruction settings")
+
+
+def transfer_functions_from_reference(tfs: dict) -> dict[str, torch.Tensor]:
+    """The reference's transfer functions (``{"phase": H, "fluorescence":
+    otf}``, numpy complex (Z, Y, X) arrays, as apply-inv-tf's
+    ``_load_transfer_functions`` returns them) as complex64 CPU tensors,
+    the form :func:`~biahub_tpu_torch.compute_transfer_function.
+    compute_transfer_function_arrays` returns."""
+    _unknown(tfs, {"phase", "fluorescence"}, "transfer functions")
+    out = {}
+    for name, tf in tfs.items():
+        arr = np.asarray(tf)
+        if arr.ndim != 3:
+            raise ValueError(f"transfer function {name!r}: want a (Z, Y, X) array, "
+                             f"got shape {arr.shape}")
+        out[name] = torch.from_numpy(arr.astype(np.complex64))
     return out

@@ -1,14 +1,19 @@
-// Tikhonov deconvolution as three float32 shared-memory FFT passes on Hopper.
+// Fourier filtering of ZYX volumes as float32 shared-memory FFT passes on
+// Hopper.
 //
-// Replaces the three Pallas passes of biahub_tpu/kernels/pallas_fft.py:
+// Replaces the Pallas passes of biahub_tpu/kernels/pallas_fft.py:
 //
 //   A  fwd_yx_kernel    <- _fwd_yx_kernel (pallas_fft.py:286, launched from
 //                          _run_pass_a): rfft along X, then DFT along Y, per
 //                          z slice; float32 or uint16 in.
 //   B  z_filter_kernel  <- _pass_b_kernel (pallas_fft.py:442, launched from
-//                          _run_fourier_pipeline): DFT along Z, times the
-//                          prepared real filter tf/(tf^2+reg), inverse DFT
-//                          along Z, in place.
+//                          _run_fourier_pipeline): DFT along Z, times a
+//                          filter, inverse DFT along Z, in place. Two
+//                          modes: the prepared real Tikhonov filter
+//                          tf/(tf^2+reg) (n_filt == 1, kernel B), and a
+//                          complex Hermitian filter (n_filt == 2, :479-480,
+//                          kernel Bc: fourier_filter_zyx_pallas, :1285, the
+//                          phase and fluorescence reconstructions).
 //   C  inv_yx_kernel    <- _inv_yx_kernel (pallas_fft.py:530, launched from
 //                          _run_pass_c): inverse DFT along Y, then irfft
 //                          along X, per z slice; writes plain ZYX float32.
@@ -27,27 +32,51 @@
 // volume, so each line is a radix-2 FFT in shared memory instead (O(N log N),
 // full float32, no tensor cores: TF32 keeps 10 mantissa bits and could not
 // meet the reference's 1e-5). None of the TPU's layout devices is carried
-// over: no Nyquist peel (the kx = X/2 bin is simply the 513th column, and the
+// over: no Nyquist peel (the kx = X/2 bin is simply the last column, and the
 // ragged last kx tile is masked), no radix splits across kernels, no slab or
 // yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X).
 //
+// Lines of any length. A power-of-two axis is one radix-2 FFT, and its
+// kernels are the kAny = false instantiations, whose code and shared-memory
+// layout are those of the power-of-two-only kernels. Any other length n
+// (the deskewed mantis FOV is 86 x 1024 x 484, half spectrum 243 wide) runs
+// Bluestein's chirp convolution on the same radix-2 machinery, in the
+// kAny = true instantiations: with w_k = exp(-i pi k^2 / n),
+// exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line is multiplied by w,
+// circularly convolved with conj(w) through two radix-2 FFTs of M >= 2n - 1
+// points and multiplied by w again. The chirp's phase is reduced in
+// integers (k^2 mod 2n) and taken with sincospi in double before rounding
+// to float: a float k^2/n loses ~1e-4 rad once k^2/n nears 1000. Mixed
+// radix (2^a times a dense odd DFT, the TPU's way) would cost O(n * odd)
+// per line, O(n^2) for a prime; Bluestein is O(M log M) for every n at
+// twice the shared memory of a line, so a row or column tile holds half
+// the lines. Limits (shared memory): powers of two up to 8192, other
+// lengths up to 4096 (M <= 8192) for A, B and C; Bx, in double, Z up to
+// 2048 for powers of two and 1024 otherwise.
+//
 // Bounds on one H100 SXM (3.35 TB/s; each input read once, each output
-// written once) at the headline 256x256x1024 volume, all three bytes-bound:
+// written once), all bytes-bound:
+//   headline 256x256x1024 volume:
 //   A  268.4 MB f32 in (134.2 MB uint16) + 269.0 MB spectrum out
 //      = 537.4 MB, 0.160 ms (uint16: 403.2 MB, 0.120 ms). ~3.0 Gflop of
 //      FFT work is 0.045 ms at the 67 Tflop/s float32 rate.
 //   B  269.0 MB spectrum in and out + 134.5 MB filter = 672.4 MB, 0.201 ms
 //   C  269.0 MB spectrum in + 268.4 MB volume out = 537.4 MB, 0.160 ms
+//   deskewed FOV 86x1024x484 (reconstruction):
+//   A, C  170.5 MB volume + 171.2 MB spectrum = 341.7 MB, 0.102 ms
+//   Bc 171.2 MB spectrum in and out + 171.2 MB complex filter = 513.6 MB,
+//      0.153 ms
 //   Bx at the stabilization crop 64x1024x256: two 67.6 MB spectra in, one
 //      out = 202.9 MB, 0.061 ms (B's design: one read, one write; its
 //      arithmetic is double, ~0.8 Gflop, 0.024 ms at 34 Tflop/s).
 // What the design does about them: every global access is a row segment
-// of 32 consecutive elements (256 B of complex64) read or written by one
-// warp, and every FFT stage stays in shared memory. A and C are one block
-// per z slice in two phases (rows, then kx column tiles), and the 1 MB
-// slice passes through device memory between the phases: that is about
-// twice the bound's traffic unless L2 keeps the slice. B reads and writes
-// the spectrum once. Making A and C keep the slice on chip is later work.
+// of consecutive elements read or written by one warp, and every FFT
+// stage stays in shared memory. A and C are one block per z slice in two
+// phases (rows, then kx column tiles), and the slice passes through device
+// memory between the phases: that is about twice the bound's traffic
+// unless L2 keeps the slice. B reads and writes the spectrum once. A
+// Bluestein line does three times a power-of-two line's FFT work on twice
+// its length. Making A and C keep the slice on chip is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -70,6 +99,20 @@ __device__ __forceinline__ float2 cmul(float2 a, float2 b) {
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {
   return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+template <typename C>
+__device__ __forceinline__ C conj_if(C a, bool conj) {
+  if (conj) a.y = -a.y;
+  return a;
+}
+
+__device__ __forceinline__ void from_double(float2& out, double re, double im) {
+  out = make_float2(static_cast<float>(re), static_cast<float>(im));
+}
+
+__device__ __forceinline__ void from_double(double2& out, double re, double im) {
+  out = make_double2(re, im);
 }
 
 // tw[k] = exp(-2 pi i k / n) for k < n / 2 (n a power of two, so the
@@ -137,12 +180,164 @@ __device__ void block_fft(C* buf, int log2n, int nlines, int log2lines,
   }
 }
 
+__host__ __device__ inline bool is_pow2(int n) { return (n & (n - 1)) == 0; }
+
+// log2 of the radix-2 length M of an n-point line: n for a power of two,
+// else the least power of two >= 2n - 1 (Bluestein's linear convolution).
+__host__ __device__ inline int radix_log2(int n) {
+  const int need = is_pow2(n) ? n : 2 * n - 1;
+  int l = 1;
+  while ((1 << l) < need) ++l;
+  return l;
+}
+
+// Elements of an axis' tables: M/2 twiddles, and for Bluestein the n-point
+// chirp and the M-point convolution kernel.
+__host__ __device__ inline size_t table_elems(int n) {
+  const size_t m = static_cast<size_t>(1) << radix_log2(n);
+  return is_pow2(n) ? m / 2 : m / 2 + n + m;
+}
+
+// One axis' line transform: n points on M = 1 << log2m. A power of two
+// (blue false, M == n) leaves frequency j at position brev(j); Bluestein
+// (blue true) at position j. tw: M/2 twiddles; chirp: w_k; kern: the
+// radix-2 DIF spectrum (bit-reversed) of conj(w) wrapped to M, times 1/M.
+template <typename C>
+struct Axis {
+  int n, log2m;
+  bool blue;
+  const C* tw;
+  const C* chirp;
+  const C* kern;
+};
+
+template <typename C>
+__device__ Axis<C> pow2_axis(const C* tw, int n) {
+  return Axis<C>{n, 31 - __clz(n), false, tw, nullptr, nullptr};
+}
+
+// Builds an axis of n points with its tables at mem (table_elems(n)
+// elements). Ends on a __syncthreads().
+template <typename C>
+__device__ Axis<C> make_axis(C* mem, int n) {
+  const int log2m = radix_log2(n), m = 1 << log2m;
+  make_twiddles(mem, m);
+  if (is_pow2(n)) {
+    __syncthreads();
+    return pow2_axis(mem, n);
+  }
+  C* chirp = mem + m / 2;
+  C* kern = chirp + n;
+  const long long two_n = 2LL * n;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    double s, c;
+    sincospi(-static_cast<double>((static_cast<long long>(k) * k) % two_n) / n, &s, &c);
+    from_double(chirp[k], c, s);
+  }
+  // conj(w) at offsets 0 .. n-1 and, wrapped, at M-1 .. M-n+1; zero between
+  // (2n - 1 <= M, so the two ranges are disjoint).
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    const int k = j < n ? j : (j > m - n ? m - j : -1);
+    double s = 0.0, c = 0.0;
+    if (k >= 0) sincospi(static_cast<double>((static_cast<long long>(k) * k) % two_n) / n, &s, &c);
+    from_double(kern[j], c, s);
+  }
+  __syncthreads();
+  block_fft<true>(kern, log2m, 1, 0, m, 1, mem, false, false);
+  for (int j = threadIdx.x; j < m; j += blockDim.x) {
+    kern[j].x /= m;  // exact: M is a power of two
+    kern[j].y /= m;
+  }
+  __syncthreads();
+  return Axis<C>{n, log2m, true, mem, chirp, kern};
+}
+
+// f(e, v) -> new value of element e < M of every line, laid out as in
+// block_fft. Ends on a __syncthreads().
+template <typename C, typename F>
+__device__ void for_lines(C* buf, int log2m, int nlines, int log2lines, int lstride,
+                          int estride, bool line_fast, F f) {
+  const int m = 1 << log2m;
+  for (int t = threadIdx.x; t < nlines * m; t += blockDim.x) {
+    int l, e;
+    if (line_fast) {
+      l = t & (nlines - 1);
+      e = t >> log2lines;
+    } else {
+      l = t >> log2m;
+      e = t & (m - 1);
+    }
+    C& v = buf[l * lstride + e * estride];
+    v = f(e, v);
+  }
+  __syncthreads();
+}
+
+// Bluestein: the n-point DFT (inverse: conjugate chirp and kernel, no
+// scaling) of lines holding their n points in natural order at elements
+// [0, n); elements [n, M) may hold anything. Leaves frequency j at element
+// j < n. Ends on a __syncthreads().
+template <typename C>
+__device__ void bluestein(C* buf, const Axis<C>& ax, int nlines, int log2lines,
+                          int lstride, int estride, bool inverse, bool line_fast) {
+  const int n = ax.n;
+  const C* w = ax.chirp;
+  const C* kern = ax.kern;
+  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
+            [=](int e, C v) { return e < n ? cmul(v, conj_if(w[e], inverse)) : C{0, 0}; });
+  block_fft<true>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, false, line_fast);
+  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
+            [=](int e, C v) { return cmul(v, conj_if(kern[e], inverse)); });
+  block_fft<false>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, true, line_fast);
+  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
+            [=](int e, C v) { return e < n ? cmul(v, conj_if(w[e], inverse)) : v; });
+}
+
+// Position of frequency j (or of sample j, for lines_dit's input) in a
+// transformed line.
+template <bool kAny, typename C>
+__device__ __forceinline__ int at(const Axis<C>& ax, int j) {
+  if constexpr (kAny) {
+    if (ax.blue) return j;
+  }
+  return brev(j, ax.log2m);
+}
+
+// Transform of lines in natural order; frequency j lands at at(ax, j).
+template <bool kAny, typename C>
+__device__ void lines_dif(C* buf, const Axis<C>& ax, int nlines, int log2lines, int lstride,
+                          int estride, bool inverse, bool line_fast) {
+  if constexpr (kAny) {
+    if (ax.blue) {
+      bluestein(buf, ax, nlines, log2lines, lstride, estride, inverse, line_fast);
+      return;
+    }
+  }
+  block_fft<true>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
+                  line_fast);
+}
+
+// Transform of lines whose point j sits at at(ax, j); natural order out.
+template <bool kAny, typename C>
+__device__ void lines_dit(C* buf, const Axis<C>& ax, int nlines, int log2lines, int lstride,
+                          int estride, bool inverse, bool line_fast) {
+  if constexpr (kAny) {
+    if (ax.blue) {
+      bluestein(buf, ax, nlines, log2lines, lstride, estride, inverse, line_fast);
+      return;
+    }
+  }
+  block_fft<false>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
+                   line_fast);
+}
+
 // FFT along Y of every kx column of one (Y, xh) complex slice, in place in
 // device memory, tk = 1 << log2tk columns at a time (the ragged last tile is
 // zero-padded in shared memory and masked on the store).
-__device__ void columns_y(float2* slice, float2* buf, const float2* twy,
-                          int log2y, int xh, int log2tk, bool inverse) {
-  const int Y = 1 << log2y, tk = 1 << log2tk;
+template <bool kAny>
+__device__ void columns_y(float2* slice, float2* buf, const Axis<float2>& ay, int xh,
+                          int log2tk, bool inverse) {
+  const int Y = ay.n, tk = 1 << log2tk;
   for (int k0 = 0; k0 < xh; k0 += tk) {
     for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
       const int y = t >> log2tk, k = k0 + (t & (tk - 1));
@@ -150,12 +345,11 @@ __device__ void columns_y(float2* slice, float2* buf, const float2* twy,
                       : make_float2(0.f, 0.f);
     }
     __syncthreads();
-    block_fft<true>(buf, log2y, tk, log2tk, 1, tk, twy, inverse, true);
+    lines_dif<kAny>(buf, ay, tk, log2tk, 1, tk, inverse, true);
     for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
       const int ky = t >> log2tk, c = t & (tk - 1), k = k0 + c;
       if (k < xh) {
-        slice[static_cast<size_t>(ky) * xh + k] =
-            buf[(brev(ky, log2y) << log2tk) + c];
+        slice[static_cast<size_t>(ky) * xh + k] = buf[(at<kAny>(ay, ky) << log2tk) + c];
       }
     }
     __syncthreads();
@@ -163,70 +357,105 @@ __device__ void columns_y(float2* slice, float2* buf, const float2* twy,
 }
 
 // Kernel A. One block per z slice. Phase 1: rows 2q and 2q+1 ride one
-// complex FFT as re + i*im, split into their two half-spectra. Phase 2: the
-// DFT along Y over kx column tiles. uint16 converts to float32 exactly in
-// registers, and the arithmetic after the load is the same code for both
-// input types, so a uint16 volume gives the bits of its float32 copy.
+// complex FFT as re + i*im, split into their two half-spectra (an odd Y's
+// last row rides with zeros). Phase 2: the DFT along Y over kx column
+// tiles. uint16 converts to float32 exactly in registers, and the
+// arithmetic after the load is the same code for both input types, so a
+// uint16 volume gives the bits of its float32 copy. kAny: the tables of
+// one axis at a time sit in the first `tab` elements, X's for phase 1 and
+// Y's for phase 2.
+template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
 fwd_yx_kernel(const void* __restrict__ in, int is_u16, float2* __restrict__ out,
-              int log2y, int log2x, int pairs, int log2tk) {
+              int Y, int X, int pairs, int log2tk, int tab) {
   extern __shared__ float2 smem[];
-  const int Y = 1 << log2y, X = 1 << log2x, xh = X / 2 + 1;
-  float2* twx = smem;
-  float2* twy = twx + X / 2;
-  float2* buf = twy + Y / 2;
-  make_twiddles(twx, X);
-  make_twiddles(twy, Y);
+  const int xh = X / 2 + 1;
+  Axis<float2> ax, ay;
+  float2* buf;
+  if constexpr (kAny) {
+    buf = smem + tab;
+    ax = make_axis(smem, X);
+  } else {
+    ax = pow2_axis(smem, X);
+    ay = pow2_axis(smem + X / 2, Y);
+    buf = smem + X / 2 + Y / 2;
+    make_twiddles(smem, X);
+    make_twiddles(smem + X / 2, Y);
+  }
+  const int mx = 1 << ax.log2m;
   const size_t z = blockIdx.x;
   const float* in32 = static_cast<const float*>(in) + z * Y * X;
   const uint16_t* in16 = static_cast<const uint16_t*>(in) + z * Y * X;
   float2* spec = out + z * Y * xh;
   __syncthreads();
 
-  for (int q0 = 0; q0 < Y / 2; q0 += pairs) {
-    const int nq = min(pairs, Y / 2 - q0);
-    for (int t = threadIdx.x; t < (nq << log2x); t += blockDim.x) {
-      const int q = t >> log2x, x = t & (X - 1);
-      const size_t r0 = static_cast<size_t>(2 * (q0 + q)) * X + x;
-      float a, b;
+  const int npairs = (Y + 1) / 2;
+  for (int q0 = 0; q0 < npairs; q0 += pairs) {
+    const int nq = min(pairs, npairs - q0);
+    for (int t = threadIdx.x; t < nq * X; t += blockDim.x) {
+      int q, x;
+      if constexpr (kAny) {
+        q = t / X;
+        x = t - q * X;
+      } else {
+        q = t >> ax.log2m;
+        x = t & (X - 1);
+      }
+      const int row = 2 * (q0 + q);
+      const bool has_b = !kAny || row + 1 < Y;
+      const size_t r0 = static_cast<size_t>(row) * X + x;
+      float a, b = 0.f;
       if (is_u16) {
         a = static_cast<float>(in16[r0]);
-        b = static_cast<float>(in16[r0 + X]);
+        if (has_b) b = static_cast<float>(in16[r0 + X]);
       } else {
         a = in32[r0];
-        b = in32[r0 + X];
+        if (has_b) b = in32[r0 + X];
       }
-      buf[t] = make_float2(a, b);
+      buf[q * mx + x] = make_float2(a, b);
     }
     __syncthreads();
-    block_fft<true>(buf, log2x, nq, 0, X, 1, twx, false, false);
+    lines_dif<kAny>(buf, ax, nq, 0, mx, 1, false, false);
     // F0[k] = (S[k] + conj S[X-k]) / 2,  F1[k] = (S[k] - conj S[X-k]) / 2i
     for (int t = threadIdx.x; t < nq * xh; t += blockDim.x) {
       const int q = t / xh, k = t - q * xh;
-      const float2* line = buf + (q << log2x);
-      const float2 sk = line[brev(k & (X - 1), log2x)];
-      const float2 sc = line[brev((X - k) & (X - 1), log2x)];
-      const size_t o = static_cast<size_t>(2 * (q0 + q)) * xh + k;
+      const float2* line = buf + q * mx;
+      const float2 sk = line[at<kAny>(ax, k)];
+      const float2 sc = line[at<kAny>(ax, k == 0 ? 0 : X - k)];
+      const int row = 2 * (q0 + q);
+      const size_t o = static_cast<size_t>(row) * xh + k;
       spec[o] = make_float2(0.5f * (sk.x + sc.x), 0.5f * (sk.y - sc.y));
-      spec[o + xh] = make_float2(0.5f * (sk.y + sc.y), 0.5f * (sc.x - sk.x));
+      if (!kAny || row + 1 < Y) spec[o + xh] = make_float2(0.5f * (sk.y + sc.y), 0.5f * (sc.x - sk.x));
     }
     __syncthreads();
   }
-  columns_y(spec, buf, twy, log2y, xh, log2tk, false);
+  if constexpr (kAny) ay = make_axis(smem, Y);
+  columns_y<kAny>(spec, buf, ay, xh, log2tk, false);
 }
 
-// Kernel B. One block per (ky, tile of tk kx columns): the tile's Z-lines
-// are loaded once, transformed forward (DIF, so frequency kz sits at
-// position brev(kz)), scaled by the filter there, transformed back (DIT,
-// bit-reversed in, natural out) with 1/Z, and stored in place.
+// Kernel B (kComplex false) and Bc (kComplex true). One block per (ky,
+// tile of tk kx columns): the tile's Z-lines are loaded once, transformed
+// forward (a power-of-two Z leaves frequency kz at position brev(kz)),
+// multiplied there by the filter, transformed back with 1/Z, and stored in
+// place. B's filter is the prepared real float32 Tikhonov filter; Bc's is
+// complex64, the product (hr fr - hi fi, hr fi + hi fr) of
+// pallas_fft.py:479-480.
+template <bool kAny, bool kComplex>
 __global__ void __launch_bounds__(kThreads)
-z_filter_kernel(float2* __restrict__ spec, const float* __restrict__ filt,
-                int log2z, int Y, int xh, int log2tk) {
+z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
+                int Z, int Y, int xh, int log2tk, int tab) {
   extern __shared__ float2 smem[];
-  const int Z = 1 << log2z, tk = 1 << log2tk;
-  float2* twz = smem;
-  float2* buf = twz + Z / 2;
-  make_twiddles(twz, Z);
+  const int tk = 1 << log2tk;
+  Axis<float2> az;
+  float2* buf;
+  if constexpr (kAny) {
+    buf = smem + tab;
+    az = make_axis(smem, Z);
+  } else {
+    az = pow2_axis(smem, Z);
+    buf = smem + Z / 2;
+    make_twiddles(smem, Z);
+  }
   const int k0 = blockIdx.x * tk;
   const size_t zstride = static_cast<size_t>(Y) * xh;
   const size_t base = static_cast<size_t>(blockIdx.y) * xh + k0;
@@ -235,14 +464,22 @@ z_filter_kernel(float2* __restrict__ spec, const float* __restrict__ filt,
     buf[t] = k0 + c < xh ? spec[z * zstride + base + c] : make_float2(0.f, 0.f);
   }
   __syncthreads();
-  block_fft<true>(buf, log2z, tk, log2tk, 1, tk, twz, false, true);
+  lines_dif<kAny>(buf, az, tk, log2tk, 1, tk, false, true);
   for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
     const int j = t >> log2tk, c = t & (tk - 1);
-    const float f = k0 + c < xh ? filt[brev(j, log2z) * zstride + base + c] : 0.f;
-    buf[t] = make_float2(buf[t].x * f, buf[t].y * f);
+    const size_t f = at<kAny>(az, j) * zstride + base + c;
+    const float2 h = buf[t];
+    if constexpr (kComplex) {
+      const float2 fc = k0 + c < xh ? static_cast<const float2*>(filt)[f]
+                                    : make_float2(0.f, 0.f);
+      buf[t] = make_float2(h.x * fc.x - h.y * fc.y, h.x * fc.y + h.y * fc.x);
+    } else {
+      const float fr = k0 + c < xh ? static_cast<const float*>(filt)[f] : 0.f;
+      buf[t] = make_float2(h.x * fr, h.y * fr);
+    }
   }
   __syncthreads();
-  block_fft<false>(buf, log2z, tk, log2tk, 1, tk, twz, true, true);
+  lines_dit<kAny>(buf, az, tk, log2tk, 1, tk, true, true);
   const float inv_z = 1.0f / static_cast<float>(Z);
   for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
     const int z = t >> log2tk, c = t & (tk - 1);
@@ -256,10 +493,10 @@ constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's
 
 // Kernel Bx. One block per (ky, tile of tk kx columns), as B. The tile's
 // Z-lines of both spectra sit side by side in shared memory (ref in columns
-// [0, tk), mov in [tk, 2tk)) and ride one forward DIF transform of 2tk
-// lines, so both hold frequency kz at position brev(kz) and the cross-power
-// is pointwise. It replaces the ref columns, which go back through the
-// inverse (DIT, with 1/Z) and are stored into out. ref is only read (the
+// [0, tk), mov in [tk, 2tk)) and ride one forward transform of 2tk lines,
+// so both hold frequency kz at the same position and the cross-power is
+// pointwise. It replaces the ref columns, which go back through the
+// inverse (with 1/Z) and are stored into out. ref is only read (the
 // vs-first path reuses it); out may be mov: a block reads its whole tile
 // before it writes it, and tiles are disjoint. norm: 0 none, 1 magnitude
 // (|c|), 2 classic (sqrt(|H1|^2 |H2|^2), the Pallas kernel's operands).
@@ -270,14 +507,22 @@ constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's
 // of order one in its phase. In double the result is the exact function of
 // the complex64 spectra to float32 rounding. The pass stays bytes-bound
 // (~0.8 Gflop of double at the stabilization crop), at half the tile.
+template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
 z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
-               int log2z, int Y, int xh, int log2tk, int norm) {
+               int Z, int Y, int xh, int log2tk, int norm, int tab) {
   extern __shared__ double2 dsmem[];
-  const int Z = 1 << log2z, tk = 1 << log2tk, w = 2 * tk;
-  double2* twz = dsmem;
-  double2* buf = twz + Z / 2;
-  make_twiddles(twz, Z);
+  const int tk = 1 << log2tk, w = 2 * tk;
+  Axis<double2> az;
+  double2* buf;
+  if constexpr (kAny) {
+    buf = dsmem + tab;
+    az = make_axis(dsmem, Z);
+  } else {
+    az = pow2_axis(dsmem, Z);
+    buf = dsmem + Z / 2;
+    make_twiddles(dsmem, Z);
+  }
   const int k0 = blockIdx.x * tk;
   const size_t zstride = static_cast<size_t>(Y) * xh;
   const size_t base = static_cast<size_t>(blockIdx.y) * xh + k0;
@@ -288,7 +533,7 @@ z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
     buf[t] = make_double2(v.x, v.y);
   }
   __syncthreads();
-  block_fft<true>(buf, log2z, w, log2tk + 1, 1, w, twz, false, true);
+  lines_dif<kAny>(buf, az, w, log2tk + 1, 1, w, false, true);
   for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
     double2* p = buf + (t >> log2tk) * w + (t & (tk - 1));
     const double2 a = p[0], b = p[tk];
@@ -305,7 +550,7 @@ z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
     p[0] = make_double2(cr, ci);
   }
   __syncthreads();
-  block_fft<false>(buf, log2z, tk, log2tk, 1, w, twz, true, true);
+  lines_dit<kAny>(buf, az, tk, log2tk, 1, w, true, true);
   const double inv_z = 1.0 / static_cast<double>(Z);
   for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
     const int z = t >> log2tk, c = t & (tk - 1);
@@ -321,48 +566,69 @@ z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
 // column tiles, in place (the spectrum is scratch afterwards). Phase 2: rows
 // 2q and 2q+1 ride one complex inverse FFT of S = F0 + i*F1 built from their
 // half-spectra by Hermitian extension; the real part is row 2q, the
-// imaginary part row 2q+1. As irfft does, the imaginary parts of the DC and
-// Nyquist bins are ignored.
+// imaginary part row 2q+1 (an odd Y's last row rides with zeros). As irfft
+// does, the imaginary parts of the DC bin and, for an even X, the Nyquist
+// bin are ignored. kAny: Y's tables for phase 1, then X's, as in A.
+template <bool kAny>
 __global__ void __launch_bounds__(kThreads)
-inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int log2y,
-              int log2x, int pairs, int log2tk) {
+inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int Y, int X,
+              int pairs, int log2tk, int tab) {
   extern __shared__ float2 smem[];
-  const int Y = 1 << log2y, X = 1 << log2x, xh = X / 2 + 1;
-  float2* twx = smem;
-  float2* twy = twx + X / 2;
-  float2* buf = twy + Y / 2;
-  make_twiddles(twx, X);
-  make_twiddles(twy, Y);
+  const int xh = X / 2 + 1;
+  Axis<float2> ax, ay;
+  float2* buf;
+  if constexpr (kAny) {
+    buf = smem + tab;
+    ay = make_axis(smem, Y);
+  } else {
+    ax = pow2_axis(smem, X);
+    ay = pow2_axis(smem + X / 2, Y);
+    buf = smem + X / 2 + Y / 2;
+    make_twiddles(smem, X);
+    make_twiddles(smem + X / 2, Y);
+  }
   const size_t z = blockIdx.x;
   float2* sp = spec + z * Y * xh;
   float* o = out + z * Y * X;
   __syncthreads();
 
-  columns_y(sp, buf, twy, log2y, xh, log2tk, true);
+  columns_y<kAny>(sp, buf, ay, xh, log2tk, true);
+  if constexpr (kAny) ax = make_axis(smem, X);
+  const int mx = 1 << ax.log2m;
 
   const float scale = 1.0f / (static_cast<float>(Y) * static_cast<float>(X));
-  for (int q0 = 0; q0 < Y / 2; q0 += pairs) {
-    const int nq = min(pairs, Y / 2 - q0);
+  const int npairs = (Y + 1) / 2;
+  for (int q0 = 0; q0 < npairs; q0 += pairs) {
+    const int nq = min(pairs, npairs - q0);
     for (int t = threadIdx.x; t < nq * xh; t += blockDim.x) {
       const int q = t / xh, k = t - q * xh;
-      const float2* r = sp + static_cast<size_t>(2 * (q0 + q)) * xh;
-      float2 a = r[k], b = r[k + xh];
-      if (k == 0 || k == X / 2) {
+      const int row = 2 * (q0 + q);
+      const float2* r = sp + static_cast<size_t>(row) * xh;
+      float2 a = r[k], b = !kAny || row + 1 < Y ? r[k + xh] : make_float2(0.f, 0.f);
+      if (k == 0 || 2 * k == X) {
         a.y = 0.f;
         b.y = 0.f;
       }
-      float2* line = buf + (q << log2x);
+      float2* line = buf + q * mx;
       line[k] = make_float2(a.x - b.y, a.y + b.x);
-      if (k > 0 && k < X / 2) line[X - k] = make_float2(a.x + b.y, b.x - a.y);
+      if (k > 0 && 2 * k < X) line[X - k] = make_float2(a.x + b.y, b.x - a.y);
     }
     __syncthreads();
-    block_fft<true>(buf, log2x, nq, 0, X, 1, twx, true, false);
-    for (int t = threadIdx.x; t < (nq << log2x); t += blockDim.x) {
-      const int q = t >> log2x, x = t & (X - 1);
-      const float2 v = buf[(q << log2x) + brev(x, log2x)];
-      const size_t r0 = static_cast<size_t>(2 * (q0 + q)) * X + x;
+    lines_dif<kAny>(buf, ax, nq, 0, mx, 1, true, false);
+    for (int t = threadIdx.x; t < nq * X; t += blockDim.x) {
+      int q, x;
+      if constexpr (kAny) {
+        q = t / X;
+        x = t - q * X;
+      } else {
+        q = t >> ax.log2m;
+        x = t & (X - 1);
+      }
+      const float2 v = buf[q * mx + at<kAny>(ax, x)];
+      const int row = 2 * (q0 + q);
+      const size_t r0 = static_cast<size_t>(row) * X + x;
       o[r0] = v.x * scale;
-      o[r0 + X] = v.y * scale;
+      if (!kAny || row + 1 < Y) o[r0 + X] = v.y * scale;
     }
     __syncthreads();
   }
@@ -370,38 +636,64 @@ inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int log2y,
 
 int log2i(int n) { return 31 - __builtin_clz(static_cast<unsigned>(n)); }
 
-// log2 of the widest column tile (<= 32 lines) of length n within budget.
-int tile_log2(int n) {
+// log2 of the widest column tile (<= 32 lines) of m points within budget.
+int tile_log2(int m) {
   int l = 5;
-  while (l > 0 && (static_cast<size_t>(n) << l) * sizeof(float2) > kTileBytes) --l;
+  while (l > 0 && (static_cast<size_t>(m) << l) * sizeof(float2) > kTileBytes) --l;
   return l;
 }
 
-// log2 of Bx's column tile: two spectra's Z-lines of double2 share the
-// budget, so Z <= kTileBytes / 32 = 3072 at one column; -1 when even that
-// does not fit.
-int cross_tile_log2(int z) {
+// log2 of Bx's column tile: two spectra's Z-lines of m double2 points
+// share the budget, so m <= kTileBytes / 32 = 3072 at one column; -1 when
+// even that does not fit.
+int cross_tile_log2(int m) {
   int l = 5;
-  while (l >= 0 && (static_cast<size_t>(z) << (l + 1)) * sizeof(double2) > kTileBytes) --l;
+  while (l >= 0 && (static_cast<size_t>(m) << (l + 1)) * sizeof(double2) > kTileBytes) --l;
   return l;
 }
 
-// Row pairs per phase-1 chunk of rows of length x.
-int row_pairs(int x) {
-  return std::max(1, std::min(8, kTileBytes / static_cast<int>(x * sizeof(float2))));
+// Row pairs per phase-1 chunk of rows of m points.
+int row_pairs(int m) {
+  return std::max(1, std::min(8, kTileBytes / static_cast<int>(m * sizeof(float2))));
 }
 
-// Launch shape shared by the per-slice kernels A and C.
+// Launch shape shared by the per-slice kernels A and C. Powers of two keep
+// both axes' twiddles side by side; otherwise one axis' tables at a time.
 struct SliceLaunch {
-  int ly, lx, ltk, pairs;
+  bool any;
+  int ltk, pairs, tab;
   size_t smem;
-  SliceLaunch(int Y, int X)
-      : ly(log2i(Y)), lx(log2i(X)), ltk(tile_log2(Y)), pairs(row_pairs(X)) {
+  SliceLaunch(int Y, int X) : any(!is_pow2(Y) || !is_pow2(X)) {
+    const int my = 1 << radix_log2(Y), mx = 1 << radix_log2(X);
+    ltk = tile_log2(my);
+    pairs = row_pairs(mx);
     const size_t tile =
-        std::max(static_cast<size_t>(pairs) * X, static_cast<size_t>(Y) << ltk);
-    smem = (X / 2 + Y / 2 + tile) * sizeof(float2);
+        std::max(static_cast<size_t>(pairs) * mx, static_cast<size_t>(my) << ltk);
+    tab = static_cast<int>(any ? std::max(table_elems(X), table_elems(Y)) : X / 2 + Y / 2);
+    smem = (tab + tile) * sizeof(float2);
   }
 };
+
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <bool kComplex>
+int launch_z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
+  const bool any = !is_pow2(Z);
+  const int mz = 1 << radix_log2(Z), ltk = tile_log2(mz);
+  const int tab = static_cast<int>(any ? table_elems(Z) : Z / 2);
+  const size_t smem = (tab + (static_cast<size_t>(mz) << ltk)) * sizeof(float2);
+  auto kernel = any ? z_filter_kernel<true, kComplex> : z_filter_kernel<false, kComplex>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(spec), filt, Z, Y, xh, ltk, tab);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -410,58 +702,59 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // in: (Z, Y, X) float32 (is_u16 = 0) or uint16 (is_u16 = 1); out: (Z, Y,
-// X/2+1) complex64. Z, Y, X powers of two in [2, 8192] (checked by the
-// Python wrapper).
+// X/2+1) complex64. Y and X in [2, 8192] if powers of two, else [2, 4096]
+// (checked by the Python wrapper).
 int fwd_yx(const void* in, int is_u16, void* out, int Z, int Y, int X, void* stream) {
   const SliceLaunch s(Y, X);
-  cudaError_t e = cudaFuncSetAttribute(
-      fwd_yx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s.smem));
+  auto kernel = s.any ? fwd_yx_kernel<true> : fwd_yx_kernel<false>;
+  cudaError_t e = allow_smem(kernel, s.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fwd_yx_kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
-      in, is_u16, static_cast<float2*>(out), s.ly, s.lx, s.pairs, s.ltk);
+  kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
+      in, is_u16, static_cast<float2*>(out), Y, X, s.pairs, s.ltk, s.tab);
   return static_cast<int>(cudaGetLastError());
 }
 
 // spec: (Z, Y, xh) complex64, filtered in place; filt: (Z, Y, xh) float32.
-// Z a power of two in [2, 8192], Y <= 65535.
+// Z in [2, 8192] if a power of two, else [2, 4096]; Y <= 65535.
 int z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
-  const int lz = log2i(Z), ltk = tile_log2(Z);
-  const size_t smem = (Z / 2 + (static_cast<size_t>(Z) << ltk)) * sizeof(float2);
-  cudaError_t e = cudaFuncSetAttribute(
-      z_filter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
-  z_filter_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float2*>(spec), static_cast<const float*>(filt), lz, Y, xh, ltk);
-  return static_cast<int>(cudaGetLastError());
+  return launch_z_filter<false>(spec, filt, Z, Y, xh, stream);
 }
 
-// ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref. Z a power
-// of two in [2, 2048] (the largest whose two Z-lines fit the tile budget),
-// Y <= 65535; norm 0 none, 1 magnitude, 2 classic.
+// As z_filter with a complex64 (Z, Y, xh) filter.
+int z_filter_complex(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
+  return launch_z_filter<true>(spec, filt, Z, Y, xh, stream);
+}
+
+// ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref. Z in
+// [2, 2048] if a power of two, else [2, 1024] (two spectra's Z-lines of
+// double fit the tile budget), Y <= 65535; norm 0 none, 1 magnitude, 2
+// classic.
 int z_cross(const void* ref, const void* mov, void* out, int Z, int Y, int xh,
             int norm, void* stream) {
-  const int lz = log2i(Z), ltk = cross_tile_log2(Z);
+  const bool any = !is_pow2(Z);
+  const int mz = 1 << radix_log2(Z), ltk = cross_tile_log2(mz);
   if (ltk < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (Z / 2 + (static_cast<size_t>(Z) << (ltk + 1))) * sizeof(double2);
-  cudaError_t e = cudaFuncSetAttribute(
-      z_cross_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  const int tab = static_cast<int>(any ? table_elems(Z) : Z / 2);
+  const size_t smem = (tab + (static_cast<size_t>(mz) << (ltk + 1))) * sizeof(double2);
+  auto kernel = any ? z_cross_kernel<true> : z_cross_kernel<false>;
+  cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
-  z_cross_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(ref), static_cast<const float2*>(mov),
-      static_cast<float2*>(out), lz, Y, xh, ltk, norm);
+      static_cast<float2*>(out), Z, Y, xh, ltk, norm, tab);
   return static_cast<int>(cudaGetLastError());
 }
 
 // spec: (Z, Y, X/2+1) complex64 (left as scratch); out: (Z, Y, X) float32.
+// Y and X as for fwd_yx.
 int inv_yx(void* spec, void* out, int Z, int Y, int X, void* stream) {
   const SliceLaunch s(Y, X);
-  cudaError_t e = cudaFuncSetAttribute(
-      inv_yx_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(s.smem));
+  auto kernel = s.any ? inv_yx_kernel<true> : inv_yx_kernel<false>;
+  cudaError_t e = allow_smem(kernel, s.smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  inv_yx_kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float2*>(spec), static_cast<float*>(out), s.ly, s.lx, s.pairs, s.ltk);
+  kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(spec), static_cast<float*>(out), Y, X, s.pairs, s.ltk, s.tab);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -266,8 +266,9 @@ def estimate_xyz_stabilization_pcc_per_position(
     ``max_batch_bytes // (8 * crop bytes)`` timepoints, as the reference's;
     with ``t_reference="first"`` each chunk transforms the reference crop
     once (kernel A) and keeps its spectrum for the chunk's pairs.
-    ``function_type="custom_padding"`` pads to ``next_fast_len``, which the
-    card's power-of-two kernels refuse (ROADMAP queue 3)."""
+    ``function_type="custom_padding"`` pads each axis to ``next_fast_len``
+    (lengths with no prime factor above 11, which the kernels take as
+    Bluestein lines)."""
     from scipy.fft import next_fast_len  # at call time, as in kernels/pcc.py
 
     dev = resolve_device(device)

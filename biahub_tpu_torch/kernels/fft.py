@@ -1,11 +1,16 @@
-"""Wrappers of the three FFT deconvolution kernels (``csrc/fft.cu``).
+"""Wrappers of the Fourier-filter kernels (``csrc/fft.cu``).
 
-Counterpart of ``biahub_tpu/kernels/pallas_fft.py``'s Tikhonov engine:
+Counterpart of ``biahub_tpu/kernels/pallas_fft.py``'s engine:
 
 - :func:`fwd_yx` (kernel A, for ``_fwd_yx_kernel``): rfft along X and DFT
   along Y of each z slice, float32 or uint16 in, half-spectrum out;
 - :func:`z_filter_` (kernel B, for ``_pass_b_kernel``): DFT along Z, times
-  the prepared real filter, inverse DFT along Z, in place;
+  the prepared real Tikhonov filter, inverse DFT along Z, in place;
+- :func:`z_filter_complex_` (kernel Bc, for ``_pass_b_kernel`` with
+  ``n_filt == 2``): the same with a complex filter, the Hermitian inverse
+  filter of :func:`prepare_hermitian_filter`; A, Bc and C are
+  :func:`fourier_filter_zyx` (``fourier_filter_zyx_pallas``), the
+  reconstructions' Tikhonov inverse;
 - :func:`inv_yx` (kernel C, for ``_inv_yx_kernel``): inverse DFT along Y
   and irfft along X of each z slice, real ZYX out;
 - :func:`z_cross_` (kernel Bx, for ``_pass_b_cross_kernel``): DFT along Z
@@ -18,6 +23,9 @@ of ``torch.fft.rfftn``; the TPU engine's split re/im arrays, Nyquist peel,
 radix layouts and ky-parity filter blocks exist only for the MXU and are not
 carried over. Each wrapper takes its plain PyTorch version (``*_plain``)
 for a CPU tensor and launches its kernel for a CUDA tensor, or raises.
+The kernels take axes of any length within their shared-memory limits
+(:func:`max_axis`): a power of two is one radix-2 FFT, any other length a
+Bluestein chirp convolution.
 """
 
 from __future__ import annotations
@@ -30,25 +38,30 @@ import torch
 from biahub_tpu_torch.kernels import _build
 
 __all__ = [
-    "fwd_yx", "z_filter_", "inv_yx", "z_cross_",
-    "fwd_yx_plain", "z_filter_plain_", "inv_yx_plain", "z_cross_plain_",
-    "cross_power", "prepare_fourier_filter", "PASS_A_DTYPES", "half_spectrum_shape",
-    "NORMALIZATIONS", "MAX_CROSS_Z",
+    "fwd_yx", "z_filter_", "z_filter_complex_", "inv_yx", "z_cross_",
+    "fwd_yx_plain", "z_filter_plain_", "z_filter_complex_plain_", "inv_yx_plain",
+    "z_cross_plain_", "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
+    "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
+    "max_axis", "max_cross_z",
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fwd_yx": [_P, _I, _P, _I, _I, _I, _P],
     "z_filter": [_P, _P, _I, _I, _I, _P],
+    "z_filter_complex": [_P, _P, _I, _I, _I, _P],
     "inv_yx": [_P, _P, _I, _I, _I, _P],
     "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
 }
-# The kernels' radix-2 FFTs take power-of-two axes; one row (X) or column
-# tile (Y, Z) must fit the kernels' shared-memory budget.
-_MAX_AXIS = 8192
-# Kernel Bx holds the Z-lines of two spectra in that budget (96 KB) in
-# double precision: at most 3072 per line at one column, so Z <= 2048.
-MAX_CROSS_Z = 2048
+# A line of n points runs on a radix-2 FFT of M points: M = n for a power
+# of two, else the least power of two >= 2n - 1 (Bluestein). A row (X) or
+# column tile (Y, Z) of M points and an axis' tables must fit a block's
+# shared memory: M <= 8192, so powers of two up to 8192 and other lengths
+# up to 4096.
+_MAX_POW2, _MAX_OTHER = 8192, 4096
+# Kernel Bx holds the Z-lines of two spectra in its 96 KB tile in double:
+# M <= 3072 at one column, so Z <= 2048 for a power of two, else Z <= 1024.
+_MAX_CROSS_POW2, _MAX_CROSS_OTHER = 2048, 1024
 # The phase cross-power's normalizations, by kernel Bx's code.
 NORMALIZATIONS = {None: 0, "magnitude": 1, "classic": 2}
 _F32_EPS = float(np.finfo(np.float32).eps)
@@ -84,6 +97,40 @@ def prepare_fourier_filter(shape, transfer_function_half, regularization_strengt
     return tf / (tf * tf + reg.to(tf.device))
 
 
+def _is_pow2(n: int) -> bool:
+    return n & (n - 1) == 0
+
+
+def max_axis(n: int) -> int:
+    """The longest axis kernels A, B, Bc and C take of ``n``'s kind: 8192
+    for a power of two, 4096 for any other length."""
+    return _MAX_POW2 if _is_pow2(n) else _MAX_OTHER
+
+
+def max_cross_z(z: int) -> int:
+    """Kernel Bx's longest Z of ``z``'s kind: 2048 for a power of two, 1024
+    for any other length."""
+    return _MAX_CROSS_POW2 if _is_pow2(z) else _MAX_CROSS_OTHER
+
+
+def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
+                             device: torch.device | str = "cpu") -> torch.Tensor:
+    """The Tikhonov inverse ``conj(H_half) / (abs(H_half)**2 + reg)`` of a
+    Hermitian transfer function ``H`` (Z, Y, X) as one complex64 (Z, Y,
+    X//2+1) tensor, the filter kernel Bc reads; ``H_half = H[..., :X//2+1]``,
+    formed in complex64 in the order of the reference's
+    ``tikhonov_inverse_3d`` (recon/optics.py:194-197). Constant across an
+    acquisition: callers hoist it."""
+    h = transfer_function
+    h = torch.from_numpy(np.asarray(h)) if not isinstance(h, torch.Tensor) else h
+    if tuple(h.shape) != tuple(int(s) for s in shape):
+        raise ValueError(f"transfer function {tuple(h.shape)} does not match volume "
+                         f"shape {tuple(shape)}")
+    h = h.to(device=device, dtype=torch.complex64)[..., : half_spectrum_shape(shape)[2]]
+    denom = h.abs() ** 2 + float(regularization_strength)
+    return torch.complex(h.real / denom, -h.imag / denom).contiguous()
+
+
 def fwd_yx_plain(volume: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
     """Plain version of kernel A."""
     spec = torch.fft.rfftn(volume.to(torch.float32), dim=(1, 2))
@@ -93,6 +140,10 @@ def fwd_yx_plain(volume: torch.Tensor, out: torch.Tensor | None = None) -> torch
 def z_filter_plain_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """Plain version of kernel B (in place)."""
     return spectrum.copy_(torch.fft.ifft(torch.fft.fft(spectrum, dim=0) * filt, dim=0))
+
+
+# Kernel Bc's plain version is kernel B's expression with a complex filter.
+z_filter_complex_plain_ = z_filter_plain_
 
 
 def inv_yx_plain(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -143,11 +194,17 @@ def _lib():
 
 def _check_cuda_shape(shape, what: str) -> None:
     for n in shape:
-        if n < 2 or n > _MAX_AXIS or n & (n - 1):
+        if n < 2 or n > max_axis(n):
             raise ValueError(
-                f"{what}: the CUDA kernels take power-of-two axes in "
-                f"[2, {_MAX_AXIS}], got volume shape {tuple(shape)}"
+                f"{what}: the CUDA kernels take axes of 2 to {_MAX_POW2} points "
+                f"when a power of two and 2 to {_MAX_OTHER} otherwise, got volume "
+                f"shape {tuple(shape)}"
             )
+
+
+def _check_grid_y(y: int, what: str) -> None:
+    if y > 65535:
+        raise ValueError(f"{what}: Y = {y} exceeds the kernel's grid (65535)")
 
 
 def _check(t: torch.Tensor, what: str, ndim: int, dtypes) -> None:
@@ -188,28 +245,55 @@ def fwd_yx(volume: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tenso
     return out
 
 
+def _z_filter(spectrum: torch.Tensor, filt: torch.Tensor, filt_dtype,
+              entry: str) -> torch.Tensor:
+    """Kernel B or Bc (C entry and launch counter ``entry``), in place."""
+    what = f"{entry}_"
+    _check(spectrum, what, 3, (torch.complex64,))
+    _check(filt, what, 3, (filt_dtype,))
+    if filt.shape != spectrum.shape or filt.device != spectrum.device:
+        raise ValueError(f"{what}: filter {tuple(filt.shape)} on {filt.device} "
+                         f"for spectrum {tuple(spectrum.shape)} on {spectrum.device}")
+    if not _build.on_card(spectrum, what):
+        return z_filter_plain_(spectrum, filt)
+    z, y, xh = spectrum.shape
+    _check_cuda_shape((z,), what)
+    _check_grid_y(y, what)
+    lib = _lib()
+    with torch.cuda.device(spectrum.device):
+        rc = getattr(lib, entry)(_build.ptr(spectrum), _build.ptr(filt), z, y, xh,
+                                 _build.stream_of(spectrum))
+    _build.check(rc, lib, what)
+    _build.count_launch(entry)
+    return spectrum
+
+
 def z_filter_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
     """Kernel B, in place: ``spectrum = ifft(fft(spectrum, Z) * filt, Z)``
     (with the inverse's 1/Z). ``filt`` is a :func:`prepare_fourier_filter`
     result of the spectrum's shape."""
-    _check(spectrum, "z_filter_", 3, (torch.complex64,))
-    _check(filt, "z_filter_", 3, (torch.float32,))
-    if filt.shape != spectrum.shape or filt.device != spectrum.device:
-        raise ValueError(f"z_filter_: filter {tuple(filt.shape)} on {filt.device} "
-                         f"for spectrum {tuple(spectrum.shape)} on {spectrum.device}")
-    if not _build.on_card(spectrum, "z_filter_"):
-        return z_filter_plain_(spectrum, filt)
-    z, y, xh = spectrum.shape
-    _check_cuda_shape((z,), "z_filter_")
-    if y > 65535:
-        raise ValueError(f"z_filter_: Y = {y} exceeds the kernel's grid (65535)")
-    lib = _lib()
-    with torch.cuda.device(spectrum.device):
-        rc = lib.z_filter(_build.ptr(spectrum), _build.ptr(filt), z, y, xh,
-                          _build.stream_of(spectrum))
-    _build.check(rc, lib, "z_filter_")
-    _build.count_launch("z_filter")
-    return spectrum
+    return _z_filter(spectrum, filt, torch.float32, "z_filter")
+
+
+def z_filter_complex_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Kernel Bc, in place: kernel B with a complex64 filter, a
+    :func:`prepare_hermitian_filter` result of the spectrum's shape.
+    Launches count as ``z_filter_complex``."""
+    return _z_filter(spectrum, filt, torch.complex64, "z_filter_complex")
+
+
+def fourier_filter_zyx(volume: torch.Tensor, filt: torch.Tensor,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """``irfftn(rfftn(volume) * filt)`` of one (Z, Y, X) float32 or uint16
+    volume with a complex64 half-spectrum filter (a
+    :func:`prepare_hermitian_filter` result) into ``out`` (new when None):
+    kernels A, Bc and C, or their plain versions for a CPU tensor. The
+    counterpart of ``fourier_filter_zyx_pallas`` (pallas_fft.py:1285)."""
+    spectrum = fwd_yx(volume)
+    z_filter_complex_(spectrum, filt)
+    if out is None:
+        out = torch.empty(volume.shape, dtype=torch.float32, device=volume.device)
+    return inv_yx(spectrum, out=out)
 
 
 def inv_yx(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
@@ -257,8 +341,7 @@ def z_cross_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
         return z_cross_plain_(ref_spec, mov_spec, out, normalization)
     z, y, xh = ref_spec.shape
     _check_cross_z(z)
-    if y > 65535:
-        raise ValueError(f"z_cross_: Y = {y} exceeds the kernel's grid (65535)")
+    _check_grid_y(y, "z_cross_")
     lib = _lib()
     with torch.cuda.device(ref_spec.device):
         rc = lib.z_cross(_build.ptr(ref_spec), _build.ptr(mov_spec), _build.ptr(out),
@@ -269,9 +352,10 @@ def z_cross_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
 
 
 def _check_cross_z(z: int) -> None:
-    """Kernel Bx's Z: a power of two in [2, MAX_CROSS_Z]."""
+    """Kernel Bx's Z: 2 to 2048 when a power of two, 2 to 1024 otherwise."""
     _check_cuda_shape((z,), "z_cross_")
-    if z > MAX_CROSS_Z:
+    if z > max_cross_z(z):
+        kind = "a power of two" if _is_pow2(z) else "other lengths"
         raise ValueError(f"z_cross_: Z = {z} exceeds the kernel's limit of "
-                         f"{MAX_CROSS_Z} (two spectra's Z-lines, in double, in "
-                         "one shared-memory tile)")
+                         f"{max_cross_z(z)} for {kind} (two spectra's Z-lines, in "
+                         "double, in one shared-memory tile)")

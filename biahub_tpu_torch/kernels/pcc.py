@@ -6,7 +6,8 @@ Counterpart of ``biahub_tpu/kernels/fft.py`` (the port's
 the fused route of the reference's ``pcc_corr_pallas`` (pallas_fft.py:1511):
 kernel A on both volumes, kernel Bx (the Z-DFTs, the cross-power and the
 inverse Z-DFT) and kernel C, :func:`pcc_corr`. A CUDA tensor launches the
-kernels, which take power-of-two axes only and raise otherwise; a CPU
+kernels, which take axes of any length up to their limits
+(``fft.max_axis``, ``fft.max_cross_z``) and raise beyond them; a CPU
 tensor takes their plain versions, at any shape. 2D inputs take
 :func:`_pcc_core`, ``torch.fft`` as the reference's XLA route.
 
@@ -191,8 +192,8 @@ def phase_cross_corr_padding(
 ):
     """PCC with both arrays center-matched to ``next_fast_len(max(shape) *
     maximum_shift)`` per axis; the peak is reported relative to the
-    fftshifted center. On the card those lengths must be powers of two
-    (the kernels' gap, ROADMAP queue 3). Returns ``(peak, None)``."""
+    fftshifted center. On the card those lengths run as Bluestein
+    lines in kernels A, Bx and C. Returns ``(peak, None)``."""
     # scipy is imported at call time: its import starts a process (numpy's
     # CPU probe), and importing the port starts none.
     from scipy.fft import next_fast_len

@@ -78,6 +78,35 @@ Then intensity registration, at the same deskewed shape:
     launches per level (H 7, I 7, J 6 per step), ms per level and per
     step, and ms per step at bench.py's optimizer shape (64, 256, 256).
 
+Then reconstruction, at the deskewed FOV (86, 1024, 484), with
+settings/example_reconstruct_settings.yml's optics (lambda 0.532 um, yx
+pixel 0.325 um, z step 2.0 um, NA 1.2 detection and 0.52 illumination, n
+1.3, reg 1e-3), birefringence at the default swing 0.1, T = 4:
+
+13. holds A, B, Bc (the complex Hermitian filter) and C against their
+    plain versions at that shape and at prime and odd lengths ((43, 97,
+    121), (9, 10, 17)), which run as Bluestein lines, A's uint16 input
+    bit-exact; Bx at custom_padding's next_fast_len shape of the PCC crop
+    in all three normalizations; one custom_padding PCC of two timelapse
+    volumes (the drift exact, equal to the plain route); each kernel's
+    time at those shapes beside its bound and rfft2 / irfft2;
+14. runs compute-tf (``compute_transfer_function_arrays``) for phase and
+    fluorescence, each transfer function within TF_TOL of the same
+    formulas in float64 numpy;
+15. renders a 4-timepoint, 5-state polarization timelapse (smooth
+    retardance and orientation maps through the instrument matrix, times
+    1 + the WOTF image of a weak phase object) in uint16 counts and runs
+    reconstruct (``reconstruct_arrays``, birefringence + phase): every
+    channel within 2e-5 of the route with A, Bc and C replaced by their
+    plain versions, uint16 bit-exact vs its float32 copy, retardance and
+    orientation within 1e-3 of the truth, the phase (of a State0 that the
+    retardance modulates) within PHASE64_TOL of the exact Tikhonov solution
+    in float64, launches A, Bc, C once per timepoint and no B; then phase
+    and fluorescence on one brightfield channel, counts x (1 + the WOTF
+    image) in float32: both within 2e-5 of the plain route, the phase
+    within PHASE_OBJECT_TOL of the phase object through the Tikhonov
+    passband |H|^2 / (|H|^2 + reg), launches A, Bc, C twice per timepoint.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -193,6 +222,53 @@ BENCH_REG_STEPS = 20
 # An H100 SXM's float64 rate outside the tensor cores (NVIDIA data sheet):
 # kernel I's band derivative and sums are double.
 F64_FLOP_PER_S = 34e12
+# Reconstruction (phases 13-15): T_RECON timepoints of 5 polarization
+# states at the deskewed FOV, with settings/example_reconstruct_settings.yml's
+# optics, birefringence at the default swing; then phase and fluorescence
+# on one brightfield channel (the fluorescence defaults: emission 0.507 um,
+# NA 1.2, n 1.3).
+T_RECON = 4
+RECON_CHANNELS = ["State0", "State1", "State2", "State3", "State4"]
+RECON_SETTINGS = {
+    "input_channel_names": RECON_CHANNELS,
+    "reconstruction_dimension": 3,
+    "birefringence": {"transfer_function": {"swing": 0.1}},
+    "phase": {
+        "transfer_function": {
+            "wavelength_illumination": 0.532, "yx_pixel_size": 0.325, "z_pixel_size": 2.0,
+            "index_of_refraction_media": 1.3, "numerical_aperture_detection": 1.2,
+            "numerical_aperture_illumination": 0.52,
+        },
+        "apply_inverse": {"reconstruction_algorithm": "Tikhonov",
+                          "regularization_strength": 0.001},
+    },
+}
+BF_SETTINGS = {
+    "input_channel_names": ["BF"],
+    "phase": RECON_SETTINGS["phase"],
+    "fluorescence": {
+        "transfer_function": {"yx_pixel_size": 0.325, "z_pixel_size": 2.0},
+        "apply_inverse": {"regularization_strength": 0.001},
+    },
+}
+# Small shapes with prime and odd lengths for the any-length kernels.
+ODD_SHAPES = ((43, 97, 121), (9, 10, 17))
+# The rendered polarization states: counts per unit transmittance, the
+# retardance range (rad) and the weak phase object's amplitude (rad).
+RECON_COUNTS, RETARDANCE_RANGE, PHASE_AMPLITUDE = 15000.0, (0.3, 1.2), 0.2
+# Retardance (rad), orientation (mod pi), BF (of the counts) and Pol from
+# the rendered truth, as tests/test_recon_golden.py holds them.
+BIREF_TOL = 1e-3
+# The port's float32 transfer functions against the same formulas in
+# float64, and its phase against the exact float64 Tikhonov solution:
+# measured 3.5e-6 (WOTF), 1.1e-7 (OTF) and 7.3e-7 on an NVIDIA H100 80GB
+# HBM3, 700 W (the WOTF's float32 defocus phase, up to ~1300 rad, rounds
+# to ~6e-5 rad); held at about five times that.
+TF_TOL = 2e-5
+PHASE64_TOL = 5e-6
+# The brightfield channel's phase against the phase object through the
+# Tikhonov passband, in float64.
+PHASE_OBJECT_TOL = 1e-3
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -293,6 +369,31 @@ def describe(rec: dict) -> str:
                      if rec[k] is not None)
 
 
+def pcc_timelapse(dev: torch.device):
+    """The PCC timelapse (T_LAPSE, 1, *LAPSE_SHAPE): a smooth base rolled by
+    known integer drifts (zero at t = 0); returns it, the drifts, the base
+    and the generator that drew the drifts."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # Noise blurred by a 3-voxel box: a correlation length of a few voxels.
+    # Heavier blurs leave too little high-frequency power for the
+    # magnitude-normalized PCC, which then locks onto the crop's edges.
+    base = torch.nn.functional.avg_pool3d(
+        torch.rand(LAPSE_SHAPE, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
+    rng = np.random.default_rng(0)
+    drift = np.stack([rng.integers(-m, m + 1, T_LAPSE) for m in MAX_DRIFT], axis=1)
+    drift[0] = 0
+    lapse = torch.stack([torch.roll(base, tuple(int(d) for d in dt), (0, 1, 2))
+                         for dt in drift])[:, None]  # (T, C=1, Z, Y, X)
+    return lapse, drift, base, rng
+
+
+def pcc_crop(lapse: torch.Tensor) -> torch.Tensor:
+    """The PCC settings' (Z, X) crop of every timepoint, (T, 64, 1024, 256)."""
+    pcc = PCC_SETTINGS["phase_cross_corr_settings"]
+    zs, xs = slice(*pcc["Z_slice"]), slice(*pcc["X_slice"])
+    return lapse[:, 0, zs, :, xs].contiguous()
+
+
 def stabilization_phases(dev: torch.device, records: dict) -> None:
     """Phases 4-6 on the timelapse: Bx against its plain version,
     estimate-stabilization, stabilize; adds the records of Bx and of E and F
@@ -310,20 +411,8 @@ def stabilization_phases(dev: torch.device, records: dict) -> None:
     from biahub_tpu_torch.stabilize import stabilize_batch_size
 
     z, y, x = LAPSE_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(0)
-    # Noise blurred by a 3-voxel box: a correlation length of a few voxels.
-    # Heavier blurs leave too little high-frequency power for the
-    # magnitude-normalized PCC, which then locks onto the crop's edges.
-    base = torch.nn.functional.avg_pool3d(
-        torch.rand(LAPSE_SHAPE, generator=gen, device=dev)[None, None], 3, 1, 1)[0, 0]
-    rng = np.random.default_rng(0)
-    drift = np.stack([rng.integers(-m, m + 1, T_LAPSE) for m in MAX_DRIFT], axis=1)
-    drift[0] = 0
-    lapse = torch.stack([torch.roll(base, tuple(int(d) for d in dt), (0, 1, 2))
-                         for dt in drift])[:, None]  # (T, C=1, Z, Y, X)
-    pcc = PCC_SETTINGS["phase_cross_corr_settings"]
-    zs, xs = slice(*pcc["Z_slice"]), slice(*pcc["X_slice"])
-    crop = lapse[:, 0, zs, :, xs].contiguous()  # (T, 64, 1024, 256)
+    lapse, drift, base, rng = pcc_timelapse(dev)
+    crop = pcc_crop(lapse)  # (T, 64, 1024, 256)
     cz, cy, cx = crop.shape[1:]
     cxh = cx // 2 + 1
     print(f"timelapse: {T_LAPSE} x {LAPSE_SHAPE}, drift (dz, dy, dx) {drift[1:].tolist()}; "
@@ -1069,6 +1158,400 @@ def registration_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def plain_fft_kernels():
+    """Kernels A, Bc, C and Bx replaced by their plain PyTorch versions on
+    the card (in ``kernels.fft``, which the reconstruction calls, and in
+    ``kernels.pcc``, which imports them by name); nothing is counted."""
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import pcc as kpcc
+
+    plain = {"fwd_yx": kfft.fwd_yx_plain, "inv_yx": kfft.inv_yx_plain,
+             "z_filter_complex_": kfft.z_filter_complex_plain_,
+             "z_cross_": kfft.z_cross_plain_}
+    saved = [(mod, name, getattr(mod, name)) for mod in (kfft, kpcc) for name in plain
+             if hasattr(mod, name)]
+    for mod, name, _ in saved:
+        setattr(mod, name, plain[name])
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def smooth_rand(shape, gen: torch.Generator, width: int = 9) -> torch.Tensor:
+    """Uniform noise in [0, 1) averaged over a box of ``width`` voxels."""
+    return torch.nn.functional.avg_pool3d(
+        torch.rand(shape, generator=gen, device=gen.device)[None, None], width, 1,
+        width // 2, count_include_pad=False)[0, 0]
+
+
+def any_length_phase(dev: torch.device, records: dict) -> None:
+    """Phase 13: A, B, Bc and C against their plain versions at the deskewed
+    FOV and at prime and odd lengths; Bx at custom_padding's shape; one
+    custom_padding PCC on the card; each kernel's time at those shapes."""
+    from scipy.fft import next_fast_len
+
+    from biahub_tpu_torch import stabilization_settings_from_reference
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import pcc as kpcc
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    # The deskewed FOV last: its tensors stay for the timings below.
+    for shape in ODD_SHAPES + (LAPSE_SHAPE,):
+        half = kfft.half_spectrum_shape(shape)
+        vol = torch.rand(shape, generator=gen, device=dev)
+        spec = kfft.fwd_yx(vol)
+        err = {"A": rel_err(spec, kfft.fwd_yx_plain(vol))}
+        u16 = torch.randint(0, 65536, shape, generator=gen, device=dev, dtype=torch.int32)
+        spec16 = kfft.fwd_yx(u16.to(torch.uint16))
+        require(torch.equal(torch.view_as_real(spec16).view(torch.int32),
+                            torch.view_as_real(kfft.fwd_yx(u16.float())).view(torch.int32)),
+                f"kernel A at {shape}: uint16 input differs from its float32 copy")
+        filt = torch.rand(half, generator=gen, device=dev)
+        filt_c = torch.complex(torch.randn(half, generator=gen, device=dev),
+                               torch.randn(half, generator=gen, device=dev))
+        err["B"] = rel_err(kfft.z_filter_(spec.clone(), filt),
+                           kfft.z_filter_plain_(spec.clone(), filt))
+        spec_c = kfft.z_filter_complex_(spec.clone(), filt_c)
+        err["Bc"] = rel_err(spec_c, kfft.z_filter_complex_plain_(spec.clone(), filt_c))
+        err["C"] = rel_err(kfft.inv_yx(spec_c.clone(), out=torch.empty_like(vol)),
+                           kfft.inv_yx_plain(spec_c.clone(), out=torch.empty_like(vol)))
+        for name, (_, e) in err.items():
+            require(e <= FFT_TOL, f"kernel {name} at {shape}: rel err {e:.3g} > {FFT_TOL}")
+        print(f"any length {shape}: rel err " + ", ".join(f"{n} {e:.3g}" for n, (_, e) in
+                                                         err.items())
+              + f" (tol {FFT_TOL}); A's uint16 input bit-exact vs its float32 copy")
+
+    # The kernels' times at the deskewed FOV, the reconstruction's shape.
+    z, y, x = LAPSE_SHAPE
+    xh = x // 2 + 1
+    nvox, spec_bytes = z * y * x, z * y * xh * 8
+    fft_flops = z * y * 2.5 * x * math.log2(x) + z * xh * 5 * y * math.log2(y)
+    z_flops = 2 * y * xh * 5 * z * math.log2(z)
+    work, decon = torch.empty_like(spec), torch.empty_like(vol)
+    bms, bby = bound(nvox * 4 + spec_bytes, fft_flops)
+    records["fwd_yx_recon"] = dict(
+        replaces="biahub_tpu/kernels/pallas_fft.py:286", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="fwd_yx", max_abs_err=err["A"][0],
+        ms=time_ms(lambda: kfft.fwd_yx(vol, out=work)),
+        plain_ms=time_ms(lambda: kfft.fwd_yx_plain(vol)), bound_ms=bms, bound_by=bby,
+        library_ms=time_ms(lambda: torch.fft.rfft2(vol)))
+    bms_c, bby_c = bound(3 * spec_bytes, z_flops + 6 * z * y * xh)
+    records["z_filter_complex"] = dict(
+        replaces="biahub_tpu/kernels/pallas_fft.py:442", source="biahub_tpu_torch/csrc/fft.cu",
+        max_abs_err=err["Bc"][0],
+        ms=time_ms(lambda: kfft.z_filter_complex_(work, filt_c),
+                   setup=lambda: work.copy_(spec)),
+        plain_ms=time_ms(lambda: kfft.z_filter_complex_plain_(work, filt_c),
+                         setup=lambda: work.copy_(spec)),
+        bound_ms=bms_c, bound_by=bby_c, library_ms=None)
+    records["inv_yx_recon"] = dict(
+        replaces="biahub_tpu/kernels/pallas_fft.py:530", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="inv_yx", max_abs_err=err["C"][0],
+        ms=time_ms(lambda: kfft.inv_yx(work, out=decon), setup=lambda: work.copy_(spec_c)),
+        plain_ms=time_ms(lambda: kfft.inv_yx_plain(work, out=decon),
+                         setup=lambda: work.copy_(spec_c)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=time_ms(lambda: torch.fft.irfft2(spec_c, s=(y, x))))
+    b_ms = time_ms(lambda: kfft.z_filter_(work, filt), setup=lambda: work.copy_(spec))
+    b_plain = time_ms(lambda: kfft.z_filter_plain_(work, filt), setup=lambda: work.copy_(spec))
+    b_bound, _ = bound(2 * spec_bytes + z * y * xh * 4, z_flops + 2 * z * y * xh)
+    print(f"A fwd_yx at {LAPSE_SHAPE}: " + describe(records["fwd_yx_recon"]))
+    print(f"Bc z_filter_complex at {LAPSE_SHAPE}: " + describe(records["z_filter_complex"])
+          + "; no single PyTorch call computes it (fft, mul, ifft: three)")
+    print(f"C inv_yx at {LAPSE_SHAPE}: " + describe(records["inv_yx_recon"]))
+    print(f"B z_filter at {LAPSE_SHAPE}: ms {b_ms:.4f}, plain_ms {b_plain:.4f}, "
+          f"bound_ms {b_bound:.4f}")
+    del vol, spec, spec16, spec_c, work, decon, filt, filt_c, u16
+
+    # Bx at custom_padding's shape, and one custom_padding PCC.
+    lapse, drift, _, _ = pcc_timelapse(dev)
+    crop = pcc_crop(lapse)
+    del lapse
+    shift = stabilization_settings_from_reference(
+        PCC_SETTINGS)["phase_cross_corr_settings"]["maximum_shift"]
+    pad_shape = tuple(int(next_fast_len(int(n * shift))) for n in crop.shape[1:])
+    ref_spec = kfft.fwd_yx(kpcc.match_shape(crop[0], pad_shape).contiguous())
+    mov_spec = kfft.fwd_yx(kpcc.match_shape(crop[1], pad_shape).contiguous())
+    out = torch.empty_like(mov_spec)
+    worst = 0.0
+    for norm in NORMS:
+        kfft.z_cross_(ref_spec, mov_spec, out, norm)
+        want = kfft.z_cross_plain_(ref_spec.to(torch.complex128), mov_spec.to(torch.complex128),
+                                   torch.empty_like(mov_spec), norm)
+        err_abs, err_bx = rel_err(out, want)
+        require(err_bx <= FFT_TOL, f"kernel Bx ({norm}) at {pad_shape}: rel err {err_bx:.3g}")
+        worst = max(worst, err_abs)
+        print(f"Bx z_cross ({norm}) at custom_padding's {pad_shape}: rel err {err_bx:.3g} "
+              f"(tol {FFT_TOL}) vs the plain version in float64")
+    pz, py, px = pad_shape
+    pspec = pz * py * (px // 2 + 1) * 8
+    bms, bby = bound(3 * pspec, 3 * py * (px // 2 + 1) * 5 * pz * math.log2(pz)
+                     + 20 * pz * py * (px // 2 + 1))
+    records["z_cross_padding"] = dict(
+        replaces="biahub_tpu/kernels/pallas_fft.py:1338", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="z_cross", max_abs_err=worst,
+        ms=time_ms(lambda: kfft.z_cross_(ref_spec, mov_spec, out, "magnitude")),
+        plain_ms=time_ms(lambda: kfft.z_cross_plain_(ref_spec, mov_spec, out, "magnitude")),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    print(f"Bx z_cross (magnitude) at {pad_shape}: " + describe(records["z_cross_padding"]))
+    del ref_spec, mov_spec, out, want
+
+    t = 1
+    (peak, _), launches = counted(lambda: kpcc.phase_cross_corr_padding(
+        crop[0], crop[t], shift, "magnitude", device=dev))
+    with plain_fft_kernels():
+        plain_peak, _ = kpcc.phase_cross_corr_padding(crop[0], crop[t], shift, "magnitude",
+                                                       device=dev)
+    require(np.array_equal(peak, drift[t]), f"custom_padding PCC: peak {peak.tolist()}, "
+            f"drift {drift[t].tolist()}")
+    require(np.array_equal(peak, plain_peak), "custom_padding PCC differs from the plain route")
+    want_l = {"fwd_yx": 2, "z_cross": 1, "inv_yx": 1}
+    require(launches == want_l, f"custom_padding PCC launches {launches}, want {want_l}")
+    pcc_ms = host_ms(lambda: kpcc.phase_cross_corr_padding(crop[0], crop[t], shift,
+                                                           "magnitude", device=dev))
+    records["z_cross_padding"]["runs"] = launches
+    print(f"custom_padding PCC of timepoints 0 and {t} at {pad_shape}: peak {peak.tolist()} = "
+          f"the drift, equal to the plain route; {pcc_ms:.3f} ms (host clock); "
+          f"launches {launches}")
+    del crop
+    torch.cuda.empty_cache()
+
+
+def tf_float64(shape, settings: dict) -> dict:
+    """The phase WOTF and fluorescence OTF of ``settings`` in float64 numpy
+    (scipy's FFTs on every core): the port's formulas without float32."""
+    from scipy import fft as sfft
+
+    workers = os.cpu_count()
+
+    def grids(wavelength, n_media, yx_px, z_px):
+        fy, fx = np.fft.fftfreq(shape[1], d=yx_px), np.fft.fftfreq(shape[2], d=yx_px)
+        f2 = fy[:, None] ** 2 + fx[None, :] ** 2
+        kz = np.sqrt(np.maximum((n_media / wavelength) ** 2 - f2, 0.0))
+        z = np.fft.fftfreq(shape[0]) * shape[0] * z_px
+        theta = (2 * np.pi * z)[:, None, None] * kz[None]
+        defocus = np.empty(theta.shape, np.complex128)  # exp(i theta), as cos and sin
+        np.cos(theta, out=defocus.real)
+        np.sin(theta, out=defocus.imag)
+        return np.sqrt(f2), defocus
+
+    out = {}
+    if settings.get("phase") is not None:
+        tf = settings["phase"]["transfer_function"]
+        fr, defocus = grids(tf["wavelength_illumination"], tf["index_of_refraction_media"],
+                            tf["yx_pixel_size"], tf["z_pixel_size"])
+        p = (fr <= tf["numerical_aperture_detection"] / tf["wavelength_illumination"]) * 1.0
+        src = (fr <= tf["numerical_aperture_illumination"] / tf["wavelength_illumination"]) * 1.0
+        fa = sfft.fft2((src * p) * defocus, workers=workers, overwrite_x=True)
+        defocus *= p
+        fb = sfft.fft2(defocus, workers=workers, overwrite_x=True)
+        del defocus
+        np.conj(fa, out=fa)
+        fa *= fb
+        del fb
+        corr = sfft.ifft2(fa, workers=workers, overwrite_x=True) / np.sum(src * p * p)
+        del fa
+        out["phase"] = -sfft.fft(2.0 * corr.imag, axis=0, workers=workers) / shape[0]
+    if settings.get("fluorescence") is not None:
+        tf = settings["fluorescence"]["transfer_function"]
+        wl = tf.get("wavelength_emission", 0.507)
+        fr, defocus = grids(wl, tf.get("index_of_refraction_media", 1.3), tf["yx_pixel_size"],
+                            tf["z_pixel_size"])
+        p = (fr <= tf.get("numerical_aperture_detection", 1.2) / wl) * 1.0
+        defocus *= p
+        psf = np.abs(sfft.ifft2(defocus, workers=workers, overwrite_x=True)) ** 2
+        del defocus
+        otf = sfft.fftn(psf, workers=workers)
+        out["fluorescence"] = otf / otf[0, 0, 0]
+    return out
+
+
+def compute_tf_phase(dev: torch.device) -> dict:
+    """Phase 14: compute-tf for phase and fluorescence at the deskewed FOV,
+    against the same formulas in float64; returns the port's transfer
+    functions."""
+    from biahub_tpu_torch import compute_transfer_function_arrays
+
+    both = dict(RECON_SETTINGS, fluorescence=BF_SETTINGS["fluorescence"])
+    tfs, launches = counted(lambda: compute_transfer_function_arrays(LAPSE_SHAPE, both,
+                                                                     device=dev))
+    require(launches == {}, f"compute-tf launched kernels: {launches}")
+    t0 = time.perf_counter()
+    ref = tf_float64(LAPSE_SHAPE, both)
+    host64 = time.perf_counter() - t0
+    for name, tf in tfs.items():
+        require(tf.shape == LAPSE_SHAPE and tf.dtype == torch.complex64
+                and bool(torch.isfinite(torch.view_as_real(tf)).all()),
+                f"compute-tf {name}: {tuple(tf.shape)} {tf.dtype}")
+        got = tf.cpu().numpy()
+        err = float(np.abs(got - ref[name]).max() / np.abs(ref[name]).max())
+        require(err <= TF_TOL, f"compute-tf {name}: rel err {err:.3g} vs float64 > {TF_TOL}")
+        print(f"compute-tf {name} at {LAPSE_SHAPE}: rel err {err:.3g} vs float64 numpy "
+              f"(tol {TF_TOL})")
+    del ref
+    tf_ms = host_ms(lambda: compute_transfer_function_arrays(LAPSE_SHAPE, both, device=dev))
+    print(f"compute-tf (phase and fluorescence) at {LAPSE_SHAPE}: {tf_ms:.3f} ms (host clock); "
+          f"float64 reference {host64:.1f} s on the host")
+    return tfs
+
+
+def render_polarization(dev: torch.device, h: torch.Tensor, gen: torch.Generator):
+    """T_RECON timepoints of 5 polarization states (T, 5, Z, Y, X) in uint16
+    counts: smooth retardance and orientation maps through the default
+    swing's instrument matrix, times 1 + I_norm, the WOTF forward model
+    ``real(ifftn(H * fftn(phi)))`` of a weak smooth phase object phi.
+    Returns the stack and the truth (retardance rad, orientation, BF)."""
+    from biahub_tpu_torch.recon.birefringence import instrument_matrix
+
+    a = torch.from_numpy(instrument_matrix(5, 0.1)).to(dev)
+    stack = torch.empty((T_RECON, 5) + LAPSE_SHAPE, dtype=torch.uint16, device=dev)
+    truth = []
+    lo, hi = RETARDANCE_RANGE
+    for t in range(T_RECON):
+        ret = lo + (hi - lo) * smooth_rand(LAPSE_SHAPE, gen)
+        theta = math.pi * smooth_rand(LAPSE_SHAPE, gen)
+        phi = PHASE_AMPLITUDE * (smooth_rand(LAPSE_SHAPE, gen, 5) - 0.5)
+        bf = RECON_COUNTS * (1.0 + torch.fft.ifftn(h * torch.fft.fftn(phi)).real)
+        stokes = torch.stack([bf, bf * torch.sin(ret) * torch.sin(2 * theta),
+                              bf * torch.sin(ret) * torch.cos(2 * theta), bf * torch.cos(ret)])
+        states = torch.einsum("sk,k...->s...", a, stokes)
+        require(float(states.max()) < 65535 and float(states.min()) > 0,
+                "rendered polarization states leave the uint16 range")
+        stack[t] = torch.round(states).to(torch.uint16)
+        truth.append((ret, theta, bf))
+    return stack, truth
+
+
+def reconstruction_phase(dev: torch.device, records: dict, tfs: dict) -> None:
+    """Phase 15: apply-inv-tf and reconstruct on a rendered polarization
+    timelapse (birefringence and phase), then phase and fluorescence on one
+    rendered brightfield channel."""
+    from biahub_tpu_torch import apply_inverse_transfer_function_arrays, reconstruct_arrays
+    from biahub_tpu_torch.kernels import fft as kfft
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    stack, truth = render_polarization(dev, tfs["phase"], gen)
+    stack_f = stack.to(torch.float32)
+    print(f"polarization timelapse: {T_RECON} x 5 states x {LAPSE_SHAPE}, uint16 counts "
+          f"<= {int(stack_f.max())}")
+
+    def run(data):
+        return reconstruct_arrays(data, RECON_CHANNELS, RECON_SETTINGS, device=dev)
+
+    out, launches = counted(lambda: run(stack))
+    want_l = {"fwd_yx": T_RECON, "z_filter_complex": T_RECON, "inv_yx": T_RECON}
+    require(launches == want_l, f"reconstruct launches {launches}, want {want_l} (A, Bc, C "
+            "once per phase volume, no Tikhonov B)")
+    require(out.shape == (T_RECON, 5) + LAPSE_SHAPE and bool(torch.isfinite(out).all()),
+            f"reconstruct output {tuple(out.shape)} is not finite of the expected shape")
+    require(torch.equal(run(stack_f).view(torch.int32), out.view(torch.int32)),
+            "reconstruct: uint16 input differs from its float32 copy")
+    with plain_fft_kernels():
+        plain = run(stack_f)
+    names = ["Retardance", "Orientation", "BF", "Pol", "Phase3D"]
+    errs = {n: rel_err(out[:, c], plain[:, c])[1] for c, n in enumerate(names)}
+    for n, e in errs.items():
+        require(e <= FFT_TOL, f"reconstruct {n}: rel err {e:.3g} vs the plain route > {FFT_TOL}")
+    del plain
+
+    worst_ret = worst_theta = worst_bf = worst_pol = 0.0
+    for t, (ret, theta, bf) in enumerate(truth):
+        worst_ret = max(worst_ret, float((out[t, 0] * 2 * math.pi / 0.532 - ret).abs().max()))
+        d = torch.remainder(out[t, 1] - theta, math.pi)
+        worst_theta = max(worst_theta, float(torch.minimum(d, math.pi - d).max()))
+        worst_bf = max(worst_bf, float(((out[t, 2] - bf) / RECON_COUNTS).abs().max()))
+        worst_pol = max(worst_pol, float((out[t, 3] - 1.0).abs().max()))
+    require(max(worst_ret, worst_theta, worst_bf, worst_pol) <= BIREF_TOL,
+            f"birefringence from the truth: retardance {worst_ret:.3g} rad, orientation "
+            f"{worst_theta:.3g}, BF {worst_bf:.3g} of the counts, Pol {worst_pol:.3g} "
+            f"(tol {BIREF_TOL})")
+
+    # The phase of timepoint 0 against the exact Tikhonov solution in float64.
+    from scipy import fft as sfft
+
+    bf64 = stack_f[0, 0].cpu().numpy().astype(np.float64)
+    i_norm = bf64 / bf64.mean() - 1.0
+    h = tfs["phase"].cpu().numpy().astype(np.complex128)[..., : LAPSE_SHAPE[2] // 2 + 1]
+    reg = RECON_SETTINGS["phase"]["apply_inverse"]["regularization_strength"]
+    workers = os.cpu_count()
+    exact = sfft.irfftn(sfft.rfftn(i_norm, workers=workers) * np.conj(h)
+                        / (np.abs(h) ** 2 + reg), s=LAPSE_SHAPE, workers=workers)
+    phase64 = float(np.abs(out[0, 4].cpu().numpy() - exact).max() / np.abs(exact).max())
+    require(phase64 <= PHASE64_TOL, f"phase: rel err {phase64:.3g} vs float64 > {PHASE64_TOL}")
+    del bf64, i_norm, exact
+
+    call_ms = host_ms(lambda: run(stack), reps=2)
+    apply_ms = host_ms(lambda: apply_inverse_transfer_function_arrays(
+        stack, RECON_CHANNELS, tfs, RECON_SETTINGS, device=dev), reps=2)
+    print(f"reconstruct (birefringence + phase, {T_RECON} timepoints): rel err vs the plain "
+          "route " + ", ".join(f"{n} {e:.3g}" for n, e in errs.items())
+          + f" (tol {FFT_TOL}); uint16 input bit-exact vs its float32 copy; from the truth "
+          f"retardance {worst_ret:.3g} rad, orientation {worst_theta:.3g}, BF {worst_bf:.3g} "
+          f"of the counts, Pol {worst_pol:.3g}; phase {phase64:.3g} from float64 (tol "
+          f"{PHASE64_TOL}); launches {launches}")
+    print(f"reconstruct: {call_ms:.3f} ms for the call (host clock), {call_ms / T_RECON:.3f} "
+          f"ms per timepoint and per phase volume; apply-inv-tf alone {apply_ms:.3f} ms, "
+          f"{apply_ms / T_RECON:.3f} per timepoint")
+    for name in ("fwd_yx_recon", "z_filter_complex", "inv_yx_recon"):
+        records[name]["runs"] = launches
+    del out, stack, stack_f, truth
+
+    # Phase and fluorescence on one brightfield channel: the phase object
+    # alone through the WOTF forward model, in float32 counts so that the
+    # check below sees the model and not the camera's rounding.
+    h = tfs["phase"]
+    phis = [PHASE_AMPLITUDE * (smooth_rand(LAPSE_SHAPE, gen, 5) - 0.5) for _ in range(T_RECON)]
+    bf = torch.stack([RECON_COUNTS * (1.0 + torch.fft.ifftn(h * torch.fft.fftn(phi)).real)
+                      for phi in phis])[:, None]
+
+    def run_bf():
+        return reconstruct_arrays(bf, ["BF"], BF_SETTINGS, device=dev)
+
+    out_b, launches_b = counted(run_bf)
+    want_b = {name: 2 * T_RECON for name in want_l}
+    require(launches_b == want_b, f"brightfield launches {launches_b}, want {want_b}")
+    require(out_b.shape == (T_RECON, 2) + LAPSE_SHAPE and bool(torch.isfinite(out_b).all()),
+            f"brightfield output {tuple(out_b.shape)}")
+    with plain_fft_kernels():
+        plain = run_bf()
+    errs_b = {n: rel_err(out_b[:, c], plain[:, c])[1]
+              for c, n in enumerate(("Phase3D", "BF_decon"))}
+    for n, e in errs_b.items():
+        require(e <= FFT_TOL, f"brightfield {n}: rel err {e:.3g} vs the plain route > {FFT_TOL}")
+    # Both routes' deconvolution of timepoint 0 against float64: the channel's
+    # large mean puts float32 rounding into every bin, which the filter's
+    # gain of up to 1 / (2 sqrt(reg)) then raises.
+    reg_f = BF_SETTINGS["fluorescence"]["apply_inverse"]["regularization_strength"]
+    filt64 = kfft.prepare_hermitian_filter(LAPSE_SHAPE, tfs["fluorescence"], reg_f, dev)
+    decon64 = torch.fft.irfftn(torch.fft.rfftn(bf[0, 0].double()) * filt64.to(torch.complex128),
+                               s=LAPSE_SHAPE)
+    decon_errs = [rel_err(x[0, 1].double(), decon64)[1] for x in (out_b, plain)]
+    del plain, filt64, decon64
+    # The phase object through the Tikhonov passband, in float64.
+    h_half = h[..., : LAPSE_SHAPE[2] // 2 + 1].to(torch.complex128)
+    passband = h_half.abs() ** 2 / (h_half.abs() ** 2 + reg)
+    del h_half
+    worst_obj = 0.0
+    for t, phi in enumerate(phis):
+        band = torch.fft.irfftn(torch.fft.rfftn(phi.double()) * passband, s=LAPSE_SHAPE)
+        worst_obj = max(worst_obj, rel_err(out_b[t, 0].double(), band)[1])
+    require(worst_obj <= PHASE_OBJECT_TOL, f"phase: rel err {worst_obj:.3g} from the phase "
+            f"object through the passband > {PHASE_OBJECT_TOL}")
+    del passband, band, phis
+    b_ms = host_ms(run_bf, reps=2)
+    print(f"reconstruct (phase + fluorescence on 1 brightfield channel, {T_RECON} timepoints): "
+          "rel err vs the plain route " + ", ".join(f"{n} {e:.3g}" for n, e in errs_b.items())
+          + f" (tol {FFT_TOL}); BF_decon of timepoint 0 from float64: {decon_errs[0]:.3g} "
+          f"(kernels), {decon_errs[1]:.3g} (plain); phase {worst_obj:.3g} from the phase object "
+          f"through the Tikhonov passband (tol {PHASE_OBJECT_TOL}); {b_ms:.3f} ms, "
+          f"{b_ms / (2 * T_RECON):.3f} per volume; launches {launches_b}")
+    del bf, out_b
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1407,6 +1890,10 @@ def main() -> int:
     beads_phases(dev, records)
     vjp_phase(dev, records)
     registration_phase(dev, records)
+    any_length_phase(dev, records)
+    tfs = compute_tf_phase(dev)
+    reconstruction_phase(dev, records, tfs)
+    del tfs
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

@@ -13,8 +13,11 @@ import torch
 from biahub_tpu_torch import (
     DeconvolveDeskew,
     DeconvolveDeskewWarp,
+    apply_inverse_transfer_function_arrays,
     chain_from_reference,
+    compute_transfer_function_arrays,
     module_from_reference,
+    reconstruct_arrays,
 )
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
 from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
@@ -37,6 +40,7 @@ from biahub_tpu_torch.kernels.multipass_cuda import (
 from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
 from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
+from biahub_tpu_torch.recon import optics
 from biahub_tpu_torch.registration import beads, intensity
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -68,6 +72,8 @@ def test_import_scan_matches_names_exactly(tmp_path):
 
 SHAPE = (8, 6, 10)
 TF = np.ones((8, 6, 6), np.float32)
+RECON = {"input_channel_names": ["BF"], "phase": {}, "fluorescence": {}}
+RECON_TFS = {"phase": np.ones(SHAPE, np.complex64), "fluorescence": np.ones(SHAPE, np.complex64)}
 VOL = np.zeros(SHAPE, np.float32)
 SHIFT = np.eye(4)
 SHIFT[:3, 3] = [0.5, -1.0, 2.0]
@@ -118,6 +124,14 @@ ENTRY_POINTS = {
         VOL[None, None], VOL[None, None], ["a"], ["b"],
         {"source_channel_name": "a", "target_channel_name": "b", "estimation_method": "ants"},
         [1.0] * 5),
+    "phase_wotf_3d": lambda: optics.phase_wotf_3d(SHAPE, 0.325, 2.0, 0.532, 0.52, 1.2, 1.3),
+    "fluorescence_otf_3d": lambda: optics.fluorescence_otf_3d(SHAPE, 0.325, 2.0, 0.507, 1.2,
+                                                              1.3),
+    "tikhonov_inverse_3d": lambda: optics.tikhonov_inverse_3d(VOL, RECON_TFS["phase"], 1e-3),
+    "compute_transfer_function_arrays": lambda: compute_transfer_function_arrays(SHAPE, RECON),
+    "apply_inverse_transfer_function_arrays": lambda: apply_inverse_transfer_function_arrays(
+        VOL[None, None], ["BF"], RECON_TFS, RECON),
+    "reconstruct_arrays": lambda: reconstruct_arrays(VOL[None, None], ["BF"], RECON),
     "chain_from_reference": lambda: chain_from_reference(
         TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
                                            "px_to_scan_ratio": 0.4},
@@ -148,6 +162,8 @@ def test_cpu_path_takes_plain_versions_and_counts_no_launch():
     warp = multipass_warp.make_traced_multipass_warp(SHAPE, SHAPE, order=1, device="cpu")
     warp(torch.ones(SHAPE), m).sum().backward()
     assert m.grad is not None
+    out = reconstruct_arrays(VOL[None, None] + 1.0, ["BF"], RECON, device="cpu")
+    assert out.shape == (1, 2) + SHAPE
     assert _build.launch_counts == {}
 
 
@@ -159,6 +175,7 @@ def test_wrappers_raise_on_other_devices():
     for call in (
         lambda: fft.fwd_yx(meta),
         lambda: fft.z_filter_(spec, torch.empty((8, 6, 6), device="meta")),
+        lambda: fft.z_filter_complex_(spec, spec.clone()),
         lambda: fft.inv_yx(spec),
         lambda: deskew_kernel(meta[None], geo),
         lambda: deskew_kernel(meta[None], geo._replace(skip_flip=True), "xzy"),
@@ -175,10 +192,16 @@ def test_wrappers_raise_on_other_devices():
             call()
 
 
-@pytest.mark.parametrize("shape", [(16, 14, 40), (1, 16, 16), (16, 16, 16384)])
+@pytest.mark.parametrize("shape", [(16, 16, 4097), (1, 16, 16), (16, 16, 16384)])
 def test_cuda_shape_gate_rejects_what_the_kernels_do_not_take(shape):
-    with pytest.raises(ValueError, match="power-of-two"):
+    with pytest.raises(ValueError, match="when a power of two and 2 to 4096 otherwise"):
         fft._check_cuda_shape(shape, "fwd_yx")
+
+
+@pytest.mark.parametrize("shape", [(16, 14, 40), (86, 1024, 484), (9, 10, 17),
+                                   (2, 8192, 4095)])
+def test_cuda_shape_gate_accepts_any_length_within_the_limits(shape):
+    fft._check_cuda_shape(shape, "fwd_yx")
 
 
 def test_import_does_not_build():

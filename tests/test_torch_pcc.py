@@ -130,11 +130,14 @@ def test_pcc_shifts_recover_integer_shifts_exactly():
 
 
 def test_z_cross_refuses_what_the_kernel_does_not_take():
-    tfft._check_cross_z(tfft.MAX_CROSS_Z)
-    with pytest.raises(ValueError, match="limit of 2048"):
+    for z in (2, 48, 80, 1024, 2048):  # 80: custom_padding's next_fast_len(76)
+        tfft._check_cross_z(z)
+    with pytest.raises(ValueError, match="limit of 2048 for a power of two"):
         tfft._check_cross_z(4096)
-    with pytest.raises(ValueError, match="power-of-two"):
-        tfft._check_cross_z(48)
+    with pytest.raises(ValueError, match="limit of 1024 for other lengths"):
+        tfft._check_cross_z(1100)
+    with pytest.raises(ValueError, match="2 to 4096 otherwise"):
+        tfft._check_cross_z(1)
     spec = torch.zeros((4, 4, 3), dtype=torch.complex64)
     with pytest.raises(ValueError, match="must not be ref_spec"):
         tfft.z_cross_(spec, spec.clone(), spec)
