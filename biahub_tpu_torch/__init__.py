@@ -38,7 +38,11 @@ apply_inverse_transfer_function_arrays`: birefringence, and phase and
 fluorescence as Tikhonov inverses through kernels A, Bc and C) and
 reconstruct (:func:`~biahub_tpu_torch.reconstruct.reconstruct_arrays`);
 the kernels take axes of any length up to their limits, so the deskewed
-FOV (86, 1024, 484) runs as it is.
+FOV (86, 1024, 484) runs as it is. The spectral deconvolve + deskew
+(:func:`~biahub_tpu_torch.kernels.spectral.deconvolve_deskew_zyx_spectral`:
+kernels A, K, L and M, the deskew's lerp evaluated from the spectrum) is
+the other route of the headline step and of the full chain, taken with
+``spectral=True``.
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (
@@ -51,6 +55,7 @@ from biahub_tpu_torch.convert import (
     reconstruction_settings_from_reference,
     registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
+    spectral_table_from_reference,
     transfer_functions_from_reference,
 )
 from biahub_tpu_torch.device import gpu_info, resolve_device
@@ -69,8 +74,11 @@ from biahub_tpu_torch.kernels.affine import (
     translation_warp_zyx_batched,
 )
 from biahub_tpu_torch.kernels.chain import (
+    chain_warp_spectral_route,
     deconvolve_deskew_warp,
     deconvolve_deskew_warp_batched,
+    deconvolve_then_deskew,
+    deconvolve_then_deskew_batched,
     deskew_then_warp,
 )
 from biahub_tpu_torch.kernels.multipass_warp import (
@@ -85,6 +93,11 @@ from biahub_tpu_torch.kernels.pcc import (
     subpixel_shift_2d,
 )
 from biahub_tpu_torch.kernels.peaks import detect_peaks
+from biahub_tpu_torch.kernels.spectral import (
+    deconvolve_deskew_zyx_spectral,
+    prepare_spectral_deskew,
+    spectral_deskew_supported,
+)
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 from biahub_tpu_torch.recon.settings import output_channel_names
@@ -106,6 +119,8 @@ __all__ = [
     "inplane_affine_warp_zyx",
     "inplane_affine_warp_zyx_batched",
     "deskew_then_warp",
+    "deconvolve_then_deskew",
+    "deconvolve_then_deskew_batched",
     "deconvolve_deskew_warp",
     "deconvolve_deskew_warp_batched",
     "translation_warp_zyx",
@@ -127,6 +142,11 @@ __all__ = [
     "reconstruct_arrays",
     "reconstruction_settings_from_reference",
     "transfer_functions_from_reference",
+    "deconvolve_deskew_zyx_spectral",
+    "prepare_spectral_deskew",
+    "spectral_deskew_supported",
+    "chain_warp_spectral_route",
+    "spectral_table_from_reference",
     "output_channel_names",
     "gpu_info",
     "resolve_device",

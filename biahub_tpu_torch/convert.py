@@ -14,7 +14,8 @@ estimate-registration's (``EstimateRegistrationSettings``, settings.py:299)
 into plain dicts with their defaults. ``reconstruction_settings_from_reference``
 validates the reconstruction verbs' settings (``ReconstructionSettings``,
 recon/settings.py) and ``transfer_functions_from_reference`` carries the
-reference's transfer functions into tensors. The port reads no YAML itself.
+reference's transfer functions into tensors. ``spectral_table_from_reference``
+carries the spectral deskew's lerp-DFT table. The port reads no YAML itself.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "stabilization_settings_from_reference", "beads_match_settings_from_reference",
            "affine_transform_settings_from_reference",
            "registration_estimate_settings_from_reference",
-           "reconstruction_settings_from_reference", "transfer_functions_from_reference"]
+           "reconstruction_settings_from_reference", "transfer_functions_from_reference",
+           "spectral_table_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -596,3 +598,19 @@ def transfer_functions_from_reference(tfs: dict) -> dict[str, torch.Tensor]:
                              f"got shape {arr.shape}")
         out[name] = torch.from_numpy(arr.astype(np.complex64))
     return out
+
+
+def spectral_table_from_reference(mr, mi, groups: int, average_window: int) -> torch.Tensor:
+    """The reference's ``PreparedSpectralDeskew`` (``mr``, ``mi``: (rows,
+    X_out, Z) float32 real and imaginary parts, rows = groups * avg, or the
+    xzy layout's group count padded to 8 times avg, whose extra rows are
+    zero) as the port's (groups * avg, X_out, Z) complex64 CPU table, the
+    form :func:`~biahub_tpu_torch.kernels.spectral.prepare_spectral_deskew`
+    returns: the xzy pad rows dropped."""
+    mr, mi = np.asarray(mr), np.asarray(mi)
+    rows = int(groups) * int(average_window)
+    if mr.shape != mi.shape or mr.ndim != 3 or mr.shape[0] < rows:
+        raise ValueError(f"spectral table: want two (>= {rows}, X_out, Z) arrays, got "
+                         f"{mr.shape} and {mi.shape}")
+    return torch.complex(torch.from_numpy(np.ascontiguousarray(mr[:rows], np.float32)),
+                         torch.from_numpy(np.ascontiguousarray(mi[:rows], np.float32)))

@@ -23,6 +23,14 @@
 //                          (none / magnitude / classic, _cross_power
 //                          :1317), inverse DFT along Z. A, A, Bx, C is the
 //                          phase cross-correlation of pcc_corr_pallas.
+//   K  z_filter_kernel  <- _fwd_z_filter_kernel (pallas_spectral.py:198,
+//      <kInverse false>    launched at :767): B's forward half, DFT along Z
+//                          then the filter (real, or complex with n_filt ==
+//                          2), stored in place with no inverse.
+//   L  y_inv_kernel     <- _inv_y_pad_kernel (pallas_spectral.py:249,
+//                          launched at :800): inverse DFT along Y of each kz
+//                          slice, in place.
+//   K and L feed kernel M (spectral.cu), the spectral deskew's lerp + irfft.
 //
 // The spectrum between the passes is the rfft half-spectrum (Z, Y, X/2+1)
 // as interleaved complex64, the layout of torch.fft.rfftn, so each pass has
@@ -34,7 +42,8 @@
 // meet the reference's 1e-5). None of the TPU's layout devices is carried
 // over: no Nyquist peel (the kx = X/2 bin is simply the last column, and the
 // ragged last kx tile is masked), no radix splits across kernels, no slab or
-// yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X).
+// yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X), L by 1/Y;
+// K does not scale. The line code is fft_lines.cuh, shared with spectral.cu.
 //
 // Lines of any length. A power-of-two axis is one radix-2 FFT, and its
 // kernels are the kAny = false instantiations, whose code and shared-memory
@@ -69,6 +78,9 @@
 //   Bx at the stabilization crop 64x1024x256: two 67.6 MB spectra in, one
 //      out = 202.9 MB, 0.061 ms (B's design: one read, one write; its
 //      arithmetic is double, ~0.8 Gflop, 0.024 ms at 34 Tflop/s).
+//   K  269.0 MB spectrum in and out + 134.5 MB filter = 672.4 MB, 0.201 ms
+//      (complex filter: 269.0 MB, 807.0 MB, 0.241 ms)
+//   L  269.0 MB spectrum in and out = 538.0 MB, 0.161 ms
 // What the design does about them: every global access is a row segment
 // of consecutive elements read or written by one warp, and every FFT
 // stage stays in shared memory. A and C are one block per z slice in two
@@ -83,260 +95,21 @@
 
 #include <algorithm>
 
+#include "fft_lines.cuh"
+
 namespace {
 
 constexpr int kThreads = 512;
 // Shared-memory budget of one working tile (row pairs, or a column tile).
 constexpr int kTileBytes = 96 * 1024;
 
-__device__ __forceinline__ int brev(int i, int log2n) {
-  return static_cast<int>(__brev(static_cast<unsigned>(i)) >> (32 - log2n));
-}
-
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
-  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-template <typename C>
-__device__ __forceinline__ C conj_if(C a, bool conj) {
-  if (conj) a.y = -a.y;
-  return a;
-}
-
-__device__ __forceinline__ void from_double(float2& out, double re, double im) {
-  out = make_float2(static_cast<float>(re), static_cast<float>(im));
-}
-
-__device__ __forceinline__ void from_double(double2& out, double re, double im) {
-  out = make_double2(re, im);
-}
-
-// tw[k] = exp(-2 pi i k / n) for k < n / 2 (n a power of two, so the
-// argument of sincospif is exact).
-__device__ void make_twiddles(float2* tw, int n) {
-  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
-    float s, c;
-    sincospif(-2.0f * static_cast<float>(k) / static_cast<float>(n), &s, &c);
-    tw[k] = make_float2(c, s);
-  }
-}
-
-__device__ void make_twiddles(double2* tw, int n) {
-  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
-    double s, c;
-    sincospi(-2.0 * static_cast<double>(k) / static_cast<double>(n), &s, &c);
-    tw[k] = make_double2(c, s);
-  }
-}
-
-// In-place radix-2 FFTs of `nlines` lines of length n = 1 << log2n held in
-// shared memory; element e of line l is buf[l * lstride + e * estride].
-// DIF: natural order in, bit-reversed out. DIT: bit-reversed in, natural
-// out. `inverse` conjugates the twiddles (no scaling). With `line_fast`
-// consecutive threads take consecutive lines (column tiles: lstride 1,
-// nlines = 1 << log2lines), else consecutive butterflies of one line (rows:
-// estride 1), so a warp touches consecutive words in both layouts. Ends on
-// a __syncthreads(). C is float2, or double2 for kernel Bx.
-template <bool DIF, typename C>
-__device__ void block_fft(C* buf, int log2n, int nlines, int log2lines,
-                          int lstride, int estride, const C* tw,
-                          bool inverse, bool line_fast) {
-  const int half = 1 << (log2n - 1);
-  const int total = nlines * half;
-  for (int s = 0; s < log2n; ++s) {
-    const int log2m = DIF ? (log2n - 1 - s) : s;  // half span m = 1 << log2m
-    const int m = 1 << log2m;
-    const int tshift = log2n - 1 - log2m;  // twiddle stride n / (2m)
-    for (int t = threadIdx.x; t < total; t += blockDim.x) {
-      int l, b;
-      if (line_fast) {
-        l = t & (nlines - 1);
-        b = t >> log2lines;
-      } else {
-        l = t >> (log2n - 1);
-        b = t & (half - 1);
-      }
-      const int k = b & (m - 1);
-      const int i = ((b >> log2m) << (log2m + 1)) + k;
-      C w = tw[k << tshift];
-      if (inverse) w.y = -w.y;
-      C* p = buf + l * lstride;
-      const C a = p[i * estride];
-      C c = p[(i + m) * estride];
-      if (DIF) {
-        p[i * estride] = C{a.x + c.x, a.y + c.y};
-        p[(i + m) * estride] = cmul(C{a.x - c.x, a.y - c.y}, w);
-      } else {
-        c = cmul(c, w);
-        p[i * estride] = C{a.x + c.x, a.y + c.y};
-        p[(i + m) * estride] = C{a.x - c.x, a.y - c.y};
-      }
-    }
-    __syncthreads();
-  }
-}
-
-__host__ __device__ inline bool is_pow2(int n) { return (n & (n - 1)) == 0; }
-
-// log2 of the radix-2 length M of an n-point line: n for a power of two,
-// else the least power of two >= 2n - 1 (Bluestein's linear convolution).
-__host__ __device__ inline int radix_log2(int n) {
-  const int need = is_pow2(n) ? n : 2 * n - 1;
-  int l = 1;
-  while ((1 << l) < need) ++l;
-  return l;
-}
-
-// Elements of an axis' tables: M/2 twiddles, and for Bluestein the n-point
-// chirp and the M-point convolution kernel.
-__host__ __device__ inline size_t table_elems(int n) {
-  const size_t m = static_cast<size_t>(1) << radix_log2(n);
-  return is_pow2(n) ? m / 2 : m / 2 + n + m;
-}
-
-// One axis' line transform: n points on M = 1 << log2m. A power of two
-// (blue false, M == n) leaves frequency j at position brev(j); Bluestein
-// (blue true) at position j. tw: M/2 twiddles; chirp: w_k; kern: the
-// radix-2 DIF spectrum (bit-reversed) of conj(w) wrapped to M, times 1/M.
-template <typename C>
-struct Axis {
-  int n, log2m;
-  bool blue;
-  const C* tw;
-  const C* chirp;
-  const C* kern;
-};
-
-template <typename C>
-__device__ Axis<C> pow2_axis(const C* tw, int n) {
-  return Axis<C>{n, 31 - __clz(n), false, tw, nullptr, nullptr};
-}
-
-// Builds an axis of n points with its tables at mem (table_elems(n)
-// elements). Ends on a __syncthreads().
-template <typename C>
-__device__ Axis<C> make_axis(C* mem, int n) {
-  const int log2m = radix_log2(n), m = 1 << log2m;
-  make_twiddles(mem, m);
-  if (is_pow2(n)) {
-    __syncthreads();
-    return pow2_axis(mem, n);
-  }
-  C* chirp = mem + m / 2;
-  C* kern = chirp + n;
-  const long long two_n = 2LL * n;
-  for (int k = threadIdx.x; k < n; k += blockDim.x) {
-    double s, c;
-    sincospi(-static_cast<double>((static_cast<long long>(k) * k) % two_n) / n, &s, &c);
-    from_double(chirp[k], c, s);
-  }
-  // conj(w) at offsets 0 .. n-1 and, wrapped, at M-1 .. M-n+1; zero between
-  // (2n - 1 <= M, so the two ranges are disjoint).
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    const int k = j < n ? j : (j > m - n ? m - j : -1);
-    double s = 0.0, c = 0.0;
-    if (k >= 0) sincospi(static_cast<double>((static_cast<long long>(k) * k) % two_n) / n, &s, &c);
-    from_double(kern[j], c, s);
-  }
-  __syncthreads();
-  block_fft<true>(kern, log2m, 1, 0, m, 1, mem, false, false);
-  for (int j = threadIdx.x; j < m; j += blockDim.x) {
-    kern[j].x /= m;  // exact: M is a power of two
-    kern[j].y /= m;
-  }
-  __syncthreads();
-  return Axis<C>{n, log2m, true, mem, chirp, kern};
-}
-
-// f(e, v) -> new value of element e < M of every line, laid out as in
-// block_fft. Ends on a __syncthreads().
-template <typename C, typename F>
-__device__ void for_lines(C* buf, int log2m, int nlines, int log2lines, int lstride,
-                          int estride, bool line_fast, F f) {
-  const int m = 1 << log2m;
-  for (int t = threadIdx.x; t < nlines * m; t += blockDim.x) {
-    int l, e;
-    if (line_fast) {
-      l = t & (nlines - 1);
-      e = t >> log2lines;
-    } else {
-      l = t >> log2m;
-      e = t & (m - 1);
-    }
-    C& v = buf[l * lstride + e * estride];
-    v = f(e, v);
-  }
-  __syncthreads();
-}
-
-// Bluestein: the n-point DFT (inverse: conjugate chirp and kernel, no
-// scaling) of lines holding their n points in natural order at elements
-// [0, n); elements [n, M) may hold anything. Leaves frequency j at element
-// j < n. Ends on a __syncthreads().
-template <typename C>
-__device__ void bluestein(C* buf, const Axis<C>& ax, int nlines, int log2lines,
-                          int lstride, int estride, bool inverse, bool line_fast) {
-  const int n = ax.n;
-  const C* w = ax.chirp;
-  const C* kern = ax.kern;
-  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
-            [=](int e, C v) { return e < n ? cmul(v, conj_if(w[e], inverse)) : C{0, 0}; });
-  block_fft<true>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, false, line_fast);
-  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
-            [=](int e, C v) { return cmul(v, conj_if(kern[e], inverse)); });
-  block_fft<false>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, true, line_fast);
-  for_lines(buf, ax.log2m, nlines, log2lines, lstride, estride, line_fast,
-            [=](int e, C v) { return e < n ? cmul(v, conj_if(w[e], inverse)) : v; });
-}
-
-// Position of frequency j (or of sample j, for lines_dit's input) in a
-// transformed line.
-template <bool kAny, typename C>
-__device__ __forceinline__ int at(const Axis<C>& ax, int j) {
-  if constexpr (kAny) {
-    if (ax.blue) return j;
-  }
-  return brev(j, ax.log2m);
-}
-
-// Transform of lines in natural order; frequency j lands at at(ax, j).
-template <bool kAny, typename C>
-__device__ void lines_dif(C* buf, const Axis<C>& ax, int nlines, int log2lines, int lstride,
-                          int estride, bool inverse, bool line_fast) {
-  if constexpr (kAny) {
-    if (ax.blue) {
-      bluestein(buf, ax, nlines, log2lines, lstride, estride, inverse, line_fast);
-      return;
-    }
-  }
-  block_fft<true>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
-                  line_fast);
-}
-
-// Transform of lines whose point j sits at at(ax, j); natural order out.
-template <bool kAny, typename C>
-__device__ void lines_dit(C* buf, const Axis<C>& ax, int nlines, int log2lines, int lstride,
-                          int estride, bool inverse, bool line_fast) {
-  if constexpr (kAny) {
-    if (ax.blue) {
-      bluestein(buf, ax, nlines, log2lines, lstride, estride, inverse, line_fast);
-      return;
-    }
-  }
-  block_fft<false>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
-                   line_fast);
-}
-
 // FFT along Y of every kx column of one (Y, xh) complex slice, in place in
 // device memory, tk = 1 << log2tk columns at a time (the ragged last tile is
-// zero-padded in shared memory and masked on the store).
+// zero-padded in shared memory and masked on the store), times `scale` on
+// the store (1 in A and C, which is exact).
 template <bool kAny>
 __device__ void columns_y(float2* slice, float2* buf, const Axis<float2>& ay, int xh,
-                          int log2tk, bool inverse) {
+                          int log2tk, bool inverse, float scale = 1.0f) {
   const int Y = ay.n, tk = 1 << log2tk;
   for (int k0 = 0; k0 < xh; k0 += tk) {
     for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
@@ -349,7 +122,8 @@ __device__ void columns_y(float2* slice, float2* buf, const Axis<float2>& ay, in
     for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
       const int ky = t >> log2tk, c = t & (tk - 1), k = k0 + c;
       if (k < xh) {
-        slice[static_cast<size_t>(ky) * xh + k] = buf[(at<kAny>(ay, ky) << log2tk) + c];
+        const float2 v = buf[(at<kAny>(ay, ky) << log2tk) + c];
+        slice[static_cast<size_t>(ky) * xh + k] = make_float2(v.x * scale, v.y * scale);
       }
     }
     __syncthreads();
@@ -439,8 +213,10 @@ fwd_yx_kernel(const void* __restrict__ in, int is_u16, float2* __restrict__ out,
 // multiplied there by the filter, transformed back with 1/Z, and stored in
 // place. B's filter is the prepared real float32 Tikhonov filter; Bc's is
 // complex64, the product (hr fr - hi fi, hr fi + hi fr) of
-// pallas_fft.py:479-480.
-template <bool kAny, bool kComplex>
+// pallas_fft.py:479-480. Kernel K (kInverse false, either filter) stops
+// after the filter and stores the filtered spectrum, kz in natural order,
+// with no inverse and no 1/Z: the spectral deskew's pass B'1.
+template <bool kAny, bool kComplex, bool kInverse = true>
 __global__ void __launch_bounds__(kThreads)
 z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
                 int Z, int Y, int xh, int log2tk, int tab) {
@@ -469,15 +245,22 @@ z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
     const int j = t >> log2tk, c = t & (tk - 1);
     const size_t f = at<kAny>(az, j) * zstride + base + c;
     const float2 h = buf[t];
+    float2 v;
     if constexpr (kComplex) {
       const float2 fc = k0 + c < xh ? static_cast<const float2*>(filt)[f]
                                     : make_float2(0.f, 0.f);
-      buf[t] = make_float2(h.x * fc.x - h.y * fc.y, h.x * fc.y + h.y * fc.x);
+      v = make_float2(h.x * fc.x - h.y * fc.y, h.x * fc.y + h.y * fc.x);
     } else {
       const float fr = k0 + c < xh ? static_cast<const float*>(filt)[f] : 0.f;
-      buf[t] = make_float2(h.x * fr, h.y * fr);
+      v = make_float2(h.x * fr, h.y * fr);
+    }
+    if constexpr (kInverse) {
+      buf[t] = v;
+    } else if (k0 + c < xh) {
+      spec[f] = v;  // the filter's own index: frequency kz, natural order
     }
   }
+  if constexpr (!kInverse) return;
   __syncthreads();
   lines_dit<kAny>(buf, az, tk, log2tk, 1, tk, true, true);
   const float inv_z = 1.0f / static_cast<float>(Z);
@@ -487,6 +270,29 @@ z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
       spec[z * zstride + base + c] = make_float2(buf[t].x * inv_z, buf[t].y * inv_z);
     }
   }
+}
+
+// Kernel L. One block per kz slice of the (Z, Y, xh) spectrum: the inverse
+// DFT along Y of every kx column, in place, times 1/Y (the spectral deskew's
+// pass B'2, pallas_spectral.py:249). The front-padded y-major store of the
+// TPU kernel is not carried over: kernel M reads tilt row y by its stride.
+template <bool kAny>
+__global__ void __launch_bounds__(kThreads)
+y_inv_kernel(float2* __restrict__ spec, int Y, int xh, int log2tk, int tab) {
+  extern __shared__ float2 smem[];
+  Axis<float2> ay;
+  float2* buf;
+  if constexpr (kAny) {
+    buf = smem + tab;
+    ay = make_axis(smem, Y);
+  } else {
+    ay = pow2_axis(smem, Y);
+    buf = smem + Y / 2;
+    make_twiddles(smem, Y);
+    __syncthreads();
+  }
+  columns_y<kAny>(spec + static_cast<size_t>(blockIdx.x) * Y * xh, buf, ay, xh, log2tk, true,
+                  1.0f / static_cast<float>(Y));
 }
 
 constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's clamp
@@ -674,19 +480,14 @@ struct SliceLaunch {
   }
 };
 
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
-
-template <bool kComplex>
+template <bool kComplex, bool kInverse = true>
 int launch_z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
   const bool any = !is_pow2(Z);
   const int mz = 1 << radix_log2(Z), ltk = tile_log2(mz);
   const int tab = static_cast<int>(any ? table_elems(Z) : Z / 2);
   const size_t smem = (tab + (static_cast<size_t>(mz) << ltk)) * sizeof(float2);
-  auto kernel = any ? z_filter_kernel<true, kComplex> : z_filter_kernel<false, kComplex>;
+  auto kernel = any ? z_filter_kernel<true, kComplex, kInverse>
+                    : z_filter_kernel<false, kComplex, kInverse>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
@@ -723,6 +524,30 @@ int z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
 // As z_filter with a complex64 (Z, Y, xh) filter.
 int z_filter_complex(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
   return launch_z_filter<true>(spec, filt, Z, Y, xh, stream);
+}
+
+// Kernel K: spec (Z, Y, xh) complex64 = fft(spec, Z) * filt in place, no
+// inverse; filt (Z, Y, xh) float32 (is_complex = 0) or complex64 (1). Z as
+// for z_filter.
+int z_fwd_filter(void* spec, const void* filt, int is_complex, int Z, int Y, int xh,
+                 void* stream) {
+  return is_complex ? launch_z_filter<true, false>(spec, filt, Z, Y, xh, stream)
+                    : launch_z_filter<false, false>(spec, filt, Z, Y, xh, stream);
+}
+
+// Kernel L: spec (Z, Y, xh) complex64 = ifft(spec, Y) in place (with 1/Y).
+// Y as for fwd_yx.
+int y_inv(void* spec, int Z, int Y, int xh, void* stream) {
+  const bool any = !is_pow2(Y);
+  const int my = 1 << radix_log2(Y), ltk = tile_log2(my);
+  const int tab = static_cast<int>(any ? table_elems(Y) : Y / 2);
+  const size_t smem = (tab + (static_cast<size_t>(my) << ltk)) * sizeof(float2);
+  auto kernel = any ? y_inv_kernel<true> : y_inv_kernel<false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<Z, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(spec), Y, xh, ltk, tab);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref. Z in

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` holds kernels and a plain C interface. At first CUDA
 use it is compiled with ``nvcc`` into ``build/biahub_tpu_torch/`` beside the
-package (one shared library per source, named by the hash of the source and
-the flags, so an edited source rebuilds) and loaded with ``ctypes``. Nothing
+package (one shared library per source, named by the hash of the source,
+of the ``csrc`` headers it includes and of the flags, so an edited source or
+header rebuilds) and loaded with ``ctypes``. Nothing
 here runs at import: the CPU path never looks for ``nvcc``.
 
 Every C entry returns a ``cudaError_t``; :func:`check` raises on a non-zero
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -26,7 +28,7 @@ import torch
 __all__ = ["SOURCES", "build", "library", "check", "on_card", "launch_counts",
            "count_launch", "reset_launch_counts", "ptr", "stream_of"]
 
-SOURCES = ("fft", "deskew", "warp", "peaks", "multipass")
+SOURCES = ("fft", "deskew", "warp", "peaks", "multipass", "spectral")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -62,8 +64,23 @@ def _nvcc() -> str:
     raise RuntimeError("biahub_tpu_torch: nvcc not found (set CUDA_HOME)")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def _sources(path: Path, seen: list[Path]) -> list[Path]:
+    """``path`` and every file it includes with ``#include "..."``,
+    transitively, each once, in the order they are first met."""
+    if path not in seen:
+        seen.append(path)
+        for inc in _INCLUDE.findall(path.read_bytes()):
+            _sources(path.parent / inc.decode(), seen)
+    return seen
+
+
 def _target(name: str) -> Path:
-    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    h = hashlib.sha256()
+    for path in _sources(_CSRC / f"{name}.cu", []):
+        h.update(path.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return _BUILD / f"{name}-{h.hexdigest()[:16]}.so"
 

@@ -13,7 +13,13 @@ Counterpart of ``biahub_tpu/kernels/chain.py``:
   (chain.py:299-304, :521); kernels E and F then warp the whole batch once
   each (:func:`run_chain_warp`). A general 3D matrix takes the reference's
   other route (chain.py:439-472): the deskew in the zyx store, then the
-  multipass warp, kernel H (:func:`run_chain_warp_general`).
+  multipass warp, kernel H (:func:`run_chain_warp_general`);
+- with ``spectral=True``, both take the spectral engine where it holds
+  (chain.py:159-178, :386-415): kernels A, K, L and M
+  (:mod:`biahub_tpu_torch.kernels.spectral`) emit the deskewed volume from
+  the spectrum, in the xzy store before the warp
+  (:func:`chain_warp_spectral_route`). The keyword stands in for the
+  reference's ``BIAHUB_TPU_SPECTRAL_DESKEW=1``.
 
 On the CPU the same wrappers run their plain versions. uint16 volumes go
 into pass A as they are.
@@ -46,6 +52,12 @@ from biahub_tpu_torch.kernels.fft import (
     prepare_fourier_filter,
     z_filter_,
 )
+from biahub_tpu_torch.kernels.spectral import (
+    prepare_spectral_deskew,
+    run_spectral,
+    run_spectral_warp,
+    spectral_deskew_supported,
+)
 
 __all__ = [
     "flip_y_matrix",
@@ -56,6 +68,7 @@ __all__ = [
     "deconvolve_deskew_warp_batched",
     "chain_warp_matrix",
     "chain_warp_coefficients",
+    "chain_warp_spectral_route",
     "run_chain",
     "run_chain_warp",
     "run_chain_warp_general",
@@ -138,6 +151,25 @@ def chain_warp_coefficients(matrix, geo: DeskewGeometry) -> torch.Tensor:
     return inplane_coefficients(chain_warp_matrix(matrix, geo))
 
 
+def chain_warp_spectral_route(
+    zyx_shape,
+    ls_angle_deg: float,
+    px_to_scan_ratio: float,
+    keep_overhang: bool,
+    average_window: int,
+    matrix,
+) -> bool:
+    """Whether :func:`deconvolve_deskew_warp` with ``spectral=True`` takes
+    the spectral engine (chain.py:41-80): the kernels take the geometry
+    and ``flip_y_matrix(Y_out) @ matrix`` is in-plane."""
+    if not spectral_deskew_supported(zyx_shape, ls_angle_deg, px_to_scan_ratio,
+                                     keep_overhang, average_window):
+        return False
+    geo = deskew_geometry(zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+                          average_window, skip_flip=True)
+    return is_inplane_matrix(chain_warp_matrix(matrix, geo))
+
+
 def deconvolve_then_deskew_batched(
     volumes,
     transfer_function_half,
@@ -149,11 +181,14 @@ def deconvolve_then_deskew_batched(
     prepared: torch.Tensor | None = None,
     skip_flip: bool = False,
     device: str | torch.device = "cuda",
+    spectral: bool = False,
 ) -> torch.Tensor:
     """Deconvolve then deskew a (B, Z, Y, X) batch -> (B, groups, Y_out,
     X_out) float32. ``prepared``: a hoisted
     :func:`~biahub_tpu_torch.kernels.fft.prepare_fourier_filter` result
-    (then the transfer function may be None)."""
+    (then the transfer function may be None). ``spectral``: take the
+    spectral engine where :func:`~biahub_tpu_torch.kernels.spectral.
+    spectral_deskew_supported` holds (its table built and cached)."""
     dev = resolve_device(device)
     data = volume_tensor(volumes, dev)
     zyx = tuple(data.shape[1:])
@@ -162,6 +197,12 @@ def deconvolve_then_deskew_batched(
     )
     geo = deskew_geometry(zyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
                           average_window, skip_flip=skip_flip)
+    if spectral and spectral_deskew_supported(zyx, ls_angle_deg, px_to_scan_ratio,
+                                              keep_overhang, average_window):
+        table = prepare_spectral_deskew(zyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+                                        average_window, dev)
+        out = run_spectral(data, filt.to(dev), table, geo)
+        return out if skip_flip else out.flip(2)
     return run_chain(data, filt.to(dev), geo)
 
 
@@ -176,6 +217,7 @@ def deconvolve_then_deskew(
     prepared: torch.Tensor | None = None,
     skip_flip: bool = False,
     device: str | torch.device = "cuda",
+    spectral: bool = False,
 ) -> torch.Tensor:
     """One ZYX volume -> (groups, Y_out, X_out) float32 (see
     :func:`deconvolve_then_deskew_batched`)."""
@@ -183,7 +225,7 @@ def deconvolve_then_deskew(
     return deconvolve_then_deskew_batched(
         volume_tensor(volume, dev)[None], transfer_function_half,
         regularization_strength, ls_angle_deg, px_to_scan_ratio,
-        keep_overhang, average_window, prepared, skip_flip, dev,
+        keep_overhang, average_window, prepared, skip_flip, dev, spectral,
     )[0]
 
 
@@ -224,6 +266,7 @@ def deconvolve_deskew_warp_batched(
     fill: float = 0.0,
     prepared: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
+    spectral: bool = False,
 ) -> torch.Tensor:
     """Deconvolve, deskew and warp a (B, Z, Y, X) batch -> (B, Zo, Yo, Xo)
     float32 (chain.py:475). ``matrix``: an output->input affine of the
@@ -231,7 +274,9 @@ def deconvolve_deskew_warp_batched(
     (kernels E and F) or general (:func:`run_chain_warp_general`);
     ``output_shape`` defaults to the deskewed (groups, Y_out, X_out);
     ``prepared``: a hoisted
-    :func:`~biahub_tpu_torch.kernels.fft.prepare_fourier_filter` result."""
+    :func:`~biahub_tpu_torch.kernels.fft.prepare_fourier_filter` result.
+    ``spectral``: take the spectral engine's xzy store into E and F where
+    :func:`chain_warp_spectral_route` holds."""
     dev = resolve_device(device)
     data = volume_tensor(volumes, dev)
     zyx = tuple(data.shape[1:])
@@ -245,6 +290,11 @@ def deconvolve_deskew_warp_batched(
     if not is_inplane_matrix(m):
         return run_chain_warp_general(data, filt.to(dev), geo, m, out_shape, fill)
     coeffs = inplane_coefficients(m).to(dev)
+    if spectral and chain_warp_spectral_route(zyx, ls_angle_deg, px_to_scan_ratio,
+                                              keep_overhang, average_window, matrix):
+        table = prepare_spectral_deskew(zyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+                                        average_window, dev)
+        return run_spectral_warp(data, filt.to(dev), table, geo, coeffs, out_shape, fill)
     return run_chain_warp(data, filt.to(dev), geo, coeffs, out_shape, fill)
 
 
@@ -261,6 +311,7 @@ def deconvolve_deskew_warp(
     fill: float = 0.0,
     prepared: torch.Tensor | None = None,
     device: str | torch.device = "cuda",
+    spectral: bool = False,
 ) -> torch.Tensor:
     """One ZYX volume -> (Zo, Yo, Xo) float32 (see
     :func:`deconvolve_deskew_warp_batched`)."""
@@ -268,5 +319,5 @@ def deconvolve_deskew_warp(
     return deconvolve_deskew_warp_batched(
         volume_tensor(volume, dev)[None], transfer_function_half,
         regularization_strength, ls_angle_deg, px_to_scan_ratio, matrix,
-        output_shape, keep_overhang, average_window, fill, prepared, dev,
+        output_shape, keep_overhang, average_window, fill, prepared, dev, spectral,
     )[0]

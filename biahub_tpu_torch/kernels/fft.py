@@ -16,7 +16,14 @@ Counterpart of ``biahub_tpu/kernels/pallas_fft.py``'s engine:
 - :func:`z_cross_` (kernel Bx, for ``_pass_b_cross_kernel``): DFT along Z
   of two spectra, their phase cross-power, inverse DFT along Z. A, A, Bx
   and C are the phase cross-correlation (:mod:`biahub_tpu_torch.kernels.
-  pcc`).
+  pcc`);
+- :func:`z_fwd_filter_` (kernel K, for ``pallas_spectral.py``'s
+  ``_fwd_z_filter_kernel``): DFT along Z times a real or complex filter,
+  in place, no inverse;
+- :func:`y_inv_` (kernel L, for ``_inv_y_pad_kernel``): inverse DFT along
+  Y, in place. A, K, L and kernel M (:mod:`biahub_tpu_torch.kernels.
+  spectral_cuda`) are the spectral deskew (:mod:`biahub_tpu_torch.kernels.
+  spectral`).
 
 The spectrum is the (Z, Y, X//2+1) complex64 rfft half-spectrum, the layout
 of ``torch.fft.rfftn``; the TPU engine's split re/im arrays, Nyquist peel,
@@ -35,12 +42,14 @@ import ctypes
 import numpy as np
 import torch
 
+from biahub_tpu_torch.device import resolve_device
 from biahub_tpu_torch.kernels import _build
 
 __all__ = [
     "fwd_yx", "z_filter_", "z_filter_complex_", "inv_yx", "z_cross_",
     "fwd_yx_plain", "z_filter_plain_", "z_filter_complex_plain_", "inv_yx_plain",
-    "z_cross_plain_", "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
+    "z_cross_plain_", "z_fwd_filter_", "y_inv_", "z_fwd_filter_plain_", "y_inv_plain_",
+    "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
     "max_axis", "max_cross_z",
 ]
@@ -52,6 +61,8 @@ _SIGNATURES = {
     "z_filter_complex": [_P, _P, _I, _I, _I, _P],
     "inv_yx": [_P, _P, _I, _I, _I, _P],
     "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "z_fwd_filter": [_P, _P, _I, _I, _I, _I, _P],
+    "y_inv": [_P, _I, _I, _I, _P],
 }
 # A line of n points runs on a radix-2 FFT of M points: M = n for a power
 # of two, else the least power of two >= 2n - 1 (Bluestein). A row (X) or
@@ -80,14 +91,14 @@ PASS_A_DTYPES = (torch.float32, torch.uint16)
 
 
 def prepare_fourier_filter(shape, transfer_function_half, regularization_strength,
-                           device: torch.device | str = "cpu") -> torch.Tensor:
+                           device: torch.device | str = "cuda") -> torch.Tensor:
     """The Tikhonov filter ``tf / (tf*tf + reg)`` as one float32 (Z, Y,
     X//2+1) tensor, the layout kernel B reads; computed in float32 in the
     order of ``pallas_fft.prepare_fourier_filter``, so it is bit-identical to
     the reference's. Constant across an acquisition: callers hoist it."""
     tf = transfer_function_half
     tf = torch.from_numpy(np.asarray(tf)) if not isinstance(tf, torch.Tensor) else tf
-    tf = tf.to(device=device, dtype=torch.float32).contiguous()
+    tf = tf.to(device=resolve_device(device), dtype=torch.float32).contiguous()
     if tuple(tf.shape) != half_spectrum_shape(shape):
         raise ValueError(
             f"transfer function half {tuple(tf.shape)} does not match volume "
@@ -114,7 +125,7 @@ def max_cross_z(z: int) -> int:
 
 
 def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
-                             device: torch.device | str = "cpu") -> torch.Tensor:
+                             device: torch.device | str = "cuda") -> torch.Tensor:
     """The Tikhonov inverse ``conj(H_half) / (abs(H_half)**2 + reg)`` of a
     Hermitian transfer function ``H`` (Z, Y, X) as one complex64 (Z, Y,
     X//2+1) tensor, the filter kernel Bc reads; ``H_half = H[..., :X//2+1]``,
@@ -126,7 +137,8 @@ def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
     if tuple(h.shape) != tuple(int(s) for s in shape):
         raise ValueError(f"transfer function {tuple(h.shape)} does not match volume "
                          f"shape {tuple(shape)}")
-    h = h.to(device=device, dtype=torch.complex64)[..., : half_spectrum_shape(shape)[2]]
+    h = h.to(device=resolve_device(device), dtype=torch.complex64)[
+        ..., : half_spectrum_shape(shape)[2]]
     denom = h.abs() ** 2 + float(regularization_strength)
     return torch.complex(h.real / denom, -h.imag / denom).contiguous()
 
@@ -152,6 +164,16 @@ def inv_yx_plain(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> tor
     spectrum.copy_(torch.fft.ifft(spectrum, dim=1))
     real = torch.fft.irfft(spectrum, n=x, dim=2)
     return real if out is None else out.copy_(real)
+
+
+def z_fwd_filter_plain_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel K (in place)."""
+    return spectrum.copy_(torch.fft.fft(spectrum, dim=0) * filt)
+
+
+def y_inv_plain_(spectrum: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel L (in place)."""
+    return spectrum.copy_(torch.fft.ifft(spectrum, dim=1))
 
 
 def _norm_code(normalization) -> int:
@@ -280,6 +302,48 @@ def z_filter_complex_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tenso
     :func:`prepare_hermitian_filter` result of the spectrum's shape.
     Launches count as ``z_filter_complex``."""
     return _z_filter(spectrum, filt, torch.complex64, "z_filter_complex")
+
+
+def z_fwd_filter_(spectrum: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+    """Kernel K, in place: ``spectrum = fft(spectrum, Z) * filt`` with no
+    inverse and no scaling; ``filt`` is a float32 :func:`prepare_fourier_
+    filter` or complex64 :func:`prepare_hermitian_filter` result of the
+    spectrum's shape. Launches count as ``z_fwd_filter``."""
+    what = "z_fwd_filter_"
+    _check(spectrum, what, 3, (torch.complex64,))
+    _check(filt, what, 3, (torch.float32, torch.complex64))
+    if filt.shape != spectrum.shape or filt.device != spectrum.device:
+        raise ValueError(f"{what}: filter {tuple(filt.shape)} on {filt.device} "
+                         f"for spectrum {tuple(spectrum.shape)} on {spectrum.device}")
+    if not _build.on_card(spectrum, what):
+        return z_fwd_filter_plain_(spectrum, filt)
+    z, y, xh = spectrum.shape
+    _check_cuda_shape((z,), what)
+    _check_grid_y(y, what)
+    lib = _lib()
+    with torch.cuda.device(spectrum.device):
+        rc = lib.z_fwd_filter(_build.ptr(spectrum), _build.ptr(filt),
+                              int(filt.dtype == torch.complex64), z, y, xh,
+                              _build.stream_of(spectrum))
+    _build.check(rc, lib, what)
+    _build.count_launch("z_fwd_filter")
+    return spectrum
+
+
+def y_inv_(spectrum: torch.Tensor) -> torch.Tensor:
+    """Kernel L, in place: ``spectrum = ifft(spectrum, Y)`` (with 1/Y) of
+    a (Z, Y, X//2+1) complex64 spectrum. Launches count as ``y_inv``."""
+    _check(spectrum, "y_inv_", 3, (torch.complex64,))
+    if not _build.on_card(spectrum, "y_inv_"):
+        return y_inv_plain_(spectrum)
+    z, y, xh = spectrum.shape
+    _check_cuda_shape((y,), "y_inv_")
+    lib = _lib()
+    with torch.cuda.device(spectrum.device):
+        rc = lib.y_inv(_build.ptr(spectrum), z, y, xh, _build.stream_of(spectrum))
+    _build.check(rc, lib, "y_inv_")
+    _build.count_launch("y_inv")
+    return spectrum
 
 
 def fourier_filter_zyx(volume: torch.Tensor, filt: torch.Tensor,

@@ -8,6 +8,13 @@
   metric (``bench.py:893-901``) and of the fused pipeline with a
   registration block (``fuse.py:604-660``): the same, plus the warp's
   coefficients.
+
+With ``spectral=True`` each takes the spectral engine (kernels A, K, L and
+M) where :func:`~biahub_tpu_torch.kernels.spectral.
+spectral_deskew_supported` (and, for the chain, an in-plane warp) holds,
+and holds its lerp-DFT table as the buffer ``deskew_table``, as
+``fuse.py:520-535`` and ``fuse.py:610-628`` hoist ``deskew_table``; the
+buffer is None on the other route.
 """
 
 from __future__ import annotations
@@ -19,6 +26,7 @@ from biahub_tpu_torch.device import resolve_device
 from biahub_tpu_torch.kernels.affine import inplane_coefficients, is_inplane_matrix
 from biahub_tpu_torch.kernels.chain import (
     chain_warp_matrix,
+    chain_warp_spectral_route,
     run_chain,
     run_chain_warp,
     run_chain_warp_general,
@@ -26,6 +34,12 @@ from biahub_tpu_torch.kernels.chain import (
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
 from biahub_tpu_torch.kernels.deskew import deskew_geometry
 from biahub_tpu_torch.kernels.fft import prepare_fourier_filter
+from biahub_tpu_torch.kernels.spectral import (
+    prepare_spectral_deskew,
+    run_spectral,
+    run_spectral_warp,
+    spectral_deskew_supported,
+)
 
 __all__ = ["DeconvolveDeskew", "DeconvolveDeskewWarp"]
 
@@ -37,7 +51,8 @@ class DeconvolveDeskew(nn.Module):
     The prepared filter ``tf / (tf^2 + reg)`` is the buffer ``filter`` (so
     ``.to(device)`` moves it); the deskew geometry is the attribute
     ``geometry``. Volumes must have the ``zyx_shape`` the module was built
-    for.
+    for. ``spectral``: take the spectral engine (the buffer
+    ``deskew_table``) where the kernels take the geometry.
     """
 
     def __init__(
@@ -52,6 +67,7 @@ class DeconvolveDeskew(nn.Module):
         overhang_fill: str | float = 0,
         skip_flip: bool = False,
         device: str | torch.device = "cuda",
+        spectral: bool = False,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -62,9 +78,18 @@ class DeconvolveDeskew(nn.Module):
         self.register_buffer("filter", prepare_fourier_filter(
             zyx_shape, transfer_function_half, regularization_strength, dev
         ))
+        take = spectral and spectral_deskew_supported(
+            zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window)
+        self.register_buffer("deskew_table", prepare_spectral_deskew(
+            zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, dev
+        ) if take else None)
 
     def forward(self, volumes) -> torch.Tensor:
-        return run_chain(_batch(self, volumes), self.filter, self.geometry)
+        if self.deskew_table is None:
+            return run_chain(_batch(self, volumes), self.filter, self.geometry)
+        out = run_spectral(_batch(self, volumes), self.filter, self.deskew_table,
+                           self.geometry)
+        return out if self.geometry.skip_flip else out.flip(2)
 
 
 def _batch(module: nn.Module, volumes) -> torch.Tensor:
@@ -90,6 +115,9 @@ class DeconvolveDeskewWarp(nn.Module):
     the multipass warp), the deskew ``geometry`` (``skip_flip`` set), the
     warp's logical input ``logical_zyx_shape`` (the deskewed (groups,
     Y_out, X_out)), ``output_shape`` (default the same) and ``fill``.
+    ``spectral``: take the spectral engine's xzy store into E and F (the
+    buffer ``deskew_table``) where
+    :func:`~biahub_tpu_torch.kernels.chain.chain_warp_spectral_route` holds.
     """
 
     def __init__(
@@ -106,6 +134,7 @@ class DeconvolveDeskewWarp(nn.Module):
         fill: float = 0.0,
         overhang_fill: str | float = 0,
         device: str | torch.device = "cuda",
+        spectral: bool = False,
     ):
         super().__init__()
         dev = resolve_device(device)
@@ -123,8 +152,16 @@ class DeconvolveDeskewWarp(nn.Module):
         self.matrix = chain_warp_matrix(matrix, self.geometry)
         self.register_buffer("warp", inplane_coefficients(self.matrix).to(dev)
                              if is_inplane_matrix(self.matrix) else None)
+        take = spectral and chain_warp_spectral_route(
+            zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, matrix)
+        self.register_buffer("deskew_table", prepare_spectral_deskew(
+            zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, dev
+        ) if take else None)
 
     def forward(self, volumes) -> torch.Tensor:
+        if self.deskew_table is not None:
+            return run_spectral_warp(_batch(self, volumes), self.filter, self.deskew_table,
+                                     self.geometry, self.warp, self.output_shape, self.fill)
         if self.warp is None:
             return run_chain_warp_general(_batch(self, volumes), self.filter, self.geometry,
                                           self.matrix, self.output_shape, self.fill)

@@ -107,6 +107,22 @@ pixel 0.325 um, z step 2.0 um, NA 1.2 detection and 0.52 illumination, n
     within PHASE_OBJECT_TOL of the phase object through the Tikhonov
     passband |H|^2 / (|H|^2 + reg), launches A, Bc, C twice per timepoint.
 
+Then the spectral deconvolve + deskew, the engine that evaluates the
+deskew's lerp from the spectrum (kernels A, K, L, M):
+
+16. holds kernels K (DFT along Z times a real or a complex filter), L
+    (inverse DFT along Y) and M (the lerp-DFT contraction and the irfft,
+    both stores) against their plain versions, K and L within FFT_TOL, M
+    within SPECTRAL_TOL, M's xzy store equal to its zyx store transposed,
+    at the headline (avg 3; avg 1 with the overhang kept), at (43, 97,
+    121) avg 3, (16, 16, 2048) avg 2 and (16, 10, 3) avg 2 (SPECTRAL_CASES);
+    then ``DeconvolveDeskew(spectral=True)`` and
+    ``DeconvolveDeskewWarp(spectral=True)`` (reg_stab) on the headline
+    batch, each within ENGINE_TOL of its composition route, uint16
+    bit-exact, launches A, K, L, M 8 each and no B, C, D (E 1, F 1 for the
+    chain); K, L, M's times beside their bounds, the table's build, and the
+    step's and the chain's ms/volume on both routes.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -269,6 +285,14 @@ PHASE64_TOL = 5e-6
 # The brightfield channel's phase against the phase object through the
 # Tikhonov passband, in float64.
 PHASE_OBJECT_TOL = 1e-3
+# Phase 16: (raw shape, average_window, keep_overhang) of the K, L and M
+# checks: an odd shape (Bluestein lines), X = 2048 (M's kx in two chunks,
+# its lines beside its stage buffers), X = 3 (the least irfft), the
+# headline with the overhang kept and no averaging, and the headline last.
+SPECTRAL_CASES = (((43, 97, 121), 3, False), ((16, 16, 2048), 2, False), ((16, 10, 3), 2, True),
+                  (SHAPE, 1, True), (SHAPE, AVG, False))
+SPECTRAL_TOL = 2e-5  # max |M - plain| / max |plain|
+ENGINE_TOL = 2e-4    # the spectral step and chain vs their composition routes
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -1552,6 +1576,157 @@ def reconstruction_phase(dev: torch.device, records: dict, tfs: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> None:
+    """Phase 16: kernels K, L and M against their plain versions (the
+    headline avg 3 and avg 1 with the overhang kept, and SPECTRAL_CASES'
+    smaller shapes), then
+    the headline step and the full chain through the spectral engine
+    against their composition routes, with launches, times and bounds."""
+    from biahub_tpu_torch import DeconvolveDeskew, DeconvolveDeskewWarp
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import spectral as kspec
+    from biahub_tpu_torch.kernels import spectral_cuda as kspc
+    from biahub_tpu_torch.kernels.deskew import deskew_geometry
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    # The headline avg 3 last: its tensors stay for the timings below.
+    for shape, avg, keep in SPECTRAL_CASES:
+        vol = torch.rand(shape, generator=gen, device=dev)
+        half = kfft.half_spectrum_shape(shape)
+        spec = kfft.fwd_yx(vol)
+        filt = torch.rand(half, generator=gen, device=dev)
+        filt_c = torch.complex(torch.randn(half, generator=gen, device=dev),
+                               torch.randn(half, generator=gen, device=dev))
+        err = {"K": rel_err(kfft.z_fwd_filter_(spec.clone(), filt),
+                            kfft.z_fwd_filter_plain_(spec.clone(), filt)),
+               "K complex": rel_err(kfft.z_fwd_filter_(spec.clone(), filt_c),
+                                    kfft.z_fwd_filter_plain_(spec.clone(), filt_c))}
+        spec_k = kfft.z_fwd_filter_(spec.clone(), filt)
+        spec_l = kfft.y_inv_(spec_k.clone())
+        err["L"] = rel_err(spec_l, kfft.y_inv_plain_(spec_k.clone()))
+        table = kspec.prepare_spectral_deskew(shape, ANGLE, RATIO, keep, avg, dev)
+        m_zyx = kspc.lerp_irfft(spec_l, table, shape[2], avg)
+        err["M"] = rel_err(m_zyx, kspc.lerp_irfft_plain(spec_l, table, shape[2], avg))
+        m_xzy = kspc.lerp_irfft(spec_l, table, shape[2], avg, "xzy")
+        err["M xzy"] = rel_err(m_xzy, kspc.lerp_irfft_plain(spec_l, table, shape[2], avg,
+                                                             "xzy"))
+        require(torch.equal(m_xzy, m_zyx.permute(2, 0, 1)),
+                f"kernel M at {shape} avg {avg}: the xzy store is not the zyx store transposed")
+        for name, (_, e) in err.items():
+            tol = SPECTRAL_TOL if name.startswith("M") else FFT_TOL
+            require(e <= tol, f"kernel {name} at {shape} avg {avg} keep_overhang {keep}: "
+                    f"rel err {e:.3g} > {tol}")
+        print(f"spectral {shape} avg {avg} keep_overhang {keep}: rel err "
+              + ", ".join(f"{n} {e:.3g}" for n, (_, e) in err.items())
+              + f" (tol {FFT_TOL} K, L; {SPECTRAL_TOL} M); M's xzy store equal to its zyx "
+              "store transposed")
+
+    z, y, x = SHAPE
+    xh = x // 2 + 1
+    spec_bytes = z * y * xh * 8
+    rows, x_out, _ = table.shape
+    groups = rows // AVG
+    work = torch.empty_like(spec)
+    bms, bby = bound(2 * spec_bytes + z * y * xh * 4,
+                     y * xh * 5 * z * math.log2(z) + 2 * z * y * xh)
+    records["z_fwd_filter"] = dict(
+        replaces="biahub_tpu/kernels/pallas_spectral.py:198",
+        source="biahub_tpu_torch/csrc/fft.cu", max_abs_err=err["K"][0],
+        ms=time_ms(lambda: kfft.z_fwd_filter_(work, filt), setup=lambda: work.copy_(spec)),
+        plain_ms=time_ms(lambda: kfft.z_fwd_filter_plain_(work, filt),
+                         setup=lambda: work.copy_(spec)),
+        bound_ms=bms, bound_by=bby, library_ms=None)
+    k_complex_ms = time_ms(lambda: kfft.z_fwd_filter_(work, filt_c),
+                           setup=lambda: work.copy_(spec))
+    bms, bby = bound(2 * spec_bytes, z * xh * 5 * y * math.log2(y))
+    records["y_inv"] = dict(
+        replaces="biahub_tpu/kernels/pallas_spectral.py:249",
+        source="biahub_tpu_torch/csrc/fft.cu", max_abs_err=err["L"][0],
+        ms=time_ms(lambda: kfft.y_inv_(work), setup=lambda: work.copy_(spec_k)),
+        plain_ms=time_ms(lambda: kfft.y_inv_plain_(work), setup=lambda: work.copy_(spec_k)),
+        bound_ms=bms, bound_by=bby, library_ms=time_ms(lambda: torch.fft.ifft(spec_k, dim=1)))
+    # M's work: the contraction's complex multiply-adds (8 flop each) over
+    # every table row, and the irfft of each output column.
+    m_flops = 8 * rows * xh * x_out * z + groups * x_out * 2.5 * x * math.log2(x)
+    bms, bby = bound(spec_bytes + table.numel() * 8 + groups * x * x_out * 4, m_flops)
+    for name, layout, replaces in (("lerp_irfft", "zyx", 327), ("lerp_irfft_xzy", "xzy", 434)):
+        records[name] = dict(
+            replaces=f"biahub_tpu/kernels/pallas_spectral.py:{replaces}",
+            source="biahub_tpu_torch/csrc/spectral.cu", counter="lerp_irfft",
+            max_abs_err=err["M" if layout == "zyx" else "M xzy"][0],
+            ms=time_ms(lambda: kspc.lerp_irfft(spec_l, table, x, AVG, layout)),
+            plain_ms=time_ms(lambda: kspc.lerp_irfft_plain(spec_l, table, x, AVG, layout)),
+            bound_ms=bms, bound_by=bby, library_ms=None)
+    print("K z_fwd_filter: " + describe(records["z_fwd_filter"])
+          + f"; complex filter ms {k_complex_ms:.4f}; no single PyTorch call computes it")
+    print("L y_inv: " + describe(records["y_inv"]) + " (library: torch.fft.ifft dim 1)")
+    for name in ("lerp_irfft", "lerp_irfft_xzy"):
+        print(f"M {name}: " + describe(records[name]) + f", {m_flops:.4g} flop; no single "
+              "PyTorch call computes it")
+    table_ms = host_ms(lambda: kspec.spectral_table(SHAPE, ANGLE, RATIO, False, AVG, dev))
+    print(f"lerp-DFT table {tuple(table.shape)} complex64: {table.numel() * 8 / 1e6:.1f} MB, "
+          f"built in {table_ms:.3f} ms on the card (host clock)")
+    del vol, spec, spec_k, spec_l, work, filt, filt_c, m_zyx, m_xzy, table
+    torch.cuda.empty_cache()
+
+    # The headline step and the full chain through the engine, against the
+    # composition routes (A, B, C, D and E, F) in the same run.
+    geo = deskew_geometry(SHAPE, ANGLE, RATIO, False, AVG, skip_flip=True)
+    rng = np.random.default_rng(16)
+    vols_np = rng.integers(0, 65536, size=(BATCH,) + SHAPE, dtype=np.uint16)
+    vols_f = torch.from_numpy(vols_np.astype(np.float32)).to(dev)
+    vols_u = torch.from_numpy(vols_np).to(dev)
+    del vols_np
+    kw = dict(keep_overhang=False, average_window=AVG, device=dev)
+    step_s = DeconvolveDeskew(tf_half, SHAPE, REG, ANGLE, RATIO, skip_flip=True,
+                              spectral=True, **kw)
+    step_c = DeconvolveDeskew(tf_half, SHAPE, REG, ANGLE, RATIO, skip_flip=True, **kw)
+    require(step_s.deskew_table is not None, "the step did not take the spectral route")
+    out_s, launches = counted(lambda: step_s(vols_f))
+    want = {"fwd_yx": BATCH, "z_fwd_filter": BATCH, "y_inv": BATCH, "lerp_irfft": BATCH}
+    require(launches == want, f"spectral step launches {launches}, want {want}")
+    out_c = step_c(vols_f)
+    require(out_s.shape == (BATCH,) + geo.out_shape, f"spectral step shape {out_s.shape}")
+    require(bool(torch.isfinite(out_s).all()), "spectral step output is not finite")
+    _, step_err = rel_err(out_s, out_c)
+    require(step_err <= ENGINE_TOL, f"spectral step vs composition: rel err {step_err:.3g}")
+    require(torch.equal(step_s(vols_u).view(torch.int32), out_s.view(torch.int32)),
+            "spectral step: uint16 input differs from its float32 copy")
+    for name in ("z_fwd_filter", "y_inv", "lerp_irfft"):
+        records[name]["runs"] = launches
+    print(f"spectral step (batch {BATCH}): rel err {step_err:.3g} vs the composition route "
+          f"(tol {ENGINE_TOL}); uint16 input bit-exact vs its float32 copy; launches "
+          f"{launches}")
+    del out_s, out_c
+
+    chain_s = DeconvolveDeskewWarp(tf_half, SHAPE, REG, ANGLE, RATIO, reg_stab_matrix(),
+                                   spectral=True, **kw)
+    chain_c = DeconvolveDeskewWarp(tf_half, SHAPE, REG, ANGLE, RATIO, reg_stab_matrix(), **kw)
+    require(chain_s.deskew_table is not None, "the chain did not take the spectral route")
+    out_s, launches_c = counted(lambda: chain_s(vols_f))
+    want_c = dict(want, warp_zy=1, warp_x=1)
+    require(launches_c == want_c, f"spectral chain launches {launches_c}, want {want_c}")
+    out_c = chain_c(vols_f)
+    require(bool(torch.isfinite(out_s).all()), "spectral chain output is not finite")
+    _, chain_err = rel_err(out_s, out_c)
+    require(chain_err <= ENGINE_TOL, f"spectral chain vs composition: rel err {chain_err:.3g}")
+    require(torch.equal(chain_s(vols_u).view(torch.int32), out_s.view(torch.int32)),
+            "spectral chain: uint16 input differs from its float32 copy")
+    records["lerp_irfft_xzy"]["runs"] = launches_c
+    print(f"spectral chain (batch {BATCH}, reg_stab): rel err {chain_err:.3g} vs the "
+          f"composition route (tol {ENGINE_TOL}); uint16 bit-exact; launches {launches_c}")
+    del out_s, out_c
+
+    for what, mods in (("step", (step_s, step_c)), ("chain", (chain_s, chain_c))):
+        for route, mod in zip(("spectral", "composition"), mods):
+            q = statistics.quantiles(samples_ms(lambda: mod(vols_f), reps=STEP_REPS), n=4)
+            print(f"{what} via the {route} route (batch {BATCH}, {SHAPE}, float32 in): "
+                  f"{q[1] / BATCH:.4f} ms/volume median, {q[2] / BATCH:.4f} p75 "
+                  f"({STEP_REPS} samples)")
+    del vols_f, vols_u, step_s, step_c, chain_s, chain_c
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1894,11 +2069,13 @@ def main() -> int:
     tfs = compute_tf_phase(dev)
     reconstruction_phase(dev, records, tfs)
     del tfs
+    spectral_phase(dev, records, tf_half)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
     # the per-volume E and F from stabilize, G and H from the beads estimate
-    # and the stabilize that follows it, I and J from optimize-registration)
+    # and the stabilize that follows it, I and J from optimize-registration,
+    # K, L and M from the spectral step, M's xzy store from the spectral chain)
     for name, rec in records.items():
         counter = rec.get("counter", name)
         require(rec["runs"].get(counter, 0) >= 1, f"kernel {name} was not launched on its path")

@@ -91,7 +91,7 @@ def test_prepared_filter_equals_unprepared_path():
     shape = (16, 14, 40)
     vol = np.random.default_rng(3).random(shape, dtype=np.float32)
     tf = tf_half(shape)
-    prepared = tfft.prepare_fourier_filter(shape, tf, 1e-3)
+    prepared = tfft.prepare_fourier_filter(shape, tf, 1e-3, device="cpu")
     # The reference's Tikhonov transform, in the same float32 order.
     jtf = jnp.asarray(tf)
     np.testing.assert_array_equal(prepared.numpy(), np.asarray(jtf / (jtf * jtf + 1e-3)))
@@ -100,7 +100,7 @@ def test_prepared_filter_equals_unprepared_path():
         tdec.deconvolve_zyx(vol, tf, 1e-3, device="cpu"),
     )
     with pytest.raises(ValueError, match="does not match"):
-        tfft.prepare_fourier_filter((16, 14, 42), tf, 1e-3)
+        tfft.prepare_fourier_filter((16, 14, 42), tf, 1e-3, device="cpu")
 
 
 @pytest.mark.parametrize("jax_route", ["xla"], indirect=True)

@@ -42,13 +42,13 @@ def test_prepare_hermitian_filter_follows_the_reference_formula(shape):
     h = hermitian_transfer_function(shape, 0)
     jh = jnp.asarray(h)[..., : shape[-1] // 2 + 1]
     want = np.asarray(jnp.conj(jh) / (jnp.abs(jh) ** 2 + 1e-3))
-    got = tfft.prepare_hermitian_filter(shape, h, 1e-3)
+    got = tfft.prepare_hermitian_filter(shape, h, 1e-3, device="cpu")
     assert got.dtype == torch.complex64 and got.is_contiguous()
     assert tuple(got.shape) == tfft.half_spectrum_shape(shape)
     # XLA divides by the complex (d, 0); the port divides re and im by d.
     assert np.abs(got.numpy() - want).max() <= 1e-6 * np.abs(want).max()
     with pytest.raises(ValueError, match="does not match"):
-        tfft.prepare_hermitian_filter((8, 16, 26), h, 1e-3)
+        tfft.prepare_hermitian_filter((8, 16, 26), h, 1e-3, device="cpu")
 
 
 @pytest.mark.parametrize("shape", [(8, 16, 24), (9, 10, 17)])
@@ -57,7 +57,8 @@ def test_fourier_filter_zyx_matches_reference_pallas(shape, pallas_route):
 
     rng = np.random.default_rng(21)
     vol = rng.standard_normal(shape).astype(np.float32)
-    filt = tfft.prepare_hermitian_filter(shape, hermitian_transfer_function(shape, 1), 1e-2)
+    filt = tfft.prepare_hermitian_filter(shape, hermitian_transfer_function(shape, 1), 1e-2,
+                                         device="cpu")
     want = np.asarray(fourier_filter_zyx_pallas(
         jnp.asarray(vol), jnp.asarray(filt.real.numpy()), jnp.asarray(filt.imag.numpy())))
     _build.reset_launch_counts()

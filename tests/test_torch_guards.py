@@ -30,6 +30,7 @@ from biahub_tpu_torch.kernels import (
     fft,
     multipass_warp,
     peaks,
+    spectral,
 )
 from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_kernel
 from biahub_tpu_torch.kernels.multipass_cuda import (
@@ -38,6 +39,7 @@ from biahub_tpu_torch.kernels.multipass_cuda import (
     resample_pass_deriv,
 )
 from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
+from biahub_tpu_torch.kernels.spectral_cuda import lerp_irfft
 from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.recon import optics
@@ -132,6 +134,14 @@ ENTRY_POINTS = {
     "apply_inverse_transfer_function_arrays": lambda: apply_inverse_transfer_function_arrays(
         VOL[None, None], ["BF"], RECON_TFS, RECON),
     "reconstruct_arrays": lambda: reconstruct_arrays(VOL[None, None], ["BF"], RECON),
+    "deconvolve_deskew_zyx_spectral": lambda: spectral.deconvolve_deskew_zyx_spectral(
+        VOL, TF, 1e-3, ls_angle_deg=30.0, px_to_scan_ratio=0.4, keep_overhang=False),
+    "prepare_spectral_deskew": lambda: spectral.prepare_spectral_deskew(SHAPE, 30.0, 0.4, False),
+    "DeconvolveDeskew(spectral=True)": lambda: DeconvolveDeskew(TF, SHAPE, 1e-3, 30.0, 0.4,
+                                                                spectral=True),
+    "prepare_fourier_filter": lambda: fft.prepare_fourier_filter(SHAPE, TF, 1e-3),
+    "prepare_hermitian_filter": lambda: fft.prepare_hermitian_filter(
+        SHAPE, RECON_TFS["phase"], 1e-3),
     "chain_from_reference": lambda: chain_from_reference(
         TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
                                            "px_to_scan_ratio": 0.4},
@@ -177,6 +187,11 @@ def test_wrappers_raise_on_other_devices():
         lambda: fft.z_filter_(spec, torch.empty((8, 6, 6), device="meta")),
         lambda: fft.z_filter_complex_(spec, spec.clone()),
         lambda: fft.inv_yx(spec),
+        lambda: fft.z_fwd_filter_(spec, torch.empty((8, 6, 6), device="meta")),
+        lambda: fft.z_fwd_filter_(spec, spec.clone()),
+        lambda: fft.y_inv_(spec),
+        lambda: lerp_irfft(spec, torch.empty((6, 3, 8), dtype=torch.complex64, device="meta"),
+                           10, 1),
         lambda: deskew_kernel(meta[None], geo),
         lambda: deskew_kernel(meta[None], geo._replace(skip_flip=True), "xzy"),
         lambda: warp_zy(meta[None], coeffs, (8, 6)),
