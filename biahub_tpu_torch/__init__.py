@@ -42,7 +42,12 @@ FOV (86, 1024, 484) runs as it is. The spectral deconvolve + deskew
 (:func:`~biahub_tpu_torch.kernels.spectral.deconvolve_deskew_zyx_spectral`:
 kernels A, K, L and M, the deskew's lerp evaluated from the spectrum) is
 the other route of the headline step and of the full chain, taken with
-``spectral=True``.
+``spectral=True``. One volume's deconvolution spread over a mesh of
+devices (:mod:`biahub_tpu_torch.parallel.sharded_fft`: kernels A, B or Bc,
+and C on z-slab and ky-row shards) serves the deconvolve verb on arrays
+(:func:`~biahub_tpu_torch.deconvolve.deconvolve_arrays`, ``sharded=True``),
+beside the mesh (:mod:`biahub_tpu_torch.parallel.mesh`) and the process
+group (:mod:`biahub_tpu_torch.parallel.distributed`).
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (
@@ -51,6 +56,7 @@ from biahub_tpu_torch.apply_inverse_transfer_function import (
 from biahub_tpu_torch.compute_transfer_function import compute_transfer_function_arrays
 from biahub_tpu_torch.convert import (
     chain_from_reference,
+    deconvolve_settings_from_reference,
     module_from_reference,
     reconstruction_settings_from_reference,
     registration_estimate_settings_from_reference,
@@ -58,6 +64,7 @@ from biahub_tpu_torch.convert import (
     spectral_table_from_reference,
     transfer_functions_from_reference,
 )
+from biahub_tpu_torch.deconvolve import deconvolve_arrays
 from biahub_tpu_torch.device import gpu_info, resolve_device
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
 from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
@@ -99,9 +106,27 @@ from biahub_tpu_torch.kernels.spectral import (
     spectral_deskew_supported,
 )
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
+from biahub_tpu_torch.parallel.distributed import (
+    barrier,
+    is_coordinator,
+    maybe_initialize_distributed,
+    process_count,
+    process_index,
+)
+from biahub_tpu_torch.parallel.mesh import Mesh, get_mesh
+from biahub_tpu_torch.parallel.sharded_fft import (
+    ShardedFilter,
+    deconvolve_zyx_sharded,
+    fourier_filter_zyx_sharded,
+    gather,
+    prepare_sharded_filter,
+    shard_filter,
+    sharded_fft_supported,
+)
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 from biahub_tpu_torch.recon.settings import output_channel_names
 from biahub_tpu_torch.reconstruct import reconstruct_arrays
+from biahub_tpu_torch.runtime.executor import stripe_units
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
 __all__ = [
@@ -148,6 +173,23 @@ __all__ = [
     "chain_warp_spectral_route",
     "spectral_table_from_reference",
     "output_channel_names",
+    "deconvolve_arrays",
+    "deconvolve_settings_from_reference",
+    "Mesh",
+    "get_mesh",
+    "ShardedFilter",
+    "deconvolve_zyx_sharded",
+    "fourier_filter_zyx_sharded",
+    "gather",
+    "prepare_sharded_filter",
+    "shard_filter",
+    "sharded_fft_supported",
+    "maybe_initialize_distributed",
+    "process_index",
+    "process_count",
+    "is_coordinator",
+    "barrier",
+    "stripe_units",
     "gpu_info",
     "resolve_device",
 ]

@@ -7,11 +7,13 @@ settings dicts with the field names of ``biahub_tpu/settings.py``'s
 their defaults and their rounding, without pydantic. ``chain_from_reference``
 builds :class:`~biahub_tpu_torch.pipeline.DeconvolveDeskewWarp` from a fused
 pipeline's settings (``FusePipelineSettings``, settings.py:557-620) as a
-plain dict. ``stabilization_settings_from_reference`` validates
-estimate-stabilization's settings (``EstimateStabilizationSettings``,
-settings.py:324) and ``registration_estimate_settings_from_reference``
-estimate-registration's (``EstimateRegistrationSettings``, settings.py:299)
-into plain dicts with their defaults. ``reconstruction_settings_from_reference``
+plain dict. ``deconvolve_settings_from_reference`` validates the deconvolve
+verb's settings (``DeconvolveSettings``),
+``stabilization_settings_from_reference`` estimate-stabilization's
+(``EstimateStabilizationSettings``, settings.py:324) and
+``registration_estimate_settings_from_reference`` estimate-registration's
+(``EstimateRegistrationSettings``, settings.py:299) into plain dicts with
+their defaults. ``reconstruction_settings_from_reference``
 validates the reconstruction verbs' settings (``ReconstructionSettings``,
 recon/settings.py) and ``transfer_functions_from_reference`` carries the
 reference's transfer functions into tensors. ``spectral_table_from_reference``
@@ -27,7 +29,7 @@ from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 
 __all__ = ["module_from_reference", "chain_from_reference",
            "stabilization_settings_from_reference", "beads_match_settings_from_reference",
-           "affine_transform_settings_from_reference",
+           "affine_transform_settings_from_reference", "deconvolve_settings_from_reference",
            "registration_estimate_settings_from_reference",
            "reconstruction_settings_from_reference", "transfer_functions_from_reference",
            "spectral_table_from_reference"]
@@ -88,6 +90,18 @@ def _deconvolve_settings(deconvolve: dict) -> float:
     if reg <= 0:
         raise ValueError("regularization_strength must be positive")
     return reg
+
+
+def deconvolve_settings_from_reference(settings: dict) -> dict:
+    """``DeconvolveSettings`` (settings.py:450-452) as a plain dict with its
+    defaults: ``regularization_strength`` (positive, 0.001) and
+    ``output_ome_zarr_version`` ("0.4", "0.5" or None)."""
+    version = settings.get("output_ome_zarr_version")
+    if version not in (None, "0.4", "0.5"):
+        raise ValueError(f"output_ome_zarr_version: must be '0.4', '0.5' or None, "
+                         f"got {version!r}")
+    return {"regularization_strength": _deconvolve_settings(settings),
+            "output_ome_zarr_version": version}
 
 
 def module_from_reference(

@@ -224,6 +224,14 @@ def _check_cuda_shape(shape, what: str) -> None:
             )
 
 
+def _check_slices(shape, what: str) -> None:
+    """Kernels A and C: one block per z slice, which they do not transform
+    (Z from 1 to the grid's 2**31 - 1); Y and X as :func:`_check_cuda_shape`."""
+    if not 1 <= shape[0] < 2**31:
+        raise ValueError(f"{what}: Z = {shape[0]} z slices, want 1 to 2**31 - 1 (the grid)")
+    _check_cuda_shape(shape[1:], what)
+
+
 def _check_grid_y(y: int, what: str) -> None:
     if y > 65535:
         raise ValueError(f"{what}: Y = {y} exceeds the kernel's grid (65535)")
@@ -256,7 +264,7 @@ def fwd_yx(volume: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tenso
     out = _check_out(out, spec_shape, torch.complex64, volume, "fwd_yx")
     if not _build.on_card(volume, "fwd_yx"):
         return fwd_yx_plain(volume, out)
-    _check_cuda_shape(volume.shape, "fwd_yx")
+    _check_slices(volume.shape, "fwd_yx")
     lib = _lib()
     z, y, x = volume.shape
     with torch.cuda.device(volume.device):
@@ -374,7 +382,7 @@ def inv_yx(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
     out = _check_out(out, shape, torch.float32, spectrum, "inv_yx")
     if not _build.on_card(spectrum, "inv_yx"):
         return inv_yx_plain(spectrum, out)
-    _check_cuda_shape(shape, "inv_yx")
+    _check_slices(shape, "inv_yx")
     lib = _lib()
     with torch.cuda.device(spectrum.device):
         rc = lib.inv_yx(_build.ptr(spectrum), _build.ptr(out), *shape,

@@ -123,6 +123,25 @@ deskew's lerp from the spectrum (kernels A, K, L, M):
     chain); K, L, M's times beside their bounds, the table's build, and the
     step's and the chain's ms/volume on both routes.
 
+Then the sharded deconvolution (the counterpart of
+``biahub_tpu/parallel/sharded_fft.py``: kernels A, B or Bc, and C on
+z-slab and ky-row shards, with two exchanges between them), on a virtual
+mesh of this card (its shards run one after another on it, so nothing
+crosses NVLink):
+
+17. (a) deconvolves the headline volume (seed 17) over SHARD_N = 4 shards:
+    bit-equal to the unsharded ``deconvolve_zyx``, uint16 bit-exact vs its
+    float32 copy, launches A, B, C 4 each; both routes' ms/volume, each
+    shard's A, B and C times, the two exchanges' times beside their byte
+    bound, and A, B, C at the shard shapes beside their plain versions;
+    over the real cards too where the machine has several; (b) the complex
+    Hermitian filter at the deskewed FOV over 2 shards (z_l 43, Bluestein
+    lines) bit-equal to ``fourier_filter_zyx``; (c) one z slice per shard,
+    (8, 64, 128) over 8: A and C at Z = 1 against their plain versions,
+    bit-equal to the unsharded route; (d) ``deconvolve_arrays`` on 2
+    timepoints of the headline FOV, sharded and batched routes equal; (e)
+    (86, 1024, 484) over 4 shards is not supported and raises.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -293,6 +312,13 @@ SPECTRAL_CASES = (((43, 97, 121), 3, False), ((16, 16, 2048), 2, False), ((16, 1
                   (SHAPE, 1, True), (SHAPE, AVG, False))
 SPECTRAL_TOL = 2e-5  # max |M - plain| / max |plain|
 ENGINE_TOL = 2e-4    # the spectral step and chain vs their composition routes
+# Phase 17: the headline volume sharded over SHARD_N shards of one card
+# (a virtual mesh), the reconstruction's FOV over 2 with the complex filter,
+# and one z slice per shard; the verb on arrays over T_SHARD timepoints.
+SHARD_N = 4
+SHARD_RECON = (LAPSE_SHAPE, 2)
+SHARD_ONE_SLICE = ((8, 64, 128), 8)
+T_SHARD = 2
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -1727,6 +1753,229 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
     torch.cuda.empty_cache()
 
 
+def sharded_phase(dev: torch.device, records: dict, tf_half: np.ndarray,
+                  psf: np.ndarray) -> None:
+    """Phase 17: the sharded deconvolution (kernels A, B or Bc, and C on
+    z-slab and ky-row shards) on a virtual mesh of this card, bit-equal to
+    the unsharded route; launches, per-shard kernel times, the exchanges'
+    times beside their byte bound, and both routes' ms/volume."""
+    from biahub_tpu_torch import ArrayPosition, Mesh, deconvolve_arrays, get_mesh
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.deconvolve import deconvolve_zyx
+    from biahub_tpu_torch.parallel import sharded_fft as ksf
+
+    n = SHARD_N
+    mesh = Mesh.virtual(dev, n)
+    z, y, x = SHAPE
+    xh = x // 2 + 1
+    z_l, y_l = z // n, y // n
+    gen = torch.Generator(device=dev).manual_seed(17)
+    vol = torch.rand(SHAPE, generator=gen, device=dev)
+    prepared = ksf.prepare_sharded_filter(SHAPE, tf_half, REG, mesh)
+    filt = kfft.prepare_fourier_filter(SHAPE, tf_half, REG, dev)
+
+    # (a) the headline FOV over n shards: bit-equal to the unsharded route.
+    def sharded(v):
+        return ksf.deconvolve_zyx_sharded(v, None, mesh, prepared=prepared)
+
+    slabs, launches = counted(lambda: sharded(vol))
+    want_l = {"fwd_yx": n, "z_filter": n, "inv_yx": n}
+    require(launches == want_l, f"sharded launches {launches}, want {want_l}")
+    require([tuple(s.shape) for s in slabs] == [(z_l, y, x)] * n,
+            f"sharded slabs {[tuple(s.shape) for s in slabs]}")
+    got = ksf.gather(slabs, dev)
+    want = deconvolve_zyx(vol, prepared=filt, device=dev)
+    require(bool(torch.isfinite(got).all()), "sharded output is not finite")
+    require(torch.equal(got, want), f"sharded route differs from the unsharded one: rel err "
+            f"{rel_err(got, want)[1]:.3g}")
+    u16 = torch.randint(0, 65536, SHAPE, generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint16)
+    require(torch.equal(ksf.gather(sharded(u16), dev), ksf.gather(sharded(u16.float()), dev)),
+            "sharded route: uint16 input differs from its float32 copy")
+    del got, want, slabs, u16
+    print(f"sharded {SHAPE} over {n} shards (a virtual mesh of one card): bit-equal to the "
+          f"unsharded route; uint16 bit-exact vs its float32 copy; launches {launches}")
+    routes = {"sharded": lambda: sharded(vol),
+              "unsharded": lambda: deconvolve_zyx(vol, prepared=filt, device=dev)}
+    route_ms = {}
+    for name, fn in routes.items():
+        q = statistics.quantiles(samples_ms(fn, reps=STEP_REPS), n=4)
+        route_ms[name] = q[1]
+        print(f"deconvolve {SHAPE} via the {name} route: {q[1]:.4f} ms/volume median, "
+              f"{q[2]:.4f} p75 ({STEP_REPS} samples)")
+
+    # Each shard's kernels at its shape, and the two exchanges.
+    vol_slabs = [vol[j * z_l:(j + 1) * z_l] for j in range(n)]
+    spectra = [kfft.fwd_yx(s) for s in vol_slabs]
+    rows = ksf.to_ky_rows(spectra)
+    filtered = [kfft.z_filter_(r.clone(), f) for r, f in zip(rows, prepared.shards)]
+    work_r, work_s = torch.empty_like(rows[0]), torch.empty_like(spectra[0])
+    out_s = torch.empty_like(vol_slabs[0])
+    shard_ms = {"A": [], "B": [], "C": []}
+    for j in range(n):
+        shard_ms["A"].append(time_ms(lambda: kfft.fwd_yx(vol_slabs[j], out=work_s)))
+        shard_ms["B"].append(time_ms(lambda: kfft.z_filter_(work_r, prepared.shards[j]),
+                                     setup=lambda: work_r.copy_(rows[j])))
+        shard_ms["C"].append(time_ms(lambda: kfft.inv_yx(work_s, out=out_s),
+                                     setup=lambda: work_s.copy_(spectra[j])))
+    spec_bytes = z * y * xh * 8
+    ex_bound, _ = bound(4 * spec_bytes, 0)  # pack and copy: each reads and writes it once
+    ex1 = time_ms(lambda: ksf.to_ky_rows(spectra))
+    back = [s.clone() for s in spectra]
+    ex2 = time_ms(lambda: ksf.to_z_slabs(filtered, back))
+    del back
+    for name, ms in shard_ms.items():
+        print(f"sharded {name} per shard (ms): " + ", ".join(f"{t:.4f}" for t in ms))
+    print(f"exchange to ky rows {ex1:.4f} ms, back to z-slabs {ex2:.4f} ms, byte bound "
+          f"{ex_bound:.4f} each (pack + copy: 2 x {spec_bytes / 1e6:.1f} MB read and written); "
+          f"the exchanges take {(ex1 + ex2) / route_ms['sharded']:.1%} of the sharded route")
+
+    slab_vox, slab_spec = z_l * y * x, z_l * y * xh * 8
+    slab_flops = z_l * y * 2.5 * x * math.log2(x) + z_l * xh * 5 * y * math.log2(y)
+    bms, bby = bound(slab_vox * 4 + slab_spec, slab_flops)
+    slab, spec0 = vol_slabs[0], spectra[0]
+    err = {"fwd_yx_shard": rel_err(kfft.fwd_yx(slab), kfft.fwd_yx_plain(slab)),
+           "z_filter_shard": rel_err(filtered[0], kfft.z_filter_plain_(rows[0].clone(),
+                                                                       prepared.shards[0])),
+           "inv_yx_shard": rel_err(kfft.inv_yx(spec0.clone(), out=torch.empty_like(slab)),
+                                   kfft.inv_yx_plain(spec0.clone(),
+                                                     out=torch.empty_like(slab)))}
+    for name, (_, e) in err.items():
+        require(e <= FFT_TOL, f"{name} (shard 0): rel err {e:.3g} > {FFT_TOL}")
+    records["fwd_yx_shard"] = dict(
+        replaces="biahub_tpu/parallel/sharded_fft.py:247", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="fwd_yx", runs=launches, max_abs_err=err["fwd_yx_shard"][0],
+        ms=shard_ms["A"][0], plain_ms=time_ms(lambda: kfft.fwd_yx_plain(slab)),
+        bound_ms=bms, bound_by=bby, library_ms=time_ms(lambda: torch.fft.rfft2(slab)))
+    row_bytes = z * y_l * xh * 8
+    bms_b, bby_b = bound(2 * row_bytes + z * y_l * xh * 4,
+                         2 * y_l * xh * 5 * z * math.log2(z) + 2 * z * y_l * xh)
+    records["z_filter_shard"] = dict(
+        replaces="biahub_tpu/parallel/sharded_fft.py:291", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="z_filter", runs=launches, max_abs_err=err["z_filter_shard"][0],
+        ms=shard_ms["B"][0],
+        plain_ms=time_ms(lambda: kfft.z_filter_plain_(work_r, prepared.shards[0]),
+                         setup=lambda: work_r.copy_(rows[0])),
+        bound_ms=bms_b, bound_by=bby_b, library_ms=None)
+    records["inv_yx_shard"] = dict(
+        replaces="biahub_tpu/parallel/sharded_fft.py:331", source="biahub_tpu_torch/csrc/fft.cu",
+        counter="inv_yx", runs=launches, max_abs_err=err["inv_yx_shard"][0],
+        ms=shard_ms["C"][0],
+        plain_ms=time_ms(lambda: kfft.inv_yx_plain(work_s, out=out_s),
+                         setup=lambda: work_s.copy_(spec0)),
+        bound_ms=bms, bound_by=bby,
+        library_ms=time_ms(lambda: torch.fft.irfft2(spec0, s=(y, x))))
+    for name, (_, e) in err.items():
+        print(f"{name} at the shard shape (shard 0): rel err {e:.3g} (tol {FFT_TOL}), "
+              + describe(records[name]))
+    del spectra, rows, filtered, work_r, work_s, out_s, vol_slabs, slab, spec0
+
+    # Over the real cards too, where this machine has several (peer copies).
+    cards = get_mesh(device=dev)
+    if cards.size > 1 and ksf.sharded_fft_supported(SHAPE, cards.size):
+        prepared_c = ksf.prepare_sharded_filter(SHAPE, tf_half, REG, cards)
+        slabs = ksf.deconvolve_zyx_sharded(vol, None, cards, prepared=prepared_c)
+        require([s.device for s in slabs] == list(cards.devices),
+                 f"slabs on {[str(s.device) for s in slabs]}")
+        require(torch.equal(ksf.gather(slabs, dev), deconvolve_zyx(vol, prepared=filt,
+                                                                   device=dev)),
+                f"sharded over {cards.size} cards differs from the unsharded route")
+
+        def all_cards():
+            for d in cards.devices:
+                torch.cuda.synchronize(d)
+
+        times = []
+        for i in range(WARMUP + STEP_REPS):
+            all_cards()
+            t0 = time.perf_counter()
+            ksf.deconvolve_zyx_sharded(vol, None, cards, prepared=prepared_c)
+            all_cards()
+            if i >= WARMUP:
+                times.append(1e3 * (time.perf_counter() - t0))
+        q = statistics.quantiles(times, n=4)
+        print(f"sharded over {cards.size} cards ({', '.join(map(str, cards.devices))}): the "
+              f"pieces crossed devices; bit-equal to the unsharded route; {q[1]:.4f} ms/volume "
+              f"median, {q[2]:.4f} p75 (host clock, every card synchronized, input and "
+              f"output slabs from and to {dev})")
+        del slabs, prepared_c
+    del vol, filt, prepared
+    torch.cuda.empty_cache()
+
+    # (b) the reconstruction's FOV, complex Hermitian filter (kernel Bc),
+    # Bluestein lines on Z and X, z_l odd.
+    shape_b, n_b = SHARD_RECON
+    vol_b = torch.rand(shape_b, generator=gen, device=dev)
+    h = torch.fft.fftn(torch.rand(shape_b, generator=gen, device=dev))
+    filt_c = kfft.prepare_hermitian_filter(shape_b, h, 1e-3, dev)
+    del h
+    mesh_b = Mesh.virtual(dev, n_b)
+    got, launches_b = counted(lambda: ksf.gather(
+        ksf.fourier_filter_zyx_sharded(vol_b, filt_c, mesh_b), dev))
+    want = kfft.fourier_filter_zyx(vol_b, filt_c)
+    want_lb = {"fwd_yx": n_b, "z_filter_complex": n_b, "inv_yx": n_b}
+    require(launches_b == want_lb, f"sharded complex filter launches {launches_b}, "
+            f"want {want_lb}")
+    require(torch.equal(got, want), f"sharded complex filter at {shape_b} differs from the "
+            f"unsharded route: rel err {rel_err(got, want)[1]:.3g}")
+    print(f"sharded complex filter {shape_b} over {n_b} shards (z_l {shape_b[0] // n_b}): "
+          f"bit-equal to fourier_filter_zyx; launches {launches_b}")
+    del vol_b, filt_c, got, want
+
+    # (c) one z slice per shard: kernels A and C at Z = 1.
+    shape_c, n_c = SHARD_ONE_SLICE
+    vol_c = torch.rand(shape_c, generator=gen, device=dev)
+    tf_c = torch.rand(kfft.half_spectrum_shape(shape_c), generator=gen, device=dev)
+    one = vol_c[:1]
+    err_a = rel_err(kfft.fwd_yx(one), kfft.fwd_yx_plain(one))[1]
+    spec1 = kfft.fwd_yx_plain(one)
+    err_c = rel_err(kfft.inv_yx(spec1.clone(), out=torch.empty_like(one)),
+                    kfft.inv_yx_plain(spec1.clone(), out=torch.empty_like(one)))[1]
+    require(max(err_a, err_c) <= FFT_TOL, f"kernels A, C at Z = 1: rel err {err_a:.3g}, "
+            f"{err_c:.3g}")
+    got, launches_c = counted(lambda: ksf.gather(ksf.deconvolve_zyx_sharded(
+        vol_c, tf_c, Mesh.virtual(dev, n_c), REG), dev))
+    want_lc = {"fwd_yx": n_c, "z_filter": n_c, "inv_yx": n_c}
+    require(launches_c == want_lc, f"one z slice per shard: launches {launches_c}")
+    require(torch.equal(got, deconvolve_zyx(vol_c, tf_c, REG, device=dev)),
+            f"one z slice per shard at {shape_c} differs from the unsharded route")
+    print(f"one z slice per shard {shape_c} over {n_c}: A and C at Z = 1 within {err_a:.3g}, "
+          f"{err_c:.3g} of their plain versions; bit-equal to the unsharded route")
+    del vol_c, tf_c, one, spec1, got
+
+    # (d) the deconvolve verb on arrays, both routes.
+    tczyx = torch.rand((T_SHARD, 1) + SHAPE, generator=gen, device=dev)
+    positions = {"A/1/0": ArrayPosition(tczyx, [1.0, 1.0, 1.0, 0.1, 0.1], ["GFP"])}
+    scale = [1.0, 0.1, 0.1]
+    (out_s, tf_s), launches_d = counted(lambda: deconvolve_arrays(
+        positions, psf, scale, {"regularization_strength": REG}, mesh=mesh, sharded=True,
+        device=dev))
+    out_b, tf_b = deconvolve_arrays(positions, psf, scale, {"regularization_strength": REG},
+                                    device=dev)
+    want_ld = {k: T_SHARD * n for k in want_l}
+    require(launches_d == want_ld, f"deconvolve_arrays sharded launches {launches_d}")
+    require(np.array_equal(tf_s, tf_b) and np.array_equal(tf_s[..., :xh], tf_half),
+            "deconvolve_arrays: transfer functions differ")
+    require(torch.equal(out_s["A/1/0"], out_b["A/1/0"]),
+            "deconvolve_arrays: the sharded and batched routes differ")
+    print(f"deconvolve_arrays ({T_SHARD} timepoints x 1 channel of {SHAPE}): sharded over "
+          f"{n} shards equal to the batched route; launches {launches_d}")
+    del tczyx, positions, out_s, out_b
+
+    # (e) a shape that does not shard raises.
+    shape_e = LAPSE_SHAPE
+    require(not ksf.sharded_fft_supported(shape_e, 4), f"{shape_e} over 4 shards is accepted")
+    try:
+        ksf.deconvolve_zyx_sharded(torch.zeros(shape_e, device=dev),
+                                   np.zeros(kfft.half_spectrum_shape(shape_e), np.float32),
+                                   Mesh.virtual(dev, 4))
+        require(False, f"{shape_e} over 4 shards did not raise")
+    except ValueError as exc:
+        require("divisible" in str(exc), f"{shape_e} over 4 shards: {exc}")
+    print(f"{shape_e} over 4 shards: not supported, and the call raises ValueError")
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2070,12 +2319,14 @@ def main() -> int:
     reconstruction_phase(dev, records, tfs)
     del tfs
     spectral_phase(dev, records, tf_half)
+    sharded_phase(dev, records, tf_half, psf)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
     # the per-volume E and F from stabilize, G and H from the beads estimate
     # and the stabilize that follows it, I and J from optimize-registration,
-    # K, L and M from the spectral step, M's xzy store from the spectral chain)
+    # K, L and M from the spectral step, M's xzy store from the spectral chain,
+    # A, B and C at the shard shapes from the sharded headline volume)
     for name, rec in records.items():
         counter = rec.get("counter", name)
         require(rec["runs"].get(counter, 0) >= 1, f"kernel {name} was not launched on its path")

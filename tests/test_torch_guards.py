@@ -13,12 +13,16 @@ import torch
 from biahub_tpu_torch import (
     DeconvolveDeskew,
     DeconvolveDeskewWarp,
+    Mesh,
     apply_inverse_transfer_function_arrays,
     chain_from_reference,
     compute_transfer_function_arrays,
+    deconvolve_arrays,
+    get_mesh,
     module_from_reference,
     reconstruct_arrays,
 )
+from biahub_tpu_torch.estimate_stabilization import ArrayPosition
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
 from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
 from biahub_tpu_torch.kernels import (
@@ -42,6 +46,7 @@ from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin
 from biahub_tpu_torch.kernels.spectral_cuda import lerp_irfft
 from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
+from biahub_tpu_torch.parallel import sharded_fft
 from biahub_tpu_torch.recon import optics
 from biahub_tpu_torch.registration import beads, intensity
 
@@ -142,6 +147,14 @@ ENTRY_POINTS = {
     "prepare_fourier_filter": lambda: fft.prepare_fourier_filter(SHAPE, TF, 1e-3),
     "prepare_hermitian_filter": lambda: fft.prepare_hermitian_filter(
         SHAPE, RECON_TFS["phase"], 1e-3),
+    "get_mesh": lambda: get_mesh(),
+    "Mesh.virtual": lambda: Mesh.virtual("cuda", 2),
+    "deconvolve_arrays": lambda: deconvolve_arrays(
+        {"A/1/0": ArrayPosition(VOL[None, None], [1.0] * 5, ["a"])}, np.ones((3, 3, 3)),
+        [1.0] * 5, {}),
+    "deconvolve_arrays(sharded=True)": lambda: deconvolve_arrays(
+        {"A/1/0": ArrayPosition(VOL[None, None], [1.0] * 5, ["a"])}, np.ones((3, 3, 3)),
+        [1.0] * 5, {}, sharded=True),
     "chain_from_reference": lambda: chain_from_reference(
         TF, {"deconvolve": {}, "deskew": {"pixel_size_um": 0.116, "ls_angle_deg": 30.0,
                                            "px_to_scan_ratio": 0.4},
@@ -174,6 +187,16 @@ def test_cpu_path_takes_plain_versions_and_counts_no_launch():
     assert m.grad is not None
     out = reconstruct_arrays(VOL[None, None] + 1.0, ["BF"], RECON, device="cpu")
     assert out.shape == (1, 2) + SHAPE
+    assert _build.launch_counts == {}
+
+
+def test_sharded_cpu_path_takes_plain_versions_and_counts_no_launch():
+    _build.reset_launch_counts()
+    mesh = Mesh.virtual("cpu", 2)
+    out = sharded_fft.deconvolve_zyx_sharded(VOL, TF, mesh)
+    assert [tuple(s.shape) for s in out] == [(4, 6, 10)] * 2
+    out = sharded_fft.fourier_filter_zyx_sharded(VOL, RECON_TFS["phase"][..., :6], mesh)
+    assert sharded_fft.gather(out, "cpu").shape == SHAPE
     assert _build.launch_counts == {}
 
 
