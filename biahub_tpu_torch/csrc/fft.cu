@@ -5,7 +5,8 @@
 //
 //   A  fwd_yx_kernel    <- _fwd_yx_kernel (pallas_fft.py:286, launched from
 //                          _run_pass_a): rfft along X, then DFT along Y, per
-//                          z slice; float32 or uint16 in.
+//                          z slice (a thread-block cluster each); float32 or
+//                          uint16 in.
 //   B  z_filter_kernel  <- _pass_b_kernel (pallas_fft.py:442, launched from
 //                          _run_fourier_pipeline): DFT along Z, times a
 //                          filter, inverse DFT along Z, in place. Two
@@ -16,7 +17,8 @@
 //                          phase and fluorescence reconstructions).
 //   C  inv_yx_kernel    <- _inv_yx_kernel (pallas_fft.py:530, launched from
 //                          _run_pass_c): inverse DFT along Y, then irfft
-//                          along X, per z slice; writes plain ZYX float32.
+//                          along X, per z slice (a cluster each); writes
+//                          plain ZYX float32.
 //   Bx z_cross_kernel   <- _pass_b_cross_kernel (pallas_fft.py:1338, launched
 //                          from _run_pass_b_cross): DFT along Z of two
 //                          spectra, the phase cross-power H_ref*conj(H_mov)
@@ -37,31 +39,35 @@
 // a one-line plain PyTorch version (biahub_tpu_torch/kernels/fft.py). The
 // TPU kernels compute O(N^2) DFTs as bf16-split MXU matmuls; on Hopper every
 // pass is memory-bound and a float32 matmul DFT would cost ~5e11 flop per
-// volume, so each line is a radix-2 FFT in shared memory instead (O(N log N),
-// full float32, no tensor cores: TF32 keeps 10 mantissa bits and could not
-// meet the reference's 1e-5). None of the TPU's layout devices is carried
-// over: no Nyquist peel (the kx = X/2 bin is simply the last column, and the
-// ragged last kx tile is masked), no radix splits across kernels, no slab or
-// yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X), L by 1/Y;
-// K does not scale. The line code is fft_lines.cuh, shared with spectral.cu.
+// volume, so each line is an FFT in shared memory instead (O(N log N), full
+// float32, no tensor cores: TF32 keeps 10 mantissa bits and could not meet
+// the reference's 1e-5): mixed-radix passes in registers in A and C
+// (fft_radix.cuh), radix-2 stages in the others. None of the TPU's layout
+// devices is carried over: no Nyquist peel (the kx = X/2 bin is simply the
+// last column, and the ragged last kx tile is masked), no radix splits
+// across kernels, no slab or yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X), L by 1/Y;
+// K does not scale. The radix-2 and Bluestein line code is fft_lines.cuh,
+// shared with spectral.cu; A and C's mixed-radix passes are fft_radix.cuh.
 //
-// Lines of any length. A power-of-two axis is one radix-2 FFT, and its
-// kernels are the kAny = false instantiations, whose code and shared-memory
-// layout are those of the power-of-two-only kernels. Any other length n
-// (the deskewed mantis FOV is 86 x 1024 x 484, half spectrum 243 wide) runs
-// Bluestein's chirp convolution on the same radix-2 machinery, in the
-// kAny = true instantiations: with w_k = exp(-i pi k^2 / n),
-// exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line is multiplied by w,
-// circularly convolved with conj(w) through two radix-2 FFTs of M >= 2n - 1
-// points and multiplied by w again. The chirp's phase is reduced in
+// Lines of any length. In B, Bc, Bx, K and L a power-of-two axis is one
+// radix-2 FFT, and their kernels are the kAny = false instantiations, whose
+// code and shared-memory layout are those of the power-of-two-only
+// kernels. In A and C every 2,3,5,7,11-smooth axis (each length the paths
+// meet, the odd test shapes' primes apart) runs the mixed-radix passes.
+// Any other length n (in B, Bc and L the deskewed mantis FOV's 86 and 484)
+// runs Bluestein's chirp convolution on the radix-2 machinery, in the kAny
+// = true instantiations (and in A and C's Bluestein branch): with w_k =
+// exp(-i pi k^2 / n), exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line
+// is multiplied by w, circularly convolved with conj(w) through two radix-2
+// FFTs of M >= 2n - 1 points and multiplied by w again. The chirp's phase is reduced in
 // integers (k^2 mod 2n) and taken with sincospi in double before rounding
-// to float: a float k^2/n loses ~1e-4 rad once k^2/n nears 1000. Mixed
-// radix (2^a times a dense odd DFT, the TPU's way) would cost O(n * odd)
-// per line, O(n^2) for a prime; Bluestein is O(M log M) for every n at
-// twice the shared memory of a line, so a row or column tile holds half
-// the lines. Limits (shared memory): powers of two up to 8192, other
-// lengths up to 4096 (M <= 8192) for A, B and C; Bx, in double, Z up to
-// 2048 for powers of two and 1024 otherwise.
+// to float: a float k^2/n loses ~1e-4 rad once k^2/n nears 1000. A dense
+// odd DFT (the TPU's way) would cost O(n * odd) per line, O(n^2) for a
+// prime; Bluestein is O(M log M) for every n at twice the shared memory of
+// a line, so a row or column tile holds half the lines. Limits (shared
+// memory): powers of two up to 8192, other lengths up to 4096 (M <= 8192)
+// for A, B and C; Bx, in double, Z up to 2048 for powers of two and 1024
+// otherwise.
 //
 // Bounds on one H100 SXM (3.35 TB/s; each input read once, each output
 // written once), all bytes-bound:
@@ -83,19 +89,40 @@
 //   L  269.0 MB spectrum in and out = 538.0 MB, 0.161 ms
 // What the design does about them: every global access is a row segment
 // of consecutive elements read or written by one warp, and every FFT
-// stage stays in shared memory. A and C are one block per z slice in two
-// phases (rows, then kx column tiles), and the slice passes through device
-// memory between the phases: that is about twice the bound's traffic
-// unless L2 keeps the slice. B reads and writes the spectrum once. A
+// stage stays in shared memory. B reads and writes the spectrum once. A
 // Bluestein line does three times a power-of-two line's FFT work on twice
-// its length. Making A and C keep the slice on chip is later work.
+// its length.
+//
+// A and C. On this card they were bound by their instructions and
+// barriers, not by HBM: a radix-2 line in shared memory is log2 n passes
+// over the tile with a block-wide barrier each (about 300 a slice at the
+// headline), a 484-point row ran Bluestein (three 1024-point FFTs), and
+// one block per z slice left SMs idle at Z = 64 (a shard, the PCC crop)
+// and Z = 86 (the deskewed FOV) on 132 SMs. Now (1) a line is a Stockham
+// sequence of radix-16/8/4/2/3/5/7/11 passes in registers, one barrier a
+// pass (1024 = 16x8x8, 484 = 4x11x11, 1232 = 16x11x7: three passes each);
+// (2) the first pass of a tile reads device memory and the last writes it
+// (A's rows in; C's rows in through the Hermitian extension and out; both
+// kernels' kx columns in and out), so a column tile of a two-pass Y is one
+// barrier and one shared tile (A's split of its two real rows needs S[k]
+// and S[X - k] from two threads' butterflies, so A's rows leave through
+// shared memory); (3) a slice belongs to a cluster of 8 blocks (fewer
+// when it has fewer tiles; kernels/fft.py slice_plan), which share its row
+// tiles, meet at a cluster barrier and share its column tiles, so Z = 33
+// slices fill the card. The slice still passes through
+// device memory between the phases (about twice the bound's bytes unless
+// L2 keeps it); holding it in the cluster's distributed shared memory is
+// later work. A line's arithmetic depends on Y and X alone, so the result
+// is bit-equal over every Z, cluster and shard.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
 #include "fft_lines.cuh"
+#include "fft_radix.cuh"
 
 namespace {
 
@@ -130,81 +157,291 @@ __device__ void columns_y(float2* slice, float2* buf, const Axis<float2>& ay, in
   }
 }
 
-// Kernel A. One block per z slice. Phase 1: rows 2q and 2q+1 ride one
-// complex FFT as re + i*im, split into their two half-spectra (an odd Y's
-// last row rides with zeros). Phase 2: the DFT along Y over kx column
-// tiles. uint16 converts to float32 exactly in registers, and the
-// arithmetic after the load is the same code for both input types, so a
-// uint16 volume gives the bits of its float32 copy. kAny: the tables of
-// one axis at a time sit in the first `tab` elements, X's for phase 1 and
-// Y's for phase 2.
-template <bool kAny>
-__global__ void __launch_bounds__(kThreads)
-fwd_yx_kernel(const void* __restrict__ in, int is_u16, float2* __restrict__ out,
-              int Y, int X, int pairs, int log2tk, int tab) {
-  extern __shared__ float2 smem[];
-  const int xh = X / 2 + 1;
-  Axis<float2> ax, ay;
-  float2* buf;
-  if constexpr (kAny) {
-    buf = smem + tab;
-    ax = make_axis(smem, X);
+// Kernels A and C: one thread-block cluster of `cluster` blocks per z
+// slice (kernels/fft.py slice_plan).
+// The blocks of a cluster share the slice's row tiles, meet at a cluster
+// barrier, then share its kx column tiles; the slice's half-spectrum
+// passes between the two phases through device memory, written by the
+// cluster itself. An axis whose length is 2,3,5,7,11-smooth runs the
+// mixed-radix passes of fft_radix.cuh (plan code != 0); any other length
+// runs the Bluestein lines of fft_lines.cuh.
+constexpr int kSliceThreads = 256;
+
+struct SlicePlan {
+  long long ycode, xcode;  // radix plan codes of Y and X; 0: Bluestein
+  int pairs;               // row pairs per row tile
+  int log2tk;              // log2 of the kx columns per column tile
+  int ytab, xtab;          // table elements at the front of shared memory,
+                           // column phase and row phase
+  int cluster;             // blocks per z slice
+};
+
+// Orders the row phase's global stores before the column phase's loads
+// (or the reverse) across the slice's blocks. Loads after it bypass L1
+// (__ldcg): another SM may have written the line since.
+__device__ __forceinline__ void slice_barrier(int cluster) {
+  if (cluster > 1) {
+    __threadfence();
+    cooperative_groups::this_cluster().sync();
   } else {
-    ax = pow2_axis(smem, X);
-    ay = pow2_axis(smem + X / 2, Y);
-    buf = smem + X / 2 + Y / 2;
-    make_twiddles(smem, X);
-    make_twiddles(smem + X / 2, Y);
+    __syncthreads();
   }
-  const int mx = 1 << ax.log2m;
-  const size_t z = blockIdx.x;
+}
+
+// kx columns k0 .. k0 + lines - 1 of one (Y, xh) slice in device memory,
+// read (bypassing L1) and written by a radix pass; a column past xh reads
+// as zeros and is not stored.
+struct Columns {
+  float2* slice;
+  int xh, k0;
+  __device__ __forceinline__ float2 ld(int l, int e) const {
+    const int k = k0 + l;
+    return k < xh ? __ldcg(slice + static_cast<size_t>(e) * xh + k) : make_float2(0.f, 0.f);
+  }
+  __device__ __forceinline__ void st(int l, int e, float2 v) const {
+    const int k = k0 + l;
+    if (k < xh) slice[static_cast<size_t>(e) * xh + k] = v;
+  }
+};
+
+// The FFT along Y of every kx column of one (Y, xh) slice, in place:
+// column tiles rank, rank + cluster, ... of the block's cluster. The radix
+// passes read the tile's columns from device memory in their first pass
+// and write them back in their last.
+template <bool kInv>
+__device__ void slice_columns(float2* slice, float2* smem, int Y, int xh, const SlicePlan& sp,
+                              int rank) {
+  float2* tw = smem;
+  float2* buf = smem + sp.ytab;
+  const int tk = 1 << sp.log2tk, step = sp.cluster * tk, total = Y << sp.log2tk;
+  const bool radix = sp.ycode != 0;
+  RadixPlan py;
+  Axis<float2> ay;
+  if (radix) {
+    py = decode_plan(sp.ycode);
+    make_radix_twiddles(tw, py);
+    __syncthreads();
+  } else {
+    ay = make_axis(tw, Y);
+  }
+  for (int k0 = rank * tk; k0 < xh; k0 += step) {
+    const Columns cols{slice, xh, k0};
+    if (radix) {
+      radix_run<kInv>(cols, cols, buf, buf + padded(total), Tile{tk, Y, sp.log2tk}, py, tw);
+    } else {
+      for (int i = threadIdx.x; i < total; i += blockDim.x) {
+        buf[i] = cols.ld(i & (tk - 1), i >> sp.log2tk);
+      }
+      __syncthreads();
+      lines_dif<true>(buf, ay, tk, sp.log2tk, 1, tk, kInv, true);
+      for (int i = threadIdx.x; i < total; i += blockDim.x) {
+        cols.st(i & (tk - 1), i >> sp.log2tk, buf[i]);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// X's tables for a row phase: the radix plan's twiddles, or Bluestein's
+// (then rows are `mx` points apart, else X points in a padded tile).
+struct RowAxis {
+  bool radix;
+  RadixPlan plan;
+  Axis<float2> blue;
+  int mx;
+};
+
+__device__ RowAxis row_axis(float2* tw, int X, long long xcode) {
+  RowAxis a;
+  a.radix = xcode != 0;
+  if (a.radix) {
+    a.plan = decode_plan(xcode);
+    a.mx = X;
+    make_radix_twiddles(tw, a.plan);
+    __syncthreads();
+  } else {
+    a.blue = make_axis(tw, X);
+    a.mx = 1 << a.blue.log2m;
+  }
+  return a;
+}
+
+// Kernel A's input rows 2q and 2q+1 (from row0) as the real and imaginary
+// parts of line q; an odd Y's last row pairs with zeros.
+struct RowPairs {
+  const float* in32;
+  const uint16_t* in16;
+  int is_u16, X, Y, row0;
+  __device__ __forceinline__ float2 ld(int q, int x) const {
+    const int row = row0 + 2 * q;
+    const bool has_b = row + 1 < Y;
+    const size_t r0 = static_cast<size_t>(row) * X + x;
+    float a, b = 0.f;
+    if (is_u16) {
+      a = static_cast<float>(in16[r0]);
+      if (has_b) b = static_cast<float>(in16[r0 + X]);
+    } else {
+      a = in32[r0];
+      if (has_b) b = in32[r0 + X];
+    }
+    return make_float2(a, b);
+  }
+};
+
+// Bin k of kernel A's two rows from their complex FFT S: F0[k] = (S[k] +
+// conj S[X-k]) / 2 in row f0, F1[k] = (S[k] - conj S[X-k]) / 2i in the
+// next (when there is one).
+__device__ __forceinline__ void split_store(float2* f0, bool has_f1, int xh, int k, float2 sk,
+                                            float2 sc) {
+  f0[k] = make_float2(0.5f * (sk.x + sc.x), 0.5f * (sk.y - sc.y));
+  if (has_f1) f0[k + xh] = make_float2(0.5f * (sk.y + sc.y), 0.5f * (sc.x - sk.x));
+}
+
+// Kernel C's input rows 2q and 2q+1 (from row0) of the half-spectrum as
+// line q, S = F0 + i*F1 by Hermitian extension: point e <= X/2 from bin e,
+// point e > X/2 from the conjugates of bin X - e (read from L2 twice, once
+// for each). As irfft does, the imaginary parts of the DC bin and, for an
+// even X, the Nyquist bin are ignored; an odd Y's last row pairs with
+// zeros.
+struct HermitianRows {
+  const float2* spec;
+  int X, Y, row0;
+  __device__ __forceinline__ float2 ld(int q, int e) const {
+    const int row = row0 + 2 * q, xh = X / 2 + 1;
+    const int k = 2 * e <= X ? e : X - e;
+    const float2* r = spec + static_cast<size_t>(row) * xh + k;
+    float2 a = __ldcg(r);
+    float2 b = row + 1 < Y ? __ldcg(r + xh) : make_float2(0.f, 0.f);
+    if (k == 0 || 2 * k == X) {
+      a.y = 0.f;
+      b.y = 0.f;
+    }
+    return k == e ? make_float2(a.x - b.y, a.y + b.x) : make_float2(a.x + b.y, b.x - a.y);
+  }
+};
+
+// Kernel C's output rows 2q and 2q+1 (from row0): the real and imaginary
+// parts of line q, times scale.
+struct RealRows {
+  float* out;
+  int X, Y, row0;
+  float scale;
+  __device__ __forceinline__ void st(int q, int x, float2 v) const {
+    const int row = row0 + 2 * q;
+    const size_t r0 = static_cast<size_t>(row) * X + x;
+    out[r0] = v.x * scale;
+    if (row + 1 < Y) out[r0 + X] = v.y * scale;
+  }
+};
+
+// Kernel A. Rows 2q and 2q+1 ride one complex FFT as re + i*im, split into
+// their two half-spectra (an odd Y's last row rides with zeros); then the
+// DFT along Y over kx column tiles. uint16 converts to float32 exactly in
+// registers, and the arithmetic after the load is the same code for both
+// input types, so a uint16 volume gives the bits of its float32 copy.
+__global__ void __launch_bounds__(kSliceThreads, 2)
+fwd_yx_kernel(const void* __restrict__ in, int is_u16, float2* __restrict__ out, int Y, int X,
+              SlicePlan sp) {
+  extern __shared__ float2 smem[];
+  const int rank = static_cast<int>(blockIdx.x % sp.cluster);
+  const size_t z = blockIdx.x / sp.cluster;
+  const int xh = X / 2 + 1, npairs = (Y + 1) / 2;
   const float* in32 = static_cast<const float*>(in) + z * Y * X;
   const uint16_t* in16 = static_cast<const uint16_t*>(in) + z * Y * X;
   float2* spec = out + z * Y * xh;
-  __syncthreads();
+  float2* tw = smem;
+  float2* buf = smem + sp.xtab;
+  float2* other = buf + padded(sp.pairs * X);
+  const RowAxis ax = row_axis(tw, X, sp.xcode);
+  const bool radix = ax.radix;
+  const int mx = ax.mx;
 
-  const int npairs = (Y + 1) / 2;
-  for (int q0 = 0; q0 < npairs; q0 += pairs) {
-    const int nq = min(pairs, npairs - q0);
-    for (int t = threadIdx.x; t < nq * X; t += blockDim.x) {
-      int q, x;
-      if constexpr (kAny) {
-        q = t / X;
-        x = t - q * X;
-      } else {
-        q = t >> ax.log2m;
-        x = t & (X - 1);
+  for (int q0 = rank * sp.pairs; q0 < npairs; q0 += sp.cluster * sp.pairs) {
+    const int nq = min(sp.pairs, npairs - q0);
+    const RowPairs rows{in32, in16, is_u16, X, Y, 2 * q0};
+    if (radix) {
+      // the first pass reads the rows from device memory; the split reads
+      // S[k] and S[X - k] of the transform in shared memory
+      int ns;
+      const float2* res = radix_head<false>(rows, buf, other, Tile{nq, X, -1}, ax.plan,
+                                            ax.plan.passes, tw, ns);
+      // bin k of row pair q, stepped by blockDim without a division
+      int q = threadIdx.x / xh, k = threadIdx.x - q * xh;
+      const int dq = blockDim.x / xh, dk = blockDim.x - dq * xh;
+      for (; q < nq; q += dq, k += dk) {
+        if (k >= xh) {
+          k -= xh;
+          if (++q >= nq) break;
+        }
+        const int row = 2 * (q0 + q);
+        split_store(spec + static_cast<size_t>(row) * xh, row + 1 < Y, xh, k,
+                    res[pad(q * X + k)], res[pad(q * X + (k == 0 ? 0 : X - k))]);
       }
-      const int row = 2 * (q0 + q);
-      const bool has_b = !kAny || row + 1 < Y;
-      const size_t r0 = static_cast<size_t>(row) * X + x;
-      float a, b = 0.f;
-      if (is_u16) {
-        a = static_cast<float>(in16[r0]);
-        if (has_b) b = static_cast<float>(in16[r0 + X]);
-      } else {
-        a = in32[r0];
-        if (has_b) b = in32[r0 + X];
+    } else {
+      for (int i = threadIdx.x; i < nq * X; i += blockDim.x) {
+        const int q = i / X, x = i - q * X;
+        buf[q * mx + x] = rows.ld(q, x);
       }
-      buf[q * mx + x] = make_float2(a, b);
-    }
-    __syncthreads();
-    lines_dif<kAny>(buf, ax, nq, 0, mx, 1, false, false);
-    // F0[k] = (S[k] + conj S[X-k]) / 2,  F1[k] = (S[k] - conj S[X-k]) / 2i
-    for (int t = threadIdx.x; t < nq * xh; t += blockDim.x) {
-      const int q = t / xh, k = t - q * xh;
-      const float2* line = buf + q * mx;
-      const float2 sk = line[at<kAny>(ax, k)];
-      const float2 sc = line[at<kAny>(ax, k == 0 ? 0 : X - k)];
-      const int row = 2 * (q0 + q);
-      const size_t o = static_cast<size_t>(row) * xh + k;
-      spec[o] = make_float2(0.5f * (sk.x + sc.x), 0.5f * (sk.y - sc.y));
-      if (!kAny || row + 1 < Y) spec[o + xh] = make_float2(0.5f * (sk.y + sc.y), 0.5f * (sc.x - sk.x));
+      __syncthreads();
+      lines_dif<true>(buf, ax.blue, nq, 0, mx, 1, false, false);
+      for (int i = threadIdx.x; i < nq * xh; i += blockDim.x) {
+        const int q = i / xh, k = i - q * xh, row = 2 * (q0 + q);
+        split_store(spec + static_cast<size_t>(row) * xh, row + 1 < Y, xh, k, buf[q * mx + k],
+                    buf[q * mx + (k == 0 ? 0 : X - k)]);
+      }
     }
     __syncthreads();
   }
-  if constexpr (kAny) ay = make_axis(smem, Y);
-  columns_y<kAny>(spec, buf, ay, xh, log2tk, false);
+  slice_barrier(sp.cluster);
+  slice_columns<false>(spec, smem, Y, xh, sp, rank);
+}
+
+// Kernel C. The inverse DFT along Y over kx column tiles, in place (the
+// spectrum is scratch afterwards); then rows 2q and 2q+1 ride one complex
+// inverse FFT of S = F0 + i*F1 built from their half-spectra by Hermitian
+// extension: the real part is row 2q, the imaginary part row 2q+1 (an odd
+// Y's last row rides with zeros). As irfft does, the imaginary parts of
+// the DC bin and, for an even X, the Nyquist bin are ignored.
+__global__ void __launch_bounds__(kSliceThreads, 2)
+inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int Y, int X, SlicePlan sp) {
+  extern __shared__ float2 smem[];
+  const int rank = static_cast<int>(blockIdx.x % sp.cluster);
+  const size_t z = blockIdx.x / sp.cluster;
+  const int xh = X / 2 + 1, npairs = (Y + 1) / 2;
+  float2* sl = spec + z * Y * xh;
+  float* o = out + z * Y * X;
+  slice_columns<true>(sl, smem, Y, xh, sp, rank);
+  slice_barrier(sp.cluster);
+
+  float2* tw = smem;
+  float2* buf = smem + sp.xtab;
+  float2* other = buf + padded(sp.pairs * X);
+  const RowAxis ax = row_axis(tw, X, sp.xcode);
+  const bool radix = ax.radix;
+  const int mx = ax.mx;
+  const float scale = 1.0f / (static_cast<float>(Y) * static_cast<float>(X));
+  for (int q0 = rank * sp.pairs; q0 < npairs; q0 += sp.cluster * sp.pairs) {
+    const int nq = min(sp.pairs, npairs - q0);
+    const HermitianRows in{sl, X, Y, 2 * q0};
+    const RealRows rows{o, X, Y, 2 * q0, scale};
+    if (radix) {
+      // the first pass reads the half-spectrum rows from device memory, the
+      // last writes the real rows there
+      radix_run<true>(in, rows, buf, other, Tile{nq, X, -1}, ax.plan, tw);
+    } else {
+      for (int i = threadIdx.x; i < nq * X; i += blockDim.x) {
+        const int q = i / X, e = i - q * X;
+        buf[q * mx + e] = in.ld(q, e);
+      }
+      __syncthreads();
+      lines_dif<true>(buf, ax.blue, nq, 0, mx, 1, true, false);
+      for (int i = threadIdx.x; i < nq * X; i += blockDim.x) {
+        const int q = i / X, x = i - q * X;
+        rows.st(q, x, buf[q * mx + x]);
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // Kernel B (kComplex false) and Bc (kComplex true). One block per (ky,
@@ -368,80 +605,6 @@ z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
   }
 }
 
-// Kernel C. One block per z slice. Phase 1: inverse DFT along Y over kx
-// column tiles, in place (the spectrum is scratch afterwards). Phase 2: rows
-// 2q and 2q+1 ride one complex inverse FFT of S = F0 + i*F1 built from their
-// half-spectra by Hermitian extension; the real part is row 2q, the
-// imaginary part row 2q+1 (an odd Y's last row rides with zeros). As irfft
-// does, the imaginary parts of the DC bin and, for an even X, the Nyquist
-// bin are ignored. kAny: Y's tables for phase 1, then X's, as in A.
-template <bool kAny>
-__global__ void __launch_bounds__(kThreads)
-inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int Y, int X,
-              int pairs, int log2tk, int tab) {
-  extern __shared__ float2 smem[];
-  const int xh = X / 2 + 1;
-  Axis<float2> ax, ay;
-  float2* buf;
-  if constexpr (kAny) {
-    buf = smem + tab;
-    ay = make_axis(smem, Y);
-  } else {
-    ax = pow2_axis(smem, X);
-    ay = pow2_axis(smem + X / 2, Y);
-    buf = smem + X / 2 + Y / 2;
-    make_twiddles(smem, X);
-    make_twiddles(smem + X / 2, Y);
-  }
-  const size_t z = blockIdx.x;
-  float2* sp = spec + z * Y * xh;
-  float* o = out + z * Y * X;
-  __syncthreads();
-
-  columns_y<kAny>(sp, buf, ay, xh, log2tk, true);
-  if constexpr (kAny) ax = make_axis(smem, X);
-  const int mx = 1 << ax.log2m;
-
-  const float scale = 1.0f / (static_cast<float>(Y) * static_cast<float>(X));
-  const int npairs = (Y + 1) / 2;
-  for (int q0 = 0; q0 < npairs; q0 += pairs) {
-    const int nq = min(pairs, npairs - q0);
-    for (int t = threadIdx.x; t < nq * xh; t += blockDim.x) {
-      const int q = t / xh, k = t - q * xh;
-      const int row = 2 * (q0 + q);
-      const float2* r = sp + static_cast<size_t>(row) * xh;
-      float2 a = r[k], b = !kAny || row + 1 < Y ? r[k + xh] : make_float2(0.f, 0.f);
-      if (k == 0 || 2 * k == X) {
-        a.y = 0.f;
-        b.y = 0.f;
-      }
-      float2* line = buf + q * mx;
-      line[k] = make_float2(a.x - b.y, a.y + b.x);
-      if (k > 0 && 2 * k < X) line[X - k] = make_float2(a.x + b.y, b.x - a.y);
-    }
-    __syncthreads();
-    lines_dif<kAny>(buf, ax, nq, 0, mx, 1, true, false);
-    for (int t = threadIdx.x; t < nq * X; t += blockDim.x) {
-      int q, x;
-      if constexpr (kAny) {
-        q = t / X;
-        x = t - q * X;
-      } else {
-        q = t >> ax.log2m;
-        x = t & (X - 1);
-      }
-      const float2 v = buf[q * mx + at<kAny>(ax, x)];
-      const int row = 2 * (q0 + q);
-      const size_t r0 = static_cast<size_t>(row) * X + x;
-      o[r0] = v.x * scale;
-      if (!kAny || row + 1 < Y) o[r0 + X] = v.y * scale;
-    }
-    __syncthreads();
-  }
-}
-
-int log2i(int n) { return 31 - __builtin_clz(static_cast<unsigned>(n)); }
-
 // log2 of the widest column tile (<= 32 lines) of m points within budget.
 int tile_log2(int m) {
   int l = 5;
@@ -457,28 +620,6 @@ int cross_tile_log2(int m) {
   while (l >= 0 && (static_cast<size_t>(m) << (l + 1)) * sizeof(double2) > kTileBytes) --l;
   return l;
 }
-
-// Row pairs per phase-1 chunk of rows of m points.
-int row_pairs(int m) {
-  return std::max(1, std::min(8, kTileBytes / static_cast<int>(m * sizeof(float2))));
-}
-
-// Launch shape shared by the per-slice kernels A and C. Powers of two keep
-// both axes' twiddles side by side; otherwise one axis' tables at a time.
-struct SliceLaunch {
-  bool any;
-  int ltk, pairs, tab;
-  size_t smem;
-  SliceLaunch(int Y, int X) : any(!is_pow2(Y) || !is_pow2(X)) {
-    const int my = 1 << radix_log2(Y), mx = 1 << radix_log2(X);
-    ltk = tile_log2(my);
-    pairs = row_pairs(mx);
-    const size_t tile =
-        std::max(static_cast<size_t>(pairs) * mx, static_cast<size_t>(my) << ltk);
-    tab = static_cast<int>(any ? std::max(table_elems(X), table_elems(Y)) : X / 2 + Y / 2);
-    smem = (tab + tile) * sizeof(float2);
-  }
-};
 
 template <bool kComplex, bool kInverse = true>
 int launch_z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
@@ -496,6 +637,59 @@ int launch_z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* st
   return static_cast<int>(cudaGetLastError());
 }
 
+// A and C's launch: Z clusters of sp.cluster blocks. A refused cluster
+// launch returns its error (the wrapper names the plan); nothing falls
+// back to another cluster size.
+template <typename K, typename... Args>
+int launch_slices(K kernel, int Z, const SlicePlan& sp, int smem, void* stream, Args... args) {
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(Z) * static_cast<unsigned>(sp.cluster));
+  cfg.blockDim = dim3(kSliceThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(sp.cluster);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, args..., sp);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Shared-memory elements a phase over an axis of n points lays out from
+// the front, with its table region `tab` elements long and `lines` lines
+// (0 when the table does not fit it): radix twiddles and the padded tiles
+// its passes alternate between (one when each pass reads or writes device
+// memory: at most `direct` passes), or Bluestein's tables and one tile of
+// M-point lines.
+size_t phase_elems(int n, long long code, int tab, int lines, int direct) {
+  if (code != 0) {
+    const RadixPlan pl = decode_plan(code);
+    if (pl.n != n || tab < n - 1) return 0;
+    return tab + (pl.passes <= direct ? 1 : 2) * static_cast<size_t>(padded(lines * n));
+  }
+  if (static_cast<size_t>(tab) < table_elems(n)) return 0;
+  return tab + (static_cast<size_t>(lines) << radix_log2(n));
+}
+
+// A plan the kernels can run: each code's radices multiply to its axis (0:
+// Bluestein), tables and tiles within smem bytes, a cluster of 1 to 8.
+bool plan_fits(const SlicePlan& sp, int smem, int Y, int X) {
+  if (sp.pairs < 1 || sp.log2tk < 0 || sp.log2tk > 5 || sp.cluster < 1 || sp.cluster > 8) {
+    return false;
+  }
+  // columns: the first pass reads, the last writes device memory; A's rows
+  // keep their last pass in shared memory for the split
+  const size_t cols = phase_elems(Y, sp.ycode, sp.ytab, 1 << sp.log2tk, 2);
+  const size_t rows = phase_elems(X, sp.xcode, sp.xtab, sp.pairs, 1);
+  return cols != 0 && rows != 0 && std::max(cols, rows) * sizeof(float2) <= static_cast<size_t>(smem);
+}
+
 }  // namespace
 
 extern "C" {
@@ -503,16 +697,15 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // in: (Z, Y, X) float32 (is_u16 = 0) or uint16 (is_u16 = 1); out: (Z, Y,
-// X/2+1) complex64. Y and X in [2, 8192] if powers of two, else [2, 4096]
-// (checked by the Python wrapper).
-int fwd_yx(const void* in, int is_u16, void* out, int Z, int Y, int X, void* stream) {
-  const SliceLaunch s(Y, X);
-  auto kernel = s.any ? fwd_yx_kernel<true> : fwd_yx_kernel<false>;
-  cudaError_t e = allow_smem(kernel, s.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
-      in, is_u16, static_cast<float2*>(out), Y, X, s.pairs, s.ltk, s.tab);
-  return static_cast<int>(cudaGetLastError());
+// X/2+1) complex64. The plan (ycode .. smem) is kernels/fft.py slice_plan's
+// for (Z, Y, X) on this card.
+int fwd_yx(const void* in, int is_u16, void* out, long long ycode, long long xcode, int pairs,
+           int log2tk, int ytab, int xtab, int cluster, int smem, int Z, int Y, int X,
+           void* stream) {
+  const SlicePlan sp{ycode, xcode, pairs, log2tk, ytab, xtab, cluster};
+  if (!plan_fits(sp, smem, Y, X)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_slices(fwd_yx_kernel, Z, sp, smem, stream, in, is_u16,
+                       static_cast<float2*>(out), Y, X);
 }
 
 // spec: (Z, Y, xh) complex64, filtered in place; filt: (Z, Y, xh) float32.
@@ -572,15 +765,13 @@ int z_cross(const void* ref, const void* mov, void* out, int Z, int Y, int xh,
 }
 
 // spec: (Z, Y, X/2+1) complex64 (left as scratch); out: (Z, Y, X) float32.
-// Y and X as for fwd_yx.
-int inv_yx(void* spec, void* out, int Z, int Y, int X, void* stream) {
-  const SliceLaunch s(Y, X);
-  auto kernel = s.any ? inv_yx_kernel<true> : inv_yx_kernel<false>;
-  cudaError_t e = allow_smem(kernel, s.smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<Z, kThreads, s.smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float2*>(spec), static_cast<float*>(out), Y, X, s.pairs, s.ltk, s.tab);
-  return static_cast<int>(cudaGetLastError());
+// The plan as for fwd_yx.
+int inv_yx(void* spec, void* out, long long ycode, long long xcode, int pairs, int log2tk,
+           int ytab, int xtab, int cluster, int smem, int Z, int Y, int X, void* stream) {
+  const SlicePlan sp{ycode, xcode, pairs, log2tk, ytab, xtab, cluster};
+  if (!plan_fits(sp, smem, Y, X)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_slices(inv_yx_kernel, Z, sp, smem, stream, static_cast<float2*>(spec),
+                       static_cast<float*>(out), Y, X);
 }
 
 }  // extern "C"

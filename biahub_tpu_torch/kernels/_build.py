@@ -5,7 +5,9 @@ use it is compiled with ``nvcc`` into ``build/biahub_tpu_torch/`` beside the
 package (one shared library per source, named by the hash of the source,
 of the ``csrc`` headers it includes and of the flags, so an edited source or
 header rebuilds) and loaded with ``ctypes``. Nothing
-here runs at import: the CPU path never looks for ``nvcc``.
+here runs at import: the CPU path never looks for ``nvcc``. The compiler's
+output, ``ptxas -v``'s registers, shared memory and spills of every kernel
+included, is kept beside each library (:func:`build_log`).
 
 Every C entry returns a ``cudaError_t``; :func:`check` raises on a non-zero
 one. Every pointer and the stream cross as ``ctypes.c_void_p``.
@@ -25,13 +27,13 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["SOURCES", "build", "library", "check", "on_card", "launch_counts",
+__all__ = ["SOURCES", "build", "build_log", "library", "check", "on_card", "launch_counts",
            "count_launch", "reset_launch_counts", "ptr", "stream_of"]
 
 SOURCES = ("fft", "deskew", "warp", "peaks", "multipass", "spectral")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -106,10 +108,18 @@ def build(names=SOURCES) -> float:
         if proc.returncode != 0:
             failed.append(f"nvcc {name}.cu failed ({proc.returncode}):\n{out}")
             continue
+        target.with_suffix(".log").write_text(out)
         os.replace(tmp, target)
     if failed:
         raise RuntimeError("\n".join(failed))
     return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's output for ``csrc/<name>.cu``'s current library (built
+    first if needed)."""
+    build((name,))
+    return _target(name).with_suffix(".log").read_text()
 
 
 def library(name: str, signatures: dict[str, list]) -> ctypes.CDLL:

@@ -31,13 +31,16 @@ radix layouts and ky-parity filter blocks exist only for the MXU and are not
 carried over. Each wrapper takes its plain PyTorch version (``*_plain``)
 for a CPU tensor and launches its kernel for a CUDA tensor, or raises.
 The kernels take axes of any length within their shared-memory limits
-(:func:`max_axis`): a power of two is one radix-2 FFT, any other length a
-Bluestein chirp convolution.
+(:func:`max_axis`). A and C run a 2,3,5,7,11-smooth axis as mixed-radix
+passes (:func:`radix_plan`) and any other as a Bluestein chirp convolution,
+one thread-block cluster per z slice (:func:`slice_plan`); B, Bc, Bx, K and
+L run a power of two as one radix-2 FFT and any other length as Bluestein.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -51,24 +54,26 @@ __all__ = [
     "z_cross_plain_", "z_fwd_filter_", "y_inv_", "z_fwd_filter_plain_", "y_inv_plain_",
     "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
-    "max_axis", "max_cross_z",
+    "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan",
 ]
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# A and C take their slice plan (SlicePlan.args) before Z, Y, X.
+_PLAN = [_L, _L, _I, _I, _I, _I, _I, _I]
 _SIGNATURES = {
-    "fwd_yx": [_P, _I, _P, _I, _I, _I, _P],
+    "fwd_yx": [_P, _I, _P, *_PLAN, _I, _I, _I, _P],
     "z_filter": [_P, _P, _I, _I, _I, _P],
     "z_filter_complex": [_P, _P, _I, _I, _I, _P],
-    "inv_yx": [_P, _P, _I, _I, _I, _P],
+    "inv_yx": [_P, _P, *_PLAN, _I, _I, _I, _P],
     "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
     "z_fwd_filter": [_P, _P, _I, _I, _I, _I, _P],
     "y_inv": [_P, _I, _I, _I, _P],
 }
-# A line of n points runs on a radix-2 FFT of M points: M = n for a power
-# of two, else the least power of two >= 2n - 1 (Bluestein). A row (X) or
-# column tile (Y, Z) of M points and an axis' tables must fit a block's
-# shared memory: M <= 8192, so powers of two up to 8192 and other lengths
-# up to 4096.
+# In B, Bc, Bx, K and L a line of n points runs on a radix-2 FFT of M
+# points: M = n for a power of two, else the least power of two >= 2n - 1
+# (Bluestein); A and C take the same lengths. A row (X) or column tile (Y,
+# Z) of M points and an axis' tables must fit a block's shared memory: M <=
+# 8192, so powers of two up to 8192 and other lengths up to 4096.
 _MAX_POW2, _MAX_OTHER = 8192, 4096
 # Kernel Bx holds the Z-lines of two spectra in its 96 KB tile in double:
 # M <= 3072 at one column, so Z <= 2048 for a power of two, else Z <= 1024.
@@ -122,6 +127,141 @@ def max_cross_z(z: int) -> int:
     """Kernel Bx's longest Z of ``z``'s kind: 2048 for a power of two, 1024
     for any other length."""
     return _MAX_CROSS_POW2 if _is_pow2(z) else _MAX_CROSS_OTHER
+
+
+# Kernels A and C (csrc/fft_radix.cuh): the radices a line's Stockham passes
+# take, and the odd ones in the order they are taken.
+RADICES = (2, 3, 4, 5, 7, 8, 11, 16)
+_ODD_RADICES = (11, 7, 5, 3)
+# A and C run 256-thread blocks. Two fit an SM (228 KB of shared memory,
+# 1 KB of it reserved per block) at 112 KB each; a tile that needs more
+# takes up to the 227 KB one block may have, and one block an SM.
+_SLICE_THREADS = 256
+_SMEM_TWO, _SMEM_ONE = 112 * 1024, 227 * 1024
+_MAX_PAIRS, _MAX_LOG2TK = 16, 5
+_MAX_CLUSTER = 8  # the portable cluster size
+
+
+def radix_plan(n: int) -> tuple[int, ...] | None:
+    """The radices of kernels A and C's line of ``n`` points, in pass order:
+    the factor 2**a in ceil(a / 4) passes of at most 16 (the larger first),
+    then each factor 11, 7, 5 and 3. None when ``n`` has a prime factor above
+    11: that line runs Bluestein's chirp convolution."""
+    if n < 2:
+        raise ValueError(f"radix_plan: n = {n}, want at least 2")
+    rest, a = n, 0
+    while rest % 2 == 0:
+        rest //= 2
+        a += 1
+    odd = []
+    for p in _ODD_RADICES:
+        while rest % p == 0:
+            rest //= p
+            odd.append(p)
+    if rest != 1:
+        return None
+    passes = -(-a // 4)
+    bits = [a // passes + (i < a % passes) for i in range(passes)]
+    return tuple(1 << b for b in bits) + tuple(odd)
+
+
+def _plan_code(radices) -> int:
+    """The C side's packing of a plan: 5 bits a radix, first pass lowest
+    (0: Bluestein)."""
+    return sum(r << (5 * i) for i, r in enumerate(radices or ()))
+
+
+def _padded(e: int) -> int:
+    """Elements of a padded tile of e points (one float2 in 16, pad())."""
+    return e + (e >> 4) + 1
+
+
+def _bluestein_m(n: int) -> int:
+    """The radix-2 length of a Bluestein line: the least power of two >= 2n - 1."""
+    return 1 << (2 * n - 2).bit_length()
+
+
+def _axis_need(n: int, radices, lines: int, buffers: int) -> tuple[int, int]:
+    """(table, tile) float2 elements of an axis' phase with ``lines`` lines:
+    the radix twiddles and ``buffers`` padded tiles, or Bluestein's tables
+    (fft_lines.cuh table_elems) and one tile of M-point lines."""
+    if radices:
+        return n, buffers * _padded(lines * n)
+    m = _bluestein_m(n)
+    return m // 2 + n + m, lines * m
+
+
+def _buffers(radices, last_in_smem: bool) -> int:
+    """Shared tiles a radix phase alternates between. The first pass reads
+    device memory and, unless ``last_in_smem`` (A's rows, kept for their
+    split), the last writes it: one tile holds the lines between them for
+    a plan of at most two passes (one with ``last_in_smem``), two tiles for
+    more. fft.cu's plan_fits counts them the same way."""
+    return 1 if len(radices or ()) <= (1 if last_in_smem else 2) else 2
+
+
+@dataclass(frozen=True)
+class SlicePlan:
+    """Launch plan of kernels A and C for one (Z, Y, X) volume."""
+
+    y: tuple[int, ...] | None  # radices of Y's lines (None: Bluestein)
+    x: tuple[int, ...] | None  # radices of X's lines
+    pairs: int  # row pairs per row tile
+    log2tk: int  # log2 of the kx columns per column tile
+    ytab: int  # table elements of the column phase
+    xtab: int  # table elements of the row phase
+    cluster: int  # blocks per z slice
+    smem: int  # dynamic shared memory of a block, bytes
+    grid: int  # blocks
+    per_sm: int  # blocks an SM holds at this shared memory
+
+    def args(self) -> tuple[int, ...]:
+        """The C entries' plan arguments."""
+        return (_plan_code(self.y), _plan_code(self.x), self.pairs, self.log2tk, self.ytab,
+                self.xtab, self.cluster, self.smem)
+
+    def describe(self) -> str:
+        def axis(r):
+            return "x".join(map(str, r)) if r else "Bluestein"
+
+        return (f"Y {axis(self.y)}, X {axis(self.x)}, cluster {self.cluster}, grid "
+                f"{self.grid}, {_SLICE_THREADS} threads, {self.pairs} row pairs, "
+                f"{1 << self.log2tk} columns a tile, {self.smem} B shared, "
+                f"{self.per_sm} blocks/SM")
+
+
+def slice_plan(shape) -> SlicePlan:
+    """Kernels A and C's plan for a (Z, Y, X) volume: each axis' radices,
+    the widest row and column tiles (powers of two, at most 16 row pairs
+    and 32 columns) that let two blocks share an SM (else one), and 8
+    blocks per z slice (fewer when the slice has fewer tiles). On an H100
+    (132 SMs) 8 gave the least time, or within 6% of it, at every shape a
+    path gives A and C (Z from 64 to 256) in chip_smoke.py's sweep over 1,
+    2, 4 and 8; at Z = 64 and 86 one block a slice leaves SMs idle."""
+    z, y, x = (int(s) for s in shape)
+    ry, rx = radix_plan(y), radix_plan(x)
+    xh, npairs = x // 2 + 1, (y + 1) // 2
+    ybufs, xbufs = _buffers(ry, False), _buffers(rx, True)
+    for budget, per_sm in ((_SMEM_TWO, 2), (_SMEM_ONE, 1)):
+        room = budget // 8
+        pairs = next((p for p in (1 << i for i in range(_MAX_PAIRS.bit_length() - 1, -1, -1))
+                      if sum(_axis_need(x, rx, p, xbufs)) <= room), None)
+        log2tk = next((l for l in range(_MAX_LOG2TK, -1, -1)
+                       if sum(_axis_need(y, ry, 1 << l, ybufs)) <= room), None)
+        if pairs is not None and log2tk is not None:
+            break
+    else:
+        raise ValueError(f"slice_plan: Y = {y}, X = {x} exceed a block's shared memory")
+    pairs = min(pairs, 1 << (npairs - 1).bit_length())
+    log2tk = min(log2tk, (xh - 1).bit_length())
+    ytab, ybuf = _axis_need(y, ry, 1 << log2tk, ybufs)
+    xtab, xbuf = _axis_need(x, rx, pairs, xbufs)
+    tiles = max(-(-npairs // pairs), -(-xh >> log2tk))
+    cluster = _MAX_CLUSTER
+    while cluster > tiles:
+        cluster //= 2
+    return SlicePlan(ry, rx, pairs, log2tk, ytab, xtab, cluster,
+                     8 * max(ytab + ybuf, xtab + xbuf), z * cluster, per_sm)
 
 
 def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
@@ -225,10 +365,11 @@ def _check_cuda_shape(shape, what: str) -> None:
 
 
 def _check_slices(shape, what: str) -> None:
-    """Kernels A and C: one block per z slice, which they do not transform
-    (Z from 1 to the grid's 2**31 - 1); Y and X as :func:`_check_cuda_shape`."""
-    if not 1 <= shape[0] < 2**31:
-        raise ValueError(f"{what}: Z = {shape[0]} z slices, want 1 to 2**31 - 1 (the grid)")
+    """Kernels A and C: a cluster of at most 8 blocks per z slice, which they
+    do not transform (Z from 1 to 2**28 - 1, so the grid stays under
+    2**31); Y and X as :func:`_check_cuda_shape`."""
+    if not 1 <= shape[0] < 2**28:
+        raise ValueError(f"{what}: Z = {shape[0]} z slices, want 1 to 2**28 - 1 (the grid)")
     _check_cuda_shape(shape[1:], what)
 
 
@@ -267,10 +408,11 @@ def fwd_yx(volume: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tenso
     _check_slices(volume.shape, "fwd_yx")
     lib = _lib()
     z, y, x = volume.shape
+    plan = slice_plan(volume.shape)
     with torch.cuda.device(volume.device):
         rc = lib.fwd_yx(_build.ptr(volume), int(volume.dtype == torch.uint16),
-                        _build.ptr(out), z, y, x, _build.stream_of(volume))
-    _build.check(rc, lib, "fwd_yx")
+                        _build.ptr(out), *plan.args(), z, y, x, _build.stream_of(volume))
+    _build.check(rc, lib, f"fwd_yx ({plan.describe()})")
     _build.count_launch("fwd_yx")
     return out
 
@@ -384,10 +526,11 @@ def inv_yx(spectrum: torch.Tensor, out: torch.Tensor | None = None) -> torch.Ten
         return inv_yx_plain(spectrum, out)
     _check_slices(shape, "inv_yx")
     lib = _lib()
+    plan = slice_plan(shape)
     with torch.cuda.device(spectrum.device):
-        rc = lib.inv_yx(_build.ptr(spectrum), _build.ptr(out), *shape,
+        rc = lib.inv_yx(_build.ptr(spectrum), _build.ptr(out), *plan.args(), *shape,
                         _build.stream_of(spectrum))
-    _build.check(rc, lib, "inv_yx")
+    _build.check(rc, lib, f"inv_yx ({plan.describe()})")
     _build.count_launch("inv_yx")
     return out
 

@@ -84,12 +84,19 @@ pixel 0.325 um, z step 2.0 um, NA 1.2 detection and 0.52 illumination, n
 1.3, reg 1e-3), birefringence at the default swing 0.1, T = 4:
 
 13. holds A, B, Bc (the complex Hermitian filter) and C against their
-    plain versions at that shape and at prime and odd lengths ((43, 97,
-    121), (9, 10, 17)), which run as Bluestein lines, A's uint16 input
-    bit-exact; Bx at custom_padding's next_fast_len shape of the PCC crop
-    in all three normalizations; one custom_padding PCC of two timelapse
-    volumes (the drift exact, equal to the plain route); each kernel's
-    time at those shapes beside its bound and rfft2 / irfft2;
+    plain versions at that shape, at prime and odd lengths ((43, 97,
+    121), (9, 10, 17)), which run as Bluestein lines, and at lengths that
+    take the mixed-radix passes' radices 3 and 5 ((4, 96, 160)) and 7 and
+    11 ((77, 1232, 308), and X = 484), A's uint16 input bit-exact; Bx at
+    custom_padding's next_fast_len shape of the PCC crop in all three
+    normalizations; one custom_padding PCC of two timelapse volumes (the
+    drift exact, equal to the plain route); each kernel's time at those
+    shapes beside its bound and rfft2 / irfft2; then (13b) A and C at
+    every shape a path gives them (SLICE_SHAPES): ptxas' registers, stack
+    and spills of both kernels, each shape's plan (radices, cluster, grid,
+    shared memory), the error against the plain version, the time beside
+    the plain version and rfft2 / irfft2, and a sweep of the cluster size
+    (1, 2, 4, 8; A and C bit-equal across it);
 14. runs compute-tf (``compute_transfer_function_arrays``) for phase and
     fluorescence, each transfer function within TF_TOL of the same
     formulas in float64 numpy;
@@ -153,6 +160,7 @@ package is missing, or any check fails. Imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -286,8 +294,21 @@ BF_SETTINGS = {
         "apply_inverse": {"regularization_strength": 0.001},
     },
 }
-# Small shapes with prime and odd lengths for the any-length kernels.
+# Small shapes with prime and odd lengths for the any-length kernels
+# (Bluestein lines), and shapes whose lines take A and C's mixed-radix
+# passes of radix 3 and 5 (96 = 8x4x3, 160 = 8x4x5) and 7 and 11
+# (custom_padding's 1232 = 16x11x7, 308 = 4x11x7).
 ODD_SHAPES = ((43, 97, 121), (9, 10, 17))
+RADIX_SHAPES = ((4, 96, 160), (77, 1232, 308))
+# Phase 13b: kernels A and C at every shape a path gives them: the headline
+# volume, its z-slab over SHARD_N shards, the deskewed FOV (reconstruction),
+# the PCC crop and custom_padding's next_fast_len shape of the crop; the
+# launches of the last two come from estimate-stabilization and the
+# custom_padding PCC.
+SLICE_SHAPES = {"headline": (256, 256, 1024), "shard": (64, 256, 1024),
+                "reconstruction": (86, 1024, 484), "PCC crop": (64, 1024, 256),
+                "custom_padding": (77, 1232, 308)}
+CLUSTER_SWEEP = (1, 2, 4, 8)
 # The rendered polarization states: counts per unit transmittance, the
 # retardance range (rad) and the weak phase object's amplitude (rad).
 RECON_COUNTS, RETARDANCE_RANGE, PHASE_AMPLITUDE = 15000.0, (0.3, 1.2), 0.2
@@ -1249,7 +1270,7 @@ def any_length_phase(dev: torch.device, records: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(13)
     # The deskewed FOV last: its tensors stay for the timings below.
-    for shape in ODD_SHAPES + (LAPSE_SHAPE,):
+    for shape in ODD_SHAPES + RADIX_SHAPES + (LAPSE_SHAPE,):
         half = kfft.half_spectrum_shape(shape)
         vol = torch.rand(shape, generator=gen, device=dev)
         spec = kfft.fwd_yx(vol)
@@ -1323,6 +1344,10 @@ def any_length_phase(dev: torch.device, records: dict) -> None:
     shift = stabilization_settings_from_reference(
         PCC_SETTINGS)["phase_cross_corr_settings"]["maximum_shift"]
     pad_shape = tuple(int(next_fast_len(int(n * shift))) for n in crop.shape[1:])
+    require(pad_shape == SLICE_SHAPES["custom_padding"]
+            and tuple(crop.shape[1:]) == SLICE_SHAPES["PCC crop"],
+            f"PCC crop {tuple(crop.shape[1:])}, custom_padding {pad_shape}: SLICE_SHAPES "
+            "is out of date")
     ref_spec = kfft.fwd_yx(kpcc.match_shape(crop[0], pad_shape).contiguous())
     mov_spec = kfft.fwd_yx(kpcc.match_shape(crop[1], pad_shape).contiguous())
     out = torch.empty_like(mov_spec)
@@ -1367,6 +1392,100 @@ def any_length_phase(dev: torch.device, records: dict) -> None:
           f"the drift, equal to the plain route; {pcc_ms:.3f} ms (host clock); "
           f"launches {launches}")
     del crop
+    torch.cuda.empty_cache()
+
+
+def ptxas_lines(names) -> list[str]:
+    """ptxas' registers, stack frame and spills of the fft.cu kernels whose
+    mangled names contain one of ``names``, from the build's log."""
+    from biahub_tpu_torch.kernels import _build
+
+    log = _build.build_log("fft").splitlines()
+    out = []
+    for i, line in enumerate(log):
+        for name in names:
+            if "Compiling entry function" in line and name in line:
+                props = [part.replace("ptxas info    :", "").strip() for part in log[i + 1:i + 4]
+                         if "stack frame" in part or "Used" in part]
+                out.append(f"{name}: " + "; ".join(props))
+    return out
+
+
+def launch_planned(entry: str, plan, src: torch.Tensor, out: torch.Tensor, shape) -> None:
+    """Kernel A's or C's C entry with ``plan`` in place of the card's (the
+    cluster sweep); counts no launch."""
+    from biahub_tpu_torch.kernels import _build
+    from biahub_tpu_torch.kernels import fft as kfft
+
+    lib = kfft._lib()
+    head = (_build.ptr(src), int(src.dtype == torch.uint16)) if entry == "fwd_yx" else (
+        _build.ptr(src),)
+    rc = getattr(lib, entry)(*head, _build.ptr(out), *plan.args(), *shape,
+                             _build.stream_of(src))
+    _build.check(rc, lib, f"{entry} ({plan.describe()})")
+
+
+def slice_phase(dev: torch.device, records: dict) -> None:
+    """Phase 13b: kernels A and C at every shape a path gives them
+    (SLICE_SHAPES): ptxas' figures, each shape's plan, the error against
+    the plain version, the time beside the plain version and rfft2 /
+    irfft2, and the cluster sweep; adds the records of A and C at the PCC
+    crop and at custom_padding's shape."""
+    from biahub_tpu_torch.kernels import fft as kfft
+
+    for line in ptxas_lines(("fwd_yx_kernel", "inv_yx_kernel")):
+        print(f"ptxas {line}")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    runs = {"PCC crop": records["z_cross"]["runs"],
+            "custom_padding": records["z_cross_padding"]["runs"]}
+    for name, shape in SLICE_SHAPES.items():
+        z, y, x = shape
+        xh = x // 2 + 1
+        plan = kfft.slice_plan(shape)
+        vol = torch.rand(shape, generator=gen, device=dev)
+        spec = kfft.fwd_yx(vol)
+        err_a = rel_err(spec, kfft.fwd_yx_plain(vol))
+        work, dec = torch.empty_like(spec), torch.empty_like(vol)
+        out_c = kfft.inv_yx(spec.clone(), out=torch.empty_like(vol))
+        err_c = rel_err(out_c, kfft.inv_yx_plain(spec.clone(), out=torch.empty_like(vol)))
+        for kernel, (_, e) in (("A", err_a), ("C", err_c)):
+            require(e <= FFT_TOL, f"kernel {kernel} at {shape}: rel err {e:.3g} > {FFT_TOL}")
+        bms, bby = bound(z * y * x * 4 + z * y * xh * 8,
+                         z * y * 2.5 * x * math.log2(x) + z * xh * 5 * y * math.log2(y))
+        rec = {}
+        for kernel, entry, err, run, plain_run, lib_run, setup in (
+                ("A", "fwd_yx", err_a, lambda: kfft.fwd_yx(vol, out=work),
+                 lambda: kfft.fwd_yx_plain(vol), lambda: torch.fft.rfft2(vol), None),
+                ("C", "inv_yx", err_c, lambda: kfft.inv_yx(work, out=dec),
+                 lambda: kfft.inv_yx_plain(work, out=dec),
+                 lambda: torch.fft.irfft2(spec, s=(y, x)), lambda: work.copy_(spec))):
+            rec[kernel] = dict(
+                replaces="biahub_tpu/kernels/pallas_fft.py:" + ("286" if kernel == "A" else "530"),
+                source="biahub_tpu_torch/csrc/fft.cu", counter=entry, max_abs_err=err[0],
+                ms=time_ms(run, setup), plain_ms=time_ms(plain_run, setup),
+                bound_ms=bms, bound_by=bby, library_ms=time_ms(lib_run))
+            if name in runs:
+                records[f"{entry}_{name.replace(' ', '_').lower()}"] = dict(
+                    rec[kernel], runs=runs[name])
+        print(f"A and C at the {name} shape {shape}: plan {plan.describe()}; rel err A "
+              f"{err_a[1]:.3g}, C {err_c[1]:.3g} (tol {FFT_TOL}); A " + describe(rec["A"])
+              + " (library: rfft2); C " + describe(rec["C"]) + " (library: irfft2)")
+        sweep = []
+        for c in CLUSTER_SWEEP:
+            p = dataclasses.replace(plan, cluster=c, grid=z * c)
+            got_a, got_c = torch.empty_like(spec), torch.empty_like(vol)
+            launch_planned("fwd_yx", p, vol, got_a, shape)
+            launch_planned("inv_yx", p, spec.clone(), got_c, shape)
+            require(torch.equal(torch.view_as_real(got_a), torch.view_as_real(spec))
+                    and torch.equal(got_c, out_c), f"A or C at {shape}: cluster {c} is not "
+                    f"bit-equal to cluster {plan.cluster}")
+            a_ms = time_ms(lambda: launch_planned("fwd_yx", p, vol, work, shape))
+            c_ms = time_ms(lambda: launch_planned("inv_yx", p, work, dec, shape),
+                           lambda: work.copy_(spec))
+            sweep.append(f"{c}: A {a_ms:.4f}, C {c_ms:.4f}")
+        print(f"  cluster sweep at {shape} (ms; the plan takes {plan.cluster}, every size "
+              "bit-equal): " + "; ".join(sweep))
+        del vol, spec, work, dec, out_c
     torch.cuda.empty_cache()
 
 
@@ -2315,6 +2434,7 @@ def main() -> int:
     vjp_phase(dev, records)
     registration_phase(dev, records)
     any_length_phase(dev, records)
+    slice_phase(dev, records)
     tfs = compute_tf_phase(dev)
     reconstruction_phase(dev, records, tfs)
     del tfs
