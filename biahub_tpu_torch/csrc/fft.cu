@@ -7,7 +7,7 @@
 //                          _run_pass_a): rfft along X, then DFT along Y, per
 //                          z slice (a thread-block cluster each); float32 or
 //                          uint16 in.
-//   B  z_filter_kernel  <- _pass_b_kernel (pallas_fft.py:442, launched from
+//   B  z_line_kernel    <- _pass_b_kernel (pallas_fft.py:442, launched from
 //                          _run_fourier_pipeline): DFT along Z, times a
 //                          filter, inverse DFT along Z, in place. Two
 //                          modes: the prepared real Tikhonov filter
@@ -25,8 +25,8 @@
 //                          (none / magnitude / classic, _cross_power
 //                          :1317), inverse DFT along Z. A, A, Bx, C is the
 //                          phase cross-correlation of pcc_corr_pallas.
-//   K  z_filter_kernel  <- _fwd_z_filter_kernel (pallas_spectral.py:198,
-//      <kInverse false>    launched at :767): B's forward half, DFT along Z
+//   K  z_fwd_filter_kernel <- _fwd_z_filter_kernel (pallas_spectral.py:198,
+//                          launched at :767): B's forward half, DFT along Z
 //                          then the filter (real, or complex with n_filt ==
 //                          2), stored in place with no inverse.
 //   L  y_inv_kernel     <- _inv_y_pad_kernel (pallas_spectral.py:249,
@@ -41,22 +41,22 @@
 // pass is memory-bound and a float32 matmul DFT would cost ~5e11 flop per
 // volume, so each line is an FFT in shared memory instead (O(N log N), full
 // float32, no tensor cores: TF32 keeps 10 mantissa bits and could not meet
-// the reference's 1e-5): mixed-radix passes in registers in A and C
-// (fft_radix.cuh), radix-2 stages in the others. None of the TPU's layout
+// the reference's 1e-5): mixed-radix passes in registers in A, B, Bc and C
+// (fft_radix.cuh), radix-2 stages in Bx, K and L. None of the TPU's layout
 // devices is carried over: no Nyquist peel (the kx = X/2 bin is simply the
 // last column, and the ragged last kx tile is masked), no radix splits
 // across kernels, no slab or yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X), L by 1/Y;
 // K does not scale. The radix-2 and Bluestein line code is fft_lines.cuh,
 // shared with spectral.cu; A and C's mixed-radix passes are fft_radix.cuh.
 //
-// Lines of any length. In B, Bc, Bx, K and L a power-of-two axis is one
-// radix-2 FFT, and their kernels are the kAny = false instantiations, whose
-// code and shared-memory layout are those of the power-of-two-only
-// kernels. In A and C every 2,3,5,7,11-smooth axis (each length the paths
-// meet, the odd test shapes' primes apart) runs the mixed-radix passes.
-// Any other length n (in B, Bc and L the deskewed mantis FOV's 86 and 484)
-// runs Bluestein's chirp convolution on the radix-2 machinery, in the kAny
-// = true instantiations (and in A and C's Bluestein branch): with w_k =
+// Lines of any length. In Bx, K and L a power-of-two axis is one radix-2
+// FFT, and their kernels are the kAny = false instantiations, whose code
+// and shared-memory layout are those of the power-of-two-only kernels. In
+// A, B, Bc and C every 2,3,5,7,11-smooth axis (each length the paths meet,
+// the odd test shapes' primes apart) runs the mixed-radix passes. Any
+// other length n runs Bluestein's chirp convolution on the radix-2 machinery, in the kAny =
+// true instantiations (and in A and C's Bluestein branch; B and Bc run it
+// on the mixed-radix passes, see z_line_kernel): with w_k =
 // exp(-i pi k^2 / n), exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line
 // is multiplied by w, circularly convolved with conj(w) through two radix-2
 // FFTs of M >= 2n - 1 points and multiplied by w again. The chirp's phase is reduced in
@@ -66,8 +66,8 @@
 // prime; Bluestein is O(M log M) for every n at twice the shared memory of
 // a line, so a row or column tile holds half the lines. Limits (shared
 // memory): powers of two up to 8192, other lengths up to 4096 (M <= 8192)
-// for A, B and C; Bx, in double, Z up to 2048 for powers of two and 1024
-// otherwise.
+// for A, B, Bc, C, K and L; Bx, in double, Z up to 2048 for powers of two
+// and 1024 otherwise.
 //
 // Bounds on one H100 SXM (3.35 TB/s; each input read once, each output
 // written once), all bytes-bound:
@@ -89,9 +89,17 @@
 //   L  269.0 MB spectrum in and out = 538.0 MB, 0.161 ms
 // What the design does about them: every global access is a row segment
 // of consecutive elements read or written by one warp, and every FFT
-// stage stays in shared memory. B reads and writes the spectrum once. A
-// Bluestein line does three times a power-of-two line's FFT work on twice
-// its length.
+// stage stays in shared memory or registers. B reads and writes the
+// spectrum once. A Bluestein line does twice a smooth line's FFT work on
+// about twice its length (B, Bc: four transforms of M for two of n).
+//
+// B and Bc were, like A and C before them, bound by shared memory and
+// barriers: 8 + 8 radix-2 stages over a tile at Z = 256, each a block
+// barrier, and three 256-point FFTs a way for Z = 86. Now (z_line_kernel)
+// a tile runs fft_radix.cuh's passes (16 x 16 at Z = 256: two barriers
+// each way; Bluestein on 176 = 16 x 11 at Z = 86), its first pass reading
+// the tile cp.async staged with its filter, the filter fused into the last
+// forward pass, the last inverse pass storing to device memory.
 //
 // A and C. On this card they were bound by their instructions and
 // barriers, not by HBM: a radix-2 line in shared memory is log2 n passes
@@ -120,7 +128,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <type_traits>
 
+#include "cp_async.cuh"
 #include "fft_lines.cuh"
 #include "fft_radix.cuh"
 
@@ -444,19 +454,259 @@ inv_yx_kernel(float2* __restrict__ spec, float* __restrict__ out, int Y, int X, 
   }
 }
 
-// Kernel B (kComplex false) and Bc (kComplex true). One block per (ky,
-// tile of tk kx columns): the tile's Z-lines are loaded once, transformed
-// forward (a power-of-two Z leaves frequency kz at position brev(kz)),
-// multiplied there by the filter, transformed back with 1/Z, and stored in
-// place. B's filter is the prepared real float32 Tikhonov filter; Bc's is
-// complex64, the product (hr fr - hi fi, hr fi + hi fr) of
-// pallas_fft.py:479-480. Kernel K (kInverse false, either filter) stops
-// after the filter and stores the filtered spectrum, kz in natural order,
-// with no inverse and no 1/Z: the spectral deskew's pass B'1.
-template <bool kAny, bool kComplex, bool kInverse = true>
+// Kernels B (kComplex false) and Bc (kComplex true): the Z-lines of the
+// (Z, lines) spectrum plane, lines = Y * xh, one line per (ky, kx), at stride
+// `lines`. A tile is tk consecutive lines (consecutive (ky, kx) columns, so
+// a z row of a tile is one run of tk * 8 bytes and only the plane's last tile
+// is ragged: no tile is spent on the lone kx = X/2 column). A block walks
+// tiles blockIdx.x, + gridDim.x, ...: cp.async stages a tile and its filter
+// in shared memory (with two stages the next tile's copies are in flight
+// while this one runs), then fft_radix.cuh's register-resident Stockham
+// passes run in column layout: the forward transform, its first pass
+// reading the stage; the filter applied by its last pass's stores (natural
+// order: point kz times filt[kz]); the inverse transform, whose last pass
+// stores to device memory times 1/Z. At Z = 256 = 16 x 16 that is two
+// passes each way, one barrier a pass. A Z with a prime factor above 11
+// runs Bluestein on the passes at M = kernels/fft.py z_line_length(Z)
+// points (176 = 16 x 11 for Z = 86): the line times the chirp w, FFT, times
+// K (the spectrum of conj(w) wrapped to M, over M), inverse FFT; the
+// forward's closing w and the inverse's opening conj(w) cancel (|w| = 1),
+// so the filter is applied alone; FFT, times conj(K), inverse FFT, times
+// conj(w) / Z (kBlue: a Bluestein line's own instantiation, so a smooth
+// line's kernel carries none of its code). The twiddles, chirp and K come
+// from the wrapper (kernels/fft.py z_line_table, float64 rounded once). A
+// line's arithmetic
+// depends on Z alone, never on the tile, block or grid, so the sharded
+// route's per-shard B is bit-equal to the unsharded one.
+struct ZPlan {
+  long long code;  // radix plan of the line's m points
+  int m, log2tk, stages, fstage, tab_smem;
+};
+
+// Entries of B's table read from shared memory (s) where the block holds
+// them, else from device memory (g): a uniform branch, so each load is a
+// shared or a global one, never generic.
+struct ZTab {
+  const float2* s;
+  const float2* g;
+  __device__ __forceinline__ float2 operator[](int i) const { return s != nullptr ? s[i] : g[i]; }
+};
+
+// Point e < t.n of line l of a stage tile times chirp[e]; zeros beyond n
+// (Bluestein's first pass).
+struct ChirpStage {
+  const float2* p;
+  Tile t;
+  ZTab chirp;
+  __device__ __forceinline__ float2 ld(int l, int e) const {
+    return e < t.n ? cmul(p[tile_at(t, l, e)], chirp[e]) : make_float2(0.f, 0.f);
+  }
+};
+
+// A pass's stores into a tile times mul[e] (conjugated with conj):
+// Bluestein's K after the FFT.
+struct MulLines {
+  float2* p;
+  Tile t;
+  ZTab mul;
+  bool conj;
+  __device__ __forceinline__ void st(int l, int e, float2 v) const {
+    p[tile_at(t, l, e)] = cmul(v, conj_if(mul[e], conj));
+  }
+};
+
+// The filter's stores into a tile: point e < n of line l times the
+// filter, from its stage (point e of line l at e * t.lines + l) or, with
+// fs null, from device memory (fg[e * gstride + l]); zeros for e >= n and
+// for lines past the plane's end.
+template <bool kComplex>
+struct FilterLines {
+  using F = typename std::conditional<kComplex, float2, float>::type;
+  float2* p;
+  Tile t;
+  int n, valid;
+  const F* fs;
+  const F* fg;
+  size_t gstride;
+  __device__ __forceinline__ void st(int l, int e, float2 v) const {
+    float2 r = make_float2(0.f, 0.f);
+    if (e < n && l < valid) {
+      const F h = fs != nullptr ? fs[(e << t.log2lines) + l] : fg[e * gstride + l];
+      if constexpr (kComplex) {
+        r = make_float2(v.x * h.x - v.y * h.y, v.x * h.y + v.y * h.x);
+      } else {
+        r = make_float2(v.x * h, v.y * h);
+      }
+    }
+    p[tile_at(t, l, e)] = r;
+  }
+};
+
+// The last pass's stores to device memory: point e < n of line l < valid,
+// times conj(chirp[e]) (Bluestein) and scale.
+struct ZLinesOut {
+  float2* spec;
+  size_t zstride;
+  int n, valid;
+  bool blue;
+  ZTab chirp;
+  float scale;
+  __device__ __forceinline__ void st(int l, int e, float2 v) const {
+    if (e < n && l < valid) {
+      if (blue) v = cmul(v, conj_if(chirp[e], true));
+      spec[e * zstride + l] = make_float2(v.x * scale, v.y * scale);
+    }
+  }
+};
+
+// The buffer a plan's last pass writes when its first reads a and the
+// passes between alternate b, a, b, ...
+__device__ __forceinline__ float2* last_buffer(float2* a, float2* b, int passes) {
+  return (passes & 1) ? b : a;
+}
+
+// The plan's passes over a tile: the first reads src (over buffer a), the
+// ones between alternate between b and a, the last writes dst (into
+// last_buffer(a, b, passes) when dst is a tile). A barrier after each pass.
+template <bool kInv, class Src, class Dst>
+__device__ __forceinline__ void line_passes(Src src, Dst dst, float2* a, float2* b, const Tile t,
+                                            const RadixPlan pl, const float2* tw) {
+  if (pl.passes == 1) {
+    radix_pass_r<kInv>(pl.radix(0), src, dst, t, 1, tw);
+    __syncthreads();
+    return;
+  }
+  radix_pass_r<kInv>(pl.radix(0), src, SmemLines{b, t}, t, 1, tw);
+  __syncthreads();
+  int ns = pl.radix(0);
+  for (int p = 1; p + 1 < pl.passes; ++p) {
+    float2* from = (p & 1) ? b : a;
+    radix_pass_r<kInv>(pl.radix(p), SmemLines{from, t}, SmemLines{(p & 1) ? a : b, t}, t, ns,
+                       tw);
+    __syncthreads();
+    ns *= pl.radix(p);
+  }
+  const int p = pl.passes - 1;
+  radix_pass_r<kInv>(pl.radix(p), SmemLines{(p & 1) ? b : a, t}, dst, t, ns, tw);
+  __syncthreads();
+}
+
+__device__ __forceinline__ void cp_async_el(float2* dst, const float2* src, bool ok) {
+  cp_async8(dst, src, ok);
+}
+
+__device__ __forceinline__ void cp_async_el(float* dst, const float* src, bool ok) {
+  cp_async4(dst, src, ok);
+}
+
+// Tile c0's Z-lines into the stage dst (column layout st) and, with
+// fstage, its filter into fdst (point e of line l at e * tk + l), as one
+// commit group; lines past the plane's end read as zeros.
+template <class F>
+__device__ __forceinline__ void fetch_tile(float2* dst, F* fdst, const float2* spec, const F* filt,
+                                           int c0, int lines, size_t zstride, const Tile st,
+                                           bool fstage) {
+  for (int i = threadIdx.x; i < (st.n << st.log2lines); i += blockDim.x) {
+    const int l = i & (st.lines - 1), e = i >> st.log2lines;
+    const bool ok = c0 + l < lines;
+    const size_t g = ok ? e * zstride + c0 + l : 0;
+    cp_async8(dst + tile_at(st, l, e), spec + g, ok);
+    if (fstage) cp_async_el(fdst + i, filt + g, ok);
+  }
+  cp_async_commit();
+}
+
+template <bool kComplex, bool kBlue>
+__global__ void __launch_bounds__(256, 2)
+z_line_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
+              const float2* __restrict__ table, int Z, int lines, ZPlan zp) {
+  using F = typename FilterLines<kComplex>::F;
+  extern __shared__ float2 smem[];
+  const RadixPlan pl = decode_plan(zp.code);
+  const int n = Z, m = zp.m, tk = 1 << zp.log2tk;
+  constexpr bool blue = kBlue;  // m != n
+  // the twiddles always in shared memory; a Bluestein line's chirp and K
+  // there too with tab_smem, else read from device memory
+  const int tab_len = m - 1 + (blue && zp.tab_smem ? n + m : 0);
+  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) smem[i] = table[i];
+  const float2* tw = smem;
+  const ZTab chirp = zp.tab_smem ? ZTab{smem + m - 1, nullptr} : ZTab{nullptr, table + m - 1};
+  const ZTab kern{chirp.s != nullptr ? chirp.s + n : nullptr,
+                  chirp.g != nullptr ? chirp.g + n : nullptr};
+  // stages[zp.stages], the work tile, the filter's stages
+  float2* s = smem + tab_len;
+  const int buf = padded(tk * m);
+  float2* work = s + zp.stages * buf;
+  F* fstage = reinterpret_cast<F*>(work + buf);
+  const Tile st{tk, n, zp.log2tk}, wt{tk, m, zp.log2tk};
+  const size_t zstride = static_cast<size_t>(lines);
+  const int ntiles = (lines + tk - 1) >> zp.log2tk;
+  const F* gfilt = static_cast<const F*>(filt);
+  const bool fst = zp.fstage != 0;
+
+  __syncthreads();
+  int slot = 0;
+  int tile = blockIdx.x;
+  if (tile < ntiles) fetch_tile(s, fstage, spec, gfilt, tile << zp.log2tk, lines, zstride, st, fst);
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (zp.stages == 2) {
+      if (next < ntiles) {
+        fetch_tile(s + (slot ^ 1) * buf, fstage + (slot ^ 1) * (tk * n), spec, gfilt,
+                   next << zp.log2tk, lines, zstride, st, fst);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int c0 = tile << zp.log2tk, valid = min(tk, lines - c0);
+    float2* cur = s + slot * buf;
+    const F* fs = fst ? fstage + slot * (tk * n) : nullptr;
+    const ZLinesOut out{spec + c0, zstride, n, valid, blue, chirp, 1.0f / static_cast<float>(Z)};
+    if constexpr (!blue) {
+      float2* fb = last_buffer(cur, work, pl.passes);
+      line_passes<false>(SmemLines{cur, wt},
+                         FilterLines<kComplex>{fb, wt, n, valid, fs, gfilt + c0, zstride}, cur,
+                         work, wt, pl, tw);
+      line_passes<true>(SmemLines{fb, wt}, out, fb, fb == cur ? work : cur, wt, pl, tw);
+    } else {
+      float2* k1 = last_buffer(cur, work, pl.passes);
+      float2* o1 = k1 == cur ? work : cur;
+      line_passes<false>(ChirpStage{cur, st, chirp}, MulLines{k1, wt, kern, false}, cur, work,
+                         wt, pl, tw);
+      float2* fb = last_buffer(k1, o1, pl.passes);
+      float2* o2 = fb == k1 ? o1 : k1;
+      line_passes<true>(SmemLines{k1, wt},
+                        FilterLines<kComplex>{fb, wt, n, valid, fs, gfilt + c0, zstride}, k1, o1,
+                        wt, pl, tw);
+      float2* k2 = last_buffer(fb, o2, pl.passes);
+      float2* o3 = k2 == fb ? o2 : fb;
+      line_passes<false>(SmemLines{fb, wt}, MulLines{k2, wt, kern, true}, fb, o2, wt, pl, tw);
+      line_passes<true>(SmemLines{k2, wt}, out, k2, o3, wt, pl, tw);
+    }
+    if (zp.stages == 2) {
+      slot ^= 1;
+    } else if (next < ntiles) {
+      fetch_tile(s, fstage, spec, gfilt, next << zp.log2tk, lines, zstride, st, fst);
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Kernel K (z_fwd_filter_kernel): the spectral deskew's pass B'1. One block
+// per (ky, tile of tk kx columns): the tile's Z-lines are loaded once,
+// transformed forward (a power-of-two Z leaves frequency kz at position
+// brev(kz)), multiplied there by the filter (the prepared real float32
+// Tikhonov filter, or complex64 with kComplex: (hr fr - hi fi, hr fi + hi
+// fr), pallas_fft.py:479-480), and stored in place, kz in natural order,
+// with no inverse and no scaling.
+template <bool kAny, bool kComplex>
 __global__ void __launch_bounds__(kThreads)
-z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
-                int Z, int Y, int xh, int log2tk, int tab) {
+z_fwd_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
+                    int Z, int Y, int xh, int log2tk, int tab) {
   extern __shared__ float2 smem[];
   const int tk = 1 << log2tk;
   Axis<float2> az;
@@ -480,31 +730,15 @@ z_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
   lines_dif<kAny>(buf, az, tk, log2tk, 1, tk, false, true);
   for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
     const int j = t >> log2tk, c = t & (tk - 1);
+    if (k0 + c >= xh) continue;
     const size_t f = at<kAny>(az, j) * zstride + base + c;
     const float2 h = buf[t];
-    float2 v;
     if constexpr (kComplex) {
-      const float2 fc = k0 + c < xh ? static_cast<const float2*>(filt)[f]
-                                    : make_float2(0.f, 0.f);
-      v = make_float2(h.x * fc.x - h.y * fc.y, h.x * fc.y + h.y * fc.x);
+      const float2 fc = static_cast<const float2*>(filt)[f];
+      spec[f] = make_float2(h.x * fc.x - h.y * fc.y, h.x * fc.y + h.y * fc.x);
     } else {
-      const float fr = k0 + c < xh ? static_cast<const float*>(filt)[f] : 0.f;
-      v = make_float2(h.x * fr, h.y * fr);
-    }
-    if constexpr (kInverse) {
-      buf[t] = v;
-    } else if (k0 + c < xh) {
-      spec[f] = v;  // the filter's own index: frequency kz, natural order
-    }
-  }
-  if constexpr (!kInverse) return;
-  __syncthreads();
-  lines_dit<kAny>(buf, az, tk, log2tk, 1, tk, true, true);
-  const float inv_z = 1.0f / static_cast<float>(Z);
-  for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
-    const int z = t >> log2tk, c = t & (tk - 1);
-    if (k0 + c < xh) {
-      spec[z * zstride + base + c] = make_float2(buf[t].x * inv_z, buf[t].y * inv_z);
+      const float fr = static_cast<const float*>(filt)[f];
+      spec[f] = make_float2(h.x * fr, h.y * fr);
     }
   }
 }
@@ -621,19 +855,52 @@ int cross_tile_log2(int m) {
   return l;
 }
 
-template <bool kComplex, bool kInverse = true>
-int launch_z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
+template <bool kComplex>
+int launch_z_fwd_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
   const bool any = !is_pow2(Z);
   const int mz = 1 << radix_log2(Z), ltk = tile_log2(mz);
   const int tab = static_cast<int>(any ? table_elems(Z) : Z / 2);
   const size_t smem = (tab + (static_cast<size_t>(mz) << ltk)) * sizeof(float2);
-  auto kernel = any ? z_filter_kernel<true, kComplex, kInverse>
-                    : z_filter_kernel<false, kComplex, kInverse>;
+  auto kernel = any ? z_fwd_filter_kernel<true, kComplex> : z_fwd_filter_kernel<false, kComplex>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
   kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float2*>(spec), filt, Z, Y, xh, ltk, tab);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of z_line_kernel's shared memory for a plan (kernels/fft.py
+// _z_plan_smem): the twiddles (and, with tab_smem, a Bluestein line's
+// chirp and K), the stage tiles and the work tile, the filter's stages.
+size_t z_line_smem(const ZPlan& zp, int Z, bool complex_filter) {
+  const int tk = 1 << zp.log2tk;
+  const size_t tab = zp.m - 1 + (zp.m != Z && zp.tab_smem ? Z + zp.m : 0);
+  const size_t filt = zp.fstage ? static_cast<size_t>(zp.stages) * tk * Z *
+                                      (complex_filter ? 8 : 4) : 0;
+  return 8 * (tab + (zp.stages + 1) * static_cast<size_t>(padded(tk * zp.m))) + filt;
+}
+
+// B and Bc's launch with the wrapper's plan (kernels/fft.py z_plan): a
+// plan whose radices do not multiply to m, whose m is neither Z nor at
+// least 2Z - 1, or whose shared memory does not cover its layout is
+// refused.
+template <bool kComplex>
+int launch_z_line(void* spec, const void* filt, const void* table, long long code, int m,
+                  int log2tk, int threads, int stages, int fstage, int tab_smem, int grid,
+                  int smem, int Z, int lines, void* stream) {
+  const ZPlan zp{code, m, log2tk, stages, fstage, tab_smem};
+  const RadixPlan pl = decode_plan(code);
+  if (pl.passes < 1 || pl.n != m || (m != Z && m < 2 * Z - 1) || log2tk < 0 || log2tk > 5 ||
+      stages < 1 || stages > 2 || threads < 32 || threads > 256 || grid < 1 || lines < 1 ||
+      z_line_smem(zp, Z, kComplex) > static_cast<size_t>(smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = m != Z ? z_line_kernel<kComplex, true> : z_line_kernel<kComplex, false>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<float2*>(spec), filt, static_cast<const float2*>(table), Z, lines, zp);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -708,24 +975,32 @@ int fwd_yx(const void* in, int is_u16, void* out, long long ycode, long long xco
                        static_cast<float2*>(out), Y, X);
 }
 
-// spec: (Z, Y, xh) complex64, filtered in place; filt: (Z, Y, xh) float32.
-// Z in [2, 8192] if a power of two, else [2, 4096]; Y <= 65535.
-int z_filter(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
-  return launch_z_filter<false>(spec, filt, Z, Y, xh, stream);
+// spec: (Z, Y, xh) complex64, filtered in place; filt: (Z, Y, xh) float32;
+// table: kernels/fft.py z_line_table(Z); the plan (code .. smem) is
+// z_plan(Z)'s, lines = Y * xh. Z in [2, 8192] if a power of two, else [2,
+// 4096].
+int z_filter(void* spec, const void* filt, const void* table, long long code, int m,
+             int log2tk, int threads, int stages, int fstage, int tab_smem, int grid, int smem,
+             int Z, int lines, void* stream) {
+  return launch_z_line<false>(spec, filt, table, code, m, log2tk, threads, stages, fstage,
+                              tab_smem, grid, smem, Z, lines, stream);
 }
 
-// As z_filter with a complex64 (Z, Y, xh) filter.
-int z_filter_complex(void* spec, const void* filt, int Z, int Y, int xh, void* stream) {
-  return launch_z_filter<true>(spec, filt, Z, Y, xh, stream);
+// As z_filter with a complex64 (Z, Y, xh) filter and z_plan(Z, True).
+int z_filter_complex(void* spec, const void* filt, const void* table, long long code, int m,
+                     int log2tk, int threads, int stages, int fstage, int tab_smem, int grid,
+                     int smem, int Z, int lines, void* stream) {
+  return launch_z_line<true>(spec, filt, table, code, m, log2tk, threads, stages, fstage,
+                             tab_smem, grid, smem, Z, lines, stream);
 }
 
 // Kernel K: spec (Z, Y, xh) complex64 = fft(spec, Z) * filt in place, no
-// inverse; filt (Z, Y, xh) float32 (is_complex = 0) or complex64 (1). Z as
-// for z_filter.
+// inverse; filt (Z, Y, xh) float32 (is_complex = 0) or complex64 (1). Z in
+// [2, 8192] if a power of two, else [2, 4096]; Y <= 65535.
 int z_fwd_filter(void* spec, const void* filt, int is_complex, int Z, int Y, int xh,
                  void* stream) {
-  return is_complex ? launch_z_filter<true, false>(spec, filt, Z, Y, xh, stream)
-                    : launch_z_filter<false, false>(spec, filt, Z, Y, xh, stream);
+  return is_complex ? launch_z_fwd_filter<true>(spec, filt, Z, Y, xh, stream)
+                    : launch_z_fwd_filter<false>(spec, filt, Z, Y, xh, stream);
 }
 
 // Kernel L: spec (Z, Y, xh) complex64 = ifft(spec, Y) in place (with 1/Y).

@@ -59,6 +59,7 @@
 
 #include <algorithm>
 
+#include "cp_async.cuh"
 #include "fft_lines.cuh"
 
 namespace {
@@ -74,18 +75,6 @@ constexpr size_t kSmemMax = 227 * 1024;        // dynamic shared memory of a blo
 // Elements of one stage buffer: kKc rows of kChunk S values, kKc S values
 // of the last column, kKc rows of tx T values.
 __host__ __device__ constexpr int stage_elems(int tx) { return kKc * (kChunk + 1 + tx); }
-
-// Asynchronous 8-byte copy global -> shared; zero-fills when !valid.
-__device__ __forceinline__ void cp_async8(float2* dst, const float2* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 8 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void cfma(float2& u, float2 s, float2 w) {
   u.x = fmaf(s.x, w.x, u.x);

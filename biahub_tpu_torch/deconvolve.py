@@ -10,9 +10,10 @@ every (position, t, c) volume, on one of two routes:
 - **sharded** (``sharded=True``, the reference's
   ``BIAHUB_TPU_SHARDED_FFT=1``, :148-193): each volume spread over a mesh
   of more than one shard (:func:`~biahub_tpu_torch.parallel.sharded_fft.
-  deconvolve_zyx_sharded`), the units taken in the reference's order and
-  striped over processes (:func:`~biahub_tpu_torch.runtime.executor.
-  stripe_units`).
+  deconvolve_zyx_sharded`) when its shape shards over the mesh (:155-159;
+  else the batched route, as the reference's ``else`` at :204), the units
+  taken in the reference's order and striped over processes
+  (:func:`~biahub_tpu_torch.runtime.executor.stripe_units`).
 
 The OME-Zarr plates (input, output and ``transfer_function.zarr``) wait for
 the port's I/O layer: the transfer function is returned for the caller to
@@ -35,6 +36,7 @@ from biahub_tpu_torch.parallel.sharded_fft import (
     deconvolve_zyx_sharded,
     gather,
     prepare_sharded_filter,
+    sharded_fft_supported,
 )
 from biahub_tpu_torch.runtime.executor import stripe_units
 
@@ -59,8 +61,9 @@ def deconvolve_arrays(
     float32 transfer function the verb writes to ``transfer_function.zarr``.
     ``sharded=True`` shards each volume over ``mesh`` (default: every card,
     :func:`~biahub_tpu_torch.parallel.mesh.get_mesh`); a mesh of one shard
-    takes the batched route and says so on stderr, and a shape that does
-    not shard raises ``ValueError``. In a multi-process run each process
+    takes the batched route and says so on stderr, as does a shape that
+    does not shard over it (:func:`~biahub_tpu_torch.parallel.sharded_fft.
+    sharded_fft_supported`). In a multi-process run each process
     computes its stripe of the units; the others stay zero.
     """
     dev = resolve_device(device)
@@ -79,6 +82,10 @@ def deconvolve_arrays(
         if mesh.size == 1:
             print("deconvolve: a mesh of one shard; each volume takes the batched route",
                   file=sys.stderr)
+            sharded = False
+        elif not sharded_fft_supported((Z, Y, X), mesh.size, mesh.devices[0]):
+            print(f"deconvolve: {(Z, Y, X)} does not shard over {mesh.size} devices; each "
+                  "volume takes the batched route", file=sys.stderr)
             sharded = False
     units = stripe_units([(fov, t, c) for fov in positions for t in range(T)
                           for c in range(C)])

@@ -11,19 +11,82 @@ a batch in one pass, the unaveraged volume never stored. A CPU tensor takes
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from biahub_tpu_torch.kernels import _build
 from biahub_tpu_torch.kernels.deskew import DeskewGeometry, deskew_plain
 
-__all__ = ["deskew"]
+__all__ = ["deskew", "DeskewPlan", "deskew_plan", "scan_windows"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "deskew": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _P],
+    "deskew": [_P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _I, _I, _I, _I, _P],
 }
-_MAX_GRID_Z = 65535
+_MAX_GRID_Y = 65535
+# csrc/deskew.cu: a staged row's floats (a block's strip of 128 yo, padded)
+# and the widest chunk of xo.
+PITCH, MAX_CHUNK = 132, 32
+# A plan's shared memory: two blocks an SM where the windows allow, else one.
+_SMEM_TWO, _SMEM_ONE = 113 * 1024, 227 * 1024
+
+
+def scan_windows(geo: DeskewGeometry, cx: int) -> tuple[np.ndarray, np.ndarray]:
+    """First scan row and row count of kernel D's window for each tilt
+    output zo (every group's clamped zo is one of them) and chunk of ``cx``
+    xo, (Y_in, chunks) each: the floor of the scan coordinate at the chunk's
+    first and last xo, one more row for the second tap, clipped to [0,
+    Z_in); computed in float32 in the kernel's order (csrc/deskew.cu
+    scan_window)."""
+    z_in, y_in, _ = geo.zyx_shape
+    px, pxct, off = (np.float32(v) for v in (geo.px, geo.pxct, geo.offset))
+    xa = np.arange(0, geo.x_out, cx)
+    xb = np.minimum(xa + cx, geo.x_out) - 1
+    zo = np.arange(y_in, dtype=np.float32)[:, None]
+
+    def floor_at(xo):
+        return np.floor((px * xo.astype(np.float32) - pxct * zo) + off).astype(np.int64)
+
+    fa, fb = floor_at(xa), floor_at(xb)
+    lo = np.maximum(np.minimum(fa, fb), 0)
+    hi = np.minimum(np.maximum(fa, fb) + 1, z_in - 1)
+    return lo, np.maximum(hi - lo + 1, 0)
+
+
+class DeskewPlan(NamedTuple):
+    """Kernel D's launch plan: xo a chunk, window rows per tilt row, bytes
+    of shared memory."""
+
+    cx: int
+    rows: int
+    smem: int
+
+
+def _smem(avg: int, rows: int, cx: int) -> int:
+    """csrc/deskew.cu's layout: two stages of avg windows of ``rows`` padded
+    rows of the strip, a zero row, the windows' first rows, and a chunk's
+    avg x cx taps (4 words each)."""
+    return 4 * (2 * avg * rows * PITCH + PITCH + ((2 * avg + 3) & ~3) + 4 * avg * cx)
+
+
+@functools.lru_cache(maxsize=16)
+def deskew_plan(geo: DeskewGeometry) -> DeskewPlan:
+    """The widest chunk of xo (a power of two up to 32) whose two stages of
+    windows let two blocks share an SM (else one), and the window's rows at
+    that chunk (the most any chunk and tilt row need, at least the 2 of one
+    output's taps). The same plan serves both stores."""
+    avg = geo.average_window
+    for budget in (_SMEM_TWO, _SMEM_ONE):
+        for cx in (MAX_CHUNK >> i for i in range(MAX_CHUNK.bit_length())):
+            rows = max(2, int(scan_windows(geo, cx)[1].max()))
+            smem = _smem(avg, rows, cx)
+            if smem <= budget:
+                return DeskewPlan(cx, rows, smem)
+    raise ValueError(f"deskew: average_window {avg} leaves no room for the scan windows "
+                     "in a block's shared memory")
 
 
 def deskew(volumes: torch.Tensor, geo: DeskewGeometry,
@@ -51,9 +114,10 @@ def deskew(volumes: torch.Tensor, geo: DeskewGeometry,
         out = deskew_plain(volumes, geo)
         return out.permute(0, 3, 1, 2).contiguous() if xzy else out
     batch = volumes.shape[0]
-    if batch * geo.groups > _MAX_GRID_Z:
+    if batch * geo.groups > _MAX_GRID_Y:
         raise ValueError(f"deskew: batch {batch} x {geo.groups} groups exceeds "
-                         f"the kernel's grid ({_MAX_GRID_Z})")
+                         f"the kernel's grid ({_MAX_GRID_Y})")
+    plan = deskew_plan(geo)
     groups, y_out, x_out = geo.out_shape
     shape = (batch, x_out, groups, y_out) if xzy else (batch, groups, y_out, x_out)
     out = torch.empty(shape, dtype=torch.float32, device=volumes.device)
@@ -63,9 +127,9 @@ def deskew(volumes: torch.Tensor, geo: DeskewGeometry,
         rc = lib.deskew(
             _build.ptr(volumes), _build.ptr(out), batch, z_in, y_in, x_in,
             geo.x_out, geo.average_window, geo.px, geo.pxct, geo.offset,
-            1.0 / geo.average_window, int(geo.skip_flip), int(xzy),
+            1.0 / geo.average_window, int(geo.skip_flip), int(xzy), *plan,
             _build.stream_of(volumes),
         )
-    _build.check(rc, lib, "deskew")
+    _build.check(rc, lib, f"deskew ({plan})")
     _build.count_launch("deskew_xzy" if xzy else "deskew")
     return out

@@ -33,13 +33,17 @@ for a CPU tensor and launches its kernel for a CUDA tensor, or raises.
 The kernels take axes of any length within their shared-memory limits
 (:func:`max_axis`). A and C run a 2,3,5,7,11-smooth axis as mixed-radix
 passes (:func:`radix_plan`) and any other as a Bluestein chirp convolution,
-one thread-block cluster per z slice (:func:`slice_plan`); B, Bc, Bx, K and
-L run a power of two as one radix-2 FFT and any other length as Bluestein.
+one thread-block cluster per z slice (:func:`slice_plan`); B and Bc run Z
+on the same passes (Bluestein too on them, at :func:`z_line_length`), tiles
+of consecutive (ky, kx) lines (:func:`z_plan`); Bx, K and L run a power of
+two as one radix-2 FFT and any other length as Bluestein.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from dataclasses import dataclass
 
 import numpy as np
@@ -54,26 +58,31 @@ __all__ = [
     "z_cross_plain_", "z_fwd_filter_", "y_inv_", "z_fwd_filter_plain_", "y_inv_plain_",
     "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
-    "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan",
+    "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan", "z_line_length",
+    "ZPlan", "z_plan", "z_line_table",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # A and C take their slice plan (SlicePlan.args) before Z, Y, X.
 _PLAN = [_L, _L, _I, _I, _I, _I, _I, _I]
+# B and Bc take their Z-line plan (ZPlan.args) before Z and the lines.
+_ZPLAN = [_L, _I, _I, _I, _I, _I, _I, _I, _I]
 _SIGNATURES = {
     "fwd_yx": [_P, _I, _P, *_PLAN, _I, _I, _I, _P],
-    "z_filter": [_P, _P, _I, _I, _I, _P],
-    "z_filter_complex": [_P, _P, _I, _I, _I, _P],
+    "z_filter": [_P, _P, _P, *_ZPLAN, _I, _I, _P],
+    "z_filter_complex": [_P, _P, _P, *_ZPLAN, _I, _I, _P],
     "inv_yx": [_P, _P, *_PLAN, _I, _I, _I, _P],
     "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
     "z_fwd_filter": [_P, _P, _I, _I, _I, _I, _P],
     "y_inv": [_P, _I, _I, _I, _P],
 }
-# In B, Bc, Bx, K and L a line of n points runs on a radix-2 FFT of M
-# points: M = n for a power of two, else the least power of two >= 2n - 1
-# (Bluestein); A and C take the same lengths. A row (X) or column tile (Y,
-# Z) of M points and an axis' tables must fit a block's shared memory: M <=
-# 8192, so powers of two up to 8192 and other lengths up to 4096.
+# In Bx, K and L a line of n points runs on a radix-2 FFT of M points: M =
+# n for a power of two, else the least power of two >= 2n - 1 (Bluestein);
+# A, B, Bc and C take the same lengths (B and Bc's Bluestein M is
+# z_line_length's, never above 8192 for n <= 4096). A row (X) or column
+# tile (Y, Z) of M points and an axis' tables must fit a block's shared
+# memory: M <= 8192, so powers of two up to 8192 and other lengths up to
+# 4096.
 _MAX_POW2, _MAX_OTHER = 8192, 4096
 # Kernel Bx holds the Z-lines of two spectra in its 96 KB tile in double:
 # M <= 3072 at one column, so Z <= 2048 for a power of two, else Z <= 1024.
@@ -143,10 +152,11 @@ _MAX_CLUSTER = 8  # the portable cluster size
 
 
 def radix_plan(n: int) -> tuple[int, ...] | None:
-    """The radices of kernels A and C's line of ``n`` points, in pass order:
-    the factor 2**a in ceil(a / 4) passes of at most 16 (the larger first),
-    then each factor 11, 7, 5 and 3. None when ``n`` has a prime factor above
-    11: that line runs Bluestein's chirp convolution."""
+    """The radices of a mixed-radix line of ``n`` points (kernels A, B, Bc
+    and C), in pass order: the factor 2**a in ceil(a / 4) passes of at most
+    16 (the larger first), then each factor 11, 7, 5 and 3. None when ``n``
+    has a prime factor above 11: that line runs Bluestein's chirp
+    convolution."""
     if n < 2:
         raise ValueError(f"radix_plan: n = {n}, want at least 2")
     rest, a = n, 0
@@ -262,6 +272,159 @@ def slice_plan(shape) -> SlicePlan:
         cluster //= 2
     return SlicePlan(ry, rx, pairs, log2tk, ytab, xtab, cluster,
                      8 * max(ytab + ybuf, xtab + xbuf), z * cluster, per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def z_line_length(n: int) -> int:
+    """The points of the line kernels B and Bc run a Z of ``n`` points on:
+    ``n`` when :func:`radix_plan` takes it, else the length M of Bluestein's
+    circular convolution, the M >= 2n - 1 whose radices take the least
+    passes x M (one transform's work), the smaller on a tie: 176 = 16 x 11
+    (two passes) for n = 86, where 175 = 5 x 5 x 7 would take three. M <=
+    8192 for n <= 4096."""
+    if radix_plan(n):
+        return n
+    best = None
+    for m in range(2 * n - 1, 4 * n):
+        r = radix_plan(m)
+        if r is not None and (best is None or len(r) * m < best[0]):
+            best = (len(r) * m, m)
+    return best[1]
+
+
+# B and Bc run blocks of at most 256 threads at up to 128 registers (two
+# blocks an SM), tiles of up to 16 lines.
+_Z_THREADS, _Z_MAX_LOG2TK = 256, 4
+
+
+@dataclass(frozen=True)
+class ZPlan:
+    """Launch plan of kernels B and Bc (csrc/fft.cu z_line_kernel) for
+    Z-lines of ``n`` points."""
+
+    n: int  # Z
+    m: int  # points of the line the passes run: n, or Bluestein's M
+    radices: tuple[int, ...]  # radix_plan(m)
+    log2tk: int  # log2 of the lines (consecutive (ky, kx) columns) a tile
+    threads: int  # of a block
+    stages: int  # tiles staged: 2, the next one's copies in flight while this one runs
+    fstage: bool  # the filter staged with its tile (else read in place)
+    tab_smem: bool  # a Bluestein line's chirp and K copied to shared memory
+    complex_filter: bool  # Bc
+    smem: int  # dynamic shared memory of a block, bytes
+    per_sm: int  # blocks an SM holds
+
+    def grid(self, lines: int, sms: int) -> int:
+        """Blocks for ``lines`` Z-lines on ``sms`` SMs: every SM full, each
+        block walking its tiles, at most one block a tile."""
+        return max(1, min(-(-lines >> self.log2tk), sms * self.per_sm))
+
+    def args(self, grid: int) -> tuple[int, ...]:
+        """The C entries' plan arguments."""
+        return (_plan_code(self.radices), self.m, self.log2tk, self.threads, self.stages,
+                int(self.fstage), int(self.tab_smem), grid, self.smem)
+
+    def describe(self) -> str:
+        line = "x".join(map(str, self.radices))
+        kind = f"Bluestein on {self.m} = {line}" if self.m != self.n else line
+        return (f"Z {self.n} ({kind}), {1 << self.log2tk} lines a tile, {self.threads} "
+                f"threads, {self.stages} stage(s), filter "
+                f"{'staged' if self.fstage else 'read in place'}, "
+                f"{'' if self.tab_smem or self.m == self.n else 'chirp in L1/L2, '}"
+                f"{self.smem} B shared, {self.per_sm} blocks/SM")
+
+
+def _z_plan_smem(n, m, tk, stages, fstage, tab_smem, complex_filter) -> int:
+    """Bytes of B's shared memory (fft.cu z_line_kernel's layout): the m -
+    1 twiddles (and with ``tab_smem`` a Bluestein line's n + m chirp and K
+    entries), the stage tiles and the work tile (padded, m points a line),
+    the filter's stages (n points a line)."""
+    tab = m - 1 + (n + m if m != n and tab_smem else 0)
+    filt = stages * tk * n * (8 if complex_filter else 4) if fstage else 0
+    return 8 * (tab + (stages + 1) * _padded(tk * m)) + filt
+
+
+# (stages, filter staged, chirp in shared memory), in the order z_plan
+# tries them at a tile width.
+_Z_LAYOUTS = ((2, True, True), (1, True, True), (1, False, True), (1, False, False))
+
+
+def _z_layout(n: int, log2tk: int, stages: int, fstage: bool, tab_smem: bool,
+              complex_filter: bool) -> ZPlan:
+    """Kernel B's plan for Z = ``n`` at one tile width and one of
+    :data:`_Z_LAYOUTS`, whether or not it fits a block."""
+    m = z_line_length(n)
+    radices = radix_plan(m)
+    tk = 1 << log2tk
+    smem = _z_plan_smem(n, m, tk, stages, fstage, tab_smem, complex_filter)
+    threads = min(_Z_THREADS, max(32, -(-(tk * m // min(radices)) // 32) * 32))
+    per_sm = min((_SMEM_ONE + 1024) // (smem + 1024), 65536 // (128 * threads))
+    return ZPlan(n, m, radices, log2tk, threads, stages, fstage, tab_smem, complex_filter,
+                 smem, per_sm)
+
+
+@functools.lru_cache(maxsize=64)
+def z_plan(n: int, complex_filter: bool = False) -> ZPlan:
+    """Kernel B's (Bc's with ``complex_filter``) plan for Z = ``n``: the
+    widest tile (at most 16 lines) at which two blocks share an SM, with the
+    next tile and its filter in flight (two stages) where they fit, else one
+    stage; failing that one block an SM, the filter read in place, and last
+    a Bluestein line's chirp and K read from device memory (Z up to 8192).
+    The line (its radices) depends on Z alone. chip_smoke.py phase 18 times
+    the plan beside 8-line tiles at the paths' shapes."""
+    for budget in (_SMEM_TWO, _SMEM_ONE):
+        for l2 in range(_Z_MAX_LOG2TK, -1, -1):
+            for layout in _Z_LAYOUTS:
+                plan = _z_layout(n, l2, *layout, complex_filter)
+                if plan.smem <= budget:
+                    return plan
+    raise ValueError(f"z_plan: Z = {n} exceeds a block's shared memory")
+
+
+def z_line_table(plan: ZPlan) -> np.ndarray:
+    """Kernel B's table for a plan (complex64, m - 1 entries, n + m more for
+    Bluestein):
+    the twiddles of ``plan.radices``' passes over ``plan.m`` points in
+    fft_radix.cuh's layout (pass p's factor exp(-2 pi i q k / (ns r)) at ns -
+    1 + (q - 1) ns + k); for a Bluestein line then the chirp w_k = exp(-i pi
+    k^2 / n) (n entries, the phase reduced as k^2 mod 2n) and the kernel's
+    spectrum fft(conj(w) wrapped to m) / m (m entries). Formed in float64."""
+    return _z_line_table(plan.n, plan.radices).copy()
+
+
+@functools.lru_cache(maxsize=16)
+def _z_line_table(n: int, radices: tuple[int, ...]) -> np.ndarray:
+    m = math.prod(radices)
+    tw = np.empty(m - 1, np.complex128)
+    ns = 1
+    for r in radices:
+        q, k = np.divmod(np.arange((r - 1) * ns), ns)
+        tw[ns - 1:ns - 1 + (r - 1) * ns] = np.exp(-2j * np.pi * ((q + 1) * k) / (ns * r))
+        ns *= r
+    if m == n:
+        return tw.astype(np.complex64)
+    k = np.arange(n)
+    w = np.exp(-1j * np.pi * ((k * k) % (2 * n)) / n)
+    g = np.zeros(m, np.complex128)
+    g[:n] = np.conj(w)
+    g[m - n + 1:] = np.conj(w[1:][::-1])
+    return np.concatenate([tw, w, np.fft.fft(g) / m]).astype(np.complex64)
+
+
+_z_tables: dict = {}
+
+
+def _z_table_on(plan: ZPlan, device: torch.device) -> torch.Tensor:
+    """:func:`z_line_table` on ``device``, built once per (plan's line, device)."""
+    key = (plan.n, plan.radices, device)
+    if key not in _z_tables:
+        _z_tables[key] = torch.from_numpy(_z_line_table(plan.n, plan.radices)).to(device)
+    return _z_tables[key]
+
+
+@functools.lru_cache(maxsize=8)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
@@ -430,12 +593,15 @@ def _z_filter(spectrum: torch.Tensor, filt: torch.Tensor, filt_dtype,
         return z_filter_plain_(spectrum, filt)
     z, y, xh = spectrum.shape
     _check_cuda_shape((z,), what)
-    _check_grid_y(y, what)
     lib = _lib()
-    with torch.cuda.device(spectrum.device):
-        rc = getattr(lib, entry)(_build.ptr(spectrum), _build.ptr(filt), z, y, xh,
+    plan = z_plan(z, filt_dtype == torch.complex64)
+    dev = spectrum.device
+    with torch.cuda.device(dev):
+        grid = plan.grid(y * xh, _sm_count(dev))
+        rc = getattr(lib, entry)(_build.ptr(spectrum), _build.ptr(filt),
+                                 _build.ptr(_z_table_on(plan, dev)), *plan.args(grid), z, y * xh,
                                  _build.stream_of(spectrum))
-    _build.check(rc, lib, what)
+    _build.check(rc, lib, f"{what} ({plan.describe()}, grid {grid})")
     _build.count_launch(entry)
     return spectrum
 

@@ -62,9 +62,6 @@ __all__ = [
     "to_z_slabs",
 ]
 
-# Kernel B's grid takes at most 65535 ky rows (kernels/fft.py _check_grid_y).
-_MAX_ROWS = 65535
-
 
 def sharded_fft_supported(shape, n_devices: int, device: str | torch.device = "cuda") -> bool:
     """True when a (Z, Y, X) volume shards over ``n_devices``: Z and Y
@@ -76,7 +73,7 @@ def sharded_fft_supported(shape, n_devices: int, device: str | torch.device = "c
     if n_devices < 1 or z % n_devices or y % n_devices or min(z, y, x) < 2:
         return False
     if torch.device(device).type == "cuda":
-        return all(s <= max_axis(s) for s in (z, y, x)) and y // n_devices <= _MAX_ROWS
+        return all(s <= max_axis(s) for s in (z, y, x))
     return True
 
 

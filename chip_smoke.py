@@ -140,14 +140,32 @@ crosses NVLink):
     bit-equal to the unsharded ``deconvolve_zyx``, uint16 bit-exact vs its
     float32 copy, launches A, B, C 4 each; both routes' ms/volume, each
     shard's A, B and C times, the two exchanges' times beside their byte
-    bound, and A, B, C at the shard shapes beside their plain versions;
+    bound, shard 0's B also with L2 cold, and A, B, C at the shard shapes
+    beside their plain versions;
     over the real cards too where the machine has several; (b) the complex
     Hermitian filter at the deskewed FOV over 2 shards (z_l 43, Bluestein
     lines) bit-equal to ``fourier_filter_zyx``; (c) one z slice per shard,
     (8, 64, 128) over 8: A and C at Z = 1 against their plain versions,
     bit-equal to the unsharded route; (d) ``deconvolve_arrays`` on 2
     timepoints of the headline FOV, sharded and batched routes equal; (e)
-    (86, 1024, 484) over 4 shards is not supported and raises.
+    (86, 1024, 484) over 4 shards is not supported: ``deconvolve_zyx_sharded``
+    raises, and ``deconvolve_arrays(sharded=True)`` takes the batched route,
+    says so on stderr and is bit-equal to it.
+
+Then kernels B, Bc and D after their redesign:
+
+18. ptxas' registers, stack and spills of B's and D's kernels; B (headline),
+    Bc (86, 1024, 484) and the sharded route's B (256, 64, 513) and D (both
+    stores) beside the previous kernels' times and their bounds; at each
+    Z-line shape the plan (kernels/fft.py z_plan), the error against the
+    plain version, one tile a block and 8-line tiles bit-equal to the plan,
+    and times with L2 warm (the input just copied, as the other phases
+    time) and cold (L2_FLUSH_BYTES read after the copy): through the
+    wrapper, the plan's launch alone, 8-line tiles, one tile a block, and
+    torch.profiler's device time of the wrapper's kernel; D held bit for
+    bit to ``deskew_exact`` (the per-voxel float32 arithmetic of the kernel
+    it replaced) in both stores; torch.profiler's device time of B, Bc and
+    D beside the previous kernels' readings.
 
 Times are CUDA-event medians on this card.
 
@@ -161,6 +179,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -341,6 +360,31 @@ SHARD_RECON = (LAPSE_SHAPE, 2)
 SHARD_ONE_SLICE = ((8, 64, 128), 8)
 T_SHARD = 2
 
+# Phase 18: kernels B, Bc and D after their redesign. PREVIOUS_MS: the
+# times of the kernels they replaced (PERF.md section 6, their proof run:
+# NVIDIA H100 80GB HBM3, 700.00 W); PREVIOUS_TRACE: trace_b_and_d's
+# readings of those kernels (commit da77dae, same card and limit: device
+# time a launch and the bound's bytes over it; neither ncu, "Failed to
+# initialize the profiler: LibraryNotLoaded", nor CUPTI's counters through
+# torch.profiler read anything on that machine). Z_SHAPES: the Z-line
+# shapes the paths give B and Bc, the headline spectrum, the deskewed
+# FOV's (Bc) and a headline shard's ky rows (the sharded route's B).
+# L2_FLUSH_BYTES (flush_l2), read after a timed run's input is copied,
+# leave none of it in the H100's 50 MB L2 (phases 17 and 18).
+PREVIOUS_MS = {"z_filter": 0.552, "z_filter_complex": 1.799, "z_filter_shard": 0.1607,
+               "deskew": 3.219, "deskew_xzy": 2.896}
+PREVIOUS_TRACE = {
+    "z_filter": "z_filter_kernel<false, false, true>: 0.5482 ms device, 1227 GB/s (37% of HBM)",
+    "z_filter_complex": "z_filter_kernel<true, true, true>: 1.7909 ms device, 287 GB/s (9% of "
+                        "HBM)",
+    "deskew": "deskew_kernel<false>: 3.1631 ms device, 912 GB/s (27% of HBM)",
+    "deskew_xzy": "deskew_kernel<true>: 2.8124 ms device, 1025 GB/s (31% of HBM)",
+}
+Z_SHAPES = {"z_filter": ((256, 256, 513), False), "z_filter_complex": ((86, 1024, 243), True),
+            "z_filter_shard": ((256, 64, 513), False)}
+TRACE_REPS = 20
+L2_FLUSH_BYTES = 256 << 20
+
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
     """CUDA-event times of ``reps`` runs of ``fn`` after WARMUP; ``setup``
@@ -362,6 +406,17 @@ def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
 
 def time_ms(fn, setup=None) -> float:
     return statistics.median(samples_ms(fn, setup))
+
+
+_L2_FLUSH: dict = {}
+
+
+def flush_l2(dev: torch.device) -> None:
+    """Reads L2_FLUSH_BYTES, so that nothing written or read before stays in
+    L2 (clean lines: nothing is left to write back)."""
+    if dev not in _L2_FLUSH:
+        _L2_FLUSH[dev] = torch.zeros(L2_FLUSH_BYTES // 4, device=dev)
+    _L2_FLUSH[dev].sum()
 
 
 def bound(nbytes: float, flops: float, f64_flops: float = 0.0) -> tuple[float, str]:
@@ -1395,19 +1450,21 @@ def any_length_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def ptxas_lines(names) -> list[str]:
-    """ptxas' registers, stack frame and spills of the fft.cu kernels whose
-    mangled names contain one of ``names``, from the build's log."""
+def ptxas_lines(names, source: str = "fft") -> list[str]:
+    """ptxas' registers, stack frame and spills of the ``csrc/<source>.cu``
+    kernels whose mangled names contain one of ``names``, from the build's
+    log."""
     from biahub_tpu_torch.kernels import _build
 
-    log = _build.build_log("fft").splitlines()
+    log = _build.build_log(source).splitlines()
     out = []
     for i, line in enumerate(log):
         for name in names:
             if "Compiling entry function" in line and name in line:
                 props = [part.replace("ptxas info    :", "").strip() for part in log[i + 1:i + 4]
                          if "stack frame" in part or "Used" in part]
-                out.append(f"{name}: " + "; ".join(props))
+                mangled = line.split("'")[1] if "'" in line else name
+                out.append(f"{mangled}: " + "; ".join(props))
     return out
 
 
@@ -1945,6 +2002,10 @@ def sharded_phase(dev: torch.device, records: dict, tf_half: np.ndarray,
     del back
     for name, ms in shard_ms.items():
         print(f"sharded {name} per shard (ms): " + ", ".join(f"{t:.4f}" for t in ms))
+    b_cold = time_ms(lambda: kfft.z_filter_(work_r, prepared.shards[0]),
+                     setup=lambda: (work_r.copy_(rows[0]), flush_l2(dev)))
+    print(f"sharded B shard 0 with L2 cold (the input copied, then {L2_FLUSH_BYTES >> 20} MiB "
+          f"read): {b_cold:.4f} ms")
     print(f"exchange to ky rows {ex1:.4f} ms, back to z-slabs {ex2:.4f} ms, byte bound "
           f"{ex_bound:.4f} each (pack + copy: 2 x {spec_bytes / 1e6:.1f} MB read and written); "
           f"the exchanges take {(ex1 + ex2) / route_ms['sharded']:.1%} of the sharded route")
@@ -2081,17 +2142,246 @@ def sharded_phase(dev: torch.device, records: dict, tf_half: np.ndarray,
           f"{n} shards equal to the batched route; launches {launches_d}")
     del tczyx, positions, out_s, out_b
 
-    # (e) a shape that does not shard raises.
+    # (e) a shape that does not shard: the verb takes the batched route and
+    # says so on stderr, as the reference's verb does; the sharded function
+    # itself raises.
     shape_e = LAPSE_SHAPE
     require(not ksf.sharded_fft_supported(shape_e, 4), f"{shape_e} over 4 shards is accepted")
     try:
         ksf.deconvolve_zyx_sharded(torch.zeros(shape_e, device=dev),
                                    np.zeros(kfft.half_spectrum_shape(shape_e), np.float32),
                                    Mesh.virtual(dev, 4))
-        require(False, f"{shape_e} over 4 shards did not raise")
+        require(False, f"deconvolve_zyx_sharded: {shape_e} over 4 shards did not raise")
     except ValueError as exc:
         require("divisible" in str(exc), f"{shape_e} over 4 shards: {exc}")
-    print(f"{shape_e} over 4 shards: not supported, and the call raises ValueError")
+    tczyx = torch.rand((1, 1) + shape_e, generator=gen, device=dev)
+    positions = {"A/1/0": ArrayPosition(tczyx, [1.0, 1.0, 1.0, 0.1, 0.1], ["GFP"])}
+    stderr = io.StringIO()
+    with contextlib.redirect_stderr(stderr):
+        (out_e, _), launches_e = counted(lambda: deconvolve_arrays(
+            positions, psf, scale, {"regularization_strength": REG}, mesh=Mesh.virtual(dev, 4),
+            sharded=True, device=dev))
+    sys.stderr.write(stderr.getvalue())
+    out_be, _ = deconvolve_arrays(positions, psf, scale, {"regularization_strength": REG},
+                                  device=dev)
+    require("batched route" in stderr.getvalue(),
+            f"deconvolve_arrays: {shape_e} over 4 shards did not say it takes the batched route")
+    require(launches_e == {"fwd_yx": 1, "z_filter": 1, "inv_yx": 1},
+            f"deconvolve_arrays at {shape_e} over 4 shards: launches {launches_e}")
+    require(torch.equal(out_e["A/1/0"], out_be["A/1/0"]),
+            f"deconvolve_arrays at {shape_e} over 4 shards differs from the batched route")
+    print(f"{shape_e} over 4 shards: not supported; deconvolve_zyx_sharded raises ValueError, "
+          f"and deconvolve_arrays(sharded=True) takes the batched route (said on stderr), "
+          f"bit-equal to it; launches {launches_e}")
+    del tczyx, positions, out_e, out_be
+    torch.cuda.empty_cache()
+
+
+def launch_zplan(plan, spec: torch.Tensor, filt: torch.Tensor) -> None:
+    """Kernel B's or Bc's C entry with ``plan`` in place of the card's (the
+    tile sweep); counts no launch."""
+    from biahub_tpu_torch.kernels import _build
+    from biahub_tpu_torch.kernels import fft as kfft
+
+    lib = kfft._lib()
+    z, y, xh = spec.shape
+    grid = plan.grid(y * xh, kfft._sm_count(spec.device))
+    entry = "z_filter_complex" if plan.complex_filter else "z_filter"
+    rc = getattr(lib, entry)(_build.ptr(spec), _build.ptr(filt),
+                             _build.ptr(kfft._z_table_on(plan, spec.device)), *plan.args(grid), z,
+                             y * xh, _build.stream_of(spec))
+    _build.check(rc, lib, f"{entry} ({plan.describe()})")
+
+
+def deskew_exact(vols: torch.Tensor, geo, out_layout: str = "zyx") -> torch.Tensor:
+    """Kernel D's per-voxel float32 arithmetic, one torch op at a time (each
+    rounded, none fused): in_z = (px*xo - pxct*zo) + offset, taps outside
+    [0, Z_in) zero, the tail group's zo clamped, the lerps summed over j in
+    order, times 1/avg. The kernel must give these bits."""
+    b, z_in, y_in, x_in = vols.shape
+    dev = vols.device
+    px, pxct, off = (torch.tensor(v, dtype=torch.float32, device=dev)
+                     for v in (geo.px, geo.pxct, geo.offset))
+    xo = torch.arange(geo.x_out, dtype=torch.float32, device=dev)
+    yo = torch.arange(x_in, device=dev)
+    xi = yo if geo.skip_flip else x_in - 1 - yo
+    avg = geo.average_window
+    out = torch.empty((b, geo.groups, x_in, geo.x_out), dtype=torch.float32, device=dev)
+    for g in range(geo.groups):
+        acc = torch.zeros((b, x_in, geo.x_out), dtype=torch.float32, device=dev)
+        for j in range(avg):
+            zo = min(g * avg + j, y_in - 1)
+            in_z = (px * xo - pxct * float(zo)) + off
+            f0 = torch.floor(in_z)
+            frac = in_z - f0
+            i0 = f0.long()
+            rows = vols[:, :, y_in - 1 - zo, :][:, :, xi]  # (B, Z_in, X_in)
+
+            def tap(i):
+                v = rows[:, i.clamp(0, z_in - 1), :].transpose(1, 2)
+                return torch.where((i >= 0) & (i < z_in), v, torch.zeros((), device=dev))
+
+            acc = acc + (tap(i0) * (1.0 - frac) + tap(i0 + 1) * frac)
+        out[:, g] = acc if avg == 1 else acc * torch.tensor(1.0 / avg, dtype=torch.float32,
+                                                            device=dev)
+    return out.permute(0, 3, 1, 2).contiguous() if out_layout == "xzy" else out
+
+
+def profiler_readings(fn, names: tuple, nbytes: float) -> str:
+    """``fn``'s launches of the kernels whose names contain one of ``names``, as
+    torch.profiler's CUDA activity reads them over TRACE_REPS calls: name,
+    launches a call, mean device time, the bytes its bound counts per
+    device-time as a share of HBM's 3.35 TB/s. Neither ncu nor CUPTI's
+    counters read anything on the card, so these are all the readings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACE_REPS):
+            fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0)
+        if any(n in ev.key for n in names) and ev.device_type == DeviceType.CUDA and dev_us > 0:
+            per = dev_us / ev.count
+            rows.append(f"{ev.key[:60]}: {ev.count / TRACE_REPS:g} a call, {per / 1e3:.4f} ms "
+                        f"device, {nbytes / (per * 1e-6) / 1e9:.0f} GB/s of the bound's bytes "
+                        f"({nbytes / (per * 1e-6) / HBM_BYTES_PER_S:.0%} of HBM)")
+    text = "; ".join(rows) if rows else f"no CUDA activity named {names}"
+    return text
+
+
+def trace_b_and_d(dev: torch.device) -> dict:
+    """Profiler readings of B at the headline, Bc at the deskewed FOV and
+    D (both stores) on the headline batch; D held to deskew_exact bit for
+    bit. PREVIOUS_TRACE holds the same readings of the kernels these
+    replaced."""
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.deskew import deskew_geometry
+    from biahub_tpu_torch.kernels.deskew_cuda import deskew
+
+    gen = torch.Generator(device=dev).manual_seed(18)
+    out = {}
+    for key in ("z_filter", "z_filter_complex"):
+        shape, cplx = Z_SHAPES[key]
+        spec = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        filt = (torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev) if cplx
+                else torch.rand(shape, generator=gen, device=dev))
+        work = spec.clone()
+        run = kfft.z_filter_complex_ if cplx else kfft.z_filter_
+        nbytes = 2 * spec.numel() * 8 + filt.numel() * filt.element_size()
+        out[key] = profiler_readings(lambda: run(work.copy_(spec), filt),
+                                     ("z_line_kernel", "z_filter_kernel"), nbytes)
+        del spec, filt, work
+    geo = deskew_geometry(SHAPE, ANGLE, RATIO, False, AVG, skip_flip=True)
+    vols = torch.rand((BATCH,) + SHAPE, generator=gen, device=dev)
+    rows, out_elems = deskew_rows(geo), BATCH * geo.groups * SHAPE[2] * geo.x_out
+    nbytes = BATCH * rows * SHAPE[2] * 4 + out_elems * 4
+    exact = deskew_exact(vols[:2], geo)
+    for layout in ("zyx", "xzy"):
+        key = "deskew" if layout == "zyx" else "deskew_xzy"
+        got = deskew(vols[:2], geo, layout)
+        want = exact if layout == "zyx" else exact.permute(0, 3, 1, 2)
+        out[key + "_exact"] = torch.equal(got.view(torch.int32), want.contiguous().view(torch.int32))
+        out[key] = profiler_readings(lambda: deskew(vols, geo, layout), ("deskew_kernel",),
+                                     nbytes)
+    return out
+
+
+def deskew_rows(geo) -> int:
+    """The scan rows D's bound counts: for every tilt row the span of
+    floor(in_z) over X_out and one more, clipped to the volume."""
+    z, y, _ = geo.zyx_shape
+    in_z = (torch.tensor(geo.px, dtype=torch.float32)
+            * torch.arange(geo.x_out, dtype=torch.float32)[None]
+            - torch.tensor(geo.pxct, dtype=torch.float32)
+            * torch.arange(y, dtype=torch.float32)[:, None]
+            + torch.tensor(geo.offset, dtype=torch.float32))
+    lo = torch.floor(in_z).amin(dim=1).clamp(0, z - 1)
+    hi = (torch.floor(in_z).amax(dim=1) + 1).clamp(0, z - 1)
+    return int((hi - lo + 1).sum())
+
+
+def redesign_phase(dev: torch.device, records: dict) -> None:
+    """Phase 18: kernels B, Bc and D redesigned. ptxas' figures; each
+    kernel's time on its path beside the previous kernel's and its bound;
+    each Z-line shape's plan, error against the plain version, its variants
+    bit-equal to it, and its times with L2 warm and cold; D held to
+    deskew_exact bit for bit in both stores; the profiler's readings beside
+    the previous kernels' (PREVIOUS_TRACE)."""
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.deskew_cuda import deskew_plan
+    from biahub_tpu_torch.kernels.deskew import deskew_geometry
+
+    for line in (ptxas_lines(("z_line_kernel",)) + ptxas_lines(("deskew_kernel",), "deskew")):
+        print(f"ptxas {line}")
+    for key, was in PREVIOUS_MS.items():
+        rec = records.get(key)
+        if rec is None:
+            continue
+        print(f"{key}: {rec['ms']:.4f} ms (before: {was}, {rec['ms'] / was - 1:+.1%}), bound "
+              f"{rec['bound_ms']:.4f} ({rec['ms'] / rec['bound_ms']:.2f}x the bound)")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for key, (shape, cplx) in Z_SHAPES.items():
+        spec = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        filt = (torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev) if cplx
+                else torch.rand(shape, generator=gen, device=dev))
+        plan = kfft.z_plan(shape[0], cplx)
+        want = kfft.z_filter_plain_(spec.clone(), filt)
+        got = spec.clone()
+        launch_zplan(plan, got, filt)
+        _, err = rel_err(got, want)
+        require(err <= FFT_TOL, f"{key} at {shape}: rel err {err:.3g} > {FFT_TOL}")
+        narrow = next(p for budget in (kfft._SMEM_TWO, kfft._SMEM_ONE)
+                      for p in (kfft._z_layout(shape[0], max(plan.log2tk - 1, 0), *layout, cplx)
+                                for layout in kfft._Z_LAYOUTS) if p.smem <= budget)
+        variants = {f"{1 << narrow.log2tk} lines": narrow,
+                    "one tile a block": dataclasses.replace(plan, per_sm=1 << 30)}
+        for name, p in variants.items():
+            other = spec.clone()
+            launch_zplan(p, other, filt)
+            require(torch.equal(torch.view_as_real(other), torch.view_as_real(got)),
+                    f"{key} at {shape}: {name} ({p.describe()}) is not bit-equal to the plan")
+        work = torch.empty_like(spec)
+        run = kfft.z_filter_complex_ if cplx else kfft.z_filter_
+
+        def warm():
+            work.copy_(spec)
+
+        def cold():
+            work.copy_(spec)
+            flush_l2(dev)
+
+        times = {"wrapper, L2 warm": time_ms(lambda: run(work, filt), warm),
+                 "wrapper, L2 cold": time_ms(lambda: run(work, filt), cold),
+                 "plan's launch, L2 cold": time_ms(lambda: launch_zplan(plan, work, filt), cold)}
+        for name, p in variants.items():
+            times[f"{name}, L2 cold"] = time_ms(lambda: launch_zplan(p, work, filt), cold)
+        nbytes = 2 * spec.numel() * 8 + filt.numel() * filt.element_size()
+
+        def traced():
+            cold()
+            run(work, filt)
+
+        device = profiler_readings(traced, ("z_line_kernel",), nbytes)
+        print(f"{key} at {shape}: plan {plan.describe()}; rel err {err:.3g} (tol {FFT_TOL}); "
+              f"{' and '.join(variants)} bit-equal to it; ms (CUDA events): "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in times.items())
+              + f"; the wrapper's kernel with L2 cold (torch.profiler): {device}")
+        del spec, filt, want, got, work, other
+    geo = deskew_geometry(SHAPE, ANGLE, RATIO, False, AVG, skip_flip=True)
+    print(f"D plan (both stores): {deskew_plan(geo)}")
+    readings = trace_b_and_d(dev)
+    for key in ("deskew", "deskew_xzy"):
+        require(readings.pop(key + "_exact"), f"kernel {key}: not bit-equal to deskew_exact")
+    print("D (both stores) bit-equal to deskew_exact, the per-voxel arithmetic of the kernel "
+          "it replaced")
+    for key, text in readings.items():
+        print(f"profiler {key} (after): {text}")
+        print(f"profiler {key} (before): {PREVIOUS_TRACE.get(key, 'not measured')}")
     torch.cuda.empty_cache()
 
 
@@ -2217,12 +2507,7 @@ def main() -> int:
     require(err_real <= DESKEW_TOL, f"kernel D on a deconvolved volume: rel err {err_real:.3g}")
     # Bytes: the scan rows the geometry reads (every tilt row, the span of
     # in_z over X_out), once, plus the output.
-    in_z = (torch.tensor(geo.px, dtype=torch.float32) * torch.arange(geo.x_out, dtype=torch.float32)[None]
-            - torch.tensor(geo.pxct, dtype=torch.float32) * torch.arange(y, dtype=torch.float32)[:, None]
-            + torch.tensor(geo.offset, dtype=torch.float32))
-    lo = torch.floor(in_z).amin(dim=1).clamp(0, z - 1)
-    hi = (torch.floor(in_z).amax(dim=1) + 1).clamp(0, z - 1)
-    rows = int((hi - lo + 1).sum())
+    rows = deskew_rows(geo)
     out_elems = BATCH * geo.groups * x * geo.x_out
     bms, bby = bound(BATCH * rows * x * 4 + out_elems * 4, out_elems * AVG * 8)
     records["deskew"] = dict(
@@ -2440,6 +2725,7 @@ def main() -> int:
     del tfs
     spectral_phase(dev, records, tf_half)
     sharded_phase(dev, records, tf_half, psf)
+    redesign_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

@@ -281,10 +281,12 @@ def test_deconvolve_arrays_routes_and_warnings(capsys):
     four, _ = deconvolve_arrays(positions, psf3(), [2.0, 0.5, 0.5], {},
                                 mesh=Mesh.virtual("cpu", 4), sharded=True, device="cpu")
     assert all(torch.equal(four[k], batched[k]) for k in positions)
-    # A shape that does not shard raises; it never runs the batched route.
-    with pytest.raises(ValueError, match="divisible"):
-        deconvolve_arrays(positions, psf3(), [2.0, 0.5, 0.5], {},
-                          mesh=Mesh.virtual("cpu", 3), sharded=True, device="cpu")
+    # A shape that does not shard takes the batched route and says so, as
+    # the reference's verb does.
+    three, _ = deconvolve_arrays(positions, psf3(), [2.0, 0.5, 0.5], {},
+                                 mesh=Mesh.virtual("cpu", 3), sharded=True, device="cpu")
+    assert "batched route" in capsys.readouterr().err
+    assert all(torch.equal(three[k], batched[k]) for k in positions)
 
 
 def test_deconvolve_settings_from_reference():

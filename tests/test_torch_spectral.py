@@ -266,7 +266,7 @@ def test_cpu_spectral_route_counts_no_launch():
 
 
 def test_build_target_follows_included_headers(tmp_path, monkeypatch):
-    for name in ("spectral.cu", "fft_lines.cuh", "deskew.cu"):
+    for name in ("spectral.cu", "fft_lines.cuh", "cp_async.cuh", "deskew.cu"):
         (tmp_path / name).write_bytes((_build._CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "_CSRC", tmp_path)
     before = {name: _build._target(name) for name in ("spectral", "deskew")}
@@ -274,5 +274,8 @@ def test_build_target_follows_included_headers(tmp_path, monkeypatch):
     header = tmp_path / "fft_lines.cuh"
     header.write_bytes(header.read_bytes() + b"\n// edited\n")
     assert _build._target("spectral") != before["spectral"]
-    assert _build._target("deskew") == before["deskew"]  # includes no header
+    assert _build._target("deskew") == before["deskew"]  # does not include fft_lines.cuh
+    shared = tmp_path / "cp_async.cuh"
+    shared.write_bytes(shared.read_bytes() + b"\n// edited\n")
+    assert _build._target("deskew") != before["deskew"]  # includes cp_async.cuh
     assert "spectral" in _build.SOURCES
