@@ -5,9 +5,11 @@
 // shares its semantics with, biahub_tpu/kernels/peaks.py:54-182
 // _block_max_candidates_xla. For a (Z, Y, X) float32 volume it
 //
-// 1. box-blurs each voxel over its 3^3 neighbourhood with the
-//    count_include_pad=False divisor ((cz*cy)*cx, the counts of the
-//    neighbours inside the volume along each axis), or not at all (blur 0);
+// 1. box-blurs each voxel over its k^3 neighbourhood, k the blur size
+//    (the window [i - (k-1)/2, i - (k-1)/2 + k - 1] on each axis, XLA's SAME
+//    padding), with the count_include_pad=False divisor ((cz*cy)*cx, the
+//    counts of the neighbours inside the volume along each axis), or not
+//    at all (blur 0);
 // 2. cuts the volume into blocks of torch max_pool3d(stride=b, padding=b/2)
 //    geometry: block (kz, ky, kx) covers [k*b - b/2, k*b - b/2 + b) on each
 //    axis, oz = (Z + 2*(bz/2) - bz)/bz + 1 blocks along z (likewise y, x);
@@ -18,25 +20,33 @@
 //
 // The TPU kernel's z chunks, thin halo refs, straddle ownership and lane
 // epilogue exist for its VMEM tiling and are not carried over: one CUDA
-// block owns one output block, walks it in sub-tiles of (8, 8, 32) cells,
-// stages each sub-tile with a one-voxel halo in shared memory (zeros outside
-// the volume, the blur's zero padding), sums the 27 neighbours of each cell
-// from there, and keeps a per-thread (max, min index); a warp-shuffle and
-// shared-memory reduction with the same rule finishes the block. Any block
-// size works (the estimate-psf geometry (64, 64, 32) as well as beads'
-// (8, 8, 8)), and any shape.
+// block owns one output block and walks it in sub-tiles of (tz, ty, tx)
+// cells. For a blur of k (k >= 1) it stages each sub-tile with a halo of
+// lo = (k-1)/2 cells below and k-1-lo above on each axis in shared memory
+// (zeros outside the volume, the blur's zero padding); each cell then sums
+// its 27 neighbours from there for k = 3 (the beads' and estimate-psf's
+// blur), or, for any other k, the block sums the k neighbours along z into
+// a second buffer, along y back into the first, and along x per cell (3k
+// adds a cell, not k^3). Each thread keeps a (max, min index); a
+// warp-shuffle and shared-memory reduction with the same rule finishes the
+// block. Any block size works (the estimate-psf geometry (64, 64, 32) as
+// well as beads' (8, 8, 8)), and any shape. The sub-tile is the host's
+// (kernels/peaks_cuda.py blur_plan): (8, 8, 32), shrunk until its halo and
+// z sums fit shared memory; blur sizes up to 38 fit in one (1, 1, 1) cell.
 //
-// Sums run z, then y, then x, ((a + b) + c) along each axis, as the XLA
-// formulation's separable passes do; on integer-valued volumes every order
-// gives the same float32 sums, so values and indices equal the reference's
-// exactly (the reference's own two routes agree only there,
-// pallas_peaks.py:22-31).
+// Sums run z, then y, then x, ((a + b) + c) ... along each axis, as the
+// XLA formulation's separable passes (and box_blur_plain) do, each divided
+// by the count_include_pad=False divisor (cz*cy)*cx; on integer-valued
+// volumes every order gives the same float32 sums, so values and indices
+// equal the reference's exactly (the reference's own two routes agree only
+// there, pallas_peaks.py:22-31).
 //
 // Bound on one H100 SXM (3.35 TB/s): bytes. The volume is read once and
 // the candidates are written once: (86, 1024, 484) float32 is 170.5 MB,
-// 0.051 ms. 27 shared-memory reads and adds per voxel are far under the
-// card's rates; the halo re-reads ((10*10*10)/512 = 1.95x for (8, 8, 8)
-// blocks, (10*10*34)/2048 = 1.66x for (8, 8, 32) sub-tiles) mostly hit L2.
+// 0.051 ms. 3k shared-memory reads and adds per voxel are far under the
+// card's rates at k = 3; the halo re-reads ((10*10*10)/512 = 1.95x for
+// (8, 8, 8) blocks, (10*10*34)/2048 = 1.66x for (8, 8, 32) sub-tiles at
+// k = 3) mostly hit L2.
 
 #include <cuda_runtime.h>
 
@@ -46,8 +56,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTZ = 8, kTY = 8, kTX = 32;
-constexpr int kHalo = (kTZ + 2) * (kTY + 2) * (kTX + 2);
 
 struct Best {
   float v;
@@ -59,18 +67,31 @@ __device__ __forceinline__ Best better(Best a, Best b) {
   return (b.v > a.v || (b.v == a.v && b.i < a.i)) ? b : a;
 }
 
-// Neighbours inside [0, n-1] of a 3-window centred at i: the blur's divisor
-// along one axis (count_include_pad=False).
-__device__ __forceinline__ float count3(int i, int n) {
-  return static_cast<float>(min(i + 1, n - 1) - max(i - 1, 0) + 1);
+// Neighbours inside [0, n-1] of the k-window [i - lo, i - lo + k - 1]: the
+// blur's divisor along one axis (count_include_pad=False).
+__device__ __forceinline__ float count_k(int i, int n, int k, int lo) {
+  return static_cast<float>(min(i - lo + k - 1, n - 1) - max(i - lo, 0) + 1);
 }
 
+// blur: the box size k (0: none). tz, ty, tx: the sub-tile; the dynamic
+// shared memory holds (tz+k-1)(ty+k-1)(tx+k-1) floats, and tz(ty+k-1)(tx+k-1)
+// more but for k = 3. kBlur: 0 or 3 (the sub-tile (8, 8, 32), compiled in),
+// or -1 (blur and the sub-tile from the arguments).
+template <int kBlur>
 __global__ void __launch_bounds__(kThreads)
 block_max_argmin_kernel(const float* __restrict__ in, float* __restrict__ vals,
                         int* __restrict__ idx, int Z, int Y, int X, int bz, int by,
-                        int bx, int oy, int ox, int blur) {
-  __shared__ float tile[kHalo];
+                        int bx, int oy, int ox, int blur_arg, int tz_arg, int ty_arg,
+                        int tx_arg) {
+  const int blur = kBlur >= 0 ? kBlur : blur_arg;
+  const int tz = kBlur >= 0 ? 8 : tz_arg, ty = kBlur >= 0 ? 8 : ty_arg;
+  const int tx = kBlur >= 0 ? 32 : tx_arg;
+  extern __shared__ float smem[];
   __shared__ Best warp_best[kThreads / 32];
+  const int k = blur, lo = blur > 0 ? (blur - 1) / 2 : 0, h = blur > 0 ? blur - 1 : 0;
+  // halo: the staged cells, then the y sums; zsum: the z sums.
+  float* halo = smem;
+  float* zsum = smem + (tz + h) * (ty + h) * (tx + h);
   const long long blk = blockIdx.x;
   const int kx = static_cast<int>(blk % ox);
   const int ky = static_cast<int>((blk / ox) % oy);
@@ -80,23 +101,43 @@ block_max_argmin_kernel(const float* __restrict__ in, float* __restrict__ vals,
   const int y0 = max(ky * by - by / 2, 0), y1 = min(ky * by - by / 2 + by, Y);
   const int x0 = max(kx * bx - bx / 2, 0), x1 = min(kx * bx - bx / 2 + bx, X);
   Best best{-INFINITY, INT_MAX};
-  for (int sz = z0; sz < z1; sz += kTZ) {
-    const int nz = min(kTZ, z1 - sz);
-    for (int sy = y0; sy < y1; sy += kTY) {
-      const int ny = min(kTY, y1 - sy);
-      for (int sx = x0; sx < x1; sx += kTX) {
-        const int nx = min(kTX, x1 - sx);
-        const int hy = ny + 2, hx = nx + 2;
+  for (int sz = z0; sz < z1; sz += tz) {
+    const int nz = min(tz, z1 - sz);
+    for (int sy = y0; sy < y1; sy += ty) {
+      const int ny = min(ty, y1 - sy);
+      for (int sx = x0; sx < x1; sx += tx) {
+        const int nx = min(tx, x1 - sx);
+        const int hy = ny + h, hx = nx + h;
         if (blur) {
-          const int nh = (nz + 2) * hy * hx;
+          const int nh = (nz + h) * hy * hx;
+          // Blur 3 sums each cell's 27 neighbours from the staged halo.
+          const bool sums = blur != 3;
           for (int i = threadIdx.x; i < nh; i += kThreads) {
-            const int z = sz - 1 + i / (hy * hx);
-            const int y = sy - 1 + (i / hx) % hy;
-            const int x = sx - 1 + i % hx;
+            const int z = sz - lo + i / (hy * hx);
+            const int y = sy - lo + (i / hx) % hy;
+            const int x = sx - lo + i % hx;
             const bool ok = z >= 0 && z < Z && y >= 0 && y < Y && x >= 0 && x < X;
-            tile[i] = ok ? __ldg(in + (static_cast<long long>(z) * Y + y) * X + x) : 0.f;
+            halo[i] = ok ? __ldg(in + (static_cast<long long>(z) * Y + y) * X + x) : 0.f;
           }
           __syncthreads();
+          // z sums of every (y, x) of the halo, for the sub-tile's z.
+          const int plane = hy * hx;
+          for (int i = threadIdx.x; sums && i < nz * plane; i += kThreads) {
+            const float* t = halo + (i / plane) * plane + i % plane;
+            float s = t[0];
+            for (int e = 1; e < k; ++e) s = __fadd_rn(s, t[e * plane]);
+            zsum[i] = s;
+          }
+          if (sums) __syncthreads();
+          // y sums of the z sums, for the sub-tile's (z, y), into halo.
+          for (int i = threadIdx.x; sums && i < nz * ny * hx; i += kThreads) {
+            const int dz = i / (ny * hx), dy = (i / hx) % ny, dx = i % hx;
+            const float* t = zsum + (dz * hy + dy) * hx + dx;
+            float s = t[0];
+            for (int e = 1; e < k; ++e) s = __fadd_rn(s, t[e * hx]);
+            halo[i] = s;
+          }
+          if (sums) __syncthreads();
         }
         const int n = nz * ny * nx;
         for (int i = threadIdx.x; i < n; i += kThreads) {
@@ -104,22 +145,31 @@ block_max_argmin_kernel(const float* __restrict__ in, float* __restrict__ vals,
           const int z = sz + dz, y = sy + dy, x = sx + dx;
           const int flat = (z * Y + y) * X + x;
           float v;
-          if (blur) {
-            // Separable order: z sums, then y, then x.
+          if (blur == 3) {
+            // z sums, then y, then x, from the halo.
             float sx_ = 0.f;
 #pragma unroll
             for (int ex = 0; ex < 3; ++ex) {
               float sy_ = 0.f;
 #pragma unroll
               for (int ey = 0; ey < 3; ++ey) {
-                const float* t = tile + (dz * hy + dy + ey) * hx + dx + ex;
+                const float* t = halo + (dz * hy + dy + ey) * hx + dx + ex;
                 const float sz_ = __fadd_rn(__fadd_rn(t[0], t[hy * hx]), t[2 * hy * hx]);
                 sy_ = ey == 0 ? sz_ : __fadd_rn(sy_, sz_);
               }
               sx_ = ex == 0 ? sy_ : __fadd_rn(sx_, sy_);
             }
-            const float div = __fmul_rn(__fmul_rn(count3(z, Z), count3(y, Y)), count3(x, X));
+            const float div = __fmul_rn(__fmul_rn(count_k(z, Z, 3, 1), count_k(y, Y, 3, 1)),
+                                        count_k(x, X, 3, 1));
             v = __fdiv_rn(sx_, div);
+          } else if (blur) {
+            // x sums of the y sums, then the divisor.
+            const float* t = halo + (dz * ny + dy) * hx + dx;
+            float s = t[0];
+            for (int e = 1; e < k; ++e) s = __fadd_rn(s, t[e]);
+            const float div = __fmul_rn(__fmul_rn(count_k(z, Z, k, lo), count_k(y, Y, k, lo)),
+                                        count_k(x, X, k, lo));
+            v = __fdiv_rn(s, div);
           } else {
             v = __ldg(in + flat);
           }
@@ -152,14 +202,25 @@ extern "C" {
 const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaError_t>(e)); }
 
 // in: (Z, Y, X) float32; vals: (oz*oy*ox,) float32; idx: (oz*oy*ox,) int32,
-// block (kz, ky, kx) at kz*oy*ox + ky*ox + kx. blur: 0 or 3.
+// block (kz, ky, kx) at kz*oy*ox + ky*ox + kx. blur: the box size (0:
+// none); tz, ty, tx and smem_bytes: the sub-tile and its shared memory
+// (kernels/peaks_cuda.py blur_plan).
 int block_max_argmin(const void* in, void* vals, void* idx, int Z, int Y, int X, int bz,
-                     int by, int bx, int oz, int oy, int ox, int blur, void* stream) {
+                     int by, int bx, int oz, int oy, int ox, int blur, int tz, int ty, int tx,
+                     int smem_bytes, void* stream) {
+  const auto kernel = blur == 0   ? block_max_argmin_kernel<0>
+                      : blur == 3 ? block_max_argmin_kernel<3>
+                                  : block_max_argmin_kernel<-1>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const long long blocks = static_cast<long long>(oz) * oy * ox;
-  block_max_argmin_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(in), static_cast<float*>(vals), static_cast<int*>(idx), Z,
-      Y, X, bz, by, bx, oy, ox, blur);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(in), static_cast<float*>(vals), static_cast<int*>(idx), Z, Y, X,
+      bz, by, bx, oy, ox, blur, tz, ty, tx);
   return static_cast<int>(cudaGetLastError());
 }
 

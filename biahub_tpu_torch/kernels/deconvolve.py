@@ -7,10 +7,14 @@ is the normalised magnitude of the padded PSF's 3D FFT; deconvolution is
 
 on the rfft half-spectrum. It runs as passes A, B and C of
 :mod:`biahub_tpu_torch.kernels.fft`: the CUDA kernels for a volume on the
-card, their plain PyTorch versions (``torch.fft``) on the CPU.
+card, their plain PyTorch versions (``torch.fft``) on the CPU. A shape the
+kernels do not take (``fft.deconvolve_limit``) runs the reference's XLA
+route, ``torch.fft`` on the whole volume, and says so on stderr.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -18,6 +22,7 @@ import torch
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.fft import (
     PASS_A_DTYPES,
+    deconvolve_limit,
     fwd_yx,
     inv_yx,
     prepare_fourier_filter,
@@ -65,13 +70,22 @@ def deconvolve_zyx(
     ``transfer_function_half`` is the full TF sliced to ``[..., : X // 2 +
     1]``. ``prepared``: a :func:`~biahub_tpu_torch.kernels.fft.
     prepare_fourier_filter` result for this shape, which callers hoist out
-    of a loop over volumes (then the TF may be omitted).
+    of a loop over volumes (then the TF may be omitted). Where kernels A, B
+    and C do not take the shape, ``irfftn(rfftn(volume) * filter)`` in
+    ``torch.fft``, the reference's route beyond its kernels
+    (deconvolve.py:66-71), decided from the shape before any launch.
     """
     dev = resolve_device(device)
     volume = volume_tensor(zyx_data, dev)
     filt = prepared if prepared is not None else prepare_fourier_filter(
         volume.shape, transfer_function_half, regularization_strength, dev
     )
+    limit = deconvolve_limit(volume.shape)
+    if limit is not None:
+        print(f"deconvolve_zyx: {tuple(volume.shape)} takes torch.fft: {limit}",
+              file=sys.stderr)
+        return torch.fft.irfftn(torch.fft.rfftn(volume.to(torch.float32)) * filt.to(dev),
+                                s=tuple(volume.shape))
     spectrum = fwd_yx(volume)
     z_filter_(spectrum, filt.to(dev))
     return inv_yx(spectrum, out=torch.empty(volume.shape, dtype=torch.float32, device=dev))

@@ -59,7 +59,7 @@ __all__ = [
     "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
     "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan", "z_line_length",
-    "ZPlan", "z_plan", "z_line_table",
+    "ZPlan", "z_plan", "z_line_table", "deconvolve_limit", "pcc_limit",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -517,23 +517,63 @@ def _lib():
     return _build.library("fft", _SIGNATURES)
 
 
-def _check_cuda_shape(shape, what: str) -> None:
-    for n in shape:
+def _axes_limit(axes, shape=None) -> str | None:
+    """Why the kernels do not take every axis of ``axes`` (of a volume of
+    ``shape``, the axes by default), or None."""
+    for n in axes:
         if n < 2 or n > max_axis(n):
-            raise ValueError(
-                f"{what}: the CUDA kernels take axes of 2 to {_MAX_POW2} points "
-                f"when a power of two and 2 to {_MAX_OTHER} otherwise, got volume "
-                f"shape {tuple(shape)}"
-            )
+            return (f"the CUDA kernels take axes of 2 to {_MAX_POW2} points when a power of "
+                    f"two and 2 to {_MAX_OTHER} otherwise, got {tuple(shape or axes)}")
+    return None
+
+
+def _slices_limit(shape) -> str | None:
+    """Kernels A and C: a cluster of at most 8 blocks per z slice, which they
+    do not transform (Z from 1 to 2**28 - 1, so the grid stays under
+    2**31); Y and X as :func:`_axes_limit`."""
+    if not 1 <= shape[0] < 2**28:
+        return f"Z = {shape[0]} z slices, want 1 to 2**28 - 1 (the grid)"
+    return _axes_limit(shape[1:], shape)
+
+
+def _cross_z_limit(z: int) -> str | None:
+    """Kernel Bx's Z: 2 to 2048 when a power of two, 2 to 1024 otherwise."""
+    if z > max_cross_z(z):
+        kind = "a power of two" if _is_pow2(z) else "other lengths"
+        return (f"Z = {z} exceeds the kernel's limit of {max_cross_z(z)} for {kind} (two "
+                "spectra's Z-lines, in double, in one shared-memory tile)")
+    return _axes_limit((z,))
+
+
+def _raise_if(limit: str | None, what: str) -> None:
+    if limit is not None:
+        raise ValueError(f"{what}: {limit}")
+
+
+def _check_cuda_shape(shape, what: str) -> None:
+    _raise_if(_axes_limit(shape), what)
 
 
 def _check_slices(shape, what: str) -> None:
-    """Kernels A and C: a cluster of at most 8 blocks per z slice, which they
-    do not transform (Z from 1 to 2**28 - 1, so the grid stays under
-    2**31); Y and X as :func:`_check_cuda_shape`."""
-    if not 1 <= shape[0] < 2**28:
-        raise ValueError(f"{what}: Z = {shape[0]} z slices, want 1 to 2**28 - 1 (the grid)")
-    _check_cuda_shape(shape[1:], what)
+    _raise_if(_slices_limit(shape), what)
+
+
+def deconvolve_limit(shape) -> str | None:
+    """Why kernels A, B and C do not take a (Z, Y, X) volume of ``shape``
+    (the checks their wrappers raise on), or None when they do. The
+    counterpart of the reference's ``deconvolve_pallas_supported``
+    (pallas_fft.py:652): where it is not None, deconvolution takes
+    ``torch.fft`` as the reference takes XLA's FFT."""
+    shape = tuple(int(s) for s in shape)
+    return _slices_limit(shape) or _axes_limit(shape[:1], shape)
+
+
+def pcc_limit(shape) -> str | None:
+    """Why kernels A, Bx and C do not take a pair of (Z, Y, X) volumes of
+    ``shape``, or None when they do (the reference's
+    ``pcc_pallas_supported``, pallas_fft.py:1499)."""
+    shape = tuple(int(s) for s in shape)
+    return _slices_limit(shape) or _cross_z_limit(shape[0])
 
 
 def _check_grid_y(y: int, what: str) -> None:
@@ -733,10 +773,4 @@ def z_cross_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
 
 
 def _check_cross_z(z: int) -> None:
-    """Kernel Bx's Z: 2 to 2048 when a power of two, 2 to 1024 otherwise."""
-    _check_cuda_shape((z,), "z_cross_")
-    if z > max_cross_z(z):
-        kind = "a power of two" if _is_pow2(z) else "other lengths"
-        raise ValueError(f"z_cross_: Z = {z} exceeds the kernel's limit of "
-                         f"{max_cross_z(z)} for {kind} (two spectra's Z-lines, in "
-                         "double, in one shared-memory tile)")
+    _raise_if(_cross_z_limit(z), "z_cross_")

@@ -10,12 +10,18 @@ Counterpart of ``biahub_tpu/kernels/pallas_resample.py``'s
 volume, each kernel serves both. A CPU tensor takes the plain version in
 :mod:`~biahub_tpu_torch.kernels.multipass_warp`; a CUDA tensor launches the
 kernel or raises.
+
+Kernel J gathers each output over the q whose taps reach it, from a tile's
+q range staged in shared memory (``csrc/multipass.cu``):
+:func:`adjoint_q_range` is that range, computed as the kernel computes it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
+import numpy as np
 import torch
 
 from biahub_tpu_torch.kernels import _build
@@ -25,7 +31,8 @@ from biahub_tpu_torch.kernels.multipass_warp import (
     resample_pass_plain,
 )
 
-__all__ = ["resample_pass", "resample_pass_deriv", "resample_pass_adjoint"]
+__all__ = ["resample_pass", "resample_pass_deriv", "resample_pass_adjoint", "ADJOINT_TILES",
+           "adjoint_max_q", "adjoint_q_range"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -35,6 +42,43 @@ _SIGNATURES = {
 }
 # One block per frame row on gridDim.x.
 _MAX_ROWS = 2**31 - 1
+# Kernel J's tiles (csrc/multipass.cu): p along r and lanes along the
+# frame's last axis, for r = 0 or 1 and for r = 2.
+ADJOINT_TILES = {0: (32, 32), 1: (32, 32), 2: (1024, 1)}
+
+
+def adjoint_max_q(r: int, o: int) -> int:
+    """The longest q range kernel J stages for a tile of pass (r, o); a
+    longer one takes the per-voxel code."""
+    if r == 2:
+        return 1536
+    return 48 if o == 2 else 96
+
+
+def _band(order: int) -> tuple[int, int]:
+    return (0, 1) if order == 1 else (-1, 2)
+
+
+def adjoint_q_range(cr, co, tau, shear: bool, o_range, p_range, order: int,
+                    size_r: int) -> tuple[int, int] | None:
+    """Kernel J's q range [q0, q1] of a tile: the q whose coordinate lies in
+    [p_lo - kmax - 1, p_hi - kmin + 1] for the pass's other index in the
+    inclusive ``o_range``, solved in double with 1/cr at the ends, widened
+    by one q and clipped to the axis (empty when q1 < q0); None when it
+    cannot be solved (cr = 0, not finite), where the tile takes the
+    per-voxel code."""
+    kmin, kmax = _band(order)
+    cr, co, tau = (float(np.float32(v)) for v in (cr, co, tau))
+    rcp = 1.0 / cr if cr else math.inf
+    qs = []
+    for i_o in o_range:
+        base = tau + co * float(i_o) if shear else tau
+        qs += [(float(p_range[0] - kmax - 1) - base) * rcp,
+               (float(p_range[1] - kmin + 1) - base) * rcp]
+    lo, hi = min(qs), max(qs)
+    if not (math.isfinite(lo) and math.isfinite(hi)):
+        return None
+    return int(max(math.floor(lo) - 1.0, 0.0)), int(min(math.ceil(hi) + 1.0, size_r - 1.0))
 
 
 def _check(frame: torch.Tensor, coeffs: torch.Tensor, slot: int, r: int, o: int, order: int,

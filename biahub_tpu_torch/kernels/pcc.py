@@ -8,8 +8,10 @@ kernel A on both volumes, kernel Bx (the Z-DFTs, the cross-power and the
 inverse Z-DFT) and kernel C, :func:`pcc_corr`. A CUDA tensor launches the
 kernels, which take axes of any length up to their limits
 (``fft.max_axis``, ``fft.max_cross_z``) and raise beyond them; a CPU
-tensor takes their plain versions, at any shape. 2D inputs take
-:func:`_pcc_core`, ``torch.fft`` as the reference's XLA route.
+tensor takes their plain versions, at any shape. 2D inputs, and 3D shapes
+past the kernels' limits (``fft.pcc_limit``, decided from the shape before
+any launch and said on stderr), take :func:`_pcc_core`, ``torch.fft`` as
+the reference's XLA route.
 
 The argmax of |corr| and the wrap correction are torch ops, as the
 reference computes them outside any Pallas kernel; ``torch.argmax``, like
@@ -18,6 +20,8 @@ MOVING image onto the REFERENCE: ``mov(x) == ref(x + shift)``.
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
@@ -29,6 +33,7 @@ from biahub_tpu_torch.kernels.fft import (
     _norm_code,
     fwd_yx,
     inv_yx,
+    pcc_limit,
     z_cross_,
 )
 
@@ -113,10 +118,23 @@ def pcc_corr(ref: torch.Tensor, mov: torch.Tensor, normalization=None) -> torch.
     return _corr_vs_spectrum(fwd_yx(_pass_a_input(ref)), mov, normalization)
 
 
+def _kernels_take(ref_shape, mov_shape) -> bool:
+    """Whether a pair takes kernels A, Bx and C: two equal-shape 3D volumes
+    within :func:`~biahub_tpu_torch.kernels.fft.pcc_limit` (the reference's
+    ``pcc_pallas_supported``); a 3D shape past it says so on stderr."""
+    if len(ref_shape) != 3 or tuple(ref_shape) != tuple(mov_shape):
+        return False
+    limit = pcc_limit(ref_shape)
+    if limit is not None:
+        print(f"phase cross-correlation: {tuple(ref_shape)} takes torch.fft: {limit}",
+              file=sys.stderr)
+    return limit is None
+
+
 def _corr_surface(ref_img: torch.Tensor, mov_img: torch.Tensor, normalization):
     """The correlation volume: :func:`pcc_corr` for two equal-shape 3D
-    volumes, :func:`_pcc_core` otherwise (2D)."""
-    if ref_img.ndim == 3 and ref_img.shape == mov_img.shape:
+    volumes the kernels take, :func:`_pcc_core` otherwise."""
+    if _kernels_take(ref_img.shape, mov_img.shape):
         return pcc_corr(ref_img, mov_img, normalization)
     return _pcc_core(ref_img, mov_img, normalization)
 
@@ -255,7 +273,7 @@ def _vs_first(ref, movs, normalization, reduce, device) -> torch.Tensor:
     its spectrum."""
     dev = resolve_device(device)
     ref, movs = as_tensor(ref, dev), as_tensor(movs, dev)
-    if ref.ndim == 3 and ref.shape == movs.shape[1:]:
+    if _kernels_take(ref.shape, movs.shape[1:]):
         _norm_code(normalization)
         ref_spec = fwd_yx(_pass_a_input(ref))
         return torch.stack([reduce(_corr_vs_spectrum(ref_spec, m, normalization))
@@ -266,8 +284,9 @@ def _vs_first(ref, movs, normalization, reduce, device) -> torch.Tensor:
 def _pairwise(refs, movs, normalization, reduce, device) -> torch.Tensor:
     dev = resolve_device(device)
     refs, movs = as_tensor(refs, dev), as_tensor(movs, dev)
-    return torch.stack([reduce(_corr_surface(r, m, normalization))
-                        for r, m in zip(refs, movs)])
+    if _kernels_take(refs.shape[1:], movs.shape[1:]):
+        return torch.stack([reduce(pcc_corr(r, m, normalization)) for r, m in zip(refs, movs)])
+    return torch.stack([reduce(_pcc_core(r, m, normalization)) for r, m in zip(refs, movs)])
 
 
 def _shift_of(corr: torch.Tensor) -> torch.Tensor:

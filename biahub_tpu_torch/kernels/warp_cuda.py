@@ -12,18 +12,76 @@ and ``shear_resample_pallas_t_dyn`` (and their mask_oob use) that
 stabilize's per-timepoint batches run. A CPU tensor takes the plain version
 in :mod:`biahub_tpu_torch.kernels.affine`; a CUDA tensor launches the kernel
 or raises.
+
+Kernel E stages each output tile's input window in shared memory
+(``csrc/warp.cu``); :func:`zy_window` is that window, computed as the
+kernel computes it, and :func:`zy_staged` whether a tile takes it or its
+direct gathers.
 """
 
 from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from biahub_tpu_torch.kernels import _build
 from biahub_tpu_torch.kernels.affine import N_COEFFS, warp_x_plain, warp_zy_plain
 
-__all__ = ["warp_zy", "warp_x"]
+__all__ = ["warp_zy", "warp_x", "E_TILES", "E_STAGE", "zy_window", "zy_staged"]
+
+# Kernel E's output tile (T yo, W x) by input layout, and the floats one of
+# its two window stages holds (csrc/warp.cu ETile, kStage).
+E_TILES = {"zyx": (32, 64), "xzy": (64, 32)}
+E_STAGE = 6144
+
+
+def _coord(cr, r, co, o, tau):
+    """warp.cu's coord(): (cr*r + co*o) + tau, each op rounded to float32."""
+    f = np.float32
+    return (f(cr) * f(r) + f(co) * f(o)) + f(tau)
+
+
+def _tap_rows(coords, n: int) -> tuple[int, int]:
+    """The rows the clamped taps of ``coords`` reach: their floors clamped
+    to [-1, n] (taps()), the least and the greatest plus one, clamped to
+    [0, n-1]."""
+    floors = [int(min(max(np.floor(c), -1), n)) for c in coords]
+    return min(max(min(floors), 0), n - 1), min(max(max(floors) + 1, 0), n - 1)
+
+
+def zy_window(coeffs, zo: int, yo_range, x_range, in_zy) -> tuple[tuple[int, int],
+                                                                  tuple[int, int], bool]:
+    """Kernel E's window for the tile of outputs (zo, yo, x), yo and x in the
+    inclusive ranges ``yo_range`` and ``x_range``, of a (Zi, Yi) input
+    plane ``in_zy``, from one coefficient row: ((zlo, zhi), (ylo, yhi),
+    finite), the z rows from the two x ends at zo and the y rows from the
+    four (yo, x) corners, in the kernel's float32 operand order. Every tap
+    of the tile lies inside when ``finite`` (the corners' coordinates are)."""
+    mzz, zco, tz, b0, b1, b2 = (np.float32(c) for c in np.asarray(coeffs)[:6])
+    zi, yi = in_zy
+    zc = [_coord(mzz, zo, zco, x, tz) for x in x_range]
+    yc = [_coord(b0, yo, b1, x, b2) for yo in yo_range for x in x_range]
+    finite = bool(np.all(np.isfinite(zc + yc)))
+    return _tap_rows(zc, zi), _tap_rows(yc, yi), finite
+
+
+def zy_staged(window, layout: str, vec4: bool = True) -> bool:
+    """Whether kernel E stages a tile's ``window`` (:func:`zy_window`) for
+    the zyx or xzy read, or computes it with direct gathers. ``vec4``: the
+    staged runs are copied 16 bytes at a time (the contiguous axis a
+    multiple of 4), so the xzy read's y runs start at a multiple of 4 and
+    take whole 4-float pieces."""
+    (zlo, zhi), (ylo, yhi), finite = window
+    nz, ny = zhi - zlo + 1, yhi - ylo + 1
+    _, w = E_TILES[layout]
+    if layout == "xzy":
+        ry = ((yhi - (ylo & ~3)) // 4 + 1) * 4 if vec4 else ny
+        need = nz * w * ry
+    else:
+        need = nz * ny * w
+    return finite and need <= E_STAGE
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {

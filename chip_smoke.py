@@ -167,6 +167,24 @@ Then kernels B, Bc and D after their redesign:
     it replaced) in both stores; torch.profiler's device time of B, Bc and
     D beside the previous kernels' readings.
 
+Then kernels E and J after their redesign, and the repairs:
+
+19. ptxas' registers, stack and spills of E's ``warp_zy_kernel`` and J's
+    ``resample_pass_adjoint`` kernels; E on the chain's batch (8, 86, 1024,
+    484) through both reads and on stabilize's batch of 12 with a table of
+    translations, each within WARP_TOL of the plain version, its two reads
+    bit-equal, its time beside the previous E's (PREVIOUS_MS), its bound,
+    grid_sample's at the same shape and torch.profiler's device time; E
+    with a 40 deg rotation (``overflow_matrix``: tile windows past their
+    stage take the direct gathers) within WARP_TOL, both reads bit-equal; J
+    at each slot and order of phase 11's traced frame bit for bit against
+    ``adjoint_exact`` and within WARP_TOL of the plain version, its times
+    beside the previous J's and its bound; G at blur 0, 3, 5 and 15 (G_BLURS)
+    on integer-valued data, values and indices equal to the plain version;
+    one deconvolution and one PCC pair at PAST_LIMITS (X = 4099, past the
+    FFT kernels' 4096), within FFT_TOL of the plain route, no kernel
+    launched, the stderr line printed.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -372,7 +390,18 @@ T_SHARD = 2
 # L2_FLUSH_BYTES (flush_l2), read after a timed run's input is copied,
 # leave none of it in the H100's 50 MB L2 (phases 17 and 18).
 PREVIOUS_MS = {"z_filter": 0.552, "z_filter_complex": 1.799, "z_filter_shard": 0.1607,
-               "deskew": 3.219, "deskew_xzy": 2.896}
+               "deskew": 3.219, "deskew_xzy": 2.896,
+               # Phase 19: E (the chain's batch of 8, its xzy read, stabilize's
+               # batch of 12 with a table) and J (the mean of phase 11's order-1
+               # slots) before their redesign (PERF.md section 6, rows 8, 12, 13).
+               "warp_zy": 1.7399, "warp_zy_xzy": 6.4767, "warp_zy_per_volume": 2.619,
+               "resample_pass_adjoint": 1.700}
+PHASE_18_KEYS = ("z_filter", "z_filter_complex", "z_filter_shard", "deskew", "deskew_xzy")
+CARD_OF_PREVIOUS = "NVIDIA H100 80GB HBM3, 700.00 W"
+# Phase 19: kernel G's blur sizes, and a volume past the FFT kernels' limits
+# (X = 4099: not a power of two, above 4096).
+G_BLURS = (0, 3, 5, 15)
+PAST_LIMITS = (4, 64, 4099)
 PREVIOUS_TRACE = {
     "z_filter": "z_filter_kernel<false, false, true>: 0.5482 ms device, 1227 GB/s (37% of HBM)",
     "z_filter_complex": "z_filter_kernel<true, true, true>: 1.7909 ms device, 287 GB/s (9% of "
@@ -445,6 +474,18 @@ def reg_stab_matrix() -> np.ndarray:
         [[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]], np.float32)
     m[:3, 3] = [0.5, -1.25, 2.0]
     return m.astype(np.float64)
+
+
+def overflow_matrix() -> np.ndarray:
+    """A 40 deg in-plane rotation about the deskewed volume's centre: kernel
+    E's tile windows exceed their stage (|b1| = tan 40 deg), so its tiles
+    take the direct gathers (phase 19)."""
+    theta = np.deg2rad(40.0)
+    m = np.eye(4)
+    m[1:3, 1:3] = [[np.cos(theta), -np.sin(theta)], [np.sin(theta), np.cos(theta)]]
+    centre = (np.asarray(LAPSE_SHAPE, float) - 1) / 2
+    m[:3, 3] = centre - m[:3, :3] @ centre
+    return m
 
 
 def lerp_grid(c: torch.Tensor, size: int) -> torch.Tensor:
@@ -782,6 +823,10 @@ def peaks_phase(dev: torch.device, records: dict) -> None:
 
     gen = torch.Generator(device=dev).manual_seed(7)
     vol = torch.randint(0, 4096, LAPSE_SHAPE, generator=gen, device=dev).float()
+    # Bytes: the volume once, a value and an index per block; operations:
+    # 26 adds, 3 multiplies and a divide per voxel for the blur.
+    bounds = {b: bound(vol.numel() * 4 + math.prod(block_grid(LAPSE_SHAPE, b)) * 8,
+                       vol.numel() * 30) for b in PEAK_BLOCKS}
     worst = 0.0
     for block in PEAK_BLOCKS:
         for blur in (3, 0):
@@ -794,12 +839,10 @@ def peaks_phase(dev: torch.device, records: dict) -> None:
             n = gv.numel()
             ms = time_ms(lambda: block_max_argmin(vol, block, blur))
             print(f"G block_max_argmin {block} blur {blur}: {n} blocks, values and indices "
-                  f"equal to the plain version; ms {ms:.4f}")
+                  f"equal to the plain version; ms {ms:.4f}, bound {bounds[block][0]:.4f}")
     block = PEAK_BLOCKS[0]
     n = math.prod(block_grid(LAPSE_SHAPE, block))
-    # Bytes: the volume once, a value and an index per block; operations:
-    # 26 adds, 3 multiplies and a divide per voxel for the blur.
-    bms, bby = bound(vol.numel() * 4 + n * 8, vol.numel() * 30)
+    bms, bby = bounds[block]
 
     def two_calls():
         smooth = F.avg_pool3d(vol[None, None], 3, 1, 1, count_include_pad=False)
@@ -1073,6 +1116,14 @@ def vjp_phase(dev: torch.device, records: dict) -> None:
     nvox = frame.numel()
     print(f"traced frame of {shape} at margin {REG_MARGIN}: {frame_shape}, "
           f"{frame.numel() * 4 / 1e6:.1f} MB")
+    fbytes = nvox * 4
+    bms_h, bby_h = bound(2 * fbytes, 12 * nvox)
+    # I: reads the frame and ybar once (and writes 3 doubles a row); the
+    # order-1 band derivative, product and three sums are ~9 double ops.
+    bms_i, bby_i = bound(2 * fbytes + frame_shape[0] * frame_shape[1] * 24, 0, 9 * nvox)
+    # J: reads ybar, writes dbar; each sample's 2 weights and 2 products.
+    bms_j, bby_j = bound(2 * fbytes, 6 * nvox)
+    bounds = {"H": bms_h, "I": bms_i, "J": bms_j}
     worst_i, worst_j = 0.0, 0.0
     ms = {name: [] for name in ("H", "I", "J", "H plain", "I plain", "J plain")}
     for order in (1, 3):
@@ -1102,7 +1153,9 @@ def vjp_phase(dev: torch.device, records: dict) -> None:
                 }
                 for name, t in times.items():
                     ms[name].append(t)
-                line += "; ms " + ", ".join(f"{n} {t:.4f}" for n, t in times.items())
+                line += "; ms " + ", ".join(
+                    f"{n} {t:.4f}" + (f" (bound {bounds[n]:.4f})" if n in bounds else "")
+                    for n, t in times.items())
             print(line)
     mean = {name: statistics.mean(v) for name, v in ms.items()}
 
@@ -1125,13 +1178,6 @@ def vjp_phase(dev: torch.device, records: dict) -> None:
     lib_ms = time_ms(library)
     del grid, inp
 
-    fbytes = nvox * 4
-    bms_h, bby_h = bound(2 * fbytes, 12 * nvox)
-    # I: reads the frame and ybar once (and writes 3 doubles a row); the
-    # order-1 band derivative, product and three sums are ~9 double ops.
-    bms_i, bby_i = bound(2 * fbytes + frame_shape[0] * frame_shape[1] * 24, 0, 9 * nvox)
-    # J: reads ybar, writes dbar; each sample's 2 weights and 2 products.
-    bms_j, bby_j = bound(2 * fbytes, 6 * nvox)
     records["resample_pass_deriv"] = dict(
         replaces="biahub_tpu/kernels/pallas_resample.py:1226",
         source="biahub_tpu_torch/csrc/multipass.cu", max_abs_err=worst_i, ms=mean["I"],
@@ -2227,6 +2273,34 @@ def deskew_exact(vols: torch.Tensor, geo, out_layout: str = "zyx") -> torch.Tens
     return out.permute(0, 3, 1, 2).contiguous() if out_layout == "xzy" else out
 
 
+def adjoint_exact(ybar: torch.Tensor, coeffs: torch.Tensor, slot: int, r: int, o: int,
+                  order: int) -> torch.Tensor:
+    """Kernel J's arithmetic, one torch op at a time: H's float32 coordinate
+    and band weights, then for each q in ascending order and each tap k in
+    ascending order, the in-domain samples' products w_k * ybar[q], each
+    rounded, added to dbar at clamp(floor(c_q) + k), so that every output
+    takes its terms in ascending q, then k, one rounded add each. One
+    scatter adds at most one term to an output. The kernel must give these
+    bits."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+
+    size_r = ybar.shape[r + 1]
+    i0, t, inside = mw._taps(mw._pass_coords(ybar.shape, coeffs, slot, r, o), size_r)
+    bands = mw._band_weights(t, order)
+    out = torch.zeros_like(ybar)
+    zero = torch.zeros((), dtype=ybar.dtype, device=ybar.device)
+
+    def at(a: torch.Tensor, q: int) -> torch.Tensor:
+        return a.narrow(r + 1, q, 1) if a.shape[r + 1] == size_r else a
+
+    for q in range(size_r):
+        yq = ybar.narrow(r + 1, q, 1)
+        for k, w in bands:
+            idx = (at(i0, q) + k).clamp(0, size_r - 1).expand(yq.shape)
+            out.scatter_add_(r + 1, idx, torch.where(at(inside, q), at(w, q) * yq, zero))
+    return out
+
+
 def profiler_readings(fn, names: tuple, nbytes: float) -> str:
     """``fn``'s launches of the kernels whose names contain one of ``names``, as
     torch.profiler's CUDA activity reads them over TRACE_REPS calls: name,
@@ -2318,8 +2392,8 @@ def redesign_phase(dev: torch.device, records: dict) -> None:
 
     for line in (ptxas_lines(("z_line_kernel",)) + ptxas_lines(("deskew_kernel",), "deskew")):
         print(f"ptxas {line}")
-    for key, was in PREVIOUS_MS.items():
-        rec = records.get(key)
+    for key in PHASE_18_KEYS:
+        rec, was = records.get(key), PREVIOUS_MS[key]
         if rec is None:
             continue
         print(f"{key}: {rec['ms']:.4f} ms (before: {was}, {rec['ms'] / was - 1:+.1%}), bound "
@@ -2382,6 +2456,182 @@ def redesign_phase(dev: torch.device, records: dict) -> None:
     for key, text in readings.items():
         print(f"profiler {key} (after): {text}")
         print(f"profiler {key} (before): {PREVIOUS_TRACE.get(key, 'not measured')}")
+    torch.cuda.empty_cache()
+
+
+def warp_zy_library(vols_xzy: torch.Tensor, coeffs: torch.Tensor, zi: int, yi: int):
+    """One grid_sample call computing E's function over the B*Xi (Zi, Yi)
+    images of an xzy batch, border padding (E's clamped taps); ``coeffs``
+    (21,) or (B, 21). Returns the call."""
+    b, xi = vols_xzy.shape[:2]
+    table = coeffs.expand(b, -1) if coeffs.ndim == 1 else coeffs
+    grid = zy_grid(table, zi, yi, xi)
+    img = vols_xzy.reshape(b * xi, 1, zi, yi)
+    return lambda: torch.nn.functional.grid_sample(img, grid, mode="bilinear",
+                                                   padding_mode="border", align_corners=True)
+
+
+def ej_phase(dev: torch.device, records: dict) -> None:
+    """Phase 19: kernels E and J redesigned, G at other blur sizes, and the
+    deconvolve and PCC entry points past the FFT kernels' limits. ptxas'
+    figures of E and J; E on the headline batch (zyx and xzy reads) and on
+    stabilize's (12, 86, 1024, 484) table batch beside the previous E, its
+    bound, grid_sample and torch.profiler's device time; E's direct gathers
+    (overflow_matrix) against the plain version; J at each slot and order
+    of phase 11's frame bit for bit against adjoint_exact and against the
+    plain version; G at blur 0, 3, 5 and 15, exact; one deconvolution and
+    one PCC past the limits."""
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+    from biahub_tpu_torch.kernels.affine import (
+        coefficient_table,
+        inplane_coefficients,
+        translation_matrix,
+        warp_zy_plain,
+    )
+    from biahub_tpu_torch.kernels.chain import flip_y_matrix
+    from biahub_tpu_torch.kernels.deconvolve import deconvolve_zyx
+    from biahub_tpu_torch.kernels.multipass_cuda import resample_pass_adjoint
+    from biahub_tpu_torch.kernels.pcc import _corr_surface, pcc_shifts_vs_first
+    from biahub_tpu_torch.kernels.peaks import block_max_candidates_plain
+    from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin, blur_plan
+    from biahub_tpu_torch.kernels.warp_cuda import warp_zy
+
+    for line in (ptxas_lines(("warp_zy_kernel",), "warp")
+                 + ptxas_lines(("resample_pass_adjoint",), "multipass")):
+        print(f"ptxas {line}")
+    print(f"before: {CARD_OF_PREVIOUS}")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    z, y, x = LAPSE_SHAPE
+
+    # -- E: the chain's batch in both reads, and stabilize's table batch ----
+    chain_c = inplane_coefficients(flip_y_matrix(y) @ reg_stab_matrix()).to(dev)
+    rng = np.random.default_rng(19)
+    drift = np.stack([rng.integers(-m, m + 1, T_LAPSE) for m in MAX_DRIFT], axis=1)
+    table = coefficient_table(np.stack([translation_matrix(d) for d in drift])).to(dev)
+    vol_bytes = math.prod(LAPSE_SHAPE) * 4
+    for key, batch, coeffs in (("warp_zy", BATCH, chain_c), ("warp_zy_xzy", BATCH, chain_c),
+                               ("warp_zy_per_volume", T_LAPSE, table)):
+        vols = torch.rand((batch,) + LAPSE_SHAPE, generator=gen, device=dev)
+        xzy = vols.permute(0, 3, 1, 2).contiguous()
+        got = warp_zy(vols, coeffs, (z, y))
+        _, err = rel_err(got, warp_zy_plain(vols, coeffs, (z, y)))
+        require(err <= WARP_TOL, f"E {key}: rel err {err:.3g} > {WARP_TOL}")
+        got_x = warp_zy(xzy, coeffs, (z, y), input_xzy=True)
+        require(torch.equal(got_x.view(torch.int32), got.view(torch.int32)),
+                f"E {key}: the xzy read differs from the zyx read")
+        src, read_xzy = (xzy, True) if key == "warp_zy_xzy" else (vols, False)
+        ms = time_ms(lambda: warp_zy(src, coeffs, (z, y), input_xzy=read_xzy))
+        lib_ms = time_ms(warp_zy_library(xzy, coeffs, z, y))
+        bms, _ = bound(2 * batch * vol_bytes, batch * math.prod(LAPSE_SHAPE) * 15)
+        device = profiler_readings(lambda: warp_zy(src, coeffs, (z, y), input_xzy=read_xzy),
+                                   ("warp_zy_kernel",), 2 * batch * vol_bytes)
+        was = PREVIOUS_MS[key]
+        print(f"E {key} ({batch}, {z}, {y}, {x}): rel err {err:.3g} (tol {WARP_TOL}), zyx and "
+              f"xzy reads bit-equal; {ms:.4f} ms (before: {was}, {ms / was - 1:+.1%}), bound "
+              f"{bms:.4f} ({ms / bms:.2f}x), grid_sample {lib_ms:.4f} "
+              f"({'E faster' if ms < lib_ms else 'grid_sample faster'}); profiler: {device}")
+        del vols, xzy, got, got_x
+    torch.cuda.empty_cache()
+
+    # E's direct gathers: a matrix whose tile windows exceed their stage.
+    vols = torch.rand((2,) + LAPSE_SHAPE, generator=gen, device=dev)
+    over = inplane_coefficients(overflow_matrix()).to(dev)
+    got = warp_zy(vols, over, (z, y))
+    _, err = rel_err(got, warp_zy_plain(vols, over, (z, y)))
+    require(err <= WARP_TOL, f"E with overflowing windows: rel err {err:.3g} > {WARP_TOL}")
+    got_x = warp_zy(vols.permute(0, 3, 1, 2).contiguous(), over, (z, y), input_xzy=True)
+    require(torch.equal(got_x.view(torch.int32), got.view(torch.int32)),
+            "E with overflowing windows: the xzy read differs from the zyx read")
+    print(f"E with a 40 deg rotation (tile windows past the stage: direct gathers): rel err "
+          f"{err:.3g} (tol {WARP_TOL}), zyx and xzy reads bit-equal; "
+          f"{time_ms(lambda: warp_zy(vols, over, (z, y))):.4f} ms for 2 volumes")
+    del vols, got, got_x
+    torch.cuda.empty_cache()
+
+    # -- J: each slot and order of phase 11's traced frame -----------------
+    truth = torch.tensor(similarity_about_centre(LAPSE_SHAPE), dtype=torch.float32, device=dev)
+    off, frame_shape, _ = mw.traced_frame(LAPSE_SHAPE, LAPSE_SHAPE, REG_MARGIN)
+    rows = mw.traced_pass_rows(truth, off)
+    jtable = torch.stack([row for _, _, row in rows]).contiguous()
+    ybar = torch.randn((1,) + tuple(frame_shape), generator=gen, device=dev)
+    out = torch.empty_like(ybar)
+    fbytes = ybar.numel() * 4
+    bms_j, _ = bound(2 * fbytes, 6 * ybar.numel())
+    times = []
+    for order in (1, 3):
+        for k, (r, o, _) in enumerate(rows):
+            got = resample_pass_adjoint(ybar, jtable, k, r, o, order, out=out)
+            exact = adjoint_exact(ybar, jtable, k, r, o, order)
+            require(torch.equal(got.view(torch.int32), exact.view(torch.int32)),
+                    f"J slot {k} order {order}: not bit-equal to adjoint_exact")
+            _, err = rel_err(got, mw.resample_pass_adjoint_plain(ybar, jtable, k, r, o, order))
+            require(err <= WARP_TOL, f"J slot {k} order {order}: rel err {err:.3g}")
+            ms = time_ms(lambda: resample_pass_adjoint(ybar, jtable, k, r, o, order, out=out))
+            times.append(ms)
+            print(f"J slot {k} (r {r}, o {o}) order {order}: bit-equal to adjoint_exact, rel err "
+                  f"{err:.3g} vs plain (tol {WARP_TOL}); {ms:.4f} ms, bound {bms_j:.4f} "
+                  f"({ms / bms_j:.2f}x)")
+            del exact
+    r, o, _ = rows[3]
+    device = profiler_readings(lambda: resample_pass_adjoint(ybar, jtable, 3, r, o, 1, out=out),
+                               ("resample_pass_adjoint",), 2 * fbytes)
+    was = PREVIOUS_MS["resample_pass_adjoint"]
+    mean1 = statistics.mean(times[:len(rows)])
+    print(f"J in the {tuple(frame_shape)} frame: order 1 mean of the 7 slots {mean1:.4f} ms "
+          f"(before: {was}, {mean1 / was - 1:+.1%}), order 3 mean "
+          f"{statistics.mean(times[len(rows):]):.4f}, bound {bms_j:.4f}; slot 3 order 1 "
+          f"profiler: {device}")
+    del ybar, out
+    torch.cuda.empty_cache()
+
+    # -- G at other blur sizes, exact on integer-valued data ---------------
+    vol = torch.randint(0, 4096, LAPSE_SHAPE, generator=gen, device=dev).float()
+    for blur in G_BLURS:
+        for block in PEAK_BLOCKS:
+            gv, gi = block_max_argmin(vol, block, blur)
+            pv, pi = block_max_candidates_plain(vol, block, blur)
+            require(torch.equal(gv, pv) and torch.equal(gi, pi),
+                    f"kernel G {block} blur {blur}: {int((gv != pv).sum())} values and "
+                    f"{int((gi != pi).sum())} indices differ from the plain version")
+        ms = time_ms(lambda: block_max_argmin(vol, PEAK_BLOCKS[0], blur))
+        print(f"G blur {blur} (sub-tile, shared memory: {blur_plan(blur)}): values and indices "
+              f"equal to the plain version at {PEAK_BLOCKS}; {ms:.4f} ms at {PEAK_BLOCKS[0]}, "
+              f"bound {records['block_max_argmin']['bound_ms']:.4f}")
+    del vol
+
+    # -- the deconvolve and PCC entry points past the kernels' limits ------
+    vol = torch.rand(PAST_LIMITS, generator=gen, device=dev)
+    tf_half = torch.rand(kfft.half_spectrum_shape(PAST_LIMITS), generator=gen, device=dev)
+    filt = kfft.prepare_fourier_filter(PAST_LIMITS, tf_half, REG, dev)
+    err_text = io.StringIO()
+    with contextlib.redirect_stderr(err_text):
+        got, launches = counted(lambda: deconvolve_zyx(vol, prepared=filt, device=dev))
+    spec = kfft.fwd_yx_plain(vol)
+    want = kfft.inv_yx_plain(kfft.z_filter_plain_(spec, filt), torch.empty_like(vol))
+    _, err = rel_err(got, want)
+    require(err <= FFT_TOL, f"deconvolve past the limits: rel err {err:.3g} > {FFT_TOL}")
+    require(not launches, f"deconvolve past the limits launched {launches}")
+    require(f"{PAST_LIMITS} takes torch.fft" in err_text.getvalue(),
+            "deconvolve past the limits: no stderr line")
+    print(f"deconvolve_zyx at {PAST_LIMITS}: rel err {err:.3g} vs the plain route (tol "
+          f"{FFT_TOL}), no kernel launched; stderr: {err_text.getvalue().strip()}")
+    mov = torch.roll(vol, (1, -3, 7), (0, 1, 2))
+    err_text = io.StringIO()
+    with contextlib.redirect_stderr(err_text):
+        shift, launches = counted(lambda: pcc_shifts_vs_first(vol, mov[None], None, device=dev))
+        corr_route = _corr_surface(vol, mov, None)
+    h1, h2 = kfft.fwd_yx_plain(vol), kfft.fwd_yx_plain(mov)
+    corr = kfft.inv_yx_plain(kfft.z_cross_plain_(h1, h2, h2), torch.empty_like(vol))
+    _, err = rel_err(corr_route, corr)
+    require(err <= FFT_TOL, f"PCC past the limits: rel err {err:.3g} > {FFT_TOL}")
+    require(not launches, f"PCC past the limits launched {launches}")
+    require(shift[0].tolist() == [-1.0, 3.0, -7.0], f"PCC past the limits: shift {shift[0]}")
+    require(f"{PAST_LIMITS} takes torch.fft" in err_text.getvalue(),
+            "PCC past the limits: no stderr line")
+    print(f"PCC at {PAST_LIMITS}: shift {shift[0].tolist()} exact, correlation rel err "
+          f"{err:.3g} vs the plain route (tol {FFT_TOL}), no kernel launched; stderr: "
+          f"{err_text.getvalue().strip()}")
     torch.cuda.empty_cache()
 
 
@@ -2726,6 +2976,7 @@ def main() -> int:
     spectral_phase(dev, records, tf_half)
     sharded_phase(dev, records, tf_half, psf)
     redesign_phase(dev, records)
+    ej_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

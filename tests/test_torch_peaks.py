@@ -43,6 +43,9 @@ def candidates(vol, block, blur):
     ((13, 21, 30), (8, 8, 8), 0),
     ((70, 70, 40), (64, 64, 32), 3),  # estimate-psf's blocks
     ((40, 100, 70), (64, 64, 32), 0),
+    ((13, 21, 30), (8, 8, 8), 5),   # other blur sizes: wider halos
+    ((13, 21, 30), (8, 8, 8), 2),   # even: one more cell above than below
+    ((20, 24, 40), (8, 8, 8), 15),
 ])
 def test_block_max_candidates_match_the_xla_route_exactly(shape, block, blur):
     vol = np.random.default_rng(1).integers(0, 1000, shape).astype(np.float32)
@@ -107,10 +110,12 @@ BEADS_KW = dict(block_size=tuple(DEFAULTS.block_size), threshold_abs=DEFAULTS.th
                 nms_distance=DEFAULTS.nms_distance, min_distance=DEFAULTS.min_distance)
 
 
-@pytest.mark.parametrize("case", ["beads_defaults", "psf_settings", "ties"])
+@pytest.mark.parametrize("case", ["beads_defaults", "psf_settings", "ties", "beads_blur5"])
 def test_detect_peaks_matches_the_reference(case):
     if case == "beads_defaults":  # peaks_from_beads' call
         vol, kw = render_beads((32, 96, 80), 40), BEADS_KW
+    elif case == "beads_blur5":  # DetectPeaksSettings(blur_kernel_size=5)
+        vol, kw = render_beads((32, 96, 80), 40, seed=5), dict(BEADS_KW, blur_kernel_size=5)
     elif case == "psf_settings":  # estimate-psf's call
         vol, kw = render_beads((40, 192, 128), 12, seed=4), BEAD_DETECTION_SETTINGS
     else:  # more tied blocks than max_num_peaks
@@ -119,3 +124,18 @@ def test_detect_peaks_matches_the_reference(case):
     got = tpeaks.detect_peaks(vol, **kw, device="cpu")
     assert len(want) >= 3
     np.testing.assert_array_equal(got, want)
+
+
+def test_kernel_g_plans_every_blur_up_to_its_limit():
+    """Kernel G's sub-tile and shared memory for every blur size it takes
+    (blur_plan): blur 3 keeps (8, 8, 32), every plan fits a block, and the
+    first size past MAX_BLUR raises naming the limit."""
+    from biahub_tpu_torch.kernels import peaks_cuda
+
+    assert peaks_cuda.blur_plan(3) == ((8, 8, 32), 13600)
+    assert peaks_cuda.MAX_BLUR >= 15
+    for k in range(peaks_cuda.MAX_BLUR + 1):
+        tile, smem = peaks_cuda.blur_plan(k)
+        assert smem <= 227 * 1024 and min(tile) >= 1
+    with pytest.raises(ValueError, match=f"limit of {peaks_cuda.MAX_BLUR}"):
+        peaks_cuda.blur_plan(peaks_cuda.MAX_BLUR + 1)
