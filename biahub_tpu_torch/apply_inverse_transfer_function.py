@@ -7,8 +7,9 @@ transfer function (:169-178). Per timepoint, on the input channels in the
 settings' order: birefringence by Stokes inversion (torch), phase as the
 Tikhonov inverse of ``czyx[0] / mean - 1`` through the WOTF, fluorescence
 as the Tikhonov inverse of every input channel through the OTF. Each
-inverse is one run of kernels A, Bc and C; the filters are prepared once
-per call. Outputs are ordered birefringence (4), phase (1), fluorescence
+inverse is one run of kernels A, Bc and C, or of ``torch.fft`` for a shape
+the kernels do not take (``fft.deconvolve_limit``, decided and said on
+stderr once per call); the filters are prepared once per call. Outputs are ordered birefringence (4), phase (1), fluorescence
 (C), as :func:`~biahub_tpu_torch.recon.settings.output_channel_names`
 names them.
 """
@@ -60,6 +61,9 @@ def _make_recon_kernel(settings: dict, tfs: dict, zyx_shape, dev: torch.device):
             settings[name]["apply_inverse"]["regularization_strength"], dev)
         for name in ("phase", "fluorescence") if settings[name] is not None
     }
+    fourier_filter = kfft.fourier_filter_zyx
+    if filters and kfft.takes_torch_fft("apply_inverse_transfer_function", zyx_shape):
+        fourier_filter = kfft.filter_torch_fft
 
     def kernel(czyx: torch.Tensor, out: torch.Tensor) -> None:
         k = 0
@@ -76,11 +80,11 @@ def _make_recon_kernel(settings: dict, tfs: dict, zyx_shape, dev: torch.device):
         if "phase" in filters:
             bf = czyx[0]
             i_norm = bf / (torch.mean(bf) + 1e-12) - 1.0
-            kfft.fourier_filter_zyx(i_norm, filters["phase"], out=out[k])
+            fourier_filter(i_norm, filters["phase"], out=out[k])
             k += 1
         if "fluorescence" in filters:
             for c in range(czyx.shape[0]):
-                kfft.fourier_filter_zyx(czyx[c], filters["fluorescence"], out=out[k + c])
+                fourier_filter(czyx[c], filters["fluorescence"], out=out[k + c])
 
     return kernel
 

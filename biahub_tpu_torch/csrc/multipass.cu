@@ -35,13 +35,8 @@
 // ping-pongs two frame buffers.
 //
 // Bound on one H100 SXM (3.35 TB/s): bytes. A pass reads and writes one
-// frame once: a (120, 1060, 520) float32 frame is 265 MB each way, 0.16 ms.
+// frame once: a (118, 1338, 636) float32 frame is 402 MB each way, 0.24 ms.
 // About 30 float32 operations per voxel are far under the card's rate.
-// Design: one block per frame row (b, p0, p1), threads along the row's
-// contiguous axis p2, so stores are coalesced; for r = 0 or 1 the four taps
-// of neighbouring threads are neighbouring addresses of four rows (|co| is
-// small for the rotations stabilize and registration fit), for r = 2 they
-// are a short contiguous run.
 //
 // I and J replace pallas_resample.py:1226 _resample_kernel_dyn_deriv
 // (launched at :1324 through _dyn_call, by shear_resample_deriv_dyn :1340)
@@ -57,10 +52,42 @@
 // samples, dv the band-derivative resample of src at c (d weight / d t:
 // (-1, 1) for order 1, the Catmull-Rom derivative of pallas_resample.py:
 // 1257-1265 for order 3). The TPU kernel writes the whole dv frame and XLA
-// reduces it; I never stores dv: t is promoted to double, the derivative
-// band, the products and a block's sums are double (float32 over ~1e8
-// terms would drift by ~1e-4), and each block writes its row's three
-// partials; the wrapper sums them. Bound: bytes (reads src and ybar once).
+// reduces it; I never stores dv. t is promoted to double, and the
+// derivative band, the products and the sums are double: float32 sums over
+// the ~1e8 terms of a frame round each add at ~6e-8 of the running sum and
+// drift by ~1e-4 of the result, where I is held to 1e-6 of it. Bound: bytes
+// (reads src and ybar once).
+//
+// H and I's design: one staged tile walk. r = 0 or 1: a tile is P
+// consecutive p along r by L lanes of the frame's contiguous axis p2 (H 16
+// by 128, I 32 by 64), at one (b, s), s the index on the axis that is
+// neither r nor 2; a block (b, s, p tile) walks the lane tiles of its p
+// tile. r = 2: a unit is up to kRow = 1024 p of one frame row; a block (b,
+// p0, kRows = 8 rows of p1) walks its rows' units, four a tile. Each rounded
+// float32 operation of pass_coord is monotone in each index, so the clamped
+// floors at a tile's corners bound every tap: the window along r is
+// [floor(c_lo) + kmin, floor(c_hi) + kmax] clamped to the frame
+// (pass_window; r = 2: one contiguous run of the row). While a block
+// computes one tile it stages the next tile's windows with cp.async (runs
+// of 256 or 512 bytes along p2, or the row's run, in 16-, 8- or 4-byte
+// pieces as the frame's width allows), two stages deep, and I stages the
+// matching ybar tile with them; each thread then computes its outputs from
+// shared memory (a warp along 32 lanes of a row, or a quarter of the block
+// along a row unit), so stores stay coalesced along p2 and every source row
+// is read from device memory about once per tile and not once per tap. A
+// tile whose window exceeds its stage (|cr| large against the tile, a large
+// shear across the lanes, coordinates that are not finite) reads its taps
+// from device memory instead, in the same kernel. Both routes compute each
+// sample with the same device functions in the same operand order, so an
+// output's bits do not depend on the route or the tile (H equals the plain
+// version bit for bit; an identity pass copies the frame), and I's
+// per-sample products neither. I's thread keeps
+// its three sums over the block's whole run of tiles; the block reduces
+// them in a fixed order and writes one partial triple; one torch sum over
+// the blocks of a volume gives the result, the same bits run to run.
+// kernels/multipass_cuda.py mirrors the window and the walk (tests hold
+// that the window contains every tap and that the walk covers the frame
+// once).
 //
 // J: dbar[p] = sum over in-domain q of w_k(c_q) * ybar[q] where
 // clamp(floor(c_q) + k) == p, a deterministic gather (no atomics): each
@@ -99,8 +126,6 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-
 __device__ __forceinline__ int clampi(int i, int n) { return min(max(i, 0), n - 1); }
 
 // The pass's coordinate, in H's operand order.
@@ -137,58 +162,46 @@ __device__ __forceinline__ void band_weights(float t, int order, float* w) {
   w[3] = __fsub_rn(__fmul_rn(0.5f, t3), __fmul_rn(0.5f, t2));
 }
 
-struct Row {
-  long long row;  // (b * F0 + p0) * F1 + p1
-  int p0, p1, b;
-};
-
-__device__ __forceinline__ Row this_row(int F0, int F1) {
-  Row w;
-  w.row = blockIdx.x;
-  w.p1 = static_cast<int>(w.row % F1);
-  const long long bp0 = w.row / F1;
-  w.p0 = static_cast<int>(bp0 % F0);
-  w.b = static_cast<int>(bp0 / F0);
-  return w;
-}
-
-__device__ __forceinline__ int axis_index(int axis, int p0, int p1, int p2) {
-  return axis == 0 ? p0 : (axis == 1 ? p1 : p2);
-}
-
-__global__ void __launch_bounds__(kThreads)
-resample_pass_kernel(const float* __restrict__ src, float* __restrict__ dst,
-                     const float* __restrict__ coeffs, int cstride, int slot, int F0,
-                     int F1, int F2, int r, int o, int order, float fill) {
-  const Row w = this_row(F0, F1);
-  const float* cb = coeffs + static_cast<long long>(w.b) * cstride + 3 * slot;
-  const float cr = __ldg(cb), co = __ldg(cb + 1), tau = __ldg(cb + 2);
-  const int size_r = r == 0 ? F0 : (r == 1 ? F1 : F2);
-  const long long stride_r = r == 0 ? static_cast<long long>(F1) * F2 : (r == 1 ? F2 : 1);
-  const float hi = static_cast<float>(size_r - 1);
-  float* out_row = dst + w.row * F2;
-  for (int p2 = threadIdx.x; p2 < F2; p2 += kThreads) {
-    const int i_r = axis_index(r, w.p0, w.p1, p2);
-    const float c = pass_coord(cr, co, tau, i_r, axis_index(o, w.p0, w.p1, p2), o != r);
-    float t;
-    const int i0 = tap_floor(c, size_r, &t);
-    // The voxel's row with p_r = 0; the taps are offsets along r from it.
-    const float* base = src + (w.row * F2 + p2 - i_r * stride_r);
-    float acc;
-    if (order == 1) {
-      const float w0 = __fsub_rn(1.f, t);
-      acc = __fmul_rn(w0, __ldg(base + clampi(i0, size_r) * stride_r));
-      acc = __fadd_rn(acc, __fmul_rn(t, __ldg(base + clampi(i0 + 1, size_r) * stride_r)));
-    } else {
-      float wk[4];
-      band_weights(t, 3, wk);
-      acc = __fmul_rn(wk[0], __ldg(base + clampi(i0 - 1, size_r) * stride_r));
-      acc = __fadd_rn(acc, __fmul_rn(wk[1], __ldg(base + clampi(i0, size_r) * stride_r)));
-      acc = __fadd_rn(acc, __fmul_rn(wk[2], __ldg(base + clampi(i0 + 1, size_r) * stride_r)));
-      acc = __fadd_rn(acc, __fmul_rn(wk[3], __ldg(base + clampi(i0 + 2, size_r) * stride_r)));
-    }
-    out_row[p2] = (c >= 0.f && c <= hi) ? acc : fill;
+// H's sample: the band's resample at t from the clamped taps, tap(i) the
+// source at row i along r, added in ascending k.
+template <int kOrder, class Tap>
+__device__ __forceinline__ float band_value(float t, int i0, int size_r, const Tap& tap) {
+  if (kOrder == 1) {
+    const float w0 = __fsub_rn(1.f, t);
+    const float acc = __fmul_rn(w0, tap(clampi(i0, size_r)));
+    return __fadd_rn(acc, __fmul_rn(t, tap(clampi(i0 + 1, size_r))));
   }
+  float wk[4];
+  band_weights(t, 3, wk);
+  float acc = __fmul_rn(wk[0], tap(clampi(i0 - 1, size_r)));
+  acc = __fadd_rn(acc, __fmul_rn(wk[1], tap(clampi(i0, size_r))));
+  acc = __fadd_rn(acc, __fmul_rn(wk[2], tap(clampi(i0 + 1, size_r))));
+  return __fadd_rn(acc, __fmul_rn(wk[3], tap(clampi(i0 + 2, size_r))));
+}
+
+// I's sample: the band-derivative resample at t, in double.
+template <int kOrder, class Tap>
+__device__ __forceinline__ double band_derivative(float t, int i0, int size_r, const Tap& tap) {
+  if (kOrder == 1) {  // weights (-1, 1): v1 - v0, exact in double
+    const double v0 = tap(clampi(i0, size_r));
+    const double v1 = tap(clampi(i0 + 1, size_r));
+    return __dsub_rn(v1, v0);
+  }
+  const double td = t;
+  const double t2 = __dmul_rn(td, td);
+  const double dw[4] = {
+      __dsub_rn(__dadd_rn(__dmul_rn(-1.5, t2), __dmul_rn(2.0, td)), 0.5),
+      __dsub_rn(__dmul_rn(4.5, t2), __dmul_rn(5.0, td)),
+      __dadd_rn(__dadd_rn(__dmul_rn(-4.5, t2), __dmul_rn(4.0, td)), 0.5),
+      __dsub_rn(__dmul_rn(1.5, t2), __dmul_rn(1.0, td)),
+  };
+  double dv = __dmul_rn(dw[0], static_cast<double>(tap(clampi(i0 - 1, size_r))));
+#pragma unroll
+  for (int k = 1; k < 4; ++k) {
+    const double v = tap(clampi(i0 + k - 1, size_r));
+    dv = __dadd_rn(dv, __dmul_rn(dw[k], v));
+  }
+  return dv;
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -196,68 +209,372 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-resample_pass_deriv_kernel(const float* __restrict__ src, const float* __restrict__ ybar,
-                           const float* __restrict__ coeffs, int cstride, int slot, int F0,
-                           int F1, int F2, int r, int o, int order,
-                           double* __restrict__ partials) {
-  const Row w = this_row(F0, F1);
-  const float* cb = coeffs + static_cast<long long>(w.b) * cstride + 3 * slot;
-  const float cr = __ldg(cb), co = __ldg(cb + 1), tau = __ldg(cb + 2);
-  const int size_r = r == 0 ? F0 : (r == 1 ? F1 : F2);
-  const long long stride_r = r == 0 ? static_cast<long long>(F1) * F2 : (r == 1 ? F2 : 1);
-  const float hi = static_cast<float>(size_r - 1);
-  const bool shear = o != r;
-  double s_r = 0.0, s_o = 0.0, s_1 = 0.0;
-  for (int p2 = threadIdx.x; p2 < F2; p2 += kThreads) {
-    const int i_r = axis_index(r, w.p0, w.p1, p2);
-    const int i_o = axis_index(o, w.p0, w.p1, p2);
-    const float c = pass_coord(cr, co, tau, i_r, i_o, shear);
-    if (!(c >= 0.f && c <= hi)) continue;  // H wrote the fill: no derivative
+// H and I's tiles and stages (see the design above): 8 warps; r < 2: P p
+// by L lanes (H 16 by 128, I 32 by 64), a stage of P + 32 window rows (|cr|
+// up to ~2 at small shears); r = 2: units of up to kRow p of a row, a block
+// walking kRows rows, RowUnits units a tile (H 4, I 4), a stage of kMaxRun
+// floats of each unit's row. kStages stages: one tile in flight while one is
+// computed. Found on the H100 against other tile sizes, stages and units
+// (PERF.md): wide lane tiles (runs of 256 or 512 bytes) and several row units
+// a tile, so that each barrier covers ~2K outputs, mattered; a third stage
+// did not.
+constexpr int kHThreads = 256, kHWarps = kHThreads / 32;
+constexpr int kRow = 1024, kRows = 8;
+constexpr int kMaxRun = kRow + 64, kRunPitch = kMaxRun + 8;
+constexpr int kStages = 2;
+template <bool kDeriv>
+struct Tiles {
+  static constexpr int P = kDeriv ? 32 : 16, L = kDeriv ? 64 : 128;
+  static constexpr int MaxRows = P + 32;
+  static constexpr int RowUnits = 4;
+};
+
+// The rows [lo, hi] along r that the clamped taps of a tile reach, and
+// whether the tile stages them.
+struct Window {
+  int lo, hi;
+  bool ok;
+};
+
+// The window of the outputs p in [p_lo, p_hi] whose shear index lies in
+// [o_lo, o_hi]: pass_coord's rounded operations are monotone in each index,
+// so tap_floor at the four corners bounds every output's floor. Staged when
+// the corners' coordinates are finite (then every one between is) and the
+// window holds at most max_rows rows.
+template <int kOrder>
+__device__ __forceinline__ Window pass_window(float cr, float co, float tau, bool shear,
+                                              int o_lo, int o_hi, int p_lo, int p_hi,
+                                              int size_r, int max_rows) {
+  constexpr int kmin = kOrder == 1 ? 0 : -1, kmax = kOrder == 1 ? 1 : 2;
+  int fmin = size_r + 1, fmax = -3;
+  bool finite = true;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float c = pass_coord(cr, co, tau, e & 1 ? p_hi : p_lo, e & 2 ? o_hi : o_lo, shear);
+    finite = finite && isfinite(c);
     float t;
-    const int i0 = tap_floor(c, size_r, &t);
-    const float* base = src + (w.row * F2 + p2 - i_r * stride_r);
-    double dv;
-    if (order == 1) {
-      const double v0 = __ldg(base + clampi(i0, size_r) * stride_r);
-      const double v1 = __ldg(base + clampi(i0 + 1, size_r) * stride_r);
-      dv = __dadd_rn(__dmul_rn(-1.0, v0), __dmul_rn(1.0, v1));
-    } else {
-      const double td = t;
-      const double t2 = __dmul_rn(td, td);
-      const double dw[4] = {
-          __dsub_rn(__dadd_rn(__dmul_rn(-1.5, t2), __dmul_rn(2.0, td)), 0.5),
-          __dsub_rn(__dmul_rn(4.5, t2), __dmul_rn(5.0, td)),
-          __dadd_rn(__dadd_rn(__dmul_rn(-4.5, t2), __dmul_rn(4.0, td)), 0.5),
-          __dsub_rn(__dmul_rn(1.5, t2), __dmul_rn(1.0, td)),
-      };
-      dv = __dmul_rn(dw[0], static_cast<double>(__ldg(base + clampi(i0 - 1, size_r) * stride_r)));
-      for (int k = 1; k < 4; ++k) {
-        const double v = __ldg(base + clampi(i0 + k - 1, size_r) * stride_r);
-        dv = __dadd_rn(dv, __dmul_rn(dw[k], v));
+    const int f = tap_floor(c, size_r, &t);
+    fmin = min(fmin, f);
+    fmax = max(fmax, f);
+  }
+  Window w{clampi(fmin + kmin, size_r), clampi(fmax + kmax, size_r), false};
+  w.ok = finite && w.hi - w.lo + 1 <= max_rows;
+  return w;
+}
+
+// One pass's operands: the frame (B, F0, F1, F2), its input src, H's output
+// dst, I's cotangent ybar, and the coefficients of volume b.
+struct Pass {
+  const float* __restrict__ src;
+  const float* __restrict__ ybar;
+  float* __restrict__ dst;
+  float cr, co, tau, fill;
+  int F0, F1, F2, r, o;
+  int vec;  // floats a staged copy moves: 4, 2 or 1 (F2 and the frames' alignment)
+};
+
+// One staged copy of vec floats (valid false: zeros).
+__device__ __forceinline__ void copy_piece(float* dst, const float* src, int vec, bool valid) {
+  if (vec == 4) {
+    cp_async16(dst, src, valid);
+  } else if (vec == 2) {
+    cp_async8(dst, src, valid);
+  } else {
+    cp_async4(dst, src, valid);
+  }
+}
+
+// I's running sums: ybar*dv times i_r, times i_o, and alone.
+struct Sums {
+  double r = 0.0, o = 0.0, one = 0.0;
+  __device__ __forceinline__ void add(double g, int i_r, int i_o, bool shear) {
+    r = __dadd_rn(r, __dmul_rn(g, static_cast<double>(i_r)));
+    if (shear) o = __dadd_rn(o, __dmul_rn(g, static_cast<double>(i_o)));
+    one = __dadd_rn(one, g);
+  }
+};
+
+// One output at p (shear index i_o) whose taps tap() reads: H stores its
+// value (or the fill) at dst[at] and returns 0; I returns ybar*dv (y: ybar
+// at p), 0 outside the domain.
+template <int kOrder, bool kDeriv, class Tap>
+__device__ __forceinline__ double sample(const Pass& ps, int size_r, bool shear, int p, int i_o,
+                                         long long at, const Tap& tap, float y) {
+  const float c = pass_coord(ps.cr, ps.co, ps.tau, p, i_o, shear);
+  const bool inside = c >= 0.f && c <= static_cast<float>(size_r - 1);
+  float t;
+  const int i0 = tap_floor(c, size_r, &t);
+  if (kDeriv) {
+    if (!inside) return 0.0;  // H wrote the fill: no derivative
+    return __dmul_rn(static_cast<double>(y), band_derivative<kOrder>(t, i0, size_r, tap));
+  }
+  ps.dst[at] = inside ? band_value<kOrder>(t, i0, size_r, tap) : ps.fill;
+  return 0.0;
+}
+
+// r = 0 or 1: block (b, s, p tile pt) walks the lane tiles. win: kStages
+// stages of kMaxRows x kL floats; ys (I): kStages of kP x kL.
+template <int kOrder, bool kDeriv>
+__device__ __forceinline__ void walk_lane_tiles(const Pass& ps, int b, int s, int pt, float* win,
+                                                float* ys, Sums& acc) {
+  using T = Tiles<kDeriv>;
+  constexpr int kP = T::P, kL = T::L, kMaxRows = T::MaxRows;
+  const int r = ps.r, F2 = ps.F2;
+  const int size_r = r == 0 ? ps.F0 : ps.F1;
+  const long long stride_r = r == 0 ? static_cast<long long>(ps.F1) * F2 : F2;
+  const long long stride_s = r == 0 ? F2 : static_cast<long long>(ps.F1) * F2;
+  const long long base = static_cast<long long>(b) * ps.F0 * ps.F1 * F2 + s * stride_s;
+  const bool shear = ps.o != r, lane_o = shear && ps.o == 2;
+  const int n_lt = (F2 + kL - 1) / kL;
+  const int p_lo = pt * kP, p_hi = min(p_lo + kP, size_r) - 1;
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+
+  // The lane tile's window (the same for every lane tile unless lane_o).
+  auto window = [&](int lt) {
+    const int l0 = lt * kL, l1 = min(l0 + kL, F2) - 1;
+    return pass_window<kOrder>(ps.cr, ps.co, ps.tau, shear, lane_o ? l0 : s, lane_o ? l1 : s,
+                               p_lo, p_hi, size_r, kMaxRows);
+  };
+  const Window fixed = window(0);
+  auto issue = [&](int lt) {
+    const Window w = lane_o ? window(lt) : fixed;
+    const int stage = lt % kStages;
+    const int l0 = lt * kL;
+    // n rows of kL lanes from row `first` along r, in pieces of vec floats.
+    auto rows = [&](float* to, const float* from, int first, int n) {
+      const int shift = __ffs(kL / ps.vec) - 1;
+      for (int e = threadIdx.x; e < n << shift; e += kHThreads) {
+        const int row = e >> shift, col = (e & ((1 << shift) - 1)) * ps.vec;
+        const bool ok = l0 + col < F2;
+        copy_piece(to + row * kL + col, ok ? from + base + (first + row) * stride_r + l0 + col : from,
+                   ps.vec, ok);
+      }
+    };
+    if (w.ok) rows(win + stage * kMaxRows * kL, ps.src, w.lo, w.hi - w.lo + 1);
+    if (kDeriv) rows(ys + stage * kP * kL, ps.ybar, p_lo, p_hi - p_lo + 1);
+  };
+
+  for (int lt = 0; lt < kStages - 1; ++lt) {
+    if (lt < n_lt) issue(lt);
+    cp_async_commit();
+  }
+  for (int lt = 0; lt < n_lt; ++lt) {
+    if (lt + kStages - 1 < n_lt) issue(lt + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const Window cur = lane_o ? window(lt) : fixed;
+#pragma unroll
+    for (int j = 0; j < kL / 32; ++j) {
+      const int p2 = lt * kL + lane + 32 * j;
+      if (p2 >= F2) break;
+      const int i_o = ps.o == 2 ? p2 : s;
+      const float* w = win + (lt % kStages) * kMaxRows * kL + lane + 32 * j;
+      const float* y = ys + (lt % kStages) * kP * kL + lane + 32 * j;
+      const long long col = base + p2;
+#pragma unroll
+      for (int i = 0; i < kP / kHWarps; ++i) {
+        const int p = p_lo + g + kHWarps * i;
+        if (p > p_hi) break;
+        const float yp = kDeriv ? y[(p - p_lo) * kL] : 0.f;
+        const double gp =
+            cur.ok ? sample<kOrder, kDeriv>(ps, size_r, shear, p, i_o, col + p * stride_r,
+                                            [&](int q) { return w[(q - cur.lo) * kL]; }, yp)
+                   : sample<kOrder, kDeriv>(ps, size_r, shear, p, i_o, col + p * stride_r,
+                                            [&](int q) { return __ldg(ps.src + col + q * stride_r); },
+                                            yp);
+        if (kDeriv) acc.add(gp, p, i_o, shear);
       }
     }
-    const double g = __dmul_rn(static_cast<double>(__ldg(ybar + w.row * F2 + p2)), dv);
-    s_r = __dadd_rn(s_r, __dmul_rn(g, static_cast<double>(i_r)));
-    if (shear) s_o = __dadd_rn(s_o, __dmul_rn(g, static_cast<double>(i_o)));
-    s_1 = __dadd_rn(s_1, g);
+    __syncthreads();
   }
-  __shared__ double part[3][kThreads / 32];
-  s_r = warp_sum(s_r);
-  s_o = warp_sum(s_o);
-  s_1 = warp_sum(s_1);
+}
+
+// r = 2: block (b, p0, row block rb) walks the units of kRows rows of p1 (a
+// unit: up to kRow p of one row), kUnits units a tile, each computed by
+// kHThreads / kUnits threads. win: kStages x kUnits runs of kRunPitch
+// floats; ys (I): kStages x kUnits of kRow.
+template <int kOrder, bool kDeriv>
+__device__ __forceinline__ void walk_row_tiles(const Pass& ps, int b, int p0, int rb, float* win,
+                                               float* ys, Sums& acc) {
+  constexpr int kUnits = Tiles<kDeriv>::RowUnits, kGroup = kHThreads / kUnits;
+  const int F2 = ps.F2;
+  const int n_pt = (F2 + kRow - 1) / kRow;
+  const int row0 = rb * kRows, n_units = (min(row0 + kRows, ps.F1) - row0) * n_pt;
+  const int n_tiles = (n_units + kUnits - 1) / kUnits;
+  const int unit = threadIdx.x / kGroup, gt = threadIdx.x % kGroup;
+  const bool shear = ps.o != 2;
+  auto p_lo_of = [&](int u) { return (u % n_pt) * kRow; };
+  auto p_hi_of = [&](int u) { return min(p_lo_of(u) + kRow, F2) - 1; };
+  auto i_o_of = [&](int u) { return ps.o == 0 ? p0 : row0 + u / n_pt; };
+  auto line_of = [&](int u) {
+    return ((static_cast<long long>(b) * ps.F0 + p0) * ps.F1 + row0 + u / n_pt) * F2;
+  };
+  auto window = [&](int u) {
+    return pass_window<kOrder>(ps.cr, ps.co, ps.tau, shear, i_o_of(u), i_o_of(u), p_lo_of(u),
+                               p_hi_of(u), F2, kMaxRun);
+  };
+  // A staged run starts at a multiple of vec floats (the window's start
+  // rounded down) and holds whole pieces.
+  auto run_start = [&](const Window& w) { return w.lo & -ps.vec; };
+  // This thread's group stages its unit of tile t.
+  auto issue = [&](int t) {
+    const int u = t * kUnits + unit;
+    if (u >= n_units) return;
+    const Window w = window(u);
+    const long long line = line_of(u);
+    const int slot = (t % kStages) * kUnits + unit;
+    if (w.ok) {
+      const int a = run_start(w);
+      for (int q = gt * ps.vec; q <= w.hi - a; q += kGroup * ps.vec)
+        copy_piece(win + slot * kRunPitch + q, ps.src + line + a + q, ps.vec, true);
+    }
+    if (kDeriv) {
+      const int p_lo = p_lo_of(u);
+      for (int q = gt * ps.vec; q <= p_hi_of(u) - p_lo; q += kGroup * ps.vec)
+        copy_piece(ys + slot * kRow + q, ps.ybar + line + p_lo + q, ps.vec, true);
+    }
+  };
+
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_tiles) issue(t);
+    cp_async_commit();
+  }
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
+    cp_async_commit();
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int u = t * kUnits + unit;
+    if (u < n_units) {
+      const Window cur = window(u);
+      const long long line = line_of(u);
+      const int p_lo = p_lo_of(u), p_hi = p_hi_of(u), i_o = i_o_of(u);
+      const int slot = (t % kStages) * kUnits + unit;
+      const float* w = win + slot * kRunPitch;
+      const float* y = ys + slot * kRow;
+      const int a = run_start(cur);
+      for (int p = p_lo + gt; p <= p_hi; p += kGroup) {
+        const float yp = kDeriv ? y[p - p_lo] : 0.f;
+        const double gp =
+            cur.ok ? sample<kOrder, kDeriv>(ps, F2, shear, p, i_o, line + p,
+                                            [&](int q) { return w[q - a]; }, yp)
+                   : sample<kOrder, kDeriv>(ps, F2, shear, p, i_o, line + p,
+                                            [&](int q) { return __ldg(ps.src + line + q); }, yp);
+        if (kDeriv) acc.add(gp, p, i_o, shear);
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Kernel arguments shared by H and I.
+#define PASS_PARAMS                                                                        \
+  const float *__restrict__ src, const float *__restrict__ ybar, float *__restrict__ dst, \
+      const float *__restrict__ coeffs, int cstride, int slot, int F0, int F1, int F2, int r, \
+      int o, float fill, int vec, int n_tiles, double *__restrict__ partials
+
+__device__ __forceinline__ Pass make_pass(const float* src, const float* ybar, float* dst,
+                                          const float* coeffs, int cstride, int slot, int b,
+                                          int F0, int F1, int F2, int r, int o, float fill,
+                                          int vec) {
+  const float* cb = coeffs + static_cast<long long>(b) * cstride + 3 * slot;
+  return Pass{src,  ybar, dst, __ldg(cb), __ldg(cb + 1), __ldg(cb + 2), fill, F0, F1, F2, r, o,
+              vec};
+}
+
+// I's block total: the threads' sums reduced in a fixed order, one (3,)
+// partial per block.
+__device__ __forceinline__ void block_partials(Sums acc, double* partials) {
+  __shared__ double part[3][kHWarps];
+  acc.r = warp_sum(acc.r);
+  acc.o = warp_sum(acc.o);
+  acc.one = warp_sum(acc.one);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    part[0][warp] = s_r;
-    part[1][warp] = s_o;
-    part[2][warp] = s_1;
+    part[0][warp] = acc.r;
+    part[1][warp] = acc.o;
+    part[2][warp] = acc.one;
   }
   __syncthreads();
   if (threadIdx.x < 3) {
     double s = 0.0;
-    for (int k = 0; k < kThreads / 32; ++k) s += part[threadIdx.x][k];
-    partials[w.row * 3 + threadIdx.x] = s;
+    for (int k = 0; k < kHWarps; ++k) s += part[threadIdx.x][k];
+    partials[blockIdx.x * 3ll + threadIdx.x] = s;
   }
+}
+
+// r = 0 or 1: block (b, s, p tile), n_tiles p tiles along r.
+// The floats of H's (kDeriv false) or I's shared memory: the window's
+// stages, then I's ybar stages.
+template <bool kDeriv>
+__host__ __device__ constexpr int lane_smem_floats() {
+  using T = Tiles<kDeriv>;
+  return kStages * (T::MaxRows + (kDeriv ? T::P : 0)) * T::L;
+}
+template <bool kDeriv>
+__host__ __device__ constexpr int row_smem_floats() {
+  return kStages * Tiles<kDeriv>::RowUnits * (kRunPitch + (kDeriv ? kRow : 0));
+}
+
+template <int kOrder, bool kDeriv>
+__device__ __forceinline__ void lane_tiles_block(PASS_PARAMS) {
+  extern __shared__ float4 hsmem4[];
+  float* win = reinterpret_cast<float*>(hsmem4);
+  float* ys = win + kStages * Tiles<kDeriv>::MaxRows * Tiles<kDeriv>::L;
+  const int n_s = r == 0 ? F1 : F0;
+  long long blk = blockIdx.x;
+  const int pt = static_cast<int>(blk % n_tiles);
+  blk /= n_tiles;
+  const int s = static_cast<int>(blk % n_s);
+  const int b = static_cast<int>(blk / n_s);
+  const Pass ps =
+      make_pass(src, ybar, dst, coeffs, cstride, slot, b, F0, F1, F2, r, o, fill, vec);
+  Sums acc;
+  walk_lane_tiles<kOrder, kDeriv>(ps, b, s, pt, win, ys, acc);
+  if (kDeriv) block_partials(acc, partials);
+}
+
+// r = 2: block (b, p0, row block), n_tiles row blocks along p1.
+template <int kOrder, bool kDeriv>
+__device__ __forceinline__ void row_tiles_block(PASS_PARAMS) {
+  extern __shared__ float4 hsmem4[];
+  float* win = reinterpret_cast<float*>(hsmem4);
+  float* ys = win + kStages * Tiles<kDeriv>::RowUnits * kRunPitch;
+  long long blk = blockIdx.x;
+  const int rb = static_cast<int>(blk % n_tiles);
+  blk /= n_tiles;
+  const int p0 = static_cast<int>(blk % F0);
+  const int b = static_cast<int>(blk / F0);
+  const Pass ps =
+      make_pass(src, ybar, dst, coeffs, cstride, slot, b, F0, F1, F2, r, o, fill, vec);
+  Sums acc;
+  walk_row_tiles<kOrder, kDeriv>(ps, b, p0, rb, win, ys, acc);
+  if (kDeriv) block_partials(acc, partials);
+}
+
+template <int kOrder>
+__global__ void __launch_bounds__(kHThreads) resample_pass_kernel(PASS_PARAMS) {
+  lane_tiles_block<kOrder, false>(src, ybar, dst, coeffs, cstride, slot, F0, F1, F2, r, o, fill,
+                                  vec, n_tiles, partials);
+}
+
+template <int kOrder>
+__global__ void __launch_bounds__(kHThreads) resample_pass_row_kernel(PASS_PARAMS) {
+  row_tiles_block<kOrder, false>(src, ybar, dst, coeffs, cstride, slot, F0, F1, F2, r, o, fill,
+                                 vec, n_tiles, partials);
+}
+
+template <int kOrder>
+__global__ void __launch_bounds__(kHThreads) resample_pass_deriv_kernel(PASS_PARAMS) {
+  lane_tiles_block<kOrder, true>(src, ybar, dst, coeffs, cstride, slot, F0, F1, F2, r, o, fill,
+                                 vec, n_tiles, partials);
+}
+
+template <int kOrder>
+__global__ void __launch_bounds__(kHThreads) resample_pass_deriv_row_kernel(PASS_PARAMS) {
+  row_tiles_block<kOrder, true>(src, ybar, dst, coeffs, cstride, slot, F0, F1, F2, r, o, fill,
+                                vec, n_tiles, partials);
 }
 
 // The band's tap offsets k: kmin .. kmax.
@@ -615,6 +932,60 @@ resample_pass_adjoint_row_kernel(const float* __restrict__ ybar, float* __restri
   }
 }
 
+// H's (kDeriv false) or I's grid: the blocks of one volume (r < 2: (s, p
+// tile); r = 2: (p0, row block)), and the tiles along r or the row blocks
+// along p1.
+template <bool kDeriv>
+void pass_grid(int F0, int F1, int F2, int r, long long* per_volume, int* n_tiles) {
+  if (r == 2) {
+    *n_tiles = (F1 + kRows - 1) / kRows;
+    *per_volume = static_cast<long long>(F0) * *n_tiles;
+  } else {
+    const int size_r = r == 0 ? F0 : F1, n_s = r == 0 ? F1 : F0;
+    *n_tiles = (size_r + Tiles<kDeriv>::P - 1) / Tiles<kDeriv>::P;
+    *per_volume = static_cast<long long>(n_s) * *n_tiles;
+  }
+}
+
+template <bool kDeriv>
+int launch_pass(const void* src, const void* ybar, void* dst, const void* coeffs, int cstride,
+                int slot, int B, int F0, int F1, int F2, int r, int o, int order, float fill,
+                void* partials, long long n_partials, void* stream) {
+  long long per_volume;
+  int n_tiles;
+  pass_grid<kDeriv>(F0, F1, F2, r, &per_volume, &n_tiles);
+  const long long blocks = B * per_volume;
+  if (blocks > 0x7fffffffll || (kDeriv && n_partials != blocks))
+    return static_cast<int>(cudaErrorInvalidValue);
+  // Staged copies of 16 or 8 bytes where F2 and the frames allow them.
+  auto aligned = [&](int bytes) {
+    return F2 % (bytes / 4) == 0 && reinterpret_cast<unsigned long long>(src) % bytes == 0 &&
+           reinterpret_cast<unsigned long long>(ybar) % bytes == 0;
+  };
+  const int vec = aligned(16) ? 4 : (aligned(8) ? 2 : 1);
+  using Kernel = void (*)(const float*, const float*, float*, const float*, int, int, int, int,
+                          int, int, int, float, int, int, double*);
+  Kernel kernel;
+  if (kDeriv) {
+    kernel = r == 2 ? (order == 1 ? resample_pass_deriv_row_kernel<1>
+                                  : resample_pass_deriv_row_kernel<3>)
+                    : (order == 1 ? resample_pass_deriv_kernel<1> : resample_pass_deriv_kernel<3>);
+  } else {
+    kernel = r == 2 ? (order == 1 ? resample_pass_row_kernel<1> : resample_pass_row_kernel<3>)
+                    : (order == 1 ? resample_pass_kernel<1> : resample_pass_kernel<3>);
+  }
+  const int smem = static_cast<int>(sizeof(float)) *
+                   (r == 2 ? row_smem_floats<kDeriv>() : lane_smem_floats<kDeriv>());
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), kHThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(src), static_cast<const float*>(ybar), static_cast<float*>(dst),
+      static_cast<const float*>(coeffs), cstride, slot, F0, F1, F2, r, o, fill, vec, n_tiles,
+      static_cast<double*>(partials));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -628,26 +999,19 @@ const char* error_string(int e) { return cudaGetErrorString(static_cast<cudaErro
 int resample_pass(const void* src, void* dst, const void* coeffs, int cstride, int slot,
                   int B, int F0, int F1, int F2, int r, int o, int order, float fill,
                   void* stream) {
-  const long long rows = static_cast<long long>(B) * F0 * F1;
-  resample_pass_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<float*>(dst),
-      static_cast<const float*>(coeffs), cstride, slot, F0, F1, F2, r, o, order, fill);
-  return static_cast<int>(cudaGetLastError());
+  return launch_pass<false>(src, nullptr, dst, coeffs, cstride, slot, B, F0, F1, F2, r, o, order,
+                            fill, nullptr, 0, stream);
 }
 
-// src, ybar: (B, F0, F1, F2) float32; partials: (B * F0 * F1, 3) float64,
-// one row's three sums each. The rest as resample_pass.
+// src, ybar: (B, F0, F1, F2) float32; partials: (B, n, 3) float64, n the
+// blocks of one volume (pass_grid; kernels/multipass_cuda.py pass_blocks),
+// a block's three sums each: the launch is refused when n_partials is not
+// B * n. The rest as resample_pass.
 int resample_pass_deriv(const void* src, const void* ybar, const void* coeffs, int cstride,
                         int slot, int B, int F0, int F1, int F2, int r, int o, int order,
-                        void* partials, void* stream) {
-  const long long rows = static_cast<long long>(B) * F0 * F1;
-  resample_pass_deriv_kernel<<<static_cast<unsigned>(rows), kThreads, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<const float*>(ybar),
-      static_cast<const float*>(coeffs), cstride, slot, F0, F1, F2, r, o, order,
-      static_cast<double*>(partials));
-  return static_cast<int>(cudaGetLastError());
+                        void* partials, long long n_partials, void* stream) {
+  return launch_pass<true>(src, ybar, nullptr, coeffs, cstride, slot, B, F0, F1, F2, r, o, order,
+                           0.f, partials, n_partials, stream);
 }
 
 // ybar, dst: (B, F0, F1, F2) float32, distinct. The rest as resample_pass.

@@ -22,7 +22,11 @@ Counterpart of ``biahub_tpu/kernels/chain.py``:
   reference's ``BIAHUB_TPU_SPECTRAL_DESKEW=1``.
 
 On the CPU the same wrappers run their plain versions. uint16 volumes go
-into pass A as they are.
+into pass A as they are. A volume shape that kernels A, B and C do not take
+(``fft.deconvolve_limit``) is deconvolved with ``torch.fft``, the
+reference's route past ``deconvolve_pallas_supported`` (chain.py:106-118:
+``deconvolve_zyx``'s XLA FFT, then the deskew), and then deskewed (and
+warped) by the same kernels; one stderr line says so.
 """
 
 from __future__ import annotations
@@ -46,10 +50,12 @@ from biahub_tpu_torch.kernels.deskew import (
 )
 from biahub_tpu_torch.kernels.deskew_cuda import deskew
 from biahub_tpu_torch.kernels.fft import (
+    filter_torch_fft,
     fwd_yx,
     half_spectrum_shape,
     inv_yx,
     prepare_fourier_filter,
+    takes_torch_fft,
     z_filter_,
 )
 from biahub_tpu_torch.kernels.spectral import (
@@ -80,10 +86,15 @@ def run_chain(volumes: torch.Tensor, filt: torch.Tensor,
     """A -> B -> C per volume, then D over the batch: (B, Z, Y, X) float32
     or uint16 on one device -> (B, groups, Y_out, X_out) float32, or (B,
     X_out, groups, Y_out) with ``out_layout="xzy"``. One spectrum buffer
-    serves every volume."""
+    serves every volume. A shape past ``fft.deconvolve_limit`` is
+    deconvolved with ``torch.fft`` instead of A, B and C."""
     batch = volumes.shape[0]
     decon = torch.empty((batch,) + tuple(volumes.shape[1:]), dtype=torch.float32,
                         device=volumes.device)
+    if takes_torch_fft("deconvolve_then_deskew", volumes.shape[1:]):
+        for b in range(batch):
+            filter_torch_fft(volumes[b], filt, out=decon[b])
+        return deskew(decon, geo, out_layout)
     spectrum = torch.empty(half_spectrum_shape(volumes.shape[1:]),
                            dtype=torch.complex64, device=volumes.device)
     for b in range(batch):

@@ -14,18 +14,17 @@ route, ``torch.fft`` on the whole volume, and says so on stderr.
 
 from __future__ import annotations
 
-import sys
-
 import numpy as np
 import torch
 
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.fft import (
     PASS_A_DTYPES,
-    deconvolve_limit,
+    filter_torch_fft,
     fwd_yx,
     inv_yx,
     prepare_fourier_filter,
+    takes_torch_fft,
     z_filter_,
 )
 
@@ -80,12 +79,8 @@ def deconvolve_zyx(
     filt = prepared if prepared is not None else prepare_fourier_filter(
         volume.shape, transfer_function_half, regularization_strength, dev
     )
-    limit = deconvolve_limit(volume.shape)
-    if limit is not None:
-        print(f"deconvolve_zyx: {tuple(volume.shape)} takes torch.fft: {limit}",
-              file=sys.stderr)
-        return torch.fft.irfftn(torch.fft.rfftn(volume.to(torch.float32)) * filt.to(dev),
-                                s=tuple(volume.shape))
+    if takes_torch_fft("deconvolve_zyx", volume.shape):
+        return filter_torch_fft(volume, filt.to(dev))
     spectrum = fwd_yx(volume)
     z_filter_(spectrum, filt.to(dev))
     return inv_yx(spectrum, out=torch.empty(volume.shape, dtype=torch.float32, device=dev))

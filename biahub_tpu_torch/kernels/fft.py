@@ -44,6 +44,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import sys
 from dataclasses import dataclass
 
 import numpy as np
@@ -59,7 +60,8 @@ __all__ = [
     "cross_power", "prepare_fourier_filter", "prepare_hermitian_filter",
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
     "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan", "z_line_length",
-    "ZPlan", "z_plan", "z_line_table", "deconvolve_limit", "pcc_limit",
+    "ZPlan", "z_plan", "z_line_table", "deconvolve_limit", "pcc_limit", "takes_torch_fft",
+    "filter_torch_fft",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -566,6 +568,31 @@ def deconvolve_limit(shape) -> str | None:
     ``torch.fft`` as the reference takes XLA's FFT."""
     shape = tuple(int(s) for s in shape)
     return _slices_limit(shape) or _axes_limit(shape[:1], shape)
+
+
+def takes_torch_fft(what: str, shape) -> bool:
+    """Whether a deconvolution or Tikhonov filter of a (Z, Y, X) volume of
+    ``shape`` takes ``torch.fft`` (:func:`filter_torch_fft`) because
+    kernels A, B, Bc and C do not take it (:func:`deconvolve_limit`), as
+    the reference takes XLA's FFT past ``deconvolve_pallas_supported``;
+    decided from the shape before any launch, and said in one stderr line
+    naming ``what``, the shape and the limit."""
+    shape = tuple(int(s) for s in shape)
+    limit = deconvolve_limit(shape)
+    if limit is not None:
+        print(f"{what}: {shape} takes torch.fft: {limit}", file=sys.stderr)
+    return limit is not None
+
+
+def filter_torch_fft(volume: torch.Tensor, filt: torch.Tensor,
+                     out: torch.Tensor | None = None) -> torch.Tensor:
+    """``irfftn(rfftn(volume) * filt)`` of one (Z, Y, X) volume in
+    ``torch.fft``, with a real (:func:`prepare_fourier_filter`) or complex
+    (:func:`prepare_hermitian_filter`) half-spectrum filter, into ``out``
+    (new when None): the route of a shape past :func:`deconvolve_limit`."""
+    res = torch.fft.irfftn(torch.fft.rfftn(volume.to(torch.float32)) * filt.to(volume.device),
+                           s=tuple(volume.shape))
+    return res if out is None else out.copy_(res)
 
 
 def pcc_limit(shape) -> str | None:

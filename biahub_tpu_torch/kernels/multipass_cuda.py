@@ -11,9 +11,12 @@ volume, each kernel serves both. A CPU tensor takes the plain version in
 :mod:`~biahub_tpu_torch.kernels.multipass_warp`; a CUDA tensor launches the
 kernel or raises.
 
+Kernels H and I walk the frame in tiles and stage each tile's source
+window in shared memory (``csrc/multipass.cu``): :func:`pass_walk` is that
+walk, :func:`pass_window` a tile's window, computed as the kernels compute
+them, and :func:`pass_blocks` the blocks of one volume (I's partial sums).
 Kernel J gathers each output over the q whose taps reach it, from a tile's
-q range staged in shared memory (``csrc/multipass.cu``):
-:func:`adjoint_q_range` is that range, computed as the kernel computes it.
+q range staged in shared memory: :func:`adjoint_q_range` is that range.
 """
 
 from __future__ import annotations
@@ -31,20 +34,104 @@ from biahub_tpu_torch.kernels.multipass_warp import (
     resample_pass_plain,
 )
 
-__all__ = ["resample_pass", "resample_pass_deriv", "resample_pass_adjoint", "ADJOINT_TILES",
-           "adjoint_max_q", "adjoint_q_range"]
+__all__ = ["resample_pass", "resample_pass_deriv", "resample_pass_adjoint", "PASS_TILES",
+           "PASS_ROWS", "PASS_STAGE", "pass_blocks", "pass_walk", "pass_window", "pass_staged",
+           "ADJOINT_TILES", "adjoint_max_q", "adjoint_q_range"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "resample_pass": [_P, _P, _P] + [_I] * 9 + [_F, _P],
-    "resample_pass_deriv": [_P, _P, _P] + [_I] * 9 + [_P, _P],
+    "resample_pass_deriv": [_P, _P, _P] + [_I] * 9 + [_P, ctypes.c_longlong, _P],
     "resample_pass_adjoint": [_P, _P, _P] + [_I] * 9 + [_P],
 }
 # One block per frame row on gridDim.x.
 _MAX_ROWS = 2**31 - 1
-# Kernel J's tiles (csrc/multipass.cu): p along r and lanes along the
-# frame's last axis, for r = 0 or 1 and for r = 2.
+# Kernels H's and I's tiles (csrc/multipass.cu Tiles): p along r by lanes
+# along the frame's last axis for r = 0 or 1, and (kRow, 1) for r = 2 (a row
+# unit, several a tile); the rows a block walks at r = 2 (kRows); the window
+# a stage holds: rows of the lanes (P + 32), or floats of a row (kMaxRun).
+PASS_TILES = {"H": {0: (16, 128), 1: (16, 128), 2: (1024, 1)},
+              "I": {0: (32, 64), 1: (32, 64), 2: (1024, 1)}}
+PASS_ROWS = 8
+PASS_STAGE = {"H": {0: 48, 1: 48, 2: 1088}, "I": {0: 64, 1: 64, 2: 1088}}
+# Kernel J's tiles: p along r and lanes along the frame's last axis, for r =
+# 0 or 1 and for r = 2.
 ADJOINT_TILES = {0: (32, 32), 1: (32, 32), 2: (1024, 1)}
+
+
+def pass_blocks(shape, r: int, kernel: str = "H") -> int:
+    """The blocks kernel H or I launches for one volume of a (F0, F1, F2)
+    frame (csrc/multipass.cu pass_grid): (s, p tile) for r = 0 or 1, s the
+    index on the axis that is neither r nor 2; (p0, PASS_ROWS rows of p1)
+    for r = 2. I writes one partial triple per block."""
+    f0, f1, _ = (int(n) for n in shape)
+    if r == 2:
+        return f0 * -(-f1 // PASS_ROWS)
+    size_r, n_s = (f0, f1) if r == 0 else (f1, f0)
+    return n_s * -(-size_r // PASS_TILES[kernel][r][0])
+
+
+def pass_walk(shape, r: int, kernel: str = "H"):
+    """Kernel H's or I's walk over one volume's (F0, F1, F2) frame, in
+    launch order: for each block, the list of its tiles in the order it
+    computes them, each a (p0, p1, p2) triple of inclusive ranges. r = 0 or
+    1: block (s, p tile), p tiles fastest, walks the lane tiles of its p
+    tile; r = 2: block (p0, row block), row blocks fastest, walks its rows'
+    units of up to PASS_TILES[kernel][2][0] p (the kernel computes several
+    consecutive units at once)."""
+    f0, f1, f2 = (int(n) for n in shape)
+    tp, lanes = PASS_TILES[kernel][r]
+    if r == 2:
+        n_pt = -(-f2 // tp)
+        for p0 in range(f0):
+            for row0 in range(0, f1, PASS_ROWS):
+                yield [((p0, p0), (p1, p1), (pl, min(pl + tp, f2) - 1))
+                       for p1 in range(row0, min(row0 + PASS_ROWS, f1))
+                       for pl in range(0, n_pt * tp, tp)]
+        return
+    size_r, n_s = (f0, f1) if r == 0 else (f1, f0)
+    for s in range(n_s):
+        for pl in range(0, size_r, tp):
+            p_range = (pl, min(pl + tp, size_r) - 1)
+            tiles = []
+            for l0 in range(0, f2, lanes):
+                l_range = (l0, min(l0 + lanes, f2) - 1)
+                tiles.append((p_range, (s, s), l_range) if r == 0 else ((s, s), p_range, l_range))
+            yield tiles
+
+
+def pass_window(cr, co, tau, shear: bool, o_range, p_range, order: int, size_r: int):
+    """Kernels H and I's window of a tile: (lo, hi, finite), the rows along
+    r that the clamped taps of the outputs p in the inclusive ``p_range``
+    reach, for the shear's other index in the inclusive ``o_range``, from
+    the floors at the four corners in the kernels' float32 operand order
+    ((cr*p + tau) + co*i_o, each op rounded; floor clamped to [-3, size_r +
+    1]). Every tap of the tile lies inside when ``finite`` (the corners'
+    coordinates are). The ranges' ends may be arrays (one window per
+    element, broadcast); scalars give ints and a bool."""
+    f = np.float32
+    kmin, kmax = _band(order)
+    corners = []
+    with np.errstate(over="ignore", invalid="ignore"):
+        for p in p_range:
+            c = f(cr) * np.asarray(p).astype(f) + f(tau)
+            for i_o in o_range:
+                corners.append(c + f(co) * np.asarray(i_o).astype(f) if shear else c)
+        c = np.stack(np.broadcast_arrays(*corners))
+        fl = np.where(np.isnan(c), -3.0, np.clip(np.floor(c), -3.0, size_r + 1.0)).astype(np.int64)
+    lo = np.clip(fl.min(0) + kmin, 0, size_r - 1)
+    hi = np.clip(fl.max(0) + kmax, 0, size_r - 1)
+    finite = np.isfinite(c).all(0)
+    if lo.ndim == 0:
+        return int(lo), int(hi), bool(finite)
+    return lo, hi, finite
+
+
+def pass_staged(window, r: int, kernel: str = "H") -> bool:
+    """Whether kernel H or I stages a tile's :func:`pass_window` of a pass
+    along ``r``, or reads its taps from device memory."""
+    lo, hi, finite = window
+    return finite & (hi - lo + 1 <= PASS_STAGE[kernel][r])
 
 
 def adjoint_max_q(r: int, o: int) -> int:
@@ -154,8 +241,9 @@ def resample_pass_deriv(frame: torch.Tensor, ybar: torch.Tensor, coeffs: torch.T
     """Kernel I: the cotangents of pass ``slot``'s (cr, co, tau) from the
     pass input ``frame`` and the output cotangent ``ybar`` (both (B, F0, F1,
     F2) float32) -> (B, 3) float64, one row per volume. The kernel writes a
-    float64 partial per frame row; one sum over them gives the result.
-    Launches count as ``resample_pass_deriv``."""
+    float64 partial triple per block (:func:`pass_blocks` of a volume); one
+    sum over them gives the result. Launches count as
+    ``resample_pass_deriv``."""
     _check(frame, coeffs, slot, r, o, order, "resample_pass_deriv")
     if (ybar.shape != frame.shape or ybar.dtype != frame.dtype or ybar.device != frame.device
             or not ybar.is_contiguous()):
@@ -164,13 +252,15 @@ def resample_pass_deriv(frame: torch.Tensor, ybar: torch.Tensor, coeffs: torch.T
     if not _on_card(frame, "resample_pass_deriv"):
         return resample_pass_deriv_plain(frame, ybar, coeffs, slot, r, o, order)
     batch, f0, f1, f2 = frame.shape
-    partials = torch.empty((batch, f0 * f1, 3), dtype=torch.float64, device=frame.device)
+    partials = torch.empty((batch, pass_blocks((f0, f1, f2), r, "I"), 3), dtype=torch.float64,
+                           device=frame.device)
     if frame.numel() == 0:
         return partials.sum(1)
     with torch.cuda.device(frame.device):
         _launch("resample_pass_deriv", _build.ptr(frame), _build.ptr(ybar), _build.ptr(coeffs),
                 _cstride(coeffs), int(slot), batch, f0, f1, f2, int(r), int(o), int(order),
-                _build.ptr(partials), _build.stream_of(frame))
+                _build.ptr(partials), partials.shape[0] * partials.shape[1],
+                _build.stream_of(frame))
     return partials.sum(1)
 
 

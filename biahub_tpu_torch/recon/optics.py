@@ -9,7 +9,10 @@ complex64, in its order: the reference computes them with XLA FFTs, so
 is made more precise than the reference's. :func:`tikhonov_inverse_3d`
 runs kernels A, Bc and C
 (:func:`~biahub_tpu_torch.kernels.fft.fourier_filter_zyx`), the reference's
-``assume_hermitian`` route through ``fourier_filter_zyx_pallas``.
+``assume_hermitian`` route through ``fourier_filter_zyx_pallas``, or, for a
+shape the kernels do not take, the same half-spectrum filter in
+``torch.fft`` (the reference's XLA route past
+``deconvolve_pallas_supported``, optics.py:186-205).
 """
 
 from __future__ import annotations
@@ -139,10 +142,13 @@ def tikhonov_inverse_3d(
     """``f = Re{IFFT3(FFT3(data) conj(H) / (|H|^2 + reg))}``, float32, for a
     Hermitian ``H`` (true of the transfer functions built here): the
     reference's ``assume_hermitian`` route, kernels A, Bc and C on the rfft
-    half spectrum. apply-inv-tf runs the same two steps, with the filter
-    prepared once per call."""
+    half spectrum, or ``torch.fft`` on it where the kernels do not take the
+    shape (``fft.deconvolve_limit``; one stderr line says so). apply-inv-tf
+    runs the same two steps, with the filter prepared once per call."""
     dev = resolve_device(device)
     data = as_tensor(zyx_data, dev)
     filt = kfft.prepare_hermitian_filter(data.shape, transfer_function,
                                          regularization_strength, dev)
+    if kfft.takes_torch_fft("tikhonov_inverse_3d", data.shape):
+        return kfft.filter_torch_fft(data, filt)
     return kfft.fourier_filter_zyx(data, filt)

@@ -185,6 +185,22 @@ Then kernels E and J after their redesign, and the repairs:
     FFT kernels' 4096), within FFT_TOL of the plain route, no kernel
     launched, the stderr line printed.
 
+Then kernels H and I after their redesign, and the last repair:
+
+20. ptxas' registers, stack and spills of H's and I's kernels; H at each
+    slot, orders 1 and 3, of phase 8's frame (one coefficient set, and a
+    (2, 21) table over it and a rolled copy, the second row set the
+    identity's) and of phase 11's traced frame, bit for bit against the
+    plain version, with the tiles that read their taps from device memory
+    (``multipass_cuda.pass_window``) counted; I at each slot and order of
+    the traced frame within DERIV_TOL of the plain version, two runs
+    bit-equal; their mean times beside the previous kernels' (PREVIOUS_MS),
+    their bounds, grid_sample's forward pass (H, order 1) and torch.profiler's
+    device time; then the step, the chain, ``tikhonov_inverse_3d`` and
+    apply-inv-tf at PAST_FILTER (X = 4099) against the reference's formulas
+    (torch.fft, and numpy in float64 for the filter), no launch of kernels A,
+    B, Bc or C, each stderr line printed.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -395,13 +411,21 @@ PREVIOUS_MS = {"z_filter": 0.552, "z_filter_complex": 1.799, "z_filter_shard": 0
                # batch of 12 with a table) and J (the mean of phase 11's order-1
                # slots) before their redesign (PERF.md section 6, rows 8, 12, 13).
                "warp_zy": 1.7399, "warp_zy_xzy": 6.4767, "warp_zy_per_volume": 2.619,
-               "resample_pass_adjoint": 1.700}
+               "resample_pass_adjoint": 1.700,
+               # Phase 20: H (the mean of phase 8's order-3 slots; of phase 11's
+               # order-1 slots) and I (the mean of phase 11's order-1 slots)
+               # before their redesign (PERF.md section 6, rows 11, 13).
+               "resample_pass": 0.3702, "resample_pass_traced": 0.4136,
+               "resample_pass_deriv": 0.7381}
 PHASE_18_KEYS = ("z_filter", "z_filter_complex", "z_filter_shard", "deskew", "deskew_xzy")
 CARD_OF_PREVIOUS = "NVIDIA H100 80GB HBM3, 700.00 W"
 # Phase 19: kernel G's blur sizes, and a volume past the FFT kernels' limits
 # (X = 4099: not a power of two, above 4096).
 G_BLURS = (0, 3, 5, 15)
 PAST_LIMITS = (4, 64, 4099)
+# Phase 20: a volume past the FFT kernels' limits that the deskew takes
+# (8 scan planes of 4 x 4099 pixels; deskewed (2, 4099, 19) at average 3).
+PAST_FILTER = (8, 4, 4099)
 PREVIOUS_TRACE = {
     "z_filter": "z_filter_kernel<false, false, true>: 0.5482 ms device, 1227 GB/s (37% of HBM)",
     "z_filter_complex": "z_filter_kernel<true, true, true>: 1.7909 ms device, 287 GB/s (9% of "
@@ -863,11 +887,13 @@ def peaks_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def multipass_phase(dev: torch.device, records: dict) -> None:
-    """Phase 8: kernel H against its plain version for each canonical slot
-    of a 3D euclidean matrix, the whole warp, and the batched form."""
+def rigid_frame(dev: torch.device):
+    """Phase 8's pass inputs: a smoothed random volume of LAPSE_SHAPE (seed
+    8), a rigid matrix (1 deg about each axis, a subvoxel shift), its 7
+    canonical (cr, co, tau), the volume embedded in the matrix's frame
+    (1, F0, F1, F2) and the float32 (7, 3) table of the frame's
+    coefficients."""
     from biahub_tpu_torch.kernels import multipass_warp as mw
-    from biahub_tpu_torch.kernels.multipass_cuda import resample_pass
 
     gen = torch.Generator(device=dev).manual_seed(8)
     vol = torch.nn.functional.avg_pool3d(
@@ -879,6 +905,28 @@ def multipass_phase(dev: torch.device, records: dict) -> None:
     table = torch.tensor([[cr, co, mw._tau_eff(r, o, cr, co, tau, off)]
                           for (r, o), (cr, co, tau) in zip(mw.CANONICAL_SLOTS, coeffs)],
                          dtype=torch.float32, device=dev)
+    return vol, m, coeffs, frame, table
+
+
+def traced_rows(dev: torch.device):
+    """Phase 11's traced frame of LAPSE_SHAPE at REG_MARGIN: its shape, the
+    registration truth's [(r, o, row)] and their float32 (7, 3) table."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+
+    truth = torch.tensor(similarity_about_centre(LAPSE_SHAPE), dtype=torch.float32, device=dev)
+    off, frame_shape, _ = mw.traced_frame(LAPSE_SHAPE, LAPSE_SHAPE, REG_MARGIN)
+    rows = mw.traced_pass_rows(truth, off)
+    return tuple(frame_shape), rows, torch.stack([row for _, _, row in rows]).contiguous()
+
+
+def multipass_phase(dev: torch.device, records: dict) -> None:
+    """Phase 8: kernel H against its plain version for each canonical slot
+    of a 3D euclidean matrix, the whole warp, and the batched form."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+    from biahub_tpu_torch.kernels.multipass_cuda import resample_pass
+
+    vol, m, coeffs, frame, table = rigid_frame(dev)
+    frame_shape = tuple(frame.shape[1:])
     out = torch.empty_like(frame)
     worst, bit_equal, ms, plain_ms = 0.0, 0, [], []
     for k, (r, o) in enumerate(mw.CANONICAL_SLOTS):
@@ -2635,6 +2683,220 @@ def ej_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def hi_phase(dev: torch.device, records: dict) -> None:
+    """Phase 20: kernels H and I redesigned, and the step, the chain and
+    the Tikhonov filter past the FFT kernels' limits."""
+    from biahub_tpu_torch import (
+        DeconvolveDeskew,
+        DeconvolveDeskewWarp,
+        apply_inverse_transfer_function_arrays,
+        compute_transfer_function_arrays,
+    )
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels import multipass_cuda as mc
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+    from biahub_tpu_torch.kernels.affine import warp_x_plain, warp_zy_plain
+    from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function
+    from biahub_tpu_torch.kernels.deskew import deskew_plain
+    from biahub_tpu_torch.recon.optics import tikhonov_inverse_3d
+
+    for line in ptxas_lines(("resample_pass_kernel", "resample_pass_row_kernel",
+                             "resample_pass_deriv"), "multipass"):
+        print(f"ptxas {line}")
+    print(f"before: {CARD_OF_PREVIOUS}")
+
+    # -- H: both frames, both orders, one coefficient set and a table ------
+    _, _, _, frame8, table8 = rigid_frame(dev)
+    frame8b = torch.cat([frame8, torch.roll(frame8, (1, -2, 3), (1, 2, 3))]).contiguous()
+    table8b = torch.stack([table8, torch.tensor([[1.0, 0.0, 0.0]] * len(table8),
+                                                device=dev)]).contiguous()
+    shape11, rows11, table11 = traced_rows(dev)
+    gen = torch.Generator(device=dev).manual_seed(20)
+    frame11 = torch.nn.functional.avg_pool3d(
+        torch.rand(shape11, generator=gen, device=dev)[None, None], 3, 1, 1)[0]
+    cases = (("phase 8 frame", frame8, table8), ("phase 8 frame, (2, 21) table", frame8b,
+                                                  table8b), ("traced frame", frame11, table11))
+    mean_ms = {}
+    for name, frame, table in cases:
+        out = torch.empty_like(frame)
+        bms, _ = bound(2 * frame.numel() * 4, frame.numel() * 30)
+        for order in (1, 3):
+            ms, bit_equal, direct = [], 0, 0
+            for k, (r, o) in enumerate(mw.CANONICAL_SLOTS):
+                got = mc.resample_pass(frame, table, k, r, o, order, out=out)
+                want = mw.resample_pass_plain(frame, table, k, r, o, order)
+                _, err = rel_err(got, want)
+                require(err <= WARP_TOL, f"H {name} slot {k} order {order}: rel err {err:.3g}")
+                bit_equal += int(torch.equal(got.view(torch.int32), want.view(torch.int32)))
+                del want
+                direct += direct_tiles(tuple(frame.shape[1:]), r, o, table, k, order, "H")
+                ms.append(time_ms(lambda: mc.resample_pass(frame, table, k, r, o, order,
+                                                           out=out)))
+            mean_ms[(name, order)] = statistics.mean(ms)
+            print(f"H {name} {tuple(frame.shape)} order {order}: {bit_equal} of 7 slots "
+                  f"bit-equal to the plain version, tiles with direct taps {direct}; ms by slot "
+                  + ", ".join(f"{t:.4f}" for t in ms) + f"; mean {mean_ms[(name, order)]:.4f}, "
+                  f"bound {bms:.4f} ({mean_ms[(name, order)] / bms:.2f}x)")
+        del out
+    r, o = mw.CANONICAL_SLOTS[0]
+    out = torch.empty_like(frame11)
+    device = profiler_readings(lambda: mc.resample_pass(frame11, table11, 0, r, o, 1, out=out),
+                               ("resample_pass",), 2 * frame11.numel() * 4)
+    lib = pass_library(frame11, table11, 0, r, o)
+    lib_ms = time_ms(lib)
+    was, was11 = PREVIOUS_MS["resample_pass"], PREVIOUS_MS["resample_pass_traced"]
+    now, now11 = mean_ms[("phase 8 frame", 3)], mean_ms[("traced frame", 1)]
+    print(f"H: phase 8 frame order 3 mean {now:.4f} ms (before: {was}, {now / was - 1:+.1%}); "
+          f"traced frame order 1 mean {now11:.4f} (before: {was11}, {now11 / was11 - 1:+.1%}); "
+          f"grid_sample forward, slot 0 order 1 on the traced frame {lib_ms:.4f} ms "
+          f"({'H faster' if now11 < lib_ms else 'grid_sample faster'}); slot 0 order 1 "
+          f"profiler: {device}")
+    del frame8, frame8b, out
+    torch.cuda.empty_cache()
+
+    # -- I: each slot and order of the traced frame --------------------------
+    ybar = torch.randn(frame11.shape, generator=gen, device=dev)
+    fbytes = frame11.numel() * 4
+    bms_i, _ = bound(2 * fbytes, 0, 9 * frame11.numel())
+    for order in (1, 3):
+        ms, worst = [], 0.0
+        for k, (r, o, _) in enumerate(rows11):
+            got = mc.resample_pass_deriv(frame11, ybar, table11, k, r, o, order)
+            again = mc.resample_pass_deriv(frame11, ybar, table11, k, r, o, order)
+            want = mw.resample_pass_deriv_plain(frame11, ybar, table11, k, r, o, order)
+            err = float((got - want).abs().max() / want.abs().max())
+            require(err <= DERIV_TOL, f"I slot {k} order {order}: rel err {err:.3g}")
+            require(torch.equal(got, again), f"I slot {k} order {order}: two runs differ")
+            worst = max(worst, err)
+            ms.append(time_ms(lambda: mc.resample_pass_deriv(frame11, ybar, table11, k, r, o,
+                                                             order)))
+        mean = statistics.mean(ms)
+        mean_ms[("I", order)] = mean
+        print(f"I traced frame order {order}: rel err at most {worst:.3g} (tol {DERIV_TOL}), two "
+              f"runs bit-equal; ms by slot " + ", ".join(f"{t:.4f}" for t in ms)
+              + f"; mean {mean:.4f}, bound {bms_i:.4f} ({mean / bms_i:.2f}x)")
+    r, o, _ = rows11[0]
+    device = profiler_readings(
+        lambda: mc.resample_pass_deriv(frame11, ybar, table11, 0, r, o, 1),
+        ("resample_pass_deriv",), 2 * fbytes)
+    was = PREVIOUS_MS["resample_pass_deriv"]
+    print(f"I: order 1 mean {mean_ms[('I', 1)]:.4f} ms (before: {was}, "
+          f"{mean_ms[('I', 1)] / was - 1:+.1%}); slot 0 order 1 profiler: {device}")
+    del frame11, ybar
+    torch.cuda.empty_cache()
+
+    # -- the step, the chain and the Tikhonov filter past the limits -------
+    z, y, x = PAST_FILTER
+    vols = torch.rand((2,) + PAST_FILTER, generator=gen, device=dev)
+    rr = (min(PAST_FILTER) - 1) // 2  # a Gaussian PSF that fits the volume
+    psf = np.exp(-np.sum(np.square(np.mgrid[-rr:rr + 1, -rr:rr + 1, -rr:rr + 1] / 1.5),
+                         axis=0)).astype(np.float32)
+    tf_half = compute_transfer_function(psf, PAST_FILTER)[..., :x // 2 + 1]
+    filt = kfft.prepare_fourier_filter(PAST_FILTER, tf_half, REG, dev)
+    decon = torch.stack([torch.fft.irfftn(torch.fft.rfftn(v) * filt, s=PAST_FILTER)
+                         for v in vols])
+    step = DeconvolveDeskew(tf_half, PAST_FILTER, REG, ANGLE, RATIO, average_window=AVG,
+                            skip_flip=True, device=dev)
+    err_text = io.StringIO()
+    with contextlib.redirect_stderr(err_text):
+        got, launches = counted(lambda: step(vols))
+    want = deskew_plain(decon, step.geometry)
+    _, err = rel_err(got, want)
+    require(err <= FFT_TOL, f"step past the limits: rel err {err:.3g} > {FFT_TOL}")
+    require(launches == {"deskew": 1}, f"step past the limits launched {launches}")
+    line = err_text.getvalue().strip()
+    require(f"deconvolve_then_deskew: {PAST_FILTER} takes torch.fft" in line,
+            "step past the limits: no stderr line")
+    print(f"step at {PAST_FILTER} (batch 2): rel err {err:.3g} vs torch.fft then the plain "
+          f"deskew (tol {FFT_TOL}); launches {launches}; stderr: {line}")
+    chain = DeconvolveDeskewWarp(tf_half, PAST_FILTER, REG, ANGLE, RATIO, reg_stab_matrix(),
+                                 average_window=AVG, device=dev)
+    with contextlib.redirect_stderr(io.StringIO()):
+        got, launches = counted(lambda: chain(vols))
+    zo, yo, xo = chain.output_shape
+    want = warp_x_plain(warp_zy_plain(want, chain.warp, (zo, yo)), chain.warp, xo,
+                        chain.logical_zyx_shape, chain.fill)
+    _, err = rel_err(got, want)
+    require(err <= FFT_TOL, f"chain past the limits: rel err {err:.3g} > {FFT_TOL}")
+    want_l = {"deskew": 1, "warp_zy": 1, "warp_x": 1}
+    require(launches == want_l, f"chain past the limits launched {launches}")
+    print(f"chain at {PAST_FILTER} (batch 2): rel err {err:.3g} vs the plain chain; launches "
+          f"{launches}")
+    del vols, decon, got, want, step, chain
+
+    tfs = compute_transfer_function_arrays(PAST_FILTER, BF_SETTINGS, device=dev)
+    h = tfs["phase"]
+    bf = 1000.0 + 10.0 * torch.rand(PAST_FILTER, generator=gen, device=dev)
+    i_norm = bf / bf.mean() - 1.0
+    reg_p = BF_SETTINGS["phase"]["apply_inverse"]["regularization_strength"]
+    h64 = h.cpu().numpy().astype(np.complex128)
+    exact = np.real(np.fft.ifftn(np.fft.fftn(i_norm.cpu().numpy().astype(np.float64))
+                                 * np.conj(h64) / (np.abs(h64) ** 2 + reg_p)))
+    err_text = io.StringIO()
+    with contextlib.redirect_stderr(err_text):
+        got, launches = counted(lambda: tikhonov_inverse_3d(i_norm, h, reg_p, device=dev))
+        recon, launches_a = counted(lambda: apply_inverse_transfer_function_arrays(
+            bf[None, None], ["BF"], tfs, BF_SETTINGS, device=dev))
+    lines = err_text.getvalue().strip().splitlines()
+    err = float(np.abs(got.cpu().numpy() - exact).max() / np.abs(exact).max())
+    err_a = float(np.abs(recon[0, 0].cpu().numpy() - exact).max() / np.abs(exact).max())
+    require(err <= FFT_TOL and err_a <= FFT_TOL,
+            f"Tikhonov past the limits: rel err {err:.3g}, apply-inv-tf {err_a:.3g}")
+    require(not launches and not launches_a,
+            f"Tikhonov past the limits launched {launches}, {launches_a}")
+    require(any(f"tikhonov_inverse_3d: {PAST_FILTER} takes torch.fft" in ln for ln in lines)
+            and any(f"apply_inverse_transfer_function: {PAST_FILTER} takes torch.fft" in ln
+                    for ln in lines), "Tikhonov past the limits: no stderr line")
+    print(f"tikhonov_inverse_3d and apply-inv-tf (phase) at {PAST_FILTER}: rel err {err:.3g}, "
+          f"{err_a:.3g} vs the full-spectrum formula in float64 (tol {FFT_TOL}); no kernel "
+          f"launched; stderr: " + " | ".join(lines))
+    torch.cuda.empty_cache()
+
+
+def direct_tiles(shape, r: int, o: int, table: torch.Tensor, slot: int, order: int,
+                 kernel: str) -> int:
+    """The tiles of one pass of kernel H or I over a frame of ``shape`` (per
+    volume of ``table``) whose window exceeds its stage, from
+    ``multipass_cuda.pass_window`` at every tile of ``pass_walk``'s tiles
+    (vectorized; r = 2 by row)."""
+    from biahub_tpu_torch.kernels import multipass_cuda as mc
+
+    tp, lanes = mc.PASS_TILES[kernel][r]
+    shear = o != r
+    rows = table.reshape(-1, table.shape[-2], 3)[:, slot].cpu().numpy()
+    n = 0
+    for cr, co, tau in rows:
+        p_lo = np.arange(0, shape[r], tp)
+        p_hi = np.minimum(p_lo + tp, shape[r]) - 1
+        if r < 2 and o == 2:
+            l0 = np.arange(0, shape[2], lanes)[:, None]
+            o_range = (l0, np.minimum(l0 + lanes, shape[2]) - 1)
+        else:
+            i_o = np.arange(shape[o])[:, None] if shear else np.zeros((1, 1), np.int64)
+            o_range = (i_o, i_o)
+        window = mc.pass_window(cr, co, tau, shear, o_range, (p_lo[None], p_hi[None]), order,
+                                shape[r])
+        n += int((~mc.pass_staged(window, r, kernel)).sum())
+    return n
+
+
+def pass_library(frame: torch.Tensor, table: torch.Tensor, slot: int, r: int, o: int):
+    """One grid_sample call computing H's order-1 pass ``slot`` over a (1,
+    F0, F1, F2) frame (trilinear, border padding: the clamped taps; not the
+    fill, which the traced frame's margin leaves unused). Returns the
+    call."""
+    from biahub_tpu_torch.kernels import multipass_warp as mw
+
+    shape = frame.shape[1:]
+    zyx = [mw._pass_coords(frame.shape, table, slot, r, o) if a == r
+           else mw._axis_ramp(shape[a], a, frame.device) for a in range(3)]
+    zyx = torch.broadcast_tensors(*zyx)
+    grid = torch.stack([lerp_grid(zyx[a][0], shape[a]) for a in (2, 1, 0)], -1)[None]
+    img = frame[:, None]
+    return lambda: torch.nn.functional.grid_sample(img, grid, mode="bilinear",
+                                                   padding_mode="border", align_corners=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2977,6 +3239,7 @@ def main() -> int:
     sharded_phase(dev, records, tf_half, psf)
     redesign_phase(dev, records)
     ej_phase(dev, records)
+    hi_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
