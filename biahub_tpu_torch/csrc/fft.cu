@@ -42,21 +42,23 @@
 // volume, so each line is an FFT in shared memory instead (O(N log N), full
 // float32, no tensor cores: TF32 keeps 10 mantissa bits and could not meet
 // the reference's 1e-5): mixed-radix passes in registers in A, B, Bc and C
-// (fft_radix.cuh), radix-2 stages in Bx, K and L. None of the TPU's layout
+// (fft_radix.cuh), and in Bx in double, radix-2 stages in K and L. None of
+// the TPU's layout
 // devices is carried over: no Nyquist peel (the kx = X/2 bin is simply the
 // last column, and the ragged last kx tile is masked), no radix splits
 // across kernels, no slab or yzx_pad layouts. Normalisation: B scales by 1/Z, C by 1/(Y*X), L by 1/Y;
-// K does not scale. The radix-2 and Bluestein line code is fft_lines.cuh,
-// shared with spectral.cu; A and C's mixed-radix passes are fft_radix.cuh.
+// K does not scale; Bx by 1/Z. The radix-2 and Bluestein line code is
+// fft_lines.cuh, shared with spectral.cu; the mixed-radix passes are
+// fft_radix.cuh.
 //
-// Lines of any length. In Bx, K and L a power-of-two axis is one radix-2
+// Lines of any length. In K and L a power-of-two axis is one radix-2
 // FFT, and their kernels are the kAny = false instantiations, whose code
 // and shared-memory layout are those of the power-of-two-only kernels. In
-// A, B, Bc and C every 2,3,5,7,11-smooth axis (each length the paths meet,
+// A, B, Bc, Bx and C every 2,3,5,7,11-smooth axis (each length the paths meet,
 // the odd test shapes' primes apart) runs the mixed-radix passes. Any
 // other length n runs Bluestein's chirp convolution on the radix-2 machinery, in the kAny =
-// true instantiations (and in A and C's Bluestein branch; B and Bc run it
-// on the mixed-radix passes, see z_line_kernel): with w_k =
+// true instantiations (and in A and C's Bluestein branch; B, Bc and Bx run
+// it on the mixed-radix passes, see z_line_kernel): with w_k =
 // exp(-i pi k^2 / n), exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line
 // is multiplied by w, circularly convolved with conj(w) through two radix-2
 // FFTs of M >= 2n - 1 points and multiplied by w again. The chirp's phase is reduced in
@@ -82,8 +84,9 @@
 //   Bc 171.2 MB spectrum in and out + 171.2 MB complex filter = 513.6 MB,
 //      0.153 ms
 //   Bx at the stabilization crop 64x1024x256: two 67.6 MB spectra in, one
-//      out = 202.9 MB, 0.061 ms (B's design: one read, one write; its
-//      arithmetic is double, ~0.8 Gflop, 0.024 ms at 34 Tflop/s).
+//      out = 202.9 MB, 0.061 ms (one read, one write; its arithmetic is
+//      double, ~0.8 Gflop, 0.024 ms at 34 Tflop/s); at custom_padding's
+//      77x1232x155, 352.9 MB, 0.105 ms.
 //   K  269.0 MB spectrum in and out + 134.5 MB filter = 672.4 MB, 0.201 ms
 //      (complex filter: 269.0 MB, 807.0 MB, 0.241 ms)
 //   L  269.0 MB spectrum in and out = 538.0 MB, 0.161 ms
@@ -561,33 +564,34 @@ struct ZLinesOut {
 
 // The buffer a plan's last pass writes when its first reads a and the
 // passes between alternate b, a, b, ...
-__device__ __forceinline__ float2* last_buffer(float2* a, float2* b, int passes) {
+template <class C>
+__device__ __forceinline__ C* last_buffer(C* a, C* b, int passes) {
   return (passes & 1) ? b : a;
 }
 
 // The plan's passes over a tile: the first reads src (over buffer a), the
 // ones between alternate between b and a, the last writes dst (into
 // last_buffer(a, b, passes) when dst is a tile). A barrier after each pass.
-template <bool kInv, class Src, class Dst>
-__device__ __forceinline__ void line_passes(Src src, Dst dst, float2* a, float2* b, const Tile t,
-                                            const RadixPlan pl, const float2* tw) {
+template <bool kInv, class Src, class Dst, class C>
+__device__ __forceinline__ void line_passes(Src src, Dst dst, C* a, C* b, const Tile t,
+                                            const RadixPlan pl, const C* tw) {
   if (pl.passes == 1) {
     radix_pass_r<kInv>(pl.radix(0), src, dst, t, 1, tw);
     __syncthreads();
     return;
   }
-  radix_pass_r<kInv>(pl.radix(0), src, SmemLines{b, t}, t, 1, tw);
+  radix_pass_r<kInv>(pl.radix(0), src, SmemTile<C>{b, t}, t, 1, tw);
   __syncthreads();
   int ns = pl.radix(0);
   for (int p = 1; p + 1 < pl.passes; ++p) {
-    float2* from = (p & 1) ? b : a;
-    radix_pass_r<kInv>(pl.radix(p), SmemLines{from, t}, SmemLines{(p & 1) ? a : b, t}, t, ns,
-                       tw);
+    C* from = (p & 1) ? b : a;
+    radix_pass_r<kInv>(pl.radix(p), SmemTile<C>{from, t}, SmemTile<C>{(p & 1) ? a : b, t}, t,
+                       ns, tw);
     __syncthreads();
     ns *= pl.radix(p);
   }
   const int p = pl.passes - 1;
-  radix_pass_r<kInv>(pl.radix(p), SmemLines{(p & 1) ? b : a, t}, dst, t, ns, tw);
+  radix_pass_r<kInv>(pl.radix(p), SmemTile<C>{(p & 1) ? b : a, t}, dst, t, ns, tw);
   __syncthreads();
 }
 
@@ -768,90 +772,208 @@ y_inv_kernel(float2* __restrict__ spec, int Y, int xh, int log2tk, int tab) {
 
 constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's clamp
 
-// Kernel Bx. One block per (ky, tile of tk kx columns), as B. The tile's
-// Z-lines of both spectra sit side by side in shared memory (ref in columns
-// [0, tk), mov in [tk, 2tk)) and ride one forward transform of 2tk lines,
-// so both hold frequency kz at the same position and the cross-power is
-// pointwise. It replaces the ref columns, which go back through the
-// inverse (with 1/Z) and are stored into out. ref is only read (the
-// vs-first path reuses it); out may be mov: a block reads its whole tile
-// before it writes it, and tiles are disjoint. norm: 0 none, 1 magnitude
-// (|c|), 2 classic (sqrt(|H1|^2 |H2|^2), the Pallas kernel's operands).
+// Kernel Bx (z_cross_kernel): B's z_line_kernel carried over to two
+// spectra, in double. A tile is tk consecutive (ky, kx) lines of each
+// spectrum (ref in lines [0, tk), mov in [tk, 2tk) of a 2tk-line tile,
+// column layout), staged by cp.async, two deep where they fit: one
+// 128-byte run per z per spectrum. The forward transform of the 2tk lines
+// runs fft_radix.cuh's Stockham passes in double2 with the wrapper's
+// double twiddles (64 = 8 x 8, 77 = 11 x 7: two passes each way; blocks
+// of 128 threads with up to 170 registers, so that no butterfly spills); the
+// inverse transform of the tk cross-power lines reads, in its first pass,
+// point kz of both spectra's lines and forms the phase cross-power
+// H_ref * conj(H_mov) (norm 0 none, 1 magnitude |c|, 2 classic
+// sqrt(|H1|^2 |H2|^2), clamped at float32's eps), and its last pass stores
+// to device memory times 1/Z, rounded to complex64. A Z with a prime
+// factor above 11 runs Bluestein on the passes at M = kernels/fft.py
+// z_line_length(Z): each forward line times the chirp w, FFT, times K,
+// inverse FFT gives A with fft = w A; the cross-power of the A's is the
+// spectra's (|w| = 1) and takes the inverse's opening conj(w); FFT, times
+// conj(K), inverse FFT, times conj(w) / Z. ref is only read (the vs-first
+// path reuses it); out may be mov: a tile is read whole before it is
+// written, and tiles are disjoint.
 //
 // Between the load and the store everything is double: the normalizations
 // divide by |c|, and a bin near zero beside a large one in the same Z-line
 // (the DC column's) turns float32 rounding of the transform into an error
 // of order one in its phase. In double the result is the exact function of
-// the complex64 spectra to float32 rounding. The pass stays bytes-bound
-// (~0.8 Gflop of double at the stabilization crop), at half the tile.
-template <bool kAny>
-__global__ void __launch_bounds__(kThreads)
-z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
-               int Z, int Y, int xh, int log2tk, int norm, int tab) {
-  extern __shared__ double2 dsmem[];
-  const int tk = 1 << log2tk, w = 2 * tk;
-  Axis<double2> az;
-  double2* buf;
-  if constexpr (kAny) {
-    buf = dsmem + tab;
-    az = make_axis(dsmem, Z);
-  } else {
-    az = pow2_axis(dsmem, Z);
-    buf = dsmem + Z / 2;
-    make_twiddles(dsmem, Z);
+// the complex64 spectra to float32 rounding.
+struct XPlan {
+  long long code;  // radix plan of the line's m points
+  int m, log2tk, stages, tab_smem;
+};
+
+// Entries of Bx's table read from shared memory (s) or device memory (g).
+struct XTab {
+  const double2* s;
+  const double2* g;
+  __device__ __forceinline__ double2 operator[](int i) const { return s != nullptr ? s[i] : g[i]; }
+};
+
+// Point e of line l of the float2 stage in double, times chirp[e] for
+// Bluestein (zeros beyond its n points).
+struct CrossStage {
+  const float2* p;
+  Tile t;
+  bool blue;
+  XTab chirp;
+  __device__ __forceinline__ double2 ld(int l, int e) const {
+    if (e >= t.n) return make_double2(0.0, 0.0);
+    const float2 v = p[tile_at(t, l, e)];
+    const double2 d = make_double2(v.x, v.y);
+    return blue ? cmul(d, chirp[e]) : d;
   }
-  const int k0 = blockIdx.x * tk;
-  const size_t zstride = static_cast<size_t>(Y) * xh;
-  const size_t base = static_cast<size_t>(blockIdx.y) * xh + k0;
-  for (int t = threadIdx.x; t < (Z << (log2tk + 1)); t += blockDim.x) {
-    const int z = t >> (log2tk + 1), c = t & (w - 1), col = c & (tk - 1);
-    const float2* src = c < tk ? ref : mov;
-    const float2 v = k0 + col < xh ? src[z * zstride + base + col] : make_float2(0.f, 0.f);
-    buf[t] = make_double2(v.x, v.y);
-  }
-  __syncthreads();
-  lines_dif<kAny>(buf, az, w, log2tk + 1, 1, w, false, true);
-  for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
-    double2* p = buf + (t >> log2tk) * w + (t & (tk - 1));
-    const double2 a = p[0], b = p[tk];
+};
+
+// The inverse's first reads: point e of cross-power line l from lines l
+// (ref) and l + lines (mov) of the forward tile t2, times conj(chirp[e])
+// for Bluestein; zeros for e >= n.
+struct CrossLines {
+  const double2* p;
+  Tile t2;
+  int lines, n, norm;
+  bool blue;
+  XTab chirp;
+  __device__ __forceinline__ double2 ld(int l, int e) const {
+    if (e >= n) return make_double2(0.0, 0.0);
+    const double2 a = p[tile_at(t2, l, e)], b = p[tile_at(t2, l + lines, e)];
     double cr = a.x * b.x + a.y * b.y;
     double ci = a.y * b.x - a.x * b.y;
     if (norm != 0) {
-      const double d = fmax(
-          norm == 1 ? sqrt(cr * cr + ci * ci)
-                    : sqrt((a.x * a.x + a.y * a.y) * (b.x * b.x + b.y * b.y)),
-          kEps);
-      cr = cr / d;
-      ci = ci / d;
+      // one reciprocal: in double its rounding is far below the float32 result's
+      const double d = norm == 1 ? sqrt(cr * cr + ci * ci)
+                                 : sqrt((a.x * a.x + a.y * a.y) * (b.x * b.x + b.y * b.y));
+      const double r = 1.0 / fmax(d, kEps);
+      cr *= r;
+      ci *= r;
     }
-    p[0] = make_double2(cr, ci);
+    const double2 c = make_double2(cr, ci);
+    return blue ? cmul(c, conj_if(chirp[e], true)) : c;
   }
+};
+
+// A pass's stores into a double tile times mul[e] (conjugated with conj).
+struct MulTile {
+  double2* p;
+  Tile t;
+  XTab mul;
+  bool conj;
+  __device__ __forceinline__ void st(int l, int e, double2 v) const {
+    p[tile_at(t, l, e)] = cmul(v, conj_if(mul[e], conj));
+  }
+};
+
+// The last pass's stores to device memory: point e < n of line l < valid,
+// times conj(chirp[e]) (Bluestein) and 1/Z, rounded to complex64.
+struct CrossOut {
+  float2* out;
+  size_t zstride;
+  int n, valid;
+  bool blue;
+  XTab chirp;
+  double scale;
+  __device__ __forceinline__ void st(int l, int e, double2 v) const {
+    if (e < n && l < valid) {
+      if (blue) v = cmul(v, conj_if(chirp[e], true));
+      out[e * zstride + l] = make_float2(static_cast<float>(v.x * scale),
+                                         static_cast<float>(v.y * scale));
+    }
+  }
+};
+
+// Tile c0's Z-lines of both spectra into the stage dst (st: 2tk lines,
+// ref then mov), one commit group; lines past the plane's end read as
+// zeros.
+__device__ __forceinline__ void fetch_pair(float2* dst, const float2* ref, const float2* mov,
+                                           int c0, int lines, size_t zstride, const Tile st) {
+  const int tk = st.lines >> 1;
+  for (int i = threadIdx.x; i < (st.n << st.log2lines); i += blockDim.x) {
+    const int l = i & (st.lines - 1), e = i >> st.log2lines;
+    const int c = l & (tk - 1);
+    const bool ok = c0 + c < lines;
+    const size_t g = ok ? e * zstride + c0 + c : 0;
+    cp_async8(dst + tile_at(st, l, e), (l < tk ? ref : mov) + g, ok);
+  }
+  cp_async_commit();
+}
+
+template <bool kBlue>
+__global__ void __launch_bounds__(128, 3)
+z_cross_kernel(const float2* __restrict__ ref, const float2* mov, float2* out,
+               const double2* __restrict__ table, int Z, int lines, int norm, XPlan xp) {
+  extern __shared__ double2 dsmem[];
+  const RadixPlan pl = decode_plan(xp.code);
+  const int n = Z, m = xp.m, tk = 1 << xp.log2tk;
+  const int tab_len = m - 1 + (kBlue && xp.tab_smem ? n + m : 0);
+  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) dsmem[i] = table[i];
+  const double2* tw = dsmem;
+  const XTab chirp = xp.tab_smem ? XTab{dsmem + m - 1, nullptr} : XTab{nullptr, table + m - 1};
+  const XTab kern{chirp.s != nullptr ? chirp.s + n : nullptr,
+                  chirp.g != nullptr ? chirp.g + n : nullptr};
+  // the work tiles w1, w2 (2tk lines of m points each), then the stages
+  const int wbuf = padded(2 * tk * m), sbuf = padded(2 * tk * n);
+  double2* w1 = dsmem + tab_len;
+  double2* w2 = w1 + wbuf;
+  float2* stage = reinterpret_cast<float2*>(w2 + wbuf);
+  const Tile st{2 * tk, n, xp.log2tk + 1}, wt2{2 * tk, m, xp.log2tk + 1}, wt1{tk, m, xp.log2tk};
+  const size_t zstride = static_cast<size_t>(lines);
+  const int ntiles = (lines + tk - 1) >> xp.log2tk;
+  const double scale = 1.0 / static_cast<double>(Z);
+
   __syncthreads();
-  lines_dit<kAny>(buf, az, tk, log2tk, 1, w, true, true);
-  const double inv_z = 1.0 / static_cast<double>(Z);
-  for (int t = threadIdx.x; t < (Z << log2tk); t += blockDim.x) {
-    const int z = t >> log2tk, c = t & (tk - 1);
-    if (k0 + c < xh) {
-      const double2 v = buf[z * w + c];
-      out[z * zstride + base + c] = make_float2(static_cast<float>(v.x * inv_z),
-                                                static_cast<float>(v.y * inv_z));
+  int slot = 0;
+  int tile = blockIdx.x;
+  if (tile < ntiles) fetch_pair(stage, ref, mov, tile << xp.log2tk, lines, zstride, st);
+  for (; tile < ntiles; tile += gridDim.x) {
+    const int next = tile + gridDim.x;
+    if (xp.stages == 2) {
+      if (next < ntiles) {
+        fetch_pair(stage + (slot ^ 1) * sbuf, ref, mov, next << xp.log2tk, lines, zstride, st);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int c0 = tile << xp.log2tk, valid = min(tk, lines - c0);
+    const CrossStage src{stage + slot * sbuf, st, kBlue, chirp};
+    const CrossOut dst{out + c0, zstride, n, valid, kBlue, chirp, scale};
+    if constexpr (!kBlue) {
+      double2* f = last_buffer(w1, w2, pl.passes);
+      line_passes<false>(src, SmemTile<double2>{f, wt2}, w1, w2, wt2, pl, tw);
+      double2* o = f == w1 ? w2 : w1;
+      line_passes<true>(CrossLines{f, wt2, tk, n, norm, false, chirp}, dst, f, o, wt1, pl, tw);
+    } else {
+      // forward: A = iFFT(FFT(x w) K) of the 2tk lines
+      double2* k1 = last_buffer(w1, w2, pl.passes);
+      line_passes<false>(src, MulTile{k1, wt2, kern, false}, w1, w2, wt2, pl, tw);
+      double2* o1 = k1 == w1 ? w2 : w1;
+      double2* a = last_buffer(k1, o1, pl.passes);
+      line_passes<true>(SmemTile<double2>{k1, wt2}, SmemTile<double2>{a, wt2}, k1, o1, wt2, pl,
+                        tw);
+      // inverse: iFFT(FFT(cross(A) conj(w)) conj(K)) conj(w) / Z of the tk lines
+      double2* o2 = a == k1 ? o1 : k1;
+      double2* k2 = last_buffer(a, o2, pl.passes);
+      line_passes<false>(CrossLines{a, wt2, tk, n, norm, true, chirp},
+                         MulTile{k2, wt1, kern, true}, a, o2, wt1, pl, tw);
+      double2* o3 = k2 == a ? o2 : a;
+      line_passes<true>(SmemTile<double2>{k2, wt1}, dst, k2, o3, wt1, pl, tw);
+    }
+    if (xp.stages == 2) {
+      slot ^= 1;
+    } else if (next < ntiles) {
+      fetch_pair(stage, ref, mov, next << xp.log2tk, lines, zstride, st);
     }
   }
+  cp_async_wait<0>();
 }
 
 // log2 of the widest column tile (<= 32 lines) of m points within budget.
 int tile_log2(int m) {
   int l = 5;
   while (l > 0 && (static_cast<size_t>(m) << l) * sizeof(float2) > kTileBytes) --l;
-  return l;
-}
-
-// log2 of Bx's column tile: two spectra's Z-lines of m double2 points
-// share the budget, so m <= kTileBytes / 32 = 3072 at one column; -1 when
-// even that does not fit.
-int cross_tile_log2(int m) {
-  int l = 5;
-  while (l >= 0 && (static_cast<size_t>(m) << (l + 1)) * sizeof(double2) > kTileBytes) --l;
   return l;
 }
 
@@ -902,6 +1024,17 @@ int launch_z_line(void* spec, const void* filt, const void* table, long long cod
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<float2*>(spec), filt, static_cast<const float2*>(table), Z, lines, zp);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of z_cross_kernel's shared memory for a plan (kernels/fft.py
+// _cross_plan_smem): the m - 1 double twiddles (and with tab_smem a
+// Bluestein line's n + m chirp and K entries), the two work tiles of 2tk
+// lines of m double2 points, the float2 stages of 2tk lines of n points.
+size_t cross_smem(const XPlan& xp, int Z) {
+  const int tk = 1 << xp.log2tk;
+  const size_t tab = xp.m - 1 + (xp.m != Z && xp.tab_smem ? Z + xp.m : 0);
+  return 16 * (tab + 2 * static_cast<size_t>(padded(2 * tk * xp.m))) +
+         8 * static_cast<size_t>(xp.stages) * padded(2 * tk * Z);
 }
 
 // A and C's launch: Z clusters of sp.cluster blocks. A refused cluster
@@ -1018,24 +1151,26 @@ int y_inv(void* spec, int Z, int Y, int xh, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref. Z in
-// [2, 2048] if a power of two, else [2, 1024] (two spectra's Z-lines of
-// double fit the tile budget), Y <= 65535; norm 0 none, 1 magnitude, 2
-// classic.
-int z_cross(const void* ref, const void* mov, void* out, int Z, int Y, int xh,
-            int norm, void* stream) {
-  const bool any = !is_pow2(Z);
-  const int mz = 1 << radix_log2(Z), ltk = cross_tile_log2(mz);
-  if (ltk < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int tab = static_cast<int>(any ? table_elems(Z) : Z / 2);
-  const size_t smem = (tab + (static_cast<size_t>(mz) << (ltk + 1))) * sizeof(double2);
-  auto kernel = any ? z_cross_kernel<true> : z_cross_kernel<false>;
+// ref, mov, out: (Z, Y, xh) complex64; out may be mov, never ref; table:
+// kernels/fft.py cross_table(plan) (complex128); the plan (code .. smem) is
+// cross_plan(Z)'s, lines = Y * xh. Z in [2, 2048] if a power of two, else
+// [2, 1024]; norm 0 none, 1 magnitude, 2 classic.
+int z_cross(const void* ref, const void* mov, void* out, const void* table, long long code,
+            int m, int log2tk, int threads, int stages, int tab_smem, int grid, int smem, int Z,
+            int lines, int norm, void* stream) {
+  const XPlan xp{code, m, log2tk, stages, tab_smem};
+  const RadixPlan pl = decode_plan(code);
+  if (pl.passes < 1 || pl.n != m || (m != Z && m < 2 * Z - 1) || log2tk < 0 || log2tk > 4 ||
+      stages < 1 || stages > 2 || threads < 32 || threads > 128 || grid < 1 || lines < 1 ||
+      norm < 0 || norm > 2 || cross_smem(xp, Z) > static_cast<size_t>(smem)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  auto kernel = m != Z ? z_cross_kernel<true> : z_cross_kernel<false>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((xh + (1 << ltk) - 1) >> ltk, Y);
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float2*>(ref), static_cast<const float2*>(mov),
-      static_cast<float2*>(out), Z, Y, xh, ltk, norm, tab);
+      static_cast<float2*>(out), static_cast<const double2*>(table), Z, lines, norm, xp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
-// Line transforms shared by the FFT kernels (fft.cu: A, B, Bc, Bx, C, K,
-// L) and the spectral deskew kernel (spectral.cu: M): in-place radix-2
+// Line transforms shared by the FFT kernels (fft.cu: A and C's Bluestein
+// lines, K, L; complex products for all) and the spectral deskew kernel
+// (spectral.cu: M): in-place radix-2
 // FFTs of lines held in shared memory, and Bluestein's chirp convolution on
 // them for lengths that are not powers of two (see fft.cu's header for the
 // method and its limits). Everything here has internal linkage: each source
@@ -34,10 +35,6 @@ __device__ __forceinline__ void from_double(float2& out, double re, double im) {
   out = make_float2(static_cast<float>(re), static_cast<float>(im));
 }
 
-__device__ __forceinline__ void from_double(double2& out, double re, double im) {
-  out = make_double2(re, im);
-}
-
 // tw[k] = exp(-2 pi i k / n) for k < n / 2 (n a power of two, so the
 // argument of sincospif is exact).
 __device__ void make_twiddles(float2* tw, int n) {
@@ -48,14 +45,6 @@ __device__ void make_twiddles(float2* tw, int n) {
   }
 }
 
-__device__ void make_twiddles(double2* tw, int n) {
-  for (int k = threadIdx.x; k < n / 2; k += blockDim.x) {
-    double s, c;
-    sincospi(-2.0 * static_cast<double>(k) / static_cast<double>(n), &s, &c);
-    tw[k] = make_double2(c, s);
-  }
-}
-
 // In-place radix-2 FFTs of `nlines` lines of length n = 1 << log2n held in
 // shared memory; element e of line l is buf[l * lstride + e * estride].
 // DIF: natural order in, bit-reversed out. DIT: bit-reversed in, natural
@@ -63,7 +52,7 @@ __device__ void make_twiddles(double2* tw, int n) {
 // consecutive threads take consecutive lines (column tiles: lstride 1,
 // nlines = 1 << log2lines), else consecutive butterflies of one line (rows:
 // estride 1), so a warp touches consecutive words in both layouts. Ends on
-// a __syncthreads(). C is float2, or double2 for kernel Bx.
+// a __syncthreads().
 template <bool DIF, typename C>
 __device__ void block_fft(C* buf, int log2n, int nlines, int log2lines,
                           int lstride, int estride, const C* tw,
@@ -238,20 +227,6 @@ __device__ void lines_dif(C* buf, const Axis<C>& ax, int nlines, int log2lines, 
   }
   block_fft<true>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
                   line_fast);
-}
-
-// Transform of lines whose point j sits at at(ax, j); natural order out.
-template <bool kAny, typename C>
-__device__ void lines_dit(C* buf, const Axis<C>& ax, int nlines, int log2lines, int lstride,
-                          int estride, bool inverse, bool line_fast) {
-  if constexpr (kAny) {
-    if (ax.blue) {
-      bluestein(buf, ax, nlines, log2lines, lstride, estride, inverse, line_fast);
-      return;
-    }
-  }
-  block_fft<false>(buf, ax.log2m, nlines, log2lines, lstride, estride, ax.tw, inverse,
-                   line_fast);
 }
 
 template <typename K>

@@ -20,7 +20,7 @@ import torch
 from biahub_tpu_torch.kernels import _build
 from biahub_tpu_torch.kernels.deskew import DeskewGeometry, deskew_plain
 
-__all__ = ["deskew", "DeskewPlan", "deskew_plan", "scan_windows"]
+__all__ = ["deskew", "DeskewPlan", "deskew_plan", "scan_windows", "batch_chunks"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -89,14 +89,26 @@ def deskew_plan(geo: DeskewGeometry) -> DeskewPlan:
                      "in a block's shared memory")
 
 
+def batch_chunks(batch: int, groups: int) -> list[tuple[int, int]]:
+    """The volumes [start, stop) of each launch of kernel D for a batch of
+    ``batch``: in order, at most 65535 // groups a launch (its grid's y is
+    (volume, group)). Volumes share nothing, so the chunks give the bits of
+    one launch."""
+    per = _MAX_GRID_Y // groups
+    if per < 1:
+        raise ValueError(f"deskew: {groups} groups exceed the kernel's grid ({_MAX_GRID_Y})")
+    return [(s, min(s + per, batch)) for s in range(0, batch, per)]
+
+
 def deskew(volumes: torch.Tensor, geo: DeskewGeometry,
            out_layout: str = "zyx") -> torch.Tensor:
     """Kernel D: (B, Z, Y, X) float32 -> the deskew of each volume with
     ``geo`` (see :func:`deskew_geometry`), float32, stored as (B, groups,
     Y_out, X_out) for ``out_layout="zyx"`` or (B, X_out, groups, Y_out) for
     ``"xzy"``, the warp's ``input_xzy`` layout (which, as in the reference,
-    requires ``geo.skip_flip``). Launches count as ``deskew`` and
-    ``deskew_xzy``."""
+    requires ``geo.skip_flip``). A batch past the kernel's grid runs in
+    chunks (:func:`batch_chunks`). Launches count as ``deskew`` and
+    ``deskew_xzy``, one a chunk."""
     if out_layout not in ("zyx", "xzy"):
         raise ValueError(f"deskew: out_layout must be 'zyx' or 'xzy', not {out_layout!r}")
     if out_layout == "xzy" and not geo.skip_flip:
@@ -114,22 +126,21 @@ def deskew(volumes: torch.Tensor, geo: DeskewGeometry,
         out = deskew_plain(volumes, geo)
         return out.permute(0, 3, 1, 2).contiguous() if xzy else out
     batch = volumes.shape[0]
-    if batch * geo.groups > _MAX_GRID_Y:
-        raise ValueError(f"deskew: batch {batch} x {geo.groups} groups exceeds "
-                         f"the kernel's grid ({_MAX_GRID_Y})")
+    chunks = batch_chunks(batch, geo.groups)
     plan = deskew_plan(geo)
     groups, y_out, x_out = geo.out_shape
     shape = (batch, x_out, groups, y_out) if xzy else (batch, groups, y_out, x_out)
     out = torch.empty(shape, dtype=torch.float32, device=volumes.device)
     lib = _build.library("deskew", _SIGNATURES)
     z_in, y_in, x_in = geo.zyx_shape
-    with torch.cuda.device(volumes.device):
-        rc = lib.deskew(
-            _build.ptr(volumes), _build.ptr(out), batch, z_in, y_in, x_in,
-            geo.x_out, geo.average_window, geo.px, geo.pxct, geo.offset,
-            1.0 / geo.average_window, int(geo.skip_flip), int(xzy), *plan,
-            _build.stream_of(volumes),
-        )
-    _build.check(rc, lib, f"deskew ({plan})")
-    _build.count_launch("deskew_xzy" if xzy else "deskew")
+    for start, stop in chunks:
+        with torch.cuda.device(volumes.device):
+            rc = lib.deskew(
+                _build.ptr(volumes[start:stop]), _build.ptr(out[start:stop]), stop - start,
+                z_in, y_in, x_in, geo.x_out, geo.average_window, geo.px, geo.pxct, geo.offset,
+                1.0 / geo.average_window, int(geo.skip_flip), int(xzy), *plan,
+                _build.stream_of(volumes),
+            )
+        _build.check(rc, lib, f"deskew ({plan}, volumes {start}:{stop})")
+        _build.count_launch("deskew_xzy" if xzy else "deskew")
     return out

@@ -35,8 +35,9 @@ The kernels take axes of any length within their shared-memory limits
 passes (:func:`radix_plan`) and any other as a Bluestein chirp convolution,
 one thread-block cluster per z slice (:func:`slice_plan`); B and Bc run Z
 on the same passes (Bluestein too on them, at :func:`z_line_length`), tiles
-of consecutive (ky, kx) lines (:func:`z_plan`); Bx, K and L run a power of
-two as one radix-2 FFT and any other length as Bluestein.
+of consecutive (ky, kx) lines (:func:`z_plan`), and Bx the same passes in
+double on tiles of both spectra's lines (:func:`cross_plan`); K and L run
+a power of two as one radix-2 FFT and any other length as Bluestein.
 """
 
 from __future__ import annotations
@@ -61,7 +62,7 @@ __all__ = [
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
     "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan", "z_line_length",
     "ZPlan", "z_plan", "z_line_table", "deconvolve_limit", "pcc_limit", "takes_torch_fft",
-    "filter_torch_fft",
+    "filter_torch_fft", "XPlan", "cross_plan", "cross_table",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -74,20 +75,22 @@ _SIGNATURES = {
     "z_filter": [_P, _P, _P, *_ZPLAN, _I, _I, _P],
     "z_filter_complex": [_P, _P, _P, *_ZPLAN, _I, _I, _P],
     "inv_yx": [_P, _P, *_PLAN, _I, _I, _I, _P],
-    "z_cross": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "z_cross": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "z_fwd_filter": [_P, _P, _I, _I, _I, _I, _P],
     "y_inv": [_P, _I, _I, _I, _P],
 }
-# In Bx, K and L a line of n points runs on a radix-2 FFT of M points: M =
-# n for a power of two, else the least power of two >= 2n - 1 (Bluestein);
+# In K and L a line of n points runs on a radix-2 FFT of M points: M = n
+# for a power of two, else the least power of two >= 2n - 1 (Bluestein);
 # A, B, Bc and C take the same lengths (B and Bc's Bluestein M is
 # z_line_length's, never above 8192 for n <= 4096). A row (X) or column
 # tile (Y, Z) of M points and an axis' tables must fit a block's shared
 # memory: M <= 8192, so powers of two up to 8192 and other lengths up to
 # 4096.
 _MAX_POW2, _MAX_OTHER = 8192, 4096
-# Kernel Bx holds the Z-lines of two spectra in its 96 KB tile in double:
-# M <= 3072 at one column, so Z <= 2048 for a power of two, else Z <= 1024.
+# Kernel Bx holds a tile of both spectra's Z-lines, one line each at the
+# least, in double in shared memory (cross_plan): Z up to 2048 for a power
+# of two, else up to 1024 (Bluestein's M = 2048 with its chirp and K read
+# from device memory).
 _MAX_CROSS_POW2, _MAX_CROSS_OTHER = 2048, 1024
 # The phase cross-power's normalizations, by kernel Bx's code.
 NORMALIZATIONS = {None: 0, "magnitude": 1, "classic": 2}
@@ -391,11 +394,13 @@ def z_line_table(plan: ZPlan) -> np.ndarray:
     1 + (q - 1) ns + k); for a Bluestein line then the chirp w_k = exp(-i pi
     k^2 / n) (n entries, the phase reduced as k^2 mod 2n) and the kernel's
     spectrum fft(conj(w) wrapped to m) / m (m entries). Formed in float64."""
-    return _z_line_table(plan.n, plan.radices).copy()
+    return _line_table(plan.n, plan.radices).astype(np.complex64)
 
 
 @functools.lru_cache(maxsize=16)
-def _z_line_table(n: int, radices: tuple[int, ...]) -> np.ndarray:
+def _line_table(n: int, radices: tuple[int, ...]) -> np.ndarray:
+    """The table of :func:`z_line_table` and :func:`cross_table` in
+    complex128."""
     m = math.prod(radices)
     tw = np.empty(m - 1, np.complex128)
     ns = 1
@@ -404,29 +409,114 @@ def _z_line_table(n: int, radices: tuple[int, ...]) -> np.ndarray:
         tw[ns - 1:ns - 1 + (r - 1) * ns] = np.exp(-2j * np.pi * ((q + 1) * k) / (ns * r))
         ns *= r
     if m == n:
-        return tw.astype(np.complex64)
+        return tw
     k = np.arange(n)
     w = np.exp(-1j * np.pi * ((k * k) % (2 * n)) / n)
     g = np.zeros(m, np.complex128)
     g[:n] = np.conj(w)
     g[m - n + 1:] = np.conj(w[1:][::-1])
-    return np.concatenate([tw, w, np.fft.fft(g) / m]).astype(np.complex64)
+    return np.concatenate([tw, w, np.fft.fft(g) / m])
 
 
-_z_tables: dict = {}
+_tables: dict = {}
 
 
-def _z_table_on(plan: ZPlan, device: torch.device) -> torch.Tensor:
-    """:func:`z_line_table` on ``device``, built once per (plan's line, device)."""
-    key = (plan.n, plan.radices, device)
-    if key not in _z_tables:
-        _z_tables[key] = torch.from_numpy(_z_line_table(plan.n, plan.radices)).to(device)
-    return _z_tables[key]
+def _table_on(plan, device: torch.device) -> torch.Tensor:
+    """:func:`z_line_table` (a :class:`ZPlan`) or :func:`cross_table` (an
+    :class:`XPlan`) on ``device``, built once per (kernel, line, device)."""
+    key = (type(plan), plan.n, plan.radices, device)
+    if key not in _tables:
+        table = z_line_table(plan) if isinstance(plan, ZPlan) else cross_table(plan)
+        _tables[key] = torch.from_numpy(table).to(device)
+    return _tables[key]
 
 
 @functools.lru_cache(maxsize=8)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@dataclass(frozen=True)
+class XPlan:
+    """Launch plan of kernel Bx (csrc/fft.cu z_cross_kernel) for Z-lines of
+    ``n`` points."""
+
+    n: int  # Z
+    m: int  # points of the line the passes run: n, or Bluestein's M
+    radices: tuple[int, ...]  # radix_plan(m), smallest first
+    log2tk: int  # log2 of the lines of each spectrum a tile
+    threads: int  # of a block
+    stages: int  # tiles staged: 2, the next one's copies in flight while this one runs
+    tab_smem: bool  # a Bluestein line's chirp and K copied to shared memory
+    smem: int  # dynamic shared memory of a block, bytes
+    per_sm: int  # blocks an SM holds
+
+    def grid(self, lines: int, sms: int) -> int:
+        """Blocks for ``lines`` Z-lines of each spectrum on ``sms`` SMs."""
+        return max(1, min(-(-lines >> self.log2tk), sms * self.per_sm))
+
+    def args(self, grid: int) -> tuple[int, ...]:
+        """The C entry's plan arguments."""
+        return (_plan_code(self.radices), self.m, self.log2tk, self.threads, self.stages,
+                int(self.tab_smem), grid, self.smem)
+
+    def describe(self) -> str:
+        line = "x".join(map(str, self.radices))
+        kind = f"Bluestein on {self.m} = {line}" if self.m != self.n else line
+        return (f"Z {self.n} ({kind}, double), {1 << self.log2tk} lines of each spectrum a "
+                f"tile, {self.threads} threads, {self.stages} stage(s), "
+                f"{'' if self.tab_smem or self.m == self.n else 'chirp in L1/L2, '}"
+                f"{self.smem} B shared, {self.per_sm} blocks/SM")
+
+
+def _cross_plan_smem(n, m, tk, stages, tab_smem) -> int:
+    """Bytes of Bx's shared memory (fft.cu cross_smem): the m - 1 double
+    twiddles (and with ``tab_smem`` a Bluestein line's n + m chirp and K
+    entries), two work tiles of 2tk lines of m double2 points, the float2
+    stages of 2tk lines of n points."""
+    tab = m - 1 + (n + m if m != n and tab_smem else 0)
+    return 16 * (tab + 2 * _padded(2 * tk * m)) + 8 * stages * _padded(2 * tk * n)
+
+
+# (stages, chirp in shared memory), in the order cross_plan tries them at
+# a tile width; Bx runs blocks of at most 128 threads (csrc/fft.cu
+# __launch_bounds__(128, 3): up to 170 registers, so a double radix-16
+# butterfly does not spill), tiles of up to 16 lines of each spectrum.
+_X_LAYOUTS = ((2, True), (1, True), (1, False))
+_X_THREADS, _X_BLOCKS, _X_MAX_LOG2TK = 128, 3, 4
+
+
+@functools.lru_cache(maxsize=64)
+def cross_plan(n: int) -> XPlan:
+    """Kernel Bx's plan for Z = ``n``: the next tile in flight (two stages)
+    where it fits at two blocks an SM, at the widest tile (at most 16 lines
+    of each spectrum) that allows; else one stage; failing that one block
+    an SM, and last a Bluestein line's chirp and K read from device
+    memory. The line depends on Z alone: B's radices (:func:`radix_plan`)
+    over ``n``, or over :func:`z_line_length`'s M, smallest first (64 = 8 x
+    8, 77 = 7 x 11, 176 = 11 x 16). On an H100 (NVIDIA H100 80GB HBM3,
+    700 W) 8 x 8 beat 16 x 4 and 4 x 16 at the PCC crop, 7 x 11 beat 11 x
+    7 and 11 x 16 beat 16 x 11, two stages of 8 lines beat one of 16 at Z
+    = 77, and blocks of 128 threads beat 256."""
+    m = z_line_length(n)
+    radices = tuple(sorted(radix_plan(m)))
+    for budget in (_SMEM_TWO, _SMEM_ONE):
+        for stages, tab_smem in _X_LAYOUTS:
+            for l2 in range(_X_MAX_LOG2TK, -1, -1):
+                tk = 1 << l2
+                smem = _cross_plan_smem(n, m, tk, stages, tab_smem)
+                if smem <= budget:
+                    threads = min(_X_THREADS,
+                                  max(32, -(-(2 * tk * m // min(radices)) // 32) * 32))
+                    per_sm = min(_X_BLOCKS, (_SMEM_ONE + 1024) // (smem + 1024))
+                    return XPlan(n, m, radices, l2, threads, stages, tab_smem, smem, per_sm)
+    raise ValueError(f"cross_plan: Z = {n} exceeds a block's shared memory")
+
+
+def cross_table(plan: XPlan) -> np.ndarray:
+    """Kernel Bx's table for a plan: :func:`z_line_table`'s entries for the
+    line of ``plan``, left in complex128."""
+    return _line_table(plan.n, plan.radices).copy()
 
 
 def prepare_hermitian_filter(shape, transfer_function, regularization_strength,
@@ -542,8 +632,8 @@ def _cross_z_limit(z: int) -> str | None:
     """Kernel Bx's Z: 2 to 2048 when a power of two, 2 to 1024 otherwise."""
     if z > max_cross_z(z):
         kind = "a power of two" if _is_pow2(z) else "other lengths"
-        return (f"Z = {z} exceeds the kernel's limit of {max_cross_z(z)} for {kind} (two "
-                "spectra's Z-lines, in double, in one shared-memory tile)")
+        return (f"Z = {z} exceeds the kernel's limit of {max_cross_z(z)} for {kind} (a "
+                "line of each spectrum, in double, in a block's shared memory)")
     return _axes_limit((z,))
 
 
@@ -666,7 +756,7 @@ def _z_filter(spectrum: torch.Tensor, filt: torch.Tensor, filt_dtype,
     with torch.cuda.device(dev):
         grid = plan.grid(y * xh, _sm_count(dev))
         rc = getattr(lib, entry)(_build.ptr(spectrum), _build.ptr(filt),
-                                 _build.ptr(_z_table_on(plan, dev)), *plan.args(grid), z, y * xh,
+                                 _build.ptr(_table_on(plan, dev)), *plan.args(grid), z, y * xh,
                                  _build.stream_of(spectrum))
     _build.check(rc, lib, f"{what} ({plan.describe()}, grid {grid})")
     _build.count_launch(entry)
@@ -789,12 +879,19 @@ def z_cross_(ref_spec: torch.Tensor, mov_spec: torch.Tensor, out: torch.Tensor,
         return z_cross_plain_(ref_spec, mov_spec, out, normalization)
     z, y, xh = ref_spec.shape
     _check_cross_z(z)
-    _check_grid_y(y, "z_cross_")
+    lines = y * xh
+    if lines >= 2**31:
+        raise ValueError(f"z_cross_: {lines} Z-lines exceed the kernel's int32 lines")
     lib = _lib()
-    with torch.cuda.device(ref_spec.device):
+    plan = cross_plan(z)
+    dev = ref_spec.device
+    with torch.cuda.device(dev):
+        grid = plan.grid(lines, _sm_count(dev))
         rc = lib.z_cross(_build.ptr(ref_spec), _build.ptr(mov_spec), _build.ptr(out),
-                         z, y, xh, code, _build.stream_of(ref_spec))
-    _build.check(rc, lib, "z_cross_")
+                         _build.ptr(_table_on(plan, dev)), *plan.args(grid), z, lines, code,
+                         _build.stream_of(ref_spec))
+    if rc:
+        _build.check(rc, lib, f"z_cross_ ({plan.describe()}, grid {grid})")
     _build.count_launch("z_cross")
     return out
 

@@ -201,6 +201,23 @@ Then kernels H and I after their redesign, and the last repair:
     (torch.fft, and numpy in float64 for the filter), no launch of kernels A,
     B, Bc or C, each stderr line printed.
 
+Then kernels G and Bx after their redesign, and D's batch chunks:
+
+21. ptxas' registers, stack and spills of G's kernels (the walk, the axis
+    passes, the decode) and of Bx's; G at both geometries (beads' (8, 8,
+    8), estimate-psf's (64, 64, 32)) at (86, 1024, 484) for each blur of
+    G21_BLURS (0 to 63, past the previous kernel's limit of 38) on
+    integer-valued data, values and indices equal to the plain version,
+    each time beside its bound and its plan, blur 3 and 0 beside the
+    previous G (PREVIOUS_MS) with torch.profiler's device time; Bx at each
+    shape of BX_SHAPES (the PCC crop's spectrum, custom_padding's, a prime
+    Z and each Z limit) in all three normalizations within FFT_TOL of its
+    plain version in complex128, out = mov equal, ref kept, the crop and
+    custom_padding timed beside the previous Bx, their bounds and
+    torch.profiler; D on D_CHUNK_BATCH volumes of D_CHUNK_SHAPE (86 groups:
+    past the kernel's grid of 65535), launched in chunks, both stores bit-
+    equal to deskewing the volumes one by one.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -416,7 +433,12 @@ PREVIOUS_MS = {"z_filter": 0.552, "z_filter_complex": 1.799, "z_filter_shard": 0
                # order-1 slots) and I (the mean of phase 11's order-1 slots)
                # before their redesign (PERF.md section 6, rows 11, 13).
                "resample_pass": 0.3702, "resample_pass_traced": 0.4136,
-               "resample_pass_deriv": 0.7381}
+               "resample_pass_deriv": 0.7381,
+               # Phase 21: G (beads' blocks, blur 3 and 0) and Bx (the PCC crop,
+               # custom_padding's shape) before their redesign (PERF.md section
+               # 6, rows 10 and 14).
+               "block_max_argmin": 0.7997, "block_max_argmin_blur0": 0.3513,
+               "z_cross": 0.3192, "z_cross_padding": 3.7868}
 PHASE_18_KEYS = ("z_filter", "z_filter_complex", "z_filter_shard", "deskew", "deskew_xzy")
 CARD_OF_PREVIOUS = "NVIDIA H100 80GB HBM3, 700.00 W"
 # Phase 19: kernel G's blur sizes, and a volume past the FFT kernels' limits
@@ -432,7 +454,25 @@ PREVIOUS_TRACE = {
                         "HBM)",
     "deskew": "deskew_kernel<false>: 3.1631 ms device, 912 GB/s (27% of HBM)",
     "deskew_xzy": "deskew_kernel<true>: 2.8124 ms device, 1025 GB/s (31% of HBM)",
+    # Phase 21: the previous G and Bx (commit 428e5e4's sources built beside
+    # this checkout's, same card and limit): torch.profiler's device time a
+    # launch at beads' (8, 8, 8) blocks and at the PCC crop and
+    # custom_padding's shape (magnitude).
+    "block_max_argmin": "block_max_argmin_kernel<3>: 0.7680 ms device, 223 GB/s (7% of HBM)",
+    "block_max_argmin_blur0": "block_max_argmin_kernel<0>: 0.3126 ms device, 548 GB/s (16% of "
+                              "HBM)",
+    "z_cross": "z_cross_kernel<false>: 0.2958 ms device",
+    "z_cross_padding": "z_cross_kernel<true>: 3.6961 ms device",
 }
+# Phase 21: G's blur sizes (39 and 63 past the previous kernel's limit of
+# 38); Bx's shapes: the PCC crop's spectrum, custom_padding's, a prime Z
+# (Bluestein) and each Z limit on a small plane; D's batch past its grid
+# (800 x 86 groups > 65535), each volume narrow.
+G21_BLURS = (0, 3, 5, 15, 39, 63)
+BX_SHAPES = {"PCC crop": (64, 1024, 129), "custom_padding": (77, 1232, 155),
+             "prime Z": (67, 256, 129), "power-of-two limit": (2048, 8, 9),
+             "other limit": (1023, 8, 9)}
+D_CHUNK_SHAPE, D_CHUNK_BATCH = (256, 256, 8), 800
 Z_SHAPES = {"z_filter": ((256, 256, 513), False), "z_filter_complex": ((86, 1024, 243), True),
             "z_filter_shard": ((256, 64, 513), False)}
 TRACE_REPS = 20
@@ -2282,7 +2322,7 @@ def launch_zplan(plan, spec: torch.Tensor, filt: torch.Tensor) -> None:
     grid = plan.grid(y * xh, kfft._sm_count(spec.device))
     entry = "z_filter_complex" if plan.complex_filter else "z_filter"
     rc = getattr(lib, entry)(_build.ptr(spec), _build.ptr(filt),
-                             _build.ptr(kfft._z_table_on(plan, spec.device)), *plan.args(grid), z,
+                             _build.ptr(kfft._table_on(plan, spec.device)), *plan.args(grid), z,
                              y * xh, _build.stream_of(spec))
     _build.check(rc, lib, f"{entry} ({plan.describe()})")
 
@@ -2542,7 +2582,7 @@ def ej_phase(dev: torch.device, records: dict) -> None:
     from biahub_tpu_torch.kernels.multipass_cuda import resample_pass_adjoint
     from biahub_tpu_torch.kernels.pcc import _corr_surface, pcc_shifts_vs_first
     from biahub_tpu_torch.kernels.peaks import block_max_candidates_plain
-    from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin, blur_plan
+    from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin, g_plan
     from biahub_tpu_torch.kernels.warp_cuda import warp_zy
 
     for line in (ptxas_lines(("warp_zy_kernel",), "warp")
@@ -2643,7 +2683,7 @@ def ej_phase(dev: torch.device, records: dict) -> None:
                     f"kernel G {block} blur {blur}: {int((gv != pv).sum())} values and "
                     f"{int((gi != pi).sum())} indices differ from the plain version")
         ms = time_ms(lambda: block_max_argmin(vol, PEAK_BLOCKS[0], blur))
-        print(f"G blur {blur} (sub-tile, shared memory: {blur_plan(blur)}): values and indices "
+        print(f"G blur {blur} ({g_plan(blur, PEAK_BLOCKS[0]).describe()}): values and indices "
               f"equal to the plain version at {PEAK_BLOCKS}; {ms:.4f} ms at {PEAK_BLOCKS[0]}, "
               f"bound {records['block_max_argmin']['bound_ms']:.4f}")
     del vol
@@ -2850,6 +2890,105 @@ def hi_phase(dev: torch.device, records: dict) -> None:
     print(f"tikhonov_inverse_3d and apply-inv-tf (phase) at {PAST_FILTER}: rel err {err:.3g}, "
           f"{err_a:.3g} vs the full-spectrum formula in float64 (tol {FFT_TOL}); no kernel "
           f"launched; stderr: " + " | ".join(lines))
+    torch.cuda.empty_cache()
+
+
+def gbx_phase(dev: torch.device, records: dict) -> None:
+    """Phase 21: kernels G and Bx redesigned, and D's batch past its grid."""
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.deskew import deskew_geometry
+    from biahub_tpu_torch.kernels.deskew_cuda import batch_chunks, deskew
+    from biahub_tpu_torch.kernels.peaks import block_grid, block_max_candidates_plain
+    from biahub_tpu_torch.kernels.peaks_cuda import block_max_argmin, g_plan
+
+    for line in (ptxas_lines(("block_walk_kernel", "axis_sum_kernel", "decode_kernel"), "peaks")
+                 + ptxas_lines(("z_cross_kernel",), "fft")):
+        print(f"ptxas {line}")
+    print(f"before: {CARD_OF_PREVIOUS}")
+    gen = torch.Generator(device=dev).manual_seed(21)
+
+    # -- G: both geometries, every blur of G21_BLURS, exact on integer data --
+    vol = torch.randint(0, 4096, LAPSE_SHAPE, generator=gen, device=dev).float()
+    ms = {}
+    for blur in G21_BLURS:
+        for block in PEAK_BLOCKS:
+            gv, gi = block_max_argmin(vol, block, blur)
+            pv, pi = block_max_candidates_plain(vol, block, blur)
+            require(torch.equal(gv, pv) and torch.equal(gi, pi),
+                    f"kernel G {block} blur {blur}: {int((gv != pv).sum())} values and "
+                    f"{int((gi != pi).sum())} indices differ from the plain version")
+            ms[(blur, block)] = time_ms(lambda: block_max_argmin(vol, block, blur))
+            nbytes = vol.numel() * 4 + math.prod(block_grid(LAPSE_SHAPE, block)) * 8
+            bms, _ = bound(nbytes, vol.numel() * (3 * blur + 3))
+            print(f"G {block} blur {blur}: values and indices equal to the plain version; "
+                  f"{ms[(blur, block)]:.4f} ms, bound {bms:.4f} "
+                  f"({ms[(blur, block)] / bms:.2f}x); {g_plan(blur, block).describe()}")
+    block = PEAK_BLOCKS[0]
+    nbytes = vol.numel() * 4 + math.prod(block_grid(LAPSE_SHAPE, block)) * 8
+    for blur, key in ((3, "block_max_argmin"), (0, "block_max_argmin_blur0")):
+        device = profiler_readings(lambda: block_max_argmin(vol, block, blur),
+                                   ("block_walk", "axis_sum", "decode"), nbytes)
+        was = PREVIOUS_MS[key]
+        print(f"G {block} blur {blur}: {ms[(blur, block)]:.4f} ms (before: {was}, "
+              f"{ms[(blur, block)] / was - 1:+.1%}); profiler: {device}; before: "
+              f"{PREVIOUS_TRACE[key]}")
+    del vol, gv, gi, pv, pi
+    torch.cuda.empty_cache()
+
+    # -- Bx: each shape of BX_SHAPES, all three normalizations -------------
+    for name, shape in BX_SHAPES.items():
+        ref = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        mov = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        kept = ref.clone()
+        out = torch.empty_like(mov)
+        worst = 0.0
+        for norm in NORMS:
+            kfft.z_cross_(ref, mov, out, norm)
+            want = kfft.z_cross_plain_(ref.to(torch.complex128), mov.to(torch.complex128),
+                                       torch.empty(shape, dtype=torch.complex128, device=dev),
+                                       norm)
+            _, err = rel_err(out.to(torch.complex128), want)
+            require(err <= FFT_TOL, f"kernel Bx {name} {shape} ({norm}): rel err {err:.3g}")
+            alias = mov.clone()
+            kfft.z_cross_(ref, alias, alias, norm)
+            require(torch.equal(alias, out), f"kernel Bx {name} ({norm}): out = mov differs")
+            worst = max(worst, err)
+        require(torch.equal(ref, kept), f"kernel Bx {name}: wrote the reference spectrum")
+        line = (f"Bx {name} {shape}: rel err at most {worst:.3g} vs complex128 (tol {FFT_TOL}), "
+                f"out = mov equal, ref kept; {kfft.cross_plan(shape[0]).describe()}")
+        key = {"PCC crop": "z_cross", "custom_padding": "z_cross_padding"}.get(name)
+        if key is not None:
+            z, y, xh = shape
+            nbytes = 3 * ref.numel() * 8
+            bms, bby = bound(nbytes, 0, 3 * y * xh * 5 * z * math.log2(z) + 20 * z * y * xh)
+            now = time_ms(lambda: kfft.z_cross_(ref, mov, out, "magnitude"))
+            device = profiler_readings(lambda: kfft.z_cross_(ref, mov, out, "magnitude"),
+                                       ("z_cross",), nbytes)
+            was = PREVIOUS_MS[key]
+            line += (f"; magnitude {now:.4f} ms (before: {was}, {now / was - 1:+.1%}), bound "
+                     f"{bms:.4f} ({bby}, {now / bms:.2f}x); profiler: {device}; before: "
+                     f"{PREVIOUS_TRACE[key]}")
+        print(line)
+        del ref, mov, kept, out, want, alias
+    torch.cuda.empty_cache()
+
+    # -- D: a batch past its grid, in chunks --------------------------------
+    geo = deskew_geometry(D_CHUNK_SHAPE, ANGLE, RATIO, False, AVG, skip_flip=True)
+    vols = torch.rand((D_CHUNK_BATCH,) + D_CHUNK_SHAPE, generator=gen, device=dev)
+    chunks = batch_chunks(D_CHUNK_BATCH, geo.groups)
+    require(D_CHUNK_BATCH * geo.groups > 65535 and len(chunks) > 1,
+            f"D's chunk case: {D_CHUNK_BATCH} x {geo.groups} groups fits one grid")
+    for layout in ("zyx", "xzy"):
+        got, launches = counted(lambda: deskew(vols, geo, layout))
+        one = torch.cat([deskew(v[None], geo, layout) for v in vols])
+        require(torch.equal(got.view(torch.int32), one.view(torch.int32)),
+                f"kernel D ({layout}): the chunked batch differs from volume by volume")
+        counter = "deskew" if layout == "zyx" else "deskew_xzy"
+        require(launches == {counter: len(chunks)}, f"kernel D chunks launched {launches}")
+        print(f"D {layout}, {D_CHUNK_BATCH} volumes of {D_CHUNK_SHAPE} ({geo.groups} groups): "
+              f"{len(chunks)} launches ({chunks}), bit-equal to deskewing volume by volume")
+        del got, one
+    del vols
     torch.cuda.empty_cache()
 
 
@@ -3240,6 +3379,7 @@ def main() -> int:
     redesign_phase(dev, records)
     ej_phase(dev, records)
     hi_phase(dev, records)
+    gbx_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

@@ -1,33 +1,40 @@
 #!/usr/bin/env python3
-"""Time the port's kernels E, H, I, J and G against another commit's, in
-turns, on one NVIDIA card.
+"""Time the port's kernels E, H, I, J, G, A, B, Bc, C and Bx against
+another commit's, in turns, on one NVIDIA card.
 
     git show <commit>:biahub_tpu_torch/csrc/multipass.cu > build/parent_csrc/multipass.cu
-    (and, to compare E or G, warp.cu or peaks.cu the same way)
+    (and, to compare E or G, warp.cu or peaks.cu the same way; to compare
+    the FFT kernels, fft.cu with fft_radix.cuh, fft_lines.cuh and
+    cp_async.cuh)
     python3 scripts/compare_parent_kernels.py build/parent_csrc
 
-Builds those of ``warp.cu``, ``multipass.cu`` and ``peaks.cu`` that the
-given directory holds, with the port's nvcc flags (headers from the
-directory first, then from this checkout's ``csrc``), into libraries beside
-them, loads them with ctypes (the C entries must keep this checkout's
-signatures: ``warp_zy``, ``resample_pass``, ``resample_pass_adjoint``;
-``resample_pass_deriv`` with one partial triple per frame row, as before H
-and I took tiles; ``block_max_argmin`` without the sub-tile arguments, as
-before blur sizes other than 0 and 3), and at the shapes of
-``chip_smoke.py`` times each kernel against this checkout's in the order
-other, this, this, other (CUDA-event medians): E on the chain's batch
-(zyx and xzy reads) and on stabilize's table batch of 12; H at each slot
-and order of phase 8's frame (one coefficient set, and a (2, 21) table
-over two volumes) and of the registration's traced frame (its output
-bit-equal to the other's), I at each slot and order of the traced frame
-(within DERIV_TOL of the other's), J at each slot and order of the traced
-frame (bit-equal to the other's); G at blur 3 and 0 (values and indices
-equal). Prints the card's name and power limit first, and fails if an
-output differs. Imports no JAX.
+Builds those of ``warp.cu``, ``multipass.cu``, ``peaks.cu`` and ``fft.cu``
+that the given directory holds, with the port's nvcc flags (headers from
+the directory first, then from this checkout's ``csrc``), into libraries
+beside them, loads them with ctypes (the C entries must keep this
+checkout's signatures: ``warp_zy``, ``resample_pass``,
+``resample_pass_adjoint``, ``fwd_yx``, ``z_filter``, ``z_filter_complex``,
+``inv_yx``; ``resample_pass_deriv`` with one partial triple per frame row,
+as before H and I took tiles; ``block_max_argmin`` with a sub-tile and no
+scratch, and ``z_cross`` with no plan, as before G and Bx were
+redesigned), and at the shapes of ``chip_smoke.py`` times each kernel
+against this checkout's in the order other, this, this, other (CUDA-event
+medians): E on the chain's batch (zyx and xzy reads) and on stabilize's
+table batch of 12; H at each slot and order of phase 8's frame (one
+coefficient set, and a (2, 21) table over two volumes) and of the
+registration's traced frame (its output bit-equal to the other's), I at
+each slot and order of the traced frame (within DERIV_TOL of the
+other's), J at each slot and order of the traced frame (bit-equal to the
+other's); G at both geometries and blur 0, 3, 5 and 15 on integer-valued
+and on randn data (values and indices bit-equal); A, B, Bc and C at the
+headline (bit-equal) and Bx at the PCC crop's and custom_padding's shapes
+(within FFT_TOL). Prints the card's name and power limit first, and fails
+if an output differs. Imports no JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -40,6 +47,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as cs  # noqa: E402
 from biahub_tpu_torch.kernels import _build  # noqa: E402
+from biahub_tpu_torch.kernels import fft as kfft  # noqa: E402
 from biahub_tpu_torch.kernels import multipass_warp as mw  # noqa: E402
 from biahub_tpu_torch.kernels.affine import (  # noqa: E402
     coefficient_table,
@@ -78,11 +86,17 @@ def build_other(src_dir: str, names) -> dict:
         "multipass": {"resample_pass": [P, P, P] + [I] * 9 + [ctypes.c_float, P],
                       "resample_pass_deriv": [P, P, P] + [I] * 9 + [P, P],
                       "resample_pass_adjoint": [P, P, P] + [I] * 9 + [P]},
-        "peaks": {"block_max_argmin": [P, P, P] + [I] * 10 + [P]},
+        "peaks": {"block_max_argmin": [P, P, P] + [I] * 14 + [P]},
+        "fft": dict({k: kfft._SIGNATURES[k] for k in ("fwd_yx", "z_filter", "z_filter_complex",
+                                                        "inv_yx")},
+                    z_cross=[P, P, P, I, I, I, I, P]),
     }
     for name, lib in libs.items():
+        lib.error_string.argtypes = [I]
+        lib.error_string.restype = ctypes.c_char_p
         for fn, types in argtypes[name].items():
             getattr(lib, fn).argtypes = types
+            getattr(lib, fn).restype = I
     return libs
 
 
@@ -90,8 +104,9 @@ def stream(t: torch.Tensor) -> P:
     return P(torch.cuda.current_stream(t.device).cuda_stream)
 
 
-def turns(other, this) -> str:
-    t = [cs.time_ms(other), cs.time_ms(this), cs.time_ms(this), cs.time_ms(other)]
+def turns(other, this, setup=None) -> str:
+    t = [cs.time_ms(other, setup), cs.time_ms(this, setup), cs.time_ms(this, setup),
+         cs.time_ms(other, setup)]
     return f"other {t[0]:.4f} {t[3]:.4f}, this {t[1]:.4f} {t[2]:.4f} ms"
 
 
@@ -101,7 +116,7 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    names = [n for n in ("warp", "multipass", "peaks")
+    names = [n for n in ("warp", "multipass", "peaks", "fft")
              if os.path.exists(os.path.join(sys.argv[1], f"{n}.cu"))]
     _build.build(names)
     libs = build_other(sys.argv[1], names)
@@ -114,6 +129,8 @@ def main() -> int:
         compare_ij(libs, dev, gen)
     if "peaks" in libs:
         compare_g(libs, dev, gen)
+    if "fft" in libs:
+        compare_fft(libs, dev, gen)
     return 0
 
 
@@ -263,28 +280,130 @@ def compare_ij(libs, dev, gen) -> None:
     torch.cuda.empty_cache()
 
 
+# The previous G's sub-tile plan (its kernels/peaks_cuda.py blur_plan): the
+# largest of these (tz, ty, tx) whose halo and z sums (none at blur 3) fit
+# 113 KB, else 227 KB less 256 bytes; blur 0 stages nothing.
+OTHER_G_TILES = ((8, 8, 32), (8, 8, 16), (4, 8, 16), (4, 4, 16), (4, 4, 8), (2, 4, 8),
+                 (2, 2, 8), (1, 2, 8), (1, 1, 8), (1, 1, 4), (1, 1, 2), (1, 1, 1))
+
+
+def other_g_plan(k: int):
+    if k == 0:
+        return OTHER_G_TILES[0], 0
+    for budget in (113 * 1024, 227 * 1024 - 256):
+        for tz, ty, tx in OTHER_G_TILES:
+            h = k - 1
+            smem = 4 * ((tz + h) * (ty + h) * (tx + h) + (tz * (ty + h) * (tx + h) if k != 3 else 0))
+            if smem <= budget:
+                return (tz, ty, tx), smem
+    raise SystemExit(f"the other G takes no blur {k}")
+
+
 def compare_g(libs, dev, gen) -> None:
-    vol = torch.randint(0, 4096, cs.LAPSE_SHAPE, generator=gen, device=dev).float()
-    for blur in (3, 0):
-        for block in cs.PEAK_BLOCKS:
-            grid = block_grid(cs.LAPSE_SHAPE, block)
-            n = int(np.prod(grid))
-            vals = torch.empty(n, device=dev)
-            idx = torch.empty(n, dtype=torch.int32, device=dev)
+    """G at both geometries and blur 0, 3, 5 and 15 on integer-valued and on
+    randn data: values and indices bit-equal to the other G's, timed in
+    turns."""
+    vols = {"integer": torch.randint(0, 4096, cs.LAPSE_SHAPE, generator=gen, device=dev).float(),
+            "randn": torch.randn(cs.LAPSE_SHAPE, generator=gen, device=dev)}
+    for data, vol in vols.items():
+        for blur in (3, 0, 5, 15):
+            tile, smem = other_g_plan(blur)
+            for block in cs.PEAK_BLOCKS:
+                grid = block_grid(cs.LAPSE_SHAPE, block)
+                n = int(np.prod(grid))
+                vals = torch.empty(n, device=dev)
+                idx = torch.empty(n, dtype=torch.int32, device=dev)
 
-            def other_g():
-                rc = libs["peaks"].block_max_argmin(P(vol.data_ptr()), P(vals.data_ptr()),
-                                                    P(idx.data_ptr()), *cs.LAPSE_SHAPE, *block,
-                                                    *grid, blur, stream(vol))
-                if rc:
-                    raise SystemExit(f"other block_max_argmin: error {rc}")
+                def other_g():
+                    rc = libs["peaks"].block_max_argmin(
+                        P(vol.data_ptr()), P(vals.data_ptr()), P(idx.data_ptr()),
+                        *cs.LAPSE_SHAPE, *block, *grid, blur, *tile, smem, stream(vol))
+                    if rc:
+                        raise SystemExit(f"other block_max_argmin: error {rc}")
 
-            other_g()
-            gv, gi = block_max_argmin(vol, block, blur)
-            same = torch.equal(vals, gv) and torch.equal(idx, gi)
-            print(f"G blur {blur} {block}: "
-                  + turns(other_g, lambda: block_max_argmin(vol, block, blur))
-                  + f"; equal {same}")
+                other_g()
+                gv, gi = block_max_argmin(vol, block, blur)
+                same = torch.equal(vals.view(torch.int32), gv.view(torch.int32)) and torch.equal(
+                    idx, gi)
+                print(f"G {data} blur {blur} {block}: "
+                      + turns(other_g, lambda: block_max_argmin(vol, block, blur))
+                      + f"; bit-equal {same}")
+                cs.require(same, f"G {data} blur {blur} {block} differs from the other G")
+    del vols
+    torch.cuda.empty_cache()
+
+
+@contextlib.contextmanager
+def other_fft(libs):
+    """The FFT wrappers launch the other library's kernels, with this
+    checkout's plans, inside the block."""
+    saved = kfft._lib
+    kfft._lib = lambda: libs["fft"]
+    try:
+        yield
+    finally:
+        kfft._lib = saved
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t).view(torch.int32) if t.is_complex() else t.view(torch.int32)
+
+
+def compare_fft(libs, dev, gen) -> None:
+    """A, B, Bc and C at the headline, bit-equal to the other's, and Bx at
+    the PCC crop's and custom_padding's shapes within FFT_TOL of the
+    other's (magnitude), each timed in turns."""
+    vol = torch.rand(cs.SHAPE, generator=gen, device=dev)
+    spec_shape = kfft.half_spectrum_shape(cs.SHAPE)
+    filt = torch.rand(spec_shape, generator=gen, device=dev)
+    cfilt = torch.randn(spec_shape, dtype=torch.complex64, generator=gen, device=dev)
+    spec = kfft.fwd_yx(vol)
+    work = torch.empty_like(spec)
+    real = torch.empty(cs.SHAPE, device=dev)
+    cases = (("A fwd_yx", lambda: kfft.fwd_yx(vol, out=work), None),
+             ("B z_filter", lambda: kfft.z_filter_(work, filt), lambda: work.copy_(spec)),
+             ("Bc z_filter_complex", lambda: kfft.z_filter_complex_(work, cfilt),
+              lambda: work.copy_(spec)),
+             ("C inv_yx", lambda: kfft.inv_yx(work, out=real), lambda: work.copy_(spec)))
+    for name, fn, setup in cases:
+        outs = []
+        for use_other in (True, False):
+            with other_fft(libs) if use_other else contextlib.nullcontext():
+                if setup is not None:
+                    setup()
+                got = fn()
+                outs.append(got.clone())
+        same = torch.equal(bits(outs[0]), bits(outs[1]))
+
+        def other():
+            with other_fft(libs):
+                fn()
+
+        print(f"{name} {cs.SHAPE}: " + turns(other, fn, setup) + f"; bit-equal {same}")
+        cs.require(same, f"{name} differs from the other's")
+    del vol, filt, cfilt, spec, work, real, outs
+    torch.cuda.empty_cache()
+    for name, shape in (("PCC crop", cs.BX_SHAPES["PCC crop"]),
+                        ("custom_padding", cs.BX_SHAPES["custom_padding"])):
+        ref = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        mov = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
+        oa, ob = torch.empty_like(ref), torch.empty_like(ref)
+
+        def other_bx():
+            rc = libs["fft"].z_cross(P(ref.data_ptr()), P(mov.data_ptr()), P(oa.data_ptr()),
+                                     *shape, 1, stream(ref))
+            if rc:
+                raise SystemExit(f"other z_cross: error {rc}")
+
+        other_bx()
+        kfft.z_cross_(ref, mov, ob, "magnitude")
+        err = float((oa - ob).abs().max() / oa.abs().max())
+        print(f"Bx {name} {shape} (magnitude): "
+              + turns(other_bx, lambda: kfft.z_cross_(ref, mov, ob, "magnitude"))
+              + f"; rel diff {err:.3g} (tol {cs.FFT_TOL})")
+        cs.require(err <= cs.FFT_TOL, f"Bx {name}: rel diff {err:.3g} from the other's")
+        del ref, mov, oa, ob
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

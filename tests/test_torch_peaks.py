@@ -127,15 +127,19 @@ def test_detect_peaks_matches_the_reference(case):
 
 
 def test_kernel_g_plans_every_blur_up_to_its_limit():
-    """Kernel G's sub-tile and shared memory for every blur size it takes
-    (blur_plan): blur 3 keeps (8, 8, 32), every plan fits a block, and the
-    first size past MAX_BLUR raises naming the limit."""
+    """Kernel G's plan (g_plan) for blur sizes from 0 to 300: none raises
+    (kernel G has no limit any more: larger windows are summed by passes
+    through device memory first), every staged walk fits two blocks an SM,
+    and blur 3 stages its 3^3 windows in (16, 128) tiles."""
     from biahub_tpu_torch.kernels import peaks_cuda
 
-    assert peaks_cuda.blur_plan(3) == ((8, 8, 32), 13600)
-    assert peaks_cuda.MAX_BLUR >= 15
-    for k in range(peaks_cuda.MAX_BLUR + 1):
-        tile, smem = peaks_cuda.blur_plan(k)
-        assert smem <= 227 * 1024 and min(tile) >= 1
-    with pytest.raises(ValueError, match=f"limit of {peaks_cuda.MAX_BLUR}"):
-        peaks_cuda.blur_plan(peaks_cuda.MAX_BLUR + 1)
+    plan = peaks_cuda.g_plan(3, (8, 8, 8))
+    assert (plan.hz, plan.hy, plan.hx, plan.ty, plan.tx, plan.passes) == (3, 3, 3, 16, 128, 0)
+    assert plan.smem == 4 * peaks_cuda.walk_floats(128, 16, 3, 3, 3) == 4 * 5 * 18 * 130
+    for k in range(301):
+        for block in ((8, 8, 8), (64, 64, 32)):
+            plan = peaks_cuda.g_plan(k, block)
+            assert plan.smem <= 113 * 1024 and plan.per_sm >= 2
+            assert {plan.hz, plan.hy, plan.hx} <= {1, k} and plan.passes <= 3
+            assert plan.smem == 4 * peaks_cuda.walk_floats(plan.tx, plan.ty, plan.hz, plan.hy,
+                                                           plan.hx)
