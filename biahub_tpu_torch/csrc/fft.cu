@@ -31,7 +31,8 @@
 //                          2), stored in place with no inverse.
 //   L  y_inv_kernel     <- _inv_y_pad_kernel (pallas_spectral.py:249,
 //                          launched at :800): inverse DFT along Y of each kz
-//                          slice, in place.
+//                          slice, in place: C's column phase alone, one
+//                          block a column tile, the 1/Y in its last pass.
 //   K and L feed kernel M (spectral.cu), the spectral deskew's lerp + irfft.
 //
 // The spectrum between the passes is the rfft half-spectrum (Z, Y, X/2+1)
@@ -41,8 +42,8 @@
 // pass is memory-bound and a float32 matmul DFT would cost ~5e11 flop per
 // volume, so each line is an FFT in shared memory instead (O(N log N), full
 // float32, no tensor cores: TF32 keeps 10 mantissa bits and could not meet
-// the reference's 1e-5): mixed-radix passes in registers in A, B, Bc and C
-// (fft_radix.cuh), and in Bx in double, radix-2 stages in K and L. None of
+// the reference's 1e-5): mixed-radix passes in registers in A, B, Bc, C
+// and L (fft_radix.cuh), and in Bx in double, radix-2 stages in K. None of
 // the TPU's layout
 // devices is carried over: no Nyquist peel (the kx = X/2 bin is simply the
 // last column, and the ragged last kx tile is masked), no radix splits
@@ -51,13 +52,13 @@
 // fft_lines.cuh, shared with spectral.cu; the mixed-radix passes are
 // fft_radix.cuh.
 //
-// Lines of any length. In K and L a power-of-two axis is one radix-2
-// FFT, and their kernels are the kAny = false instantiations, whose code
-// and shared-memory layout are those of the power-of-two-only kernels. In
-// A, B, Bc, Bx and C every 2,3,5,7,11-smooth axis (each length the paths meet,
+// Lines of any length. In K a power-of-two axis is one radix-2 FFT, and
+// its kernel is the kAny = false instantiation, whose code and
+// shared-memory layout are those of the power-of-two-only kernel. In
+// A, B, Bc, Bx, C and L every 2,3,5,7,11-smooth axis (each length the paths meet,
 // the odd test shapes' primes apart) runs the mixed-radix passes. Any
 // other length n runs Bluestein's chirp convolution on the radix-2 machinery, in the kAny =
-// true instantiations (and in A and C's Bluestein branch; B, Bc and Bx run
+// true instantiations (and in A, C and L's Bluestein branch; B, Bc and Bx run
 // it on the mixed-radix passes, see z_line_kernel): with w_k =
 // exp(-i pi k^2 / n), exp(-2 pi i jk/n) = w_j w_k conj(w_{j-k}), so a line
 // is multiplied by w, circularly convolved with conj(w) through two radix-2
@@ -143,33 +144,6 @@ constexpr int kThreads = 512;
 // Shared-memory budget of one working tile (row pairs, or a column tile).
 constexpr int kTileBytes = 96 * 1024;
 
-// FFT along Y of every kx column of one (Y, xh) complex slice, in place in
-// device memory, tk = 1 << log2tk columns at a time (the ragged last tile is
-// zero-padded in shared memory and masked on the store), times `scale` on
-// the store (1 in A and C, which is exact).
-template <bool kAny>
-__device__ void columns_y(float2* slice, float2* buf, const Axis<float2>& ay, int xh,
-                          int log2tk, bool inverse, float scale = 1.0f) {
-  const int Y = ay.n, tk = 1 << log2tk;
-  for (int k0 = 0; k0 < xh; k0 += tk) {
-    for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
-      const int y = t >> log2tk, k = k0 + (t & (tk - 1));
-      buf[t] = k < xh ? slice[static_cast<size_t>(y) * xh + k]
-                      : make_float2(0.f, 0.f);
-    }
-    __syncthreads();
-    lines_dif<kAny>(buf, ay, tk, log2tk, 1, tk, inverse, true);
-    for (int t = threadIdx.x; t < (Y << log2tk); t += blockDim.x) {
-      const int ky = t >> log2tk, c = t & (tk - 1), k = k0 + c;
-      if (k < xh) {
-        const float2 v = buf[(at<kAny>(ay, ky) << log2tk) + c];
-        slice[static_cast<size_t>(ky) * xh + k] = make_float2(v.x * scale, v.y * scale);
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // Kernels A and C: one thread-block cluster of `cluster` blocks per z
 // slice (kernels/fft.py slice_plan).
 // The blocks of a cluster share the slice's row tiles, meet at a cluster
@@ -217,13 +191,24 @@ struct Columns {
   }
 };
 
+// Columns whose stores are scaled (kernel L's 1/Y, applied by the last
+// pass; loads as Columns).
+struct ScaledColumns {
+  Columns cols;
+  float scale;
+  __device__ __forceinline__ void st(int l, int e, float2 v) const {
+    cols.st(l, e, make_float2(v.x * scale, v.y * scale));
+  }
+};
+
 // The FFT along Y of every kx column of one (Y, xh) slice, in place:
 // column tiles rank, rank + cluster, ... of the block's cluster. The radix
 // passes read the tile's columns from device memory in their first pass
-// and write them back in their last.
-template <bool kInv>
+// and write them back in their last, times `scale` with kScaled (kernel L;
+// A and C store unscaled, and their code is the kScaled = false one).
+template <bool kInv, bool kScaled = false>
 __device__ void slice_columns(float2* slice, float2* smem, int Y, int xh, const SlicePlan& sp,
-                              int rank) {
+                              int rank, float scale = 1.0f) {
   float2* tw = smem;
   float2* buf = smem + sp.ytab;
   const int tk = 1 << sp.log2tk, step = sp.cluster * tk, total = Y << sp.log2tk;
@@ -239,8 +224,13 @@ __device__ void slice_columns(float2* slice, float2* smem, int Y, int xh, const 
   }
   for (int k0 = rank * tk; k0 < xh; k0 += step) {
     const Columns cols{slice, xh, k0};
+    const ScaledColumns scaled{cols, scale};
     if (radix) {
-      radix_run<kInv>(cols, cols, buf, buf + padded(total), Tile{tk, Y, sp.log2tk}, py, tw);
+      if constexpr (kScaled) {
+        radix_run<kInv>(cols, scaled, buf, buf + padded(total), Tile{tk, Y, sp.log2tk}, py, tw);
+      } else {
+        radix_run<kInv>(cols, cols, buf, buf + padded(total), Tile{tk, Y, sp.log2tk}, py, tw);
+      }
     } else {
       for (int i = threadIdx.x; i < total; i += blockDim.x) {
         buf[i] = cols.ld(i & (tk - 1), i >> sp.log2tk);
@@ -248,7 +238,11 @@ __device__ void slice_columns(float2* slice, float2* smem, int Y, int xh, const 
       __syncthreads();
       lines_dif<true>(buf, ay, tk, sp.log2tk, 1, tk, kInv, true);
       for (int i = threadIdx.x; i < total; i += blockDim.x) {
-        cols.st(i & (tk - 1), i >> sp.log2tk, buf[i]);
+        if constexpr (kScaled) {
+          scaled.st(i & (tk - 1), i >> sp.log2tk, buf[i]);
+        } else {
+          cols.st(i & (tk - 1), i >> sp.log2tk, buf[i]);
+        }
       }
     }
     __syncthreads();
@@ -747,27 +741,24 @@ z_fwd_filter_kernel(float2* __restrict__ spec, const void* __restrict__ filt,
   }
 }
 
-// Kernel L. One block per kz slice of the (Z, Y, xh) spectrum: the inverse
-// DFT along Y of every kx column, in place, times 1/Y (the spectral deskew's
-// pass B'2, pallas_spectral.py:249). The front-padded y-major store of the
-// TPU kernel is not carried over: kernel M reads tilt row y by its stride.
-template <bool kAny>
-__global__ void __launch_bounds__(kThreads)
-y_inv_kernel(float2* __restrict__ spec, int Y, int xh, int log2tk, int tab) {
+// Kernel L (y_inv_kernel): the inverse DFT along Y of every kx column of
+// the (Z, Y, xh) spectrum, in place, times 1/Y (the spectral deskew's pass
+// B'2, pallas_spectral.py:249): kernel C's column phase (slice_columns)
+// alone. Block b takes column tile b % sp.cluster of kz slice b /
+// sp.cluster (kernels/fft.py column_plan: sp.cluster is the slice's tile
+// count, so each block runs one tile; the blocks of a slice share nothing,
+// so they are launched as independent blocks, not as a cluster). The
+// mixed-radix passes read the tile from device memory in their first pass
+// and store it times 1/Y in their last; a Y with a prime factor above 11
+// runs Bluestein's lines. The front-padded y-major store of the TPU kernel
+// is not carried over: kernel M reads tilt row y by its stride.
+__global__ void __launch_bounds__(kSliceThreads, 2)
+y_inv_kernel(float2* __restrict__ spec, int Y, int xh, SlicePlan sp) {
   extern __shared__ float2 smem[];
-  Axis<float2> ay;
-  float2* buf;
-  if constexpr (kAny) {
-    buf = smem + tab;
-    ay = make_axis(smem, Y);
-  } else {
-    ay = pow2_axis(smem, Y);
-    buf = smem + Y / 2;
-    make_twiddles(smem, Y);
-    __syncthreads();
-  }
-  columns_y<kAny>(spec + static_cast<size_t>(blockIdx.x) * Y * xh, buf, ay, xh, log2tk, true,
-                  1.0f / static_cast<float>(Y));
+  const int rank = static_cast<int>(blockIdx.x % sp.cluster);
+  const size_t z = blockIdx.x / sp.cluster;
+  slice_columns<true, true>(spec + z * Y * xh, smem, Y, xh, sp, rank,
+                            1.0f / static_cast<float>(Y));
 }
 
 constexpr double kEps = 1.1920928955078125e-07;  // float32 eps, the reference's clamp
@@ -1137,17 +1128,24 @@ int z_fwd_filter(void* spec, const void* filt, int is_complex, int Z, int Y, int
 }
 
 // Kernel L: spec (Z, Y, xh) complex64 = ifft(spec, Y) in place (with 1/Y).
-// Y as for fwd_yx.
-int y_inv(void* spec, int Z, int Y, int xh, void* stream) {
-  const bool any = !is_pow2(Y);
-  const int my = 1 << radix_log2(Y), ltk = tile_log2(my);
-  const int tab = static_cast<int>(any ? table_elems(Y) : Y / 2);
-  const size_t smem = (tab + (static_cast<size_t>(my) << ltk)) * sizeof(float2);
-  auto kernel = any ? y_inv_kernel<true> : y_inv_kernel<false>;
-  cudaError_t e = allow_smem(kernel, smem);
+// The plan (ycode .. smem) is kernels/fft.py column_plan's for (Z, Y, xh):
+// Y's radix code (0: Bluestein), log2 of the columns a tile, the table
+// elements, the tiles a kz slice (one block each) and the shared memory.
+// Y as for fwd_yx; a plan whose tiles do not cover xh or whose shared
+// memory does not cover its layout is refused.
+int y_inv(void* spec, long long ycode, int log2tk, int ytab, int tiles, int smem, int Z, int Y,
+          int xh, void* stream) {
+  const SlicePlan sp{ycode, 0, 1, log2tk, ytab, 0, tiles};
+  const size_t need = phase_elems(Y, ycode, ytab, 1 << std::max(0, std::min(log2tk, 5)), 2);
+  if (log2tk < 0 || log2tk > 5 || tiles < 1 || (static_cast<long long>(tiles) << log2tk) < xh ||
+      need == 0 || need * sizeof(float2) > static_cast<size_t>(smem) ||
+      static_cast<long long>(Z) * tiles >= (1LL << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t e = allow_smem(y_inv_kernel, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<Z, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<float2*>(spec), Y, xh, ltk, tab);
+  y_inv_kernel<<<static_cast<unsigned>(Z) * static_cast<unsigned>(tiles), kSliceThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(static_cast<float2*>(spec), Y, xh, sp);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -21,7 +21,7 @@ Counterpart of ``biahub_tpu/kernels/pallas_fft.py``'s engine:
   ``_fwd_z_filter_kernel``): DFT along Z times a real or complex filter,
   in place, no inverse;
 - :func:`y_inv_` (kernel L, for ``_inv_y_pad_kernel``): inverse DFT along
-  Y, in place. A, K, L and kernel M (:mod:`biahub_tpu_torch.kernels.
+  Y, in place: kernel C's column phase alone (:func:`column_plan`). A, K, L and kernel M (:mod:`biahub_tpu_torch.kernels.
   spectral_cuda`) are the spectral deskew (:mod:`biahub_tpu_torch.kernels.
   spectral`).
 
@@ -36,8 +36,9 @@ passes (:func:`radix_plan`) and any other as a Bluestein chirp convolution,
 one thread-block cluster per z slice (:func:`slice_plan`); B and Bc run Z
 on the same passes (Bluestein too on them, at :func:`z_line_length`), tiles
 of consecutive (ky, kx) lines (:func:`z_plan`), and Bx the same passes in
-double on tiles of both spectra's lines (:func:`cross_plan`); K and L run
-a power of two as one radix-2 FFT and any other length as Bluestein.
+double on tiles of both spectra's lines (:func:`cross_plan`); L runs C's
+column passes, one block a column tile (:func:`column_plan`); K runs a
+power of two as one radix-2 FFT and any other length as Bluestein.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ __all__ = [
     "fourier_filter_zyx", "PASS_A_DTYPES", "half_spectrum_shape", "NORMALIZATIONS",
     "max_axis", "max_cross_z", "radix_plan", "SlicePlan", "slice_plan", "z_line_length",
     "ZPlan", "z_plan", "z_line_table", "deconvolve_limit", "pcc_limit", "takes_torch_fft",
-    "filter_torch_fft", "XPlan", "cross_plan", "cross_table",
+    "filter_torch_fft", "XPlan", "cross_plan", "cross_table", "ColumnPlan", "column_plan",
 ]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -77,7 +78,7 @@ _SIGNATURES = {
     "inv_yx": [_P, _P, *_PLAN, _I, _I, _I, _P],
     "z_cross": [_P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "z_fwd_filter": [_P, _P, _I, _I, _I, _I, _P],
-    "y_inv": [_P, _I, _I, _I, _P],
+    "y_inv": [_P, _L, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 # In K and L a line of n points runs on a radix-2 FFT of M points: M = n
 # for a power of two, else the least power of two >= 2n - 1 (Bluestein);
@@ -277,6 +278,55 @@ def slice_plan(shape) -> SlicePlan:
         cluster //= 2
     return SlicePlan(ry, rx, pairs, log2tk, ytab, xtab, cluster,
                      8 * max(ytab + ybuf, xtab + xbuf), z * cluster, per_sm)
+
+
+@dataclass(frozen=True)
+class ColumnPlan:
+    """Launch plan of kernel L (csrc/fft.cu y_inv_kernel) for one (Z, Y,
+    X//2+1) spectrum: kernel C's column phase, one block a column tile."""
+
+    y: tuple[int, ...] | None  # radices of Y's lines (None: Bluestein)
+    log2tk: int  # log2 of the kx columns per column tile
+    ytab: int  # table elements
+    tiles: int  # column tiles (blocks) per kz slice
+    smem: int  # dynamic shared memory of a block, bytes
+    per_sm: int  # blocks an SM holds at this shared memory
+
+    def args(self) -> tuple[int, ...]:
+        """The C entry's plan arguments."""
+        return _plan_code(self.y), self.log2tk, self.ytab, self.tiles, self.smem
+
+    def describe(self) -> str:
+        axis = "x".join(map(str, self.y)) if self.y else "Bluestein"
+        return (f"Y {axis}, {1 << self.log2tk} columns a tile, {self.tiles} tiles a slice, "
+                f"{_SLICE_THREADS} threads, {self.smem} B shared, {self.per_sm} blocks/SM")
+
+
+@functools.lru_cache(maxsize=64)
+def _column_plan(y: int, xh: int) -> ColumnPlan:
+    ry = radix_plan(y)
+    bufs = _buffers(ry, False)
+    for budget, per_sm in ((_SMEM_TWO, 2), (_SMEM_ONE, 1)):
+        log2tk = next((l for l in range(_MAX_LOG2TK, -1, -1)
+                       if sum(_axis_need(y, ry, 1 << l, bufs)) <= budget // 8), None)
+        if log2tk is not None:
+            break
+    else:
+        raise ValueError(f"column_plan: Y = {y} exceeds a block's shared memory")
+    log2tk = min(log2tk, (xh - 1).bit_length())
+    ytab, ybuf = _axis_need(y, ry, 1 << log2tk, bufs)
+    return ColumnPlan(ry, log2tk, ytab, -(-xh >> log2tk), 8 * (ytab + ybuf), per_sm)
+
+
+def column_plan(shape) -> ColumnPlan:
+    """Kernel L's plan for a (Z, Y, X//2+1) spectrum: Y's radices
+    (:func:`radix_plan`) and the widest column tile (a power of two, at
+    most 32 columns, no wider than the kx axis) that lets two blocks share
+    an SM (else one), as :func:`slice_plan` picks C's; one block per tile
+    of each kz slice, which needs no cluster: the column phase is the
+    kernel's only phase."""
+    _, y, xh = (int(s) for s in shape)
+    return _column_plan(y, xh)
 
 
 @functools.lru_cache(maxsize=64)
@@ -812,9 +862,11 @@ def y_inv_(spectrum: torch.Tensor) -> torch.Tensor:
     z, y, xh = spectrum.shape
     _check_cuda_shape((y,), "y_inv_")
     lib = _lib()
+    plan = column_plan(spectrum.shape)
     with torch.cuda.device(spectrum.device):
-        rc = lib.y_inv(_build.ptr(spectrum), z, y, xh, _build.stream_of(spectrum))
-    _build.check(rc, lib, "y_inv_")
+        rc = lib.y_inv(_build.ptr(spectrum), *plan.args(), z, y, xh,
+                       _build.stream_of(spectrum))
+    _build.check(rc, lib, f"y_inv_ ({plan.describe()})")
     _build.count_launch("y_inv")
     return spectrum
 

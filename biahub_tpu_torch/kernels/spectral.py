@@ -13,8 +13,9 @@ volume never reaches memory. Per volume:
 - kernel L (:func:`~biahub_tpu_torch.kernels.fft.y_inv_`): inverse DFT
   along Y;
 - kernel M (:func:`~biahub_tpu_torch.kernels.spectral_cuda.lerp_irfft`):
-  per output group, the table contracted with the group's tilt rows, then
-  the irfft along X, in the zyx store or the xzy store the warp reads.
+  per output group, the table contracted with the group's tilt rows (on the
+  tensor cores, in split TF32), then the irfft along X, in the zyx store or
+  the xzy store the warp reads.
 
 The normalisation is split as the reference's: the table carries
 1/(Z*avg), L 1/Y and M's irfft 1/X. The result equals
@@ -45,7 +46,7 @@ from biahub_tpu_torch.kernels.fourier_resample import (
     deskew_sample_positions,
     masked_lerp_dft_matrix,
 )
-from biahub_tpu_torch.kernels.spectral_cuda import OUT_LAYOUTS, lerp_irfft, lerp_irfft_fits
+from biahub_tpu_torch.kernels.spectral_cuda import OUT_LAYOUTS, lerp_irfft
 
 __all__ = [
     "prepare_spectral_deskew",
@@ -120,12 +121,10 @@ def spectral_deskew_supported(
     average_window: int = 1,
 ) -> bool:
     """Whether the port's kernels take this geometry: every axis within
-    A's limits (2 to 8192 for a power of two, 2 to 4096 otherwise; K's Z
-    and L's Y too), Y within K's grid, the groups within M's grid, and X
-    within M's shared memory (:func:`~biahub_tpu_torch.kernels.
-    spectral_cuda.lerp_irfft_fits`). An overhang-only geometry is not
-    taken. Reads no environment: the opt-in is the callers' ``spectral``
-    keyword."""
+    A's limits (2 to 8192 for a power of two, 2 to 4096 otherwise; K's Z,
+    L's Y and M's X too), Y within K's grid and the groups within M's grid.
+    An overhang-only geometry is not taken. Reads no environment: the
+    opt-in is the callers' ``spectral`` keyword."""
     z, y, x = (int(s) for s in shape)
     if int(average_window) < 1:
         return False
@@ -135,7 +134,7 @@ def spectral_deskew_supported(
     except ValueError:  # overhang only
         return False
     return (all(2 <= n <= max_axis(n) for n in (z, y, x)) and y <= 65535
-            and geo.groups <= 65535 and lerp_irfft_fits(x))
+            and geo.groups <= 65535)
 
 
 def _check_table(table: torch.Tensor, geo: DeskewGeometry) -> None:

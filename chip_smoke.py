@@ -118,17 +118,24 @@ Then the spectral deconvolve + deskew, the engine that evaluates the
 deskew's lerp from the spectrum (kernels A, K, L, M):
 
 16. holds kernels K (DFT along Z times a real or a complex filter), L
-    (inverse DFT along Y) and M (the lerp-DFT contraction and the irfft,
-    both stores) against their plain versions, K and L within FFT_TOL, M
-    within SPECTRAL_TOL, M's xzy store equal to its zyx store transposed,
-    at the headline (avg 3; avg 1 with the overhang kept), at (43, 97,
-    121) avg 3, (16, 16, 2048) avg 2 and (16, 10, 3) avg 2 (SPECTRAL_CASES);
-    then ``DeconvolveDeskew(spectral=True)`` and
+    (inverse DFT along Y: C's column passes) and M (the lerp-DFT
+    contraction on the tensor cores in split TF32, then the irfft, both
+    stores) against their plain versions, K and L within FFT_TOL, M and its
+    contraction within SPECTRAL_TOL, M's xzy store equal to its zyx store
+    transposed, at the headline (avg 3; avg 1 with the overhang kept), at
+    (43, 97, 121) avg 3, (16, 16, 2048) avg 2 and (16, 10, 3) avg 2
+    (SPECTRAL_CASES); ptxas' registers and spills of L's and M's kernels;
+    K, L, M's contraction and M's irfft (each store) timed beside their
+    bounds (the contraction's on the tensor cores, its CUDA-core bound
+    beside it), their plain versions and one PyTorch call (ifft; one
+    complex64 matmul for the contraction alone; irfft), L and M (both
+    launches) beside the kernels they replaced (PREVIOUS_MS) and with
+    torch.profiler's device times; the table's build; then
+    ``DeconvolveDeskew(spectral=True)`` and
     ``DeconvolveDeskewWarp(spectral=True)`` (reg_stab) on the headline
     batch, each within ENGINE_TOL of its composition route, uint16
-    bit-exact, launches A, K, L, M 8 each and no B, C, D (E 1, F 1 for the
-    chain); K, L, M's times beside their bounds, the table's build, and the
-    step's and the chain's ms/volume on both routes.
+    bit-exact, launches A, K, L, M's two 8 each and no B, C, D (E 1, F 1
+    for the chain); the step's and the chain's ms/volume on both routes.
 
 Then the sharded deconvolution (the counterpart of
 ``biahub_tpu/parallel/sharded_fft.py``: kernels A, B or Bc, and C on
@@ -246,9 +253,11 @@ BATCH = 8
 REG = 1e-3
 ANGLE, RATIO, AVG = 36.17, 0.371, 3
 # Peak rates of one H100 SXM at its 700 W limit (NVIDIA data sheet): HBM3
-# bandwidth, and float32 outside the tensor cores (the kernels use none).
+# bandwidth, float32 outside the tensor cores, and dense TF32 on them (kernel
+# M's contraction, the only kernel that uses them).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12
 FFT_TOL = 2e-5     # max |kernel - plain| / max |plain| for A, B, C, the step and the chain
 DESKEW_TOL = 1e-5  # max |kernel - plain| for D on unit-range data
 WARP_TOL = 1e-5    # max |kernel - plain| / max |plain| for E and F (the warp's envelope)
@@ -396,9 +405,11 @@ PHASE64_TOL = 5e-6
 # Tikhonov passband, in float64.
 PHASE_OBJECT_TOL = 1e-3
 # Phase 16: (raw shape, average_window, keep_overhang) of the K, L and M
-# checks: an odd shape (Bluestein lines), X = 2048 (M's kx in two chunks,
-# its lines beside its stage buffers), X = 3 (the least irfft), the
-# headline with the overhang kept and no averaging, and the headline last.
+# checks: an odd shape (Z = 43: a ragged last kz stage of M's contraction;
+# Y = 97 and X = 121: Bluestein lines in L, 11 x 11 in M's irfft), X = 2048
+# (8 kx tiles of the contraction, 2 column pairs an irfft tile), X = 3 (the
+# least irfft), the headline with the overhang kept and no averaging, and
+# the headline last.
 SPECTRAL_CASES = (((43, 97, 121), 3, False), ((16, 16, 2048), 2, False), ((16, 10, 3), 2, True),
                   (SHAPE, 1, True), (SHAPE, AVG, False))
 SPECTRAL_TOL = 2e-5  # max |M - plain| / max |plain|
@@ -438,7 +449,10 @@ PREVIOUS_MS = {"z_filter": 0.552, "z_filter_complex": 1.799, "z_filter_shard": 0
                # custom_padding's shape) before their redesign (PERF.md section
                # 6, rows 10 and 14).
                "block_max_argmin": 0.7997, "block_max_argmin_blur0": 0.3513,
-               "z_cross": 0.3192, "z_cross_padding": 3.7868}
+               "z_cross": 0.3192, "z_cross_padding": 3.7868,
+               # Phase 16: L and M (contraction + irfft, both stores) before
+               # their redesign, at the headline (PERF.md section 6, row 15).
+               "y_inv": 0.4201, "lerp_irfft": 4.3803, "lerp_irfft_xzy": 4.4779}
 PHASE_18_KEYS = ("z_filter", "z_filter_complex", "z_filter_shard", "deskew", "deskew_xzy")
 CARD_OF_PREVIOUS = "NVIDIA H100 80GB HBM3, 700.00 W"
 # Phase 19: kernel G's blur sizes, and a volume past the FFT kernels' limits
@@ -512,10 +526,12 @@ def flush_l2(dev: torch.device) -> None:
     _L2_FLUSH[dev].sum()
 
 
-def bound(nbytes: float, flops: float, f64_flops: float = 0.0) -> tuple[float, str]:
+def bound(nbytes: float, flops: float, f64_flops: float = 0.0,
+          tf32_flops: float = 0.0) -> tuple[float, str]:
     """Least time on the card (ms) for the work, and what bounds it."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S + f64_flops / F64_FLOP_PER_S
+    t_ops = (flops / F32_FLOP_PER_S + f64_flops / F64_FLOP_PER_S
+             + tf32_flops / TF32_FLOP_PER_S)
     return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1941,6 +1957,8 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
         spec_l = kfft.y_inv_(spec_k.clone())
         err["L"] = rel_err(spec_l, kfft.y_inv_plain_(spec_k.clone()))
         table = kspec.prepare_spectral_deskew(shape, ANGLE, RATIO, keep, avg, dev)
+        err["M contraction"] = rel_err(kspc.lerp_contract(spec_l, table, shape[2], avg),
+                                       kspc.lerp_contract_plain(spec_l, table, shape[2], avg))
         m_zyx = kspc.lerp_irfft(spec_l, table, shape[2], avg)
         err["M"] = rel_err(m_zyx, kspc.lerp_irfft_plain(spec_l, table, shape[2], avg))
         m_xzy = kspc.lerp_irfft(spec_l, table, shape[2], avg, "xzy")
@@ -1955,8 +1973,13 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
         print(f"spectral {shape} avg {avg} keep_overhang {keep}: rel err "
               + ", ".join(f"{n} {e:.3g}" for n, (_, e) in err.items())
               + f" (tol {FFT_TOL} K, L; {SPECTRAL_TOL} M); M's xzy store equal to its zyx "
-              "store transposed")
+              f"store transposed; L {kfft.column_plan(spec_l.shape).describe()}; M "
+              f"{kspc.contract_plan(shape[0], shape[2], table.shape[1], m_zyx.shape[0], avg).describe()}"
+              f"; zyx {kspc.irfft_plan(shape[2], table.shape[1], m_zyx.shape[0]).describe()}")
 
+    for line in (ptxas_lines(("y_inv_kernel",), "fft")
+                 + ptxas_lines(("lerp_contract_kernel", "lerp_irfft_kernel"), "spectral")):
+        print(f"ptxas {line}")
     z, y, x = SHAPE
     xh = x // 2 + 1
     spec_bytes = z * y * xh * 8
@@ -1981,27 +2004,88 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
         ms=time_ms(lambda: kfft.y_inv_(work), setup=lambda: work.copy_(spec_k)),
         plain_ms=time_ms(lambda: kfft.y_inv_plain_(work), setup=lambda: work.copy_(spec_k)),
         bound_ms=bms, bound_by=bby, library_ms=time_ms(lambda: torch.fft.ifft(spec_k, dim=1)))
-    # M's work: the contraction's complex multiply-adds (8 flop each) over
-    # every table row, and the irfft of each output column.
-    m_flops = 8 * rows * xh * x_out * z + groups * x_out * 2.5 * x * math.log2(x)
-    bms, bby = bound(spec_bytes + table.numel() * 8 + groups * x * x_out * 4, m_flops)
+    l_device = profiler_readings(lambda: kfft.y_inv_(work), ("y_inv",), 2 * spec_bytes)
+
+    # M's contraction: 8 flop a complex multiply-add over every table row,
+    # each float32 product three TF32 products on the tensor cores; its
+    # yardstick is one complex64 matmul of the gathered operands (full
+    # float32: allow_tf32 is False), the contraction without the irfft.
+    macs = rows * xh * x_out * z
+    u = torch.empty((groups, xh, x_out), dtype=torch.complex64, device=dev)
+    u_bytes = u.numel() * 8
+    out_bytes = groups * x * x_out * 4
+    bms_c, bby_c = bound(spec_bytes + table.numel() * 8 + u_bytes, 0, tf32_flops=3 * 8 * macs)
+    f32_bound_c, _ = bound(spec_bytes + table.numel() * 8 + u_bytes, 8 * macs)
+    s_g = (spec_l[:, kspc._tilt_rows(y, rows, dev), :].reshape(z, groups, AVG, xh)
+           .permute(1, 2, 0, 3).reshape(groups, AVG * z, xh).contiguous())
+    t_g = (table.reshape(groups, AVG, x_out, z).permute(0, 2, 1, 3)
+           .reshape(groups, x_out, AVG * z).contiguous())
+    u_plain = kspc.lerp_contract_plain(spec_l, table, x, AVG)
+    err_c, _ = rel_err(kspc.lerp_contract(spec_l, table, x, AVG, out=u), u_plain)
+    require(rel_err(torch.matmul(t_g, s_g).transpose(1, 2), u_plain)[1] <= SPECTRAL_TOL,
+            "the contraction's yardstick (one matmul) disagrees with the plain version")
+    records["lerp_contract"] = dict(
+        replaces="biahub_tpu/kernels/pallas_spectral.py:327",
+        source="biahub_tpu_torch/csrc/spectral.cu", max_abs_err=err_c,
+        ms=time_ms(lambda: kspc.lerp_contract(spec_l, table, x, AVG, out=u)),
+        plain_ms=time_ms(lambda: kspc.lerp_contract_plain(spec_l, table, x, AVG)),
+        bound_ms=bms_c, bound_by=bby_c, library_ms=time_ms(lambda: torch.matmul(t_g, s_g)))
+    del s_g, t_g, u_plain
+    # M's irfft: U in, the volume out; one irfft call computes it (its
+    # imaginary parts at kx = 0 and X/2 are zero or ignored alike here).
+    i_flops = groups * x_out * 2.5 * x * math.log2(x)
+    bms_i, bby_i = bound(u_bytes + out_bytes, i_flops)
+    outs = {"zyx": torch.empty((groups, x, x_out), device=dev),
+            "xzy": torch.empty((x_out, groups, x), device=dev)}
     for name, layout, replaces in (("lerp_irfft", "zyx", 327), ("lerp_irfft_xzy", "xzy", 434)):
+        o = outs[layout]
+        err_i, _ = rel_err(kspc.irfft_columns(u, x, layout, out=o),
+                           kspc.irfft_columns_plain(u, x, layout))
         records[name] = dict(
             replaces=f"biahub_tpu/kernels/pallas_spectral.py:{replaces}",
             source="biahub_tpu_torch/csrc/spectral.cu", counter="lerp_irfft",
-            max_abs_err=err["M" if layout == "zyx" else "M xzy"][0],
-            ms=time_ms(lambda: kspc.lerp_irfft(spec_l, table, x, AVG, layout)),
-            plain_ms=time_ms(lambda: kspc.lerp_irfft_plain(spec_l, table, x, AVG, layout)),
-            bound_ms=bms, bound_by=bby, library_ms=None)
+            max_abs_err=err_i, ms=time_ms(lambda: kspc.irfft_columns(u, x, layout, out=o)),
+            plain_ms=time_ms(lambda: kspc.irfft_columns_plain(u, x, layout)),
+            bound_ms=bms_i, bound_by=bby_i,
+            library_ms=time_ms(lambda: torch.fft.irfft(u, n=x, dim=1)))
+    m_bound, _ = bound(spec_bytes + table.numel() * 8 + out_bytes, i_flops,
+                       tf32_flops=3 * 8 * macs)
+    m_ms = {layout: time_ms(lambda: kspc.lerp_irfft(spec_l, table, x, AVG, layout,
+                                                     out=outs[layout]))
+            for layout in ("zyx", "xzy")}
+    m_plain = {layout: time_ms(lambda: kspc.lerp_irfft_plain(spec_l, table, x, AVG, layout))
+               for layout in ("zyx", "xzy")}
+    m_device = profiler_readings(
+        lambda: kspc.lerp_irfft(spec_l, table, x, AVG, "zyx", out=outs["zyx"]),
+        ("lerp_contract", "lerp_irfft"), spec_bytes + table.numel() * 8 + u_bytes)
     print("K z_fwd_filter: " + describe(records["z_fwd_filter"])
           + f"; complex filter ms {k_complex_ms:.4f}; no single PyTorch call computes it")
-    print("L y_inv: " + describe(records["y_inv"]) + " (library: torch.fft.ifft dim 1)")
-    for name in ("lerp_irfft", "lerp_irfft_xzy"):
-        print(f"M {name}: " + describe(records[name]) + f", {m_flops:.4g} flop; no single "
-              "PyTorch call computes it")
+    print("L y_inv: " + describe(records["y_inv"]) + " (library: torch.fft.ifft dim 1); "
+          f"before {PREVIOUS_MS['y_inv']} ({records['y_inv']['ms'] / PREVIOUS_MS['y_inv'] - 1:+.1%}); "
+          f"{kfft.column_plan(spec_k.shape).describe()}; profiler: {l_device}")
+    print("M lerp_contract (the contraction alone): " + describe(records["lerp_contract"])
+          + f" (library: one complex64 torch.matmul of the gathered operands, the "
+          f"contraction without the irfft, allow_tf32 False); {macs:.4g} complex multiply-"
+          f"adds; bound {bms_c:.4f} ms on the tensor cores (3xTF32, {3 * 8 * macs:.4g} "
+          f"flop at {TF32_FLOP_PER_S:.3g}/s), {f32_bound_c:.4f} ms on the CUDA cores "
+          f"({8 * macs:.4g} flop at {F32_FLOP_PER_S:.3g}/s); "
+          f"{kspc.contract_plan(z, x, x_out, groups, AVG).describe()}")
+    for name, layout in (("lerp_irfft", "zyx"), ("lerp_irfft_xzy", "xzy")):
+        print(f"M {name} (the irfft alone): " + describe(records[name])
+              + " (library: torch.fft.irfft dim 1); "
+              + kspc.irfft_plan(x, x_out, groups, layout).describe())
+    for layout, name in (("zyx", "lerp_irfft"), ("xzy", "lerp_irfft_xzy")):
+        was = PREVIOUS_MS[name]
+        print(f"M {layout} (contraction + irfft, lerp_irfft): {m_ms[layout]:.4f} ms, plain "
+              f"{m_plain[layout]:.4f}, bound {m_bound:.4f} (tensor cores; "
+              f"{bound(spec_bytes + table.numel() * 8 + out_bytes, 8 * macs + i_flops)[0]:.4f}"
+              f" on the CUDA cores); before {was} ({m_ms[layout] / was - 1:+.1%})")
+    print(f"M device (profiler, zyx): {m_device}")
+    del u, outs
     table_ms = host_ms(lambda: kspec.spectral_table(SHAPE, ANGLE, RATIO, False, AVG, dev))
     print(f"lerp-DFT table {tuple(table.shape)} complex64: {table.numel() * 8 / 1e6:.1f} MB, "
-          f"built in {table_ms:.3f} ms on the card (host clock)")
+          f"built in {table_ms:.3f} ms on the card (host clock); M's U scratch "
+          f"{groups * xh * x_out * 8 / 1e6:.1f} MB a call")
     del vol, spec, spec_k, spec_l, work, filt, filt_c, m_zyx, m_xzy, table
     torch.cuda.empty_cache()
 
@@ -2019,7 +2103,8 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
     step_c = DeconvolveDeskew(tf_half, SHAPE, REG, ANGLE, RATIO, skip_flip=True, **kw)
     require(step_s.deskew_table is not None, "the step did not take the spectral route")
     out_s, launches = counted(lambda: step_s(vols_f))
-    want = {"fwd_yx": BATCH, "z_fwd_filter": BATCH, "y_inv": BATCH, "lerp_irfft": BATCH}
+    want = {"fwd_yx": BATCH, "z_fwd_filter": BATCH, "y_inv": BATCH, "lerp_contract": BATCH,
+            "lerp_irfft": BATCH}
     require(launches == want, f"spectral step launches {launches}, want {want}")
     out_c = step_c(vols_f)
     require(out_s.shape == (BATCH,) + geo.out_shape, f"spectral step shape {out_s.shape}")
@@ -2028,7 +2113,7 @@ def spectral_phase(dev: torch.device, records: dict, tf_half: np.ndarray) -> Non
     require(step_err <= ENGINE_TOL, f"spectral step vs composition: rel err {step_err:.3g}")
     require(torch.equal(step_s(vols_u).view(torch.int32), out_s.view(torch.int32)),
             "spectral step: uint16 input differs from its float32 copy")
-    for name in ("z_fwd_filter", "y_inv", "lerp_irfft"):
+    for name in ("z_fwd_filter", "y_inv", "lerp_contract", "lerp_irfft"):
         records[name]["runs"] = launches
     print(f"spectral step (batch {BATCH}): rel err {step_err:.3g} vs the composition route "
           f"(tol {ENGINE_TOL}); uint16 input bit-exact vs its float32 copy; launches "

@@ -1,24 +1,25 @@
 #!/usr/bin/env python3
-"""Time the port's kernels E, H, I, J, G, A, B, Bc, C and Bx against
+"""Time the port's kernels E, H, I, J, G, A, B, Bc, C, Bx, L and M against
 another commit's, in turns, on one NVIDIA card.
 
     git show <commit>:biahub_tpu_torch/csrc/multipass.cu > build/parent_csrc/multipass.cu
     (and, to compare E or G, warp.cu or peaks.cu the same way; to compare
     the FFT kernels, fft.cu with fft_radix.cuh, fft_lines.cuh and
-    cp_async.cuh)
+    cp_async.cuh; to compare M, spectral.cu with the same headers)
     python3 scripts/compare_parent_kernels.py build/parent_csrc
 
-Builds those of ``warp.cu``, ``multipass.cu``, ``peaks.cu`` and ``fft.cu``
-that the given directory holds, with the port's nvcc flags (headers from
-the directory first, then from this checkout's ``csrc``), into libraries
-beside them, loads them with ctypes (the C entries must keep this
-checkout's signatures: ``warp_zy``, ``resample_pass``,
+Builds those of ``warp.cu``, ``multipass.cu``, ``peaks.cu``, ``fft.cu`` and
+``spectral.cu`` that the given directory holds, with the port's nvcc flags
+(headers from the directory first, then from this checkout's ``csrc``),
+into libraries beside them, loads them with ctypes (the C entries must
+keep this checkout's signatures: ``warp_zy``, ``resample_pass``,
 ``resample_pass_adjoint``, ``fwd_yx``, ``z_filter``, ``z_filter_complex``,
-``inv_yx``; ``resample_pass_deriv`` with one partial triple per frame row,
-as before H and I took tiles; ``block_max_argmin`` with a sub-tile and no
-scratch, and ``z_cross`` with no plan, as before G and Bx were
-redesigned), and at the shapes of ``chip_smoke.py`` times each kernel
-against this checkout's in the order other, this, this, other (CUDA-event
+``inv_yx``, ``z_cross``; ``resample_pass_deriv`` with one partial triple
+per frame row, as before H and I took tiles; ``block_max_argmin`` with a
+sub-tile and no scratch, as before G was redesigned; ``y_inv`` with no
+plan and ``lerp_irfft`` as one launch from the spectrum, as before L and M
+were), and at the shapes of ``chip_smoke.py`` times each kernel against
+this checkout's in the order other, this, this, other (CUDA-event
 medians): E on the chain's batch (zyx and xzy reads) and on stabilize's
 table batch of 12; H at each slot and order of phase 8's frame (one
 coefficient set, and a (2, 21) table over two volumes) and of the
@@ -27,9 +28,10 @@ each slot and order of the traced frame (within DERIV_TOL of the
 other's), J at each slot and order of the traced frame (bit-equal to the
 other's); G at both geometries and blur 0, 3, 5 and 15 on integer-valued
 and on randn data (values and indices bit-equal); A, B, Bc and C at the
-headline (bit-equal) and Bx at the PCC crop's and custom_padding's shapes
-(within FFT_TOL). Prints the card's name and power limit first, and fails
-if an output differs. Imports no JAX.
+headline and Bx at the PCC crop's and custom_padding's shapes (bit-equal),
+L at the headline (within FFT_TOL), and M (both launches, both stores) at
+the headline (within SPECTRAL_TOL). Prints the card's name and power limit
+first, and fails if an output differs. Imports no JAX.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ import chip_smoke as cs  # noqa: E402
 from biahub_tpu_torch.kernels import _build  # noqa: E402
 from biahub_tpu_torch.kernels import fft as kfft  # noqa: E402
 from biahub_tpu_torch.kernels import multipass_warp as mw  # noqa: E402
+from biahub_tpu_torch.kernels import spectral as kspec  # noqa: E402
+from biahub_tpu_torch.kernels import spectral_cuda as kspc  # noqa: E402
 from biahub_tpu_torch.kernels.affine import (  # noqa: E402
     coefficient_table,
     inplane_coefficients,
@@ -88,8 +92,9 @@ def build_other(src_dir: str, names) -> dict:
                       "resample_pass_adjoint": [P, P, P] + [I] * 9 + [P]},
         "peaks": {"block_max_argmin": [P, P, P] + [I] * 14 + [P]},
         "fft": dict({k: kfft._SIGNATURES[k] for k in ("fwd_yx", "z_filter", "z_filter_complex",
-                                                        "inv_yx")},
-                    z_cross=[P, P, P, I, I, I, I, P]),
+                                                        "inv_yx", "z_cross")},
+                    y_inv=[P, I, I, I, P]),
+        "spectral": {"lerp_irfft": [P, P, P] + [I] * 7 + [P]},
     }
     for name, lib in libs.items():
         lib.error_string.argtypes = [I]
@@ -116,7 +121,7 @@ def main() -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip())
-    names = [n for n in ("warp", "multipass", "peaks", "fft")
+    names = [n for n in ("warp", "multipass", "peaks", "fft", "spectral")
              if os.path.exists(os.path.join(sys.argv[1], f"{n}.cu"))]
     _build.build(names)
     libs = build_other(sys.argv[1], names)
@@ -131,6 +136,8 @@ def main() -> int:
         compare_g(libs, dev, gen)
     if "fft" in libs:
         compare_fft(libs, dev, gen)
+    if "spectral" in libs:
+        compare_m(libs, dev, gen)
     return 0
 
 
@@ -350,9 +357,9 @@ def bits(t: torch.Tensor) -> torch.Tensor:
 
 
 def compare_fft(libs, dev, gen) -> None:
-    """A, B, Bc and C at the headline, bit-equal to the other's, and Bx at
-    the PCC crop's and custom_padding's shapes within FFT_TOL of the
-    other's (magnitude), each timed in turns."""
+    """A, B, Bc and C at the headline and Bx at the PCC crop's and
+    custom_padding's shapes (magnitude), bit-equal to the other's; L at the
+    headline within FFT_TOL of the other's; each timed in turns."""
     vol = torch.rand(cs.SHAPE, generator=gen, device=dev)
     spec_shape = kfft.half_spectrum_shape(cs.SHAPE)
     filt = torch.rand(spec_shape, generator=gen, device=dev)
@@ -366,14 +373,7 @@ def compare_fft(libs, dev, gen) -> None:
               lambda: work.copy_(spec)),
              ("C inv_yx", lambda: kfft.inv_yx(work, out=real), lambda: work.copy_(spec)))
     for name, fn, setup in cases:
-        outs = []
-        for use_other in (True, False):
-            with other_fft(libs) if use_other else contextlib.nullcontext():
-                if setup is not None:
-                    setup()
-                got = fn()
-                outs.append(got.clone())
-        same = torch.equal(bits(outs[0]), bits(outs[1]))
+        same = same_outputs(libs, fn, setup)
 
         def other():
             with other_fft(libs):
@@ -381,28 +381,92 @@ def compare_fft(libs, dev, gen) -> None:
 
         print(f"{name} {cs.SHAPE}: " + turns(other, fn, setup) + f"; bit-equal {same}")
         cs.require(same, f"{name} differs from the other's")
-    del vol, filt, cfilt, spec, work, real, outs
+
+    def other_l():
+        rc = libs["fft"].y_inv(P(work.data_ptr()), *spec.shape, stream(work))
+        if rc:
+            raise SystemExit(f"other y_inv: error {rc}")
+
+    work.copy_(spec)
+    other_l()
+    want = work.clone()
+    work.copy_(spec)
+    kfft.y_inv_(work)
+    err = float((work - want).abs().max() / want.abs().max())
+    print(f"L y_inv {tuple(spec.shape)}: "
+          + turns(other_l, lambda: kfft.y_inv_(work), lambda: work.copy_(spec))
+          + f"; rel diff {err:.3g} (tol {cs.FFT_TOL})")
+    cs.require(err <= cs.FFT_TOL, f"L: rel diff {err:.3g} from the other's")
+    del vol, filt, cfilt, spec, work, real, want
     torch.cuda.empty_cache()
     for name, shape in (("PCC crop", cs.BX_SHAPES["PCC crop"]),
                         ("custom_padding", cs.BX_SHAPES["custom_padding"])):
         ref = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
         mov = torch.randn(shape, dtype=torch.complex64, generator=gen, device=dev)
-        oa, ob = torch.empty_like(ref), torch.empty_like(ref)
+        ob = torch.empty_like(ref)
+
+        def bx():
+            return kfft.z_cross_(ref, mov, ob, "magnitude")
+
+        same = same_outputs(libs, bx, None)
 
         def other_bx():
-            rc = libs["fft"].z_cross(P(ref.data_ptr()), P(mov.data_ptr()), P(oa.data_ptr()),
-                                     *shape, 1, stream(ref))
-            if rc:
-                raise SystemExit(f"other z_cross: error {rc}")
+            with other_fft(libs):
+                bx()
 
-        other_bx()
-        kfft.z_cross_(ref, mov, ob, "magnitude")
+        print(f"Bx {name} {shape} (magnitude): " + turns(other_bx, bx)
+              + f"; bit-equal {same}")
+        cs.require(same, f"Bx {name} differs from the other's")
+        del ref, mov, ob
+    torch.cuda.empty_cache()
+
+
+def same_outputs(libs, fn, setup) -> bool:
+    """Whether ``fn`` gives the same bits through the other library's FFT
+    kernels and through this checkout's."""
+    outs = []
+    for use_other in (True, False):
+        with other_fft(libs) if use_other else contextlib.nullcontext():
+            if setup is not None:
+                setup()
+            outs.append(fn().clone())
+    return torch.equal(bits(outs[0]), bits(outs[1]))
+
+
+def compare_m(libs, dev, gen) -> None:
+    """M (contraction and irfft, both stores) at the headline, on a filtered
+    spectrum and the headline table, within SPECTRAL_TOL of the other M (a
+    one-launch kernel from the spectrum), timed in turns."""
+    z, y, x = cs.SHAPE
+    vol = torch.rand(cs.SHAPE, generator=gen, device=dev)
+    filt = torch.rand(kfft.half_spectrum_shape(cs.SHAPE), generator=gen, device=dev)
+    spec = kfft.y_inv_(kfft.z_fwd_filter_(kfft.fwd_yx(vol), filt))
+    del vol, filt
+    table = kspec.prepare_spectral_deskew(cs.SHAPE, cs.ANGLE, cs.RATIO, False, cs.AVG, dev)
+    rows, x_out, _ = table.shape
+    groups = rows // cs.AVG
+    for layout in kspc.OUT_LAYOUTS:
+        shape = (groups, x, x_out) if layout == "zyx" else (x_out, groups, x)
+        oa, ob = torch.empty(shape, device=dev), torch.empty(shape, device=dev)
+
+        def other_m():
+            rc = libs["spectral"].lerp_irfft(P(spec.data_ptr()), P(table.data_ptr()),
+                                             P(oa.data_ptr()), z, y, x, x_out, groups, cs.AVG,
+                                             int(layout == "xzy"), stream(spec))
+            if rc:
+                raise SystemExit(f"other lerp_irfft: error {rc}")
+
+        def this_m():
+            kspc.lerp_irfft(spec, table, x, cs.AVG, layout, out=ob)
+
+        other_m()
+        this_m()
         err = float((oa - ob).abs().max() / oa.abs().max())
-        print(f"Bx {name} {shape} (magnitude): "
-              + turns(other_bx, lambda: kfft.z_cross_(ref, mov, ob, "magnitude"))
-              + f"; rel diff {err:.3g} (tol {cs.FFT_TOL})")
-        cs.require(err <= cs.FFT_TOL, f"Bx {name}: rel diff {err:.3g} from the other's")
-        del ref, mov, oa, ob
+        print(f"M lerp_irfft {layout} {cs.SHAPE} avg {cs.AVG}: " + turns(other_m, this_m)
+              + f"; rel diff {err:.3g} (tol {cs.SPECTRAL_TOL})")
+        cs.require(err <= cs.SPECTRAL_TOL, f"M {layout}: rel diff {err:.3g} from the other's")
+        del oa, ob
+    del spec, table
     torch.cuda.empty_cache()
 
 

@@ -182,15 +182,15 @@ def test_engine_refuses_what_it_does_not_take():
                                                 deskew_table=table, **kw)
     with pytest.raises(ValueError, match="needs a complex filter"):
         spectral.deconvolve_deskew_zyx_spectral(vol, tf, None, **kw)
-    with pytest.raises(ValueError, match="does not take"):  # X past kernel M's memory
-        spectral.deconvolve_deskew_zyx_spectral(np.zeros((8, 8, 1280), np.float32), None,
+    with pytest.raises(ValueError, match="does not take"):  # X past kernel M's limit
+        spectral.deconvolve_deskew_zyx_spectral(np.zeros((8, 8, 4097), np.float32), None,
                                                 **kw)
     # Overhang only (Z / ratio < Y cos(angle)), and an axis of length 1.
     assert not spectral.spectral_deskew_supported((4, 64, 32), ANGLE, RATIO, False)
     assert not spectral.spectral_deskew_supported((1, 8, 32), ANGLE, RATIO, True)
     assert spectral.spectral_deskew_supported((256, 256, 1024), ANGLE, RATIO, False, 3)
-    assert spectral_cuda.lerp_irfft_fits(2048) and not spectral_cuda.lerp_irfft_fits(4096)
-    assert spectral_cuda.lerp_irfft_fits(1025) and not spectral_cuda.lerp_irfft_fits(1027)
+    assert spectral_cuda.lerp_irfft_fits(8192) and not spectral_cuda.lerp_irfft_fits(16384)
+    assert spectral_cuda.lerp_irfft_fits(4095) and not spectral_cuda.lerp_irfft_fits(4097)
 
 
 @pytest.fixture
@@ -266,7 +266,7 @@ def test_cpu_spectral_route_counts_no_launch():
 
 
 def test_build_target_follows_included_headers(tmp_path, monkeypatch):
-    for name in ("spectral.cu", "fft_lines.cuh", "cp_async.cuh", "deskew.cu"):
+    for name in ("spectral.cu", "fft_lines.cuh", "fft_radix.cuh", "cp_async.cuh", "deskew.cu"):
         (tmp_path / name).write_bytes((_build._CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "_CSRC", tmp_path)
     before = {name: _build._target(name) for name in ("spectral", "deskew")}
