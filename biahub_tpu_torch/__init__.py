@@ -47,7 +47,15 @@ devices (:mod:`biahub_tpu_torch.parallel.sharded_fft`: kernels A, B or Bc,
 and C on z-slab and ky-row shards) serves the deconvolve verb on arrays
 (:func:`~biahub_tpu_torch.deconvolve.deconvolve_arrays`, ``sharded=True``),
 beside the mesh (:mod:`biahub_tpu_torch.parallel.mesh`) and the process
-group (:mod:`biahub_tpu_torch.parallel.distributed`).
+group (:mod:`biahub_tpu_torch.parallel.distributed`). The fused pipeline
+and the deskew, flat-field and register verbs on arrays
+(:func:`~biahub_tpu_torch.fuse.fuse_arrays`,
+:func:`~biahub_tpu_torch.deskew.deskew_arrays`,
+:func:`~biahub_tpu_torch.flat_field.flat_field_arrays`,
+:func:`~biahub_tpu_torch.register.register_arrays`) run the same kernels
+with the overhang fill, the flat-field correction and, past the batch
+budget, the reference's chunked routes (the chunked warps,
+:func:`~biahub_tpu_torch.kernels.multipass_warp.chunked_affine_warp_zyx`).
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (
@@ -57,7 +65,11 @@ from biahub_tpu_torch.compute_transfer_function import compute_transfer_function
 from biahub_tpu_torch.convert import (
     chain_from_reference,
     deconvolve_settings_from_reference,
+    deskew_settings_from_reference,
+    flat_field_settings_from_reference,
+    fuse_settings_from_reference,
     module_from_reference,
+    registration_settings_from_reference,
     reconstruction_settings_from_reference,
     registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
@@ -65,6 +77,7 @@ from biahub_tpu_torch.convert import (
     transfer_functions_from_reference,
 )
 from biahub_tpu_torch.deconvolve import deconvolve_arrays
+from biahub_tpu_torch.deskew import deskew_arrays
 from biahub_tpu_torch.device import gpu_info, resolve_device
 from biahub_tpu_torch.estimate_psf import estimate_psf_arrays
 from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
@@ -72,6 +85,8 @@ from biahub_tpu_torch.estimate_stabilization import (
     ArrayPosition,
     estimate_stabilization_arrays,
 )
+from biahub_tpu_torch.flat_field import flat_field_arrays
+from biahub_tpu_torch.fuse import fuse_arrays
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
     affine_warp_zyx,
@@ -89,6 +104,7 @@ from biahub_tpu_torch.kernels.chain import (
     deskew_then_warp,
 )
 from biahub_tpu_torch.kernels.multipass_warp import (
+    chunked_affine_warp_zyx,
     make_traced_multipass_warp,
     multipass_affine_warp_zyx,
     multipass_affine_warp_zyx_batched,
@@ -126,6 +142,7 @@ from biahub_tpu_torch.parallel.sharded_fft import (
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 from biahub_tpu_torch.recon.settings import output_channel_names
 from biahub_tpu_torch.reconstruct import reconstruct_arrays
+from biahub_tpu_torch.register import register_arrays
 from biahub_tpu_torch.runtime.executor import stripe_units
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
 
@@ -192,4 +209,13 @@ __all__ = [
     "stripe_units",
     "gpu_info",
     "resolve_device",
+    "deskew_arrays",
+    "flat_field_arrays",
+    "register_arrays",
+    "fuse_arrays",
+    "chunked_affine_warp_zyx",
+    "deskew_settings_from_reference",
+    "flat_field_settings_from_reference",
+    "registration_settings_from_reference",
+    "fuse_settings_from_reference",
 ]

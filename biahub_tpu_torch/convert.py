@@ -7,7 +7,13 @@ settings dicts with the field names of ``biahub_tpu/settings.py``'s
 their defaults and their rounding, without pydantic. ``chain_from_reference``
 builds :class:`~biahub_tpu_torch.pipeline.DeconvolveDeskewWarp` from a fused
 pipeline's settings (``FusePipelineSettings``, settings.py:557-620) as a
-plain dict. ``deconvolve_settings_from_reference`` validates the deconvolve
+plain dict. ``deskew_settings_from_reference`` reads ``DeskewSettings``
+into the deskew's arguments, ``flat_field_settings_from_reference``
+validates ``FlatFieldCorrectionSettings`` (settings.py:361-364),
+``registration_settings_from_reference`` the register verb's
+``RegistrationSettings`` (:422-433) and ``fuse_settings_from_reference``
+the fused pipeline's ``FusePipelineSettings`` (:593-625) with its stage
+checks. ``deconvolve_settings_from_reference`` validates the deconvolve
 verb's settings (``DeconvolveSettings``),
 ``stabilization_settings_from_reference`` estimate-stabilization's
 (``EstimateStabilizationSettings``, settings.py:324) and
@@ -28,6 +34,8 @@ import torch
 from biahub_tpu_torch.pipeline import DeconvolveDeskew, DeconvolveDeskewWarp
 
 __all__ = ["module_from_reference", "chain_from_reference",
+           "deskew_settings_from_reference", "flat_field_settings_from_reference",
+           "registration_settings_from_reference", "fuse_settings_from_reference",
            "stabilization_settings_from_reference", "beads_match_settings_from_reference",
            "affine_transform_settings_from_reference", "deconvolve_settings_from_reference",
            "registration_estimate_settings_from_reference",
@@ -40,7 +48,7 @@ _DESKEW_FIELDS = {
     "output_ome_zarr_version",
 }
 _DECONVOLVE_FIELDS = {"regularization_strength", "output_ome_zarr_version"}
-# FusePipelineSettings' fields; flat_field is not ported yet.
+# FusePipelineSettings' fields.
 _FUSE_FIELDS = {
     "flat_field", "deconvolve", "deskew", "registration", "stabilization",
     "time_indices", "output_shape_zyx", "output_ome_zarr_version",
@@ -53,12 +61,15 @@ def _unknown(d: dict, fields: set, what: str) -> None:
         raise ValueError(f"{what}: unknown fields {sorted(extra)}")
 
 
-def _deskew_settings(deskew: dict) -> dict:
-    """The deskew fields the chain uses, validated and defaulted as
+def deskew_settings_from_reference(deskew: dict) -> dict:
+    """The deskew fields the deskew and the chain use, as their keyword
+    arguments (``ls_angle_deg``, ``px_to_scan_ratio``, ``keep_overhang``,
+    ``average_window``, ``overhang_fill``), validated and defaulted as
     ``DeskewSettings`` does: the angle in [0, 45] rounded to 0.01, the
     ratio rounded to 0.001, and derived as round(pixel_size_um /
-    scan_step_um, 3) when absent (settings.py:410-413). ``device`` and
-    ``output_ome_zarr_version`` are accepted and not used."""
+    scan_step_um, 3) when absent (settings.py:410-413), the fill ``"mean"``
+    or a float. ``pixel_size_um``, ``device`` and ``output_ome_zarr_version``
+    are accepted and not used."""
     _unknown(deskew, _DESKEW_FIELDS, "deskew settings")
     angle = float(deskew["ls_angle_deg"])
     if not 0 < angle <= 45:
@@ -74,6 +85,8 @@ def _deskew_settings(deskew: dict) -> dict:
     if float(ratio) <= 0:
         raise ValueError("px_to_scan_ratio must be positive")
     fill = deskew.get("overhang_fill", 0.0)
+    if isinstance(fill, str) and fill != "mean":
+        raise ValueError(f"overhang_fill: want 'mean' or a number, got {fill!r}")
     return {
         "ls_angle_deg": round(angle, 2),
         "px_to_scan_ratio": round(float(ratio), 3),
@@ -116,7 +129,7 @@ def module_from_reference(
     from the reference's half transfer function and settings dicts."""
     return DeconvolveDeskew(
         tf_half, tuple(int(s) for s in zyx_shape), _deconvolve_settings(deconvolve),
-        skip_flip=skip_flip, device=device, **_deskew_settings(deskew),
+        skip_flip=skip_flip, device=device, **deskew_settings_from_reference(deskew),
     )
 
 
@@ -165,10 +178,13 @@ def chain_from_reference(
     ``time_index`` of volumes of ``zyx_shape``, from the reference's half
     transfer function and a fused pipeline's settings as a dict (its
     ``deconvolve``, ``deskew``, ``registration`` and optional
-    ``stabilization`` blocks; ``output_shape_zyx`` when given)."""
+    ``stabilization`` blocks; ``output_shape_zyx`` when given). A
+    ``flat_field`` block is validated and left to the caller: it is a
+    per-channel prefix on the raw volume (``fuse.fuse_arrays`` applies it),
+    and the module runs the rest of the chain."""
     _unknown(fuse_settings, _FUSE_FIELDS, "fuse settings")
     if fuse_settings.get("flat_field") is not None:
-        raise NotImplementedError("biahub_tpu_torch: the flat_field stage is not ported yet")
+        flat_field_settings_from_reference(fuse_settings["flat_field"])
     for block in ("deconvolve", "deskew"):
         if fuse_settings.get(block) is None:
             raise ValueError(f"fuse settings: the chain needs a {block} block")
@@ -178,7 +194,7 @@ def chain_from_reference(
         _deconvolve_settings(fuse_settings["deconvolve"]),
         matrix=_fuse_warp_matrix(fuse_settings, int(time_index)),
         output_shape=None if out is None else tuple(int(s) for s in out),
-        device=device, **_deskew_settings(fuse_settings["deskew"]),
+        device=device, **deskew_settings_from_reference(fuse_settings["deskew"]),
     )
 
 
@@ -628,3 +644,125 @@ def spectral_table_from_reference(mr, mi, groups: int, average_window: int) -> t
                          f"{mr.shape} and {mi.shape}")
     return torch.complex(torch.from_numpy(np.ascontiguousarray(mr[:rows], np.float32)),
                          torch.from_numpy(np.ascontiguousarray(mi[:rows], np.float32)))
+
+
+# -- flat-field, register and fused pipeline settings (settings.py:361-625) --
+
+def _version(v, name):
+    if v not in (None, "0.4", "0.5"):
+        raise ValueError(f"{name}: must be '0.4', '0.5' or None, got {v!r}")
+    return v
+
+
+def _non_negative_time_indices(v, name):
+    """``NonNegativeInt | list[NonNegativeInt] | Literal["all"]``."""
+    out = _time_indices(v, name)
+    if out != "all" and min(out if isinstance(out, list) else [out], default=0) < 0:
+        raise ValueError(f"{name}: time indices must be non-negative, got {v!r}")
+    return out
+
+
+def _matrix_rows(v, name):
+    """``RegistrationSettings``' check: a list of 4 rows, each a list of 4."""
+    if not isinstance(v, list) or len(v) != 4:
+        raise ValueError(f"{name} must be a 4x4 matrix as a list of rows")
+    for row in v:
+        if not isinstance(row, list) or len(row) != 4:
+            raise ValueError(f"Each row of {name} must have 4 entries")
+    return _matrix_4x4(v, name)
+
+
+def _matrix_list(v, name):
+    """``FuseStabilizeSettings``' check: a non-empty list of 4x4 matrices."""
+    if not isinstance(v, list) or not v:
+        raise ValueError(f"{name} must be a non-empty list")
+    for m in v:
+        _matrix(m, "each element of affine_transform_zyx_list")
+    return v
+
+
+_FLAT_FIELD = _model({
+    "channel_names": (None, _optional(_str_list)),
+    "output_ome_zarr_version": (None, _version),
+})
+_REGISTRATION = _model({
+    "source_channel_names": (_REQUIRED, _str_list),
+    "target_channel_name": (_REQUIRED, _typed(str)),
+    "affine_transform_zyx": (_REQUIRED, _matrix_rows),
+    "keep_overhang": (False, _lax_bool),
+    "interpolation": ("linear", _typed(str)),
+    "time_indices": ("all", _non_negative_time_indices),
+    "verbose": (False, _lax_bool),
+    "output_ome_zarr_version": (None, _version),
+})
+
+
+def flat_field_settings_from_reference(settings: dict | None = None) -> dict:
+    """``FlatFieldCorrectionSettings`` (settings.py:361-364) as a plain dict:
+    ``channel_names`` (a list of names, or None for every channel) and
+    ``output_ome_zarr_version``."""
+    return _FLAT_FIELD(settings or {}, "flat-field settings")
+
+
+def registration_settings_from_reference(settings: dict) -> dict:
+    """``RegistrationSettings`` (settings.py:422-433) as a plain dict:
+    ``source_channel_names``, ``target_channel_name``,
+    ``affine_transform_zyx`` (a 4x4 list of rows), ``keep_overhang``
+    (False), ``interpolation`` ("linear"), ``time_indices`` ("all"),
+    ``verbose`` and ``output_ome_zarr_version``."""
+    return _REGISTRATION(settings, "registration settings")
+
+
+def fuse_settings_from_reference(settings: dict) -> dict:
+    """``FusePipelineSettings`` (settings.py:593-625) as a plain dict, its
+    stage blocks validated: ``flat_field`` (:func:`flat_field_settings_from_
+    reference`), ``deconvolve`` (:func:`deconvolve_settings_from_reference`),
+    ``deskew`` (:func:`deskew_settings_from_reference`: the deskew's keyword
+    arguments), ``registration`` (``{"affine_transform_zyx": 4x4}``) and
+    ``stabilization`` (``{"affine_transform_zyx_list": [4x4, ...]}``), each
+    None when absent; ``time_indices`` ("all"), ``output_shape_zyx`` (None,
+    or 3 non-negative ints) and ``output_ome_zarr_version``. As the model's
+    check: at least one stage, and ``output_shape_zyx`` only with a warp
+    stage."""
+    if not isinstance(settings, dict):
+        raise ValueError(f"fuse settings: want a mapping, got {settings!r}")
+    _unknown(settings, _FUSE_FIELDS, "fuse settings")
+    out = {name: None for name in ("flat_field", "deconvolve", "deskew", "registration",
+                                   "stabilization")}
+    if settings.get("flat_field") is not None:
+        out["flat_field"] = flat_field_settings_from_reference(settings["flat_field"])
+    if settings.get("deconvolve") is not None:
+        out["deconvolve"] = deconvolve_settings_from_reference(settings["deconvolve"])
+    if settings.get("deskew") is not None:
+        out["deskew"] = deskew_settings_from_reference(settings["deskew"])
+    reg, stab = settings.get("registration"), settings.get("stabilization")
+    if reg is not None:
+        out["registration"] = _model({"affine_transform_zyx": (_REQUIRED, _matrix_4x4)})(
+            reg, "registration settings")
+    if stab is not None:
+        out["stabilization"] = _model({
+            "affine_transform_zyx_list": (_REQUIRED, _matrix_list)})(
+            stab, "stabilization settings")
+    out["time_indices"] = _non_negative_time_indices(settings.get("time_indices", "all"),
+                                                     "time_indices")
+    shape = settings.get("output_shape_zyx")
+    if shape is not None:
+        shape = [_bounded(int, lambda x: x >= 0, "greater than or equal to 0")(
+            s, "output_shape_zyx") for s in _typed(list)(shape, "output_shape_zyx")]
+    out["output_shape_zyx"] = shape
+    out["output_ome_zarr_version"] = _version(settings.get("output_ome_zarr_version"),
+                                              "output_ome_zarr_version")
+    if not any(out[name] is not None for name in ("flat_field", "deconvolve", "deskew",
+                                                  "registration", "stabilization")):
+        raise ValueError(
+            "FusePipelineSettings needs at least one stage (flat_field / "
+            "deconvolve / deskew / registration / stabilization)"
+        )
+    if shape is not None and len(shape) != 3:
+        raise ValueError("output_shape_zyx must have 3 entries (Z, Y, X)")
+    if shape is not None and reg is None and stab is None:
+        raise ValueError(
+            "output_shape_zyx only applies to the warp stage — add a "
+            "registration or stabilization block, or drop it"
+        )
+    return out

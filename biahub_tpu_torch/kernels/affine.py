@@ -60,6 +60,8 @@ __all__ = [
     "exact_domain_mask_general",
     "affine_warp_zyx",
     "affine_warp_auto",
+    "affine_warp_auto_batched",
+    "make_batched_warp",
 ]
 
 # inplane_coefficients' layout: pass 1's z and y coefficient triples, pass
@@ -460,3 +462,71 @@ def affine_warp_auto(
         except ValueError:
             pass  # a vanishing pivot (e.g. a 90 degree rotation): the exact gather
     return affine_warp_zyx(data, m, out_shape, fill, order, dev)
+
+
+def affine_warp_auto_batched(
+    volumes,
+    matrix,
+    output_shape: tuple[int, int, int],
+    fill: float = 0.0,
+    order: int = 1,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """:func:`affine_warp_auto` of each volume of a (B, Z, Y, X) batch by
+    one ``matrix`` -> (B, Zo, Yo, Xo) float32: an order-1 in-plane matrix
+    warps the whole batch with one launch of E and one of F (the same bits
+    as volume by volume); any other, volume by volume."""
+    dev = resolve_device(device)
+    m = matrix_4x4(matrix)
+    out_shape = tuple(int(s) for s in output_shape)
+    data = as_tensor(volumes, dev)
+    if order == 1 and is_inplane_matrix(m):
+        return inplane_affine_warp_zyx_batched(data, m, out_shape, fill, device=dev)
+    return torch.stack([affine_warp_auto(v, m, out_shape, fill, order, device=dev)
+                        for v in data])
+
+
+def make_batched_warp(matrices, in_shape, out_shape, device: str | torch.device = "cuda"):
+    """The warp of one volume per matrix, its kernel chosen from every
+    matrix of ``matrices`` (the reference's stabilize, :172-213, and fuse's
+    ``_make_warp_stage``, :117-176): all translations take
+    :func:`translation_warp_zyx_batched`, all in-plane matrices
+    :func:`inplane_affine_warp_zyx_batched` with one matrix per volume (E and
+    F once a batch, a (B, 21) table); any other set the batched multipass
+    warp (H once per canonical slot and batch) in one frame spanning every
+    matrix, or the exact gather per volume when a pivot vanishes.
+
+    Returns ``(warp(volumes, mats) -> (B, Zo, Yo, Xo), workspace_bytes)``:
+    ``mats`` the (B, 4, 4) rows of the batch's volumes, and the per-volume
+    bytes of the multipass frames
+    (:func:`~biahub_tpu_torch.kernels.multipass_warp.common_frame_bytes`)."""
+    from biahub_tpu_torch.kernels.multipass_warp import (
+        common_frame_bytes,
+        multipass_affine_warp_zyx_batched,
+        union_frame,
+    )
+
+    dev = resolve_device(device)
+    mats = np.asarray(matrices, dtype=np.float64).reshape(-1, 4, 4)
+    in_shape = tuple(int(s) for s in in_shape)
+    out_shape = tuple(int(s) for s in out_shape)
+    workspace = common_frame_bytes(mats, in_shape, out_shape)
+    if all(is_translation_matrix(m) for m in mats):
+        def warp(vols, ms):
+            return translation_warp_zyx_batched(vols, np.asarray(ms)[:, :3, 3], out_shape,
+                                                device=dev)
+    elif all(is_inplane_matrix(m) for m in mats):
+        def warp(vols, ms):
+            return inplane_affine_warp_zyx_batched(vols, ms, out_shape, device=dev)
+    else:
+        try:
+            frame = union_frame(mats, in_shape, out_shape)
+
+            def warp(vols, ms):
+                return multipass_affine_warp_zyx_batched(vols, ms, out_shape, frame=frame,
+                                                         device=dev)
+        except ValueError:  # a vanishing pivot (e.g. a 90 degree permutation)
+            def warp(vols, ms):
+                return torch.stack([affine_warp_zyx(v, m, out_shape, device=dev)
+                                    for v, m in zip(vols, ms)])
+    return warp, workspace

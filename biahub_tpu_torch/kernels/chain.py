@@ -47,6 +47,7 @@ from biahub_tpu_torch.kernels.deskew import (
     DeskewGeometry,
     deskew_geometry,
     deskew_zyx,
+    fill_overhang_,
 )
 from biahub_tpu_torch.kernels.deskew_cuda import deskew
 from biahub_tpu_torch.kernels.fft import (
@@ -82,56 +83,66 @@ __all__ = [
 
 
 def run_chain(volumes: torch.Tensor, filt: torch.Tensor,
-              geo: DeskewGeometry, out_layout: str = "zyx") -> torch.Tensor:
+              geo: DeskewGeometry, out_layout: str = "zyx", fill=None) -> torch.Tensor:
     """A -> B -> C per volume, then D over the batch: (B, Z, Y, X) float32
     or uint16 on one device -> (B, groups, Y_out, X_out) float32, or (B,
     X_out, groups, Y_out) with ``out_layout="xzy"``. One spectrum buffer
     serves every volume. A shape past ``fft.deconvolve_limit`` is
-    deconvolved with ``torch.fft`` instead of A, B and C."""
+    deconvolved with ``torch.fft`` instead of A, B and C. ``fill``: the
+    overhang fill (``deskew.overhang_fill_value``; zyx store only), applied
+    to each deskewed volume."""
+    if fill is not None and out_layout != "zyx":
+        raise ValueError("run_chain: the overhang fill needs the zyx store")
     batch = volumes.shape[0]
     decon = torch.empty((batch,) + tuple(volumes.shape[1:]), dtype=torch.float32,
                         device=volumes.device)
     if takes_torch_fft("deconvolve_then_deskew", volumes.shape[1:]):
         for b in range(batch):
             filter_torch_fft(volumes[b], filt, out=decon[b])
-        return deskew(decon, geo, out_layout)
-    spectrum = torch.empty(half_spectrum_shape(volumes.shape[1:]),
-                           dtype=torch.complex64, device=volumes.device)
-    for b in range(batch):
-        fwd_yx(volumes[b], out=spectrum)
-        z_filter_(spectrum, filt)
-        inv_yx(spectrum, out=decon[b])
-    return deskew(decon, geo, out_layout)
+    else:
+        spectrum = torch.empty(half_spectrum_shape(volumes.shape[1:]),
+                               dtype=torch.complex64, device=volumes.device)
+        for b in range(batch):
+            fwd_yx(volumes[b], out=spectrum)
+            z_filter_(spectrum, filt)
+            inv_yx(spectrum, out=decon[b])
+    return fill_overhang_(deskew(decon, geo, out_layout), fill)
 
 
 def run_chain_warp(volumes: torch.Tensor, filt: torch.Tensor, geo: DeskewGeometry,
                    coeffs: torch.Tensor, output_shape, fill: float = 0.0,
-                   out_layout: str = "zyx") -> torch.Tensor:
+                   out_layout: str = "zyx", overhang_fill=None) -> torch.Tensor:
     """:func:`run_chain` (``geo.skip_flip`` set), then kernels E and F once
     each over the batch -> (B, Zo, Yo, Xo) float32. ``coeffs``: the
     :func:`chain_warp_coefficients` of the warp, on the volumes' device.
     ``out_layout="xzy"`` hands the deskew to the warp in (B, X', Z', Y')
-    (the reference's xzy handoff); the output is the same to the bit."""
+    (the reference's xzy handoff); the output is the same to the bit.
+    ``overhang_fill``: the deskew's overhang fill, between D (zyx store)
+    and E, as the reference composes its stages when a fill is asked for
+    (fuse.py:508-511)."""
     from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 
     z_out, y_out, x_out = (int(s) for s in output_shape)
-    deskewed = run_chain(volumes, filt, geo, out_layout)
+    if overhang_fill is not None:
+        out_layout = "zyx"
+    deskewed = run_chain(volumes, filt, geo, out_layout, overhang_fill)
     inter = warp_zy(deskewed, coeffs, (z_out, y_out), input_xzy=out_layout == "xzy")
     return warp_x(inter, coeffs, x_out, geo.out_shape, fill)
 
 
 def run_chain_warp_general(volumes: torch.Tensor, filt: torch.Tensor,
                            geo: DeskewGeometry, matrix: np.ndarray, output_shape,
-                           fill: float = 0.0) -> torch.Tensor:
+                           fill: float = 0.0, overhang_fill=None) -> torch.Tensor:
     """:func:`run_chain` (``geo.skip_flip`` set), then a general 3D warp of
     the batch by ``matrix`` (:func:`chain_warp_matrix`) -> (B, Zo, Yo, Xo)
     float32: the multipass warp with the one matrix for every volume (H
     once per canonical slot), or the exact gather when a pivot vanishes,
-    as the reference's ``affine_warp_auto`` warps each volume."""
+    as the reference's ``affine_warp_auto`` warps each volume.
+    ``overhang_fill``: the deskew's overhang fill, before the warp."""
     from biahub_tpu_torch.kernels.multipass_warp import multipass_affine_warp_zyx_batched
 
     out_shape = tuple(int(s) for s in output_shape)
-    deskewed = run_chain(volumes, filt, geo)
+    deskewed = run_chain(volumes, filt, geo, fill=overhang_fill)
     try:
         return multipass_affine_warp_zyx_batched(
             deskewed, np.stack([matrix] * len(deskewed)), out_shape, fill,

@@ -8,9 +8,12 @@ edge-padded. :func:`deskew_plain` is the plain PyTorch version of that (the
 lerp gather of the reference's XLA route); the CUDA kernel that computes the
 same in one pass is wrapped in :mod:`biahub_tpu_torch.kernels.deskew_cuda`.
 
-``overhang_fill`` (the reference's ``fill_overhang``) is not ported yet: it
-only acts with ``keep_overhang=True`` and a non-zero fill, which raises
-``NotImplementedError`` here.
+With ``keep_overhang=True`` and a non-zero ``overhang_fill``, the deskewed
+volume's zero-padded overhang is then filled (:func:`fill_overhang`, the
+reference's :125-160): the zero mask dilated by three 3x3x3 max-pools,
+filled with a constant or with the mean of the voxels outside it. That is
+plain PyTorch after kernel D, as the reference runs it after its Pallas
+kernel.
 """
 
 from __future__ import annotations
@@ -29,6 +32,10 @@ __all__ = [
     "DeskewGeometry",
     "deskew_geometry",
     "deskew_plain",
+    "overhang_mask",
+    "fill_overhang",
+    "overhang_fill_value",
+    "fill_overhang_",
     "deskew_zyx",
     "deskew_zyx_batched",
 ]
@@ -127,14 +134,8 @@ def deskew_geometry(
     px_to_scan_ratio: float,
     keep_overhang: bool,
     average_window: int = 1,
-    overhang_fill: str | float = 0,
     skip_flip: bool = False,
 ) -> DeskewGeometry:
-    if keep_overhang and overhang_fill != 0:
-        raise NotImplementedError(
-            "biahub_tpu_torch: overhang_fill (fill_overhang) is not ported "
-            f"yet; got overhang_fill={overhang_fill!r} with keep_overhang=True"
-        )
     Z_in, Y_in, X_in = (int(s) for s in zyx_shape)
     output_shape, _ = get_deskewed_data_shape(
         (Z_in, Y_in, X_in), ls_angle_deg, px_to_scan_ratio, keep_overhang
@@ -183,6 +184,62 @@ def deskew_plain(volumes: torch.Tensor, geo: DeskewGeometry) -> torch.Tensor:
     return torch.stack([_deskew_one(v, geo) for v in volumes])
 
 
+def overhang_mask(data: torch.Tensor, dilation_iterations: int = 3) -> torch.Tensor:
+    """Bool mask of ``data == 0`` dilated by ``dilation_iterations`` 3x3x3
+    max-pools with SAME padding and a -inf border (the reference's :125-138)
+    over the last three axes. Those pools compose into one box of half-width
+    ``dilation_iterations`` clipped to the volume, computed exactly on the
+    boolean mask as one dilation per axis, each an OR of shifted copies
+    whose reach doubles (1, then 2 voxels for 3): cheaper on the card than
+    one 7^3 max-pool, the reference's three 3^3 pools or three 1-D max-pools
+    (PERF.md, PR 16)."""
+    mask = data == 0
+    for axis in range(mask.ndim - 3, mask.ndim):
+        n, reach = mask.shape[axis], 0
+        while reach < dilation_iterations and reach < n - 1:
+            step = min(reach + 1, dilation_iterations - reach, n - 1)
+            grown = mask.clone()
+            grown.narrow(axis, step, n - step).logical_or_(mask.narrow(axis, 0, n - step))
+            grown.narrow(axis, 0, n - step).logical_or_(mask.narrow(axis, step, n - step))
+            mask, reach = grown, reach + step
+    return mask
+
+
+def fill_overhang(data: torch.Tensor, fill_value: float | None = None,
+                  dilation_iterations: int = 3) -> torch.Tensor:
+    """``data`` (Z, Y, X) float32 with :func:`overhang_mask`'s voxels
+    replaced by ``fill_value``, or by the mean of the voxels outside the mask
+    when it is None (the reference's :141-160). The mean's sum runs in
+    float64 (the reference's in float32) and is rounded to float32 once."""
+    dilated = overhang_mask(data, dilation_iterations)
+    if fill_value is None:
+        valid = ~dilated
+        total = torch.where(valid, data, 0.0).sum(dtype=torch.float64)
+        count = max(int(valid.sum()), 1)
+        fill = (total / count).to(torch.float32)
+    else:
+        fill = torch.tensor(float(fill_value), dtype=torch.float32, device=data.device)
+    return torch.where(dilated, fill, data)
+
+
+def overhang_fill_value(keep_overhang: bool, overhang_fill: str | float):
+    """The fill a deskew with these settings applies: None when none acts
+    (the overhang is cut, or the fill is 0), else ``"mean"`` or the float
+    (the reference's condition, kernels/deskew.py:222)."""
+    if not keep_overhang or overhang_fill == 0:
+        return None
+    return "mean" if overhang_fill == "mean" else float(overhang_fill)
+
+
+def fill_overhang_(volumes: torch.Tensor, fill) -> torch.Tensor:
+    """:func:`fill_overhang` of each volume of a (B, Z, Y, X) batch in place;
+    ``fill`` as :func:`overhang_fill_value` gives it (None: no change)."""
+    if fill is not None:
+        for v in volumes:
+            v.copy_(fill_overhang(v, None if fill == "mean" else fill))
+    return volumes
+
+
 def deskew_zyx_batched(
     volumes,
     ls_angle_deg: float,
@@ -198,15 +255,18 @@ def deskew_zyx_batched(
     Input axes: 0 = scan, 1 = tilted, 2 = coverslip plane. Output axes: Z
     (coverslip normal, averaged in groups), Y (the input's coverslip axis),
     X (the scan axis). ``skip_flip`` returns Y reversed, for callers that
-    flip on the host or fold the flip into a later warp.
+    flip on the host or fold the flip into a later warp. With
+    ``keep_overhang`` a non-zero ``overhang_fill`` (``"mean"`` or a float)
+    fills each volume's overhang after kernel D (:func:`fill_overhang`).
     """
     from biahub_tpu_torch.kernels.deskew_cuda import deskew
 
     dev = resolve_device(device)
     data = as_tensor(volumes, dev)
     geo = deskew_geometry(data.shape[1:], ls_angle_deg, px_to_scan_ratio,
-                          keep_overhang, average_window, overhang_fill, skip_flip)
-    return deskew(data, geo)
+                          keep_overhang, average_window, skip_flip)
+    return fill_overhang_(deskew(data, geo),
+                          overhang_fill_value(keep_overhang, overhang_fill))
 
 
 def deskew_zyx(

@@ -25,7 +25,12 @@ data adjoint, :func:`resample_pass_adjoint_plain`). Its pass is the XLA
 form ``_apply_pass`` (per-pass fill, taps clamped to the frame), so I and J
 give that form's exact gradient.
 
-Not ported yet: the chunked warps.
+The chunked warps (:func:`multipass_affine_warp_zyx_chunked`,
+:func:`chunked_affine_warp_zyx`, the reference's :629-847) warp a volume
+too large for the device one output chunk at a time: each chunk reads only
+the input box its passes reach (``read_fn``) and warps it with the matrix
+moved to the chunk's origin. That loop is host code around the same
+kernels.
 """
 
 from __future__ import annotations
@@ -49,6 +54,8 @@ __all__ = [
     "multipass_affine_warp_zyx",
     "multipass_affine_warp_zyx_batched",
     "union_frame",
+    "multipass_affine_warp_zyx_chunked",
+    "chunked_affine_warp_zyx",
 ]
 
 
@@ -564,3 +571,170 @@ def make_traced_multipass_warp(
         return torch.where(inside, out, torch.tensor(float(fill), dtype=out.dtype, device=dev))
 
     return warp
+
+
+# Catmull-Rom reads i0 - 1 .. i0 + 2: the support a chunk's input box keeps.
+_SUPPORT = 3
+
+
+def _pass_input_needs(passes, support: int):
+    """Input-coordinate box a chunk's pass chain touches: the chunk box
+    back-propagated through every pass (intermediate shears overshoot the
+    plain affine image of the corners), widened by the interpolation
+    support at every pass."""
+
+    def input_needs(lo, hi):
+        b_lo, b_hi = lo.copy(), hi.copy()
+        for r, o, cr, co, tau in reversed(passes):
+            vals = [
+                cr * v + (co * w if o != r else 0.0) + tau
+                for v in (b_lo[r], b_hi[r])
+                for w in ((b_lo[o], b_hi[o]) if o != r else (0.0,))
+            ]
+            b_lo[r], b_hi[r] = min(vals) - support, max(vals) + support
+        return b_lo, b_hi
+
+    return input_needs
+
+
+def _corner_input_needs(matrix: np.ndarray, support: int):
+    """Input box for single-pass warps: the affine image of the 8 corners."""
+
+    def input_needs(lo, hi):
+        corners = np.array(
+            [[z, y, x, 1.0] for z in (lo[0], hi[0]) for y in (lo[1], hi[1])
+             for x in (lo[2], hi[2])]
+        )
+        imgs = (matrix @ corners.T)[:3]
+        return imgs.min(axis=1) - support, imgs.max(axis=1) + support
+
+    return input_needs
+
+
+def _chunked_warp_loop(read_fn, matrix: np.ndarray, in_shape, out_shape, chunk_zyx,
+                       input_needs, warp_chunk, write_fn, dev: torch.device):
+    """The reference's loop (:789-847): for each output chunk in z, y, x
+    order, read its input box (clipped to the volume, ``_SUPPORT`` voxels of
+    margin), warp it with ``local`` (global out = chunk start + local out,
+    global in = box start + local in), and hand ``(slices, chunk)`` to
+    ``write_fn(zs, ys, xs, chunk)``, or collect the pairs when it is None."""
+    in_shape = tuple(int(s) for s in in_shape)
+    out_shape = tuple(int(s) for s in out_shape)
+    results = []
+    for z0 in range(0, out_shape[0], chunk_zyx[0]):
+        for y0 in range(0, out_shape[1], chunk_zyx[1]):
+            for x0 in range(0, out_shape[2], chunk_zyx[2]):
+                lo = np.array([z0, y0, x0], dtype=np.float64)
+                hi = np.minimum(lo + np.asarray(chunk_zyx) - 1,
+                                np.asarray(out_shape, dtype=np.float64) - 1)
+                need_lo, need_hi = input_needs(lo, hi)
+                in_lo = np.clip(np.floor(need_lo) - _SUPPORT, 0, None).astype(int)
+                in_hi = np.minimum(np.ceil(need_hi) + _SUPPORT,
+                                   np.asarray(in_shape) - 1).astype(int)
+                in_hi = np.maximum(in_hi, in_lo)  # a chunk wholly outside the input
+                sub = read_fn(slice(in_lo[0], in_hi[0] + 1), slice(in_lo[1], in_hi[1] + 1),
+                              slice(in_lo[2], in_hi[2] + 1))
+                local = matrix.copy()
+                local[:3, 3] = matrix[:3, 3] + matrix[:3, :3] @ lo - in_lo.astype(np.float64)
+                chunk_shape = tuple(int(s) for s in (hi - lo).astype(int) + 1)
+                out_chunk = warp_chunk(as_tensor(sub, dev), local, chunk_shape)
+                sl = (slice(z0, z0 + chunk_shape[0]), slice(y0, y0 + chunk_shape[1]),
+                      slice(x0, x0 + chunk_shape[2]))
+                if write_fn is not None:
+                    write_fn(*sl, out_chunk)
+                else:
+                    results.append((sl, out_chunk))
+    return results if write_fn is None else None
+
+
+def multipass_affine_warp_zyx_chunked(
+    read_fn,
+    matrix,
+    in_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+    chunk_zyx: tuple[int, int, int],
+    fill: float = 0.0,
+    write_fn=None,
+    device: str | torch.device = "cuda",
+):
+    """General warp of a volume too large for the device, one output chunk
+    at a time (the reference's :629-667): each chunk's input box is the
+    chunk box back-propagated through the pass chain; only that box is read
+    (``read_fn(z_slice, y_slice, x_slice)``, an array or a tensor) and warped
+    by :func:`multipass_affine_warp_zyx` with the matrix moved to the chunk.
+    Chunks go to ``write_fn(z_slice, y_slice, x_slice, chunk)``, or come
+    back as a list of ``(slices, chunk)``. The fill mask is exact; interior
+    values agree with the whole-volume warp at the multipass interpolation
+    tolerance (the reference states ~0.3% on smooth data: the factored
+    passes' intermediate lattice shifts with the chunk's offset)."""
+    dev = resolve_device(device)
+    matrix = np.asarray(matrix, dtype=np.float64)
+
+    def warp_chunk(sub, local, chunk_shape):
+        return multipass_affine_warp_zyx(sub, local, chunk_shape, fill=fill, device=dev)
+
+    return _chunked_warp_loop(read_fn, matrix, in_shape, out_shape, chunk_zyx,
+                              _pass_input_needs(factor_affine(matrix), _SUPPORT),
+                              warp_chunk, write_fn, dev)
+
+
+def chunked_affine_warp_zyx(
+    read_fn,
+    matrix,
+    in_shape: tuple[int, int, int],
+    out_shape: tuple[int, int, int],
+    chunk_zyx: tuple[int, int, int],
+    fill: float = 0.0,
+    write_fn=None,
+    order: int = 1,
+    device: str | torch.device = "cuda",
+):
+    """The chunked warp that dispatches each chunk as
+    :func:`~biahub_tpu_torch.kernels.affine.affine_warp_auto` does (the
+    reference's :708-787), so results do not depend on the batch budget.
+    Order 1: a translation takes ``translation_warp_zyx`` with the chunk's
+    translation computed as float32(global) + an integer, so that its
+    samples round as the whole-volume warp's; an in-plane matrix the
+    in-plane warp (kernels E and F), its input box from the same three
+    passes; any other the multipass warp, or the exact gather when a pivot
+    vanishes. Other orders take the exact gather, the box from the corners.
+    ``read_fn`` and ``write_fn`` as in
+    :func:`multipass_affine_warp_zyx_chunked`."""
+    from biahub_tpu_torch.kernels.affine import (
+        affine_warp_auto,
+        is_inplane_matrix,
+        is_translation_matrix,
+        translation_warp_zyx,
+    )
+
+    dev = resolve_device(device)
+    m = np.asarray(matrix, dtype=np.float64)
+    translation = order == 1 and is_translation_matrix(m)
+
+    def warp_chunk(sub, local, chunk_shape):
+        if translation:
+            m_int = np.round(local[:3, 3] - m[:3, 3]).astype(np.float32)
+            shift = m[:3, 3].astype(np.float32) + m_int
+            return translation_warp_zyx(sub, shift, chunk_shape, fill=fill, device=dev)
+        return affine_warp_auto(sub, local, chunk_shape, fill=fill, order=order, device=dev)
+
+    if translation:
+        passes = [(ax, ax, 1.0, 0.0, float(m[ax, 3])) for ax in range(3)]
+        input_needs = _pass_input_needs(passes, _SUPPORT)
+    elif order == 1 and is_inplane_matrix(m):
+        b1 = m[1, 2] / m[2, 2]
+        passes = [
+            (0, 0, float(m[0, 0]), 0.0, float(m[0, 3])),
+            (1, 2, float(m[1, 1] - b1 * m[2, 1]), float(b1), float(m[1, 3] - b1 * m[2, 3])),
+            (2, 1, float(m[2, 2]), float(m[2, 1]), float(m[2, 3])),
+        ]
+        input_needs = _pass_input_needs(passes, _SUPPORT)
+    elif order == 1:
+        try:
+            input_needs = _pass_input_needs(factor_affine(m), _SUPPORT)
+        except ValueError:  # a vanishing pivot: the exact gather per chunk
+            input_needs = _corner_input_needs(m, _SUPPORT)
+    else:
+        input_needs = _corner_input_needs(m, _SUPPORT)
+    return _chunked_warp_loop(read_fn, m, in_shape, out_shape, chunk_zyx, input_needs,
+                              warp_chunk, write_fn, dev)

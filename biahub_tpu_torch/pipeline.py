@@ -15,6 +15,12 @@ spectral_deskew_supported` (and, for the chain, an in-plane warp) holds,
 and holds its lerp-DFT table as the buffer ``deskew_table``, as
 ``fuse.py:520-535`` and ``fuse.py:610-628`` hoist ``deskew_table``; the
 buffer is None on the other route.
+
+With ``keep_overhang`` and a non-zero ``overhang_fill`` both fill each
+deskewed volume's overhang (``kernels/deskew.py::fill_overhang``) after
+kernel D, and the chain warps the filled volume from D's zyx store: the
+reference composes its stages so when a fill is asked for (fuse.py:
+508-511), and takes no spectral engine then.
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ from biahub_tpu_torch.kernels.chain import (
     run_chain_warp_general,
 )
 from biahub_tpu_torch.kernels.deconvolve import volume_tensor
-from biahub_tpu_torch.kernels.deskew import deskew_geometry
+from biahub_tpu_torch.kernels.deskew import deskew_geometry, overhang_fill_value
 from biahub_tpu_torch.kernels.fft import prepare_fourier_filter
 from biahub_tpu_torch.kernels.spectral import (
     prepare_spectral_deskew,
@@ -50,9 +56,11 @@ class DeconvolveDeskew(nn.Module):
 
     The prepared filter ``tf / (tf^2 + reg)`` is the buffer ``filter`` (so
     ``.to(device)`` moves it); the deskew geometry is the attribute
-    ``geometry``. Volumes must have the ``zyx_shape`` the module was built
-    for. ``spectral``: take the spectral engine (the buffer
-    ``deskew_table``) where the kernels take the geometry.
+    ``geometry``, the fill ``overhang_fill``
+    (:func:`~biahub_tpu_torch.kernels.deskew.overhang_fill_value`). Volumes
+    must have the ``zyx_shape`` the module was built for. ``spectral``:
+    take the spectral engine (the buffer ``deskew_table``) where the kernels
+    take the geometry and no fill acts.
     """
 
     def __init__(
@@ -73,12 +81,13 @@ class DeconvolveDeskew(nn.Module):
         dev = resolve_device(device)
         self.geometry = deskew_geometry(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang,
-            average_window, overhang_fill, skip_flip,
+            average_window, skip_flip,
         )
+        self.overhang_fill = overhang_fill_value(keep_overhang, overhang_fill)
         self.register_buffer("filter", prepare_fourier_filter(
             zyx_shape, transfer_function_half, regularization_strength, dev
         ))
-        take = spectral and spectral_deskew_supported(
+        take = spectral and self.overhang_fill is None and spectral_deskew_supported(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window)
         self.register_buffer("deskew_table", prepare_spectral_deskew(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, dev
@@ -86,7 +95,8 @@ class DeconvolveDeskew(nn.Module):
 
     def forward(self, volumes) -> torch.Tensor:
         if self.deskew_table is None:
-            return run_chain(_batch(self, volumes), self.filter, self.geometry)
+            return run_chain(_batch(self, volumes), self.filter, self.geometry,
+                             fill=self.overhang_fill)
         out = run_spectral(_batch(self, volumes), self.filter, self.deskew_table,
                            self.geometry)
         return out if self.geometry.skip_flip else out.flip(2)
@@ -114,10 +124,11 @@ class DeconvolveDeskewWarp(nn.Module):
     chain_warp_matrix`, the deskew's Y flip folded in; a general one takes
     the multipass warp), the deskew ``geometry`` (``skip_flip`` set), the
     warp's logical input ``logical_zyx_shape`` (the deskewed (groups,
-    Y_out, X_out)), ``output_shape`` (default the same) and ``fill``.
-    ``spectral``: take the spectral engine's xzy store into E and F (the
-    buffer ``deskew_table``) where
-    :func:`~biahub_tpu_torch.kernels.chain.chain_warp_spectral_route` holds.
+    Y_out, X_out)), ``output_shape`` (default the same), ``fill`` and the
+    deskew's ``overhang_fill``. ``spectral``: take the spectral engine's xzy
+    store into E and F (the buffer ``deskew_table``) where
+    :func:`~biahub_tpu_torch.kernels.chain.chain_warp_spectral_route` holds
+    and no overhang fill acts.
     """
 
     def __init__(
@@ -140,8 +151,9 @@ class DeconvolveDeskewWarp(nn.Module):
         dev = resolve_device(device)
         self.geometry = deskew_geometry(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang,
-            average_window, overhang_fill, skip_flip=True,
+            average_window, skip_flip=True,
         )
+        self.overhang_fill = overhang_fill_value(keep_overhang, overhang_fill)
         self.logical_zyx_shape = self.geometry.out_shape
         self.output_shape = tuple(int(s) for s in (
             output_shape if output_shape is not None else self.logical_zyx_shape))
@@ -152,7 +164,7 @@ class DeconvolveDeskewWarp(nn.Module):
         self.matrix = chain_warp_matrix(matrix, self.geometry)
         self.register_buffer("warp", inplane_coefficients(self.matrix).to(dev)
                              if is_inplane_matrix(self.matrix) else None)
-        take = spectral and chain_warp_spectral_route(
+        take = spectral and self.overhang_fill is None and chain_warp_spectral_route(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, matrix)
         self.register_buffer("deskew_table", prepare_spectral_deskew(
             zyx_shape, ls_angle_deg, px_to_scan_ratio, keep_overhang, average_window, dev
@@ -164,6 +176,8 @@ class DeconvolveDeskewWarp(nn.Module):
                                      self.geometry, self.warp, self.output_shape, self.fill)
         if self.warp is None:
             return run_chain_warp_general(_batch(self, volumes), self.filter, self.geometry,
-                                          self.matrix, self.output_shape, self.fill)
+                                          self.matrix, self.output_shape, self.fill,
+                                          self.overhang_fill)
         return run_chain_warp(_batch(self, volumes), self.filter, self.geometry,
-                              self.warp, self.output_shape, self.fill)
+                              self.warp, self.output_shape, self.fill,
+                              overhang_fill=self.overhang_fill)

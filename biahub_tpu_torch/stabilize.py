@@ -11,29 +11,23 @@ one matrix per volume; both run kernels E and F once per batch, with a
 (:func:`~biahub_tpu_torch.kernels.multipass_warp.
 multipass_affine_warp_zyx_batched`: kernel H once per canonical slot and
 batch, with a (B, 7, 3) table, in one frame for the whole run), or the
-exact gather when a matrix has a vanishing pivot.
+exact gather when a matrix has a vanishing pivot
+(:func:`~biahub_tpu_torch.kernels.affine.make_batched_warp`). When one
+volume, its output and its frames exceed the batch budget, each volume is
+warped in output chunks (the reference's :216-262).
 """
 
 from __future__ import annotations
+
+import sys
 
 import numpy as np
 import torch
 
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
-from biahub_tpu_torch.kernels.affine import (
-    affine_warp_auto,
-    affine_warp_zyx,
-    inplane_affine_warp_zyx_batched,
-    is_inplane_matrix,
-    is_translation_matrix,
-    translation_warp_zyx_batched,
-)
-from biahub_tpu_torch.kernels.multipass_warp import (
-    common_frame_bytes,
-    multipass_affine_warp_zyx_batched,
-    union_frame,
-)
+from biahub_tpu_torch.kernels.affine import affine_warp_auto, make_batched_warp
+from biahub_tpu_torch.kernels.multipass_warp import chunked_affine_warp_zyx
 
 __all__ = ["apply_stabilization_transform", "stabilize_tczyx", "stabilize_batch_size"]
 
@@ -98,7 +92,9 @@ def stabilize_tczyx(
     fill 0. ``time_indices``: ``"all"``, a list, or one index. The (t, c)
     volumes run in batches of :func:`stabilize_batch_size`: one launch of
     kernels E and F per batch, or of H per canonical slot for general
-    matrices."""
+    matrices. Past ``max_batch_bytes`` for one volume (input, output and
+    the multipass frames), each volume runs in output chunks and the result
+    is in host memory (:func:`_stabilize_chunked`)."""
     dev = resolve_device(device)
     T, C, Z, Y, X = tczyx.shape
     mats = np.asarray(matrices, dtype=np.float64)
@@ -116,30 +112,43 @@ def stabilize_tczyx(
     units = [(t, c) for t in times for c in range(C)]
     # The kernel is chosen from every matrix given, as the reference's
     # (:172-213), not only from the timepoints warped.
-    if all(is_translation_matrix(m) for m in mats):
-        def warp(vols, ms):
-            return translation_warp_zyx_batched(vols, ms[:, :3, 3], out_zyx, device=dev)
-    elif all(is_inplane_matrix(m) for m in mats):
-        def warp(vols, ms):
-            return inplane_affine_warp_zyx_batched(vols, ms, out_zyx, device=dev)
-    else:
-        try:
-            # One frame for every batch, spanning all the matrices' bounds.
-            frame = union_frame(mats, (Z, Y, X), out_zyx)
-
-            def warp(vols, ms):
-                return multipass_affine_warp_zyx_batched(vols, ms, out_zyx, frame=frame,
-                                                         device=dev)
-        except ValueError:  # a vanishing pivot (e.g. a 90 degree permutation)
-            def warp(vols, ms):
-                return torch.stack([affine_warp_zyx(v, m, out_zyx, device=dev)
-                                    for v, m in zip(vols, ms)])
+    warp, workspace = make_batched_warp(mats, (Z, Y, X), out_zyx, dev)
+    volume_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx))) + workspace
+    if volume_bytes > max_batch_bytes:
+        return _stabilize_chunked(tczyx, mats, times, out_zyx, volume_bytes,
+                                  max_batch_bytes, dev)
     out = torch.empty((len(times), C) + out_zyx, dtype=torch.float32, device=dev)
     flat = out.view(len(units), *out_zyx)
-    step = stabilize_batch_size((Z, Y, X), out_zyx, len(units), max_batch_bytes,
-                                common_frame_bytes(mats, (Z, Y, X), out_zyx))
+    step = stabilize_batch_size((Z, Y, X), out_zyx, len(units), max_batch_bytes, workspace)
     for i in range(0, len(units), step):
         batch = units[i:i + step]
         vols = torch.stack([as_tensor(tczyx[t, c], dev) for t, c in batch])
         flat[i:i + len(batch)] = warp(vols, mats[[t for t, _ in batch]])
+    return out
+
+
+def _stabilize_chunked(tczyx, mats, times, out_zyx, volume_bytes: int,
+                       max_batch_bytes: int, dev: torch.device) -> torch.Tensor:
+    """The reference's over-budget route (stabilize.py:216-262): one
+    volume and its frames exceed ``max_batch_bytes``, so each (t, c) is
+    warped by its timepoint's matrix in output chunks of ``max(32, s //
+    n_splits)`` through :func:`~biahub_tpu_torch.kernels.multipass_warp.
+    chunked_affine_warp_zyx`, its input read box by box. The result is in
+    host memory."""
+    T, C, Z, Y, X = tczyx.shape
+    n_splits = max(1, int(np.ceil(volume_bytes / max_batch_bytes)))
+    chunk = tuple(max(32, s // n_splits) for s in out_zyx)
+    print(f"Volume exceeds the device batch budget; stabilizing in output chunks of {chunk}",
+          file=sys.stderr)
+    out = torch.zeros((len(times), C) + out_zyx, dtype=torch.float32)
+    for t_out, t in enumerate(times):
+        for c in range(C):
+            def read_fn(zs, ys, xs, _t=t, _c=c):
+                return tczyx[_t, _c, zs, ys, xs]
+
+            def write_fn(zs, ys, xs, data, _t=t_out, _c=c):
+                out[_t, _c, zs, ys, xs] = data.cpu()
+
+            chunked_affine_warp_zyx(read_fn, mats[t], (Z, Y, X), out_zyx, chunk,
+                                    write_fn=write_fn, device=dev)
     return out

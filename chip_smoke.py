@@ -225,6 +225,42 @@ Then kernels G and Bx after their redesign, and D's batch chunks:
     past the kernel's grid of 65535), launched in chunks, both stores bit-
     equal to deskewing the volumes one by one.
 
+Then the fused pipeline and the verbs on arrays, at full width:
+
+22. (a) ``fuse_arrays`` on the mantis FOV (T 2, C 2, uint16 from seed 0)
+    at the users' settings: flat-field on channel 0, deconvolve (reg 1e-3,
+    the main path's PSF), deskew with settings/example_deskew_settings.yml
+    (36.17 deg, ratio 0.371, the overhang kept and filled with the mean,
+    avg 3: the frame (86, 1024, 897)), and the registration block of
+    settings/example_fuse_pipeline_settings.yml (its -5, 2.5 shift with a
+    0.5 deg rotation) composed with one in-plane stabilization matrix per
+    timepoint: launches A, B, C 4, D, E, F 2; held within FFT_TOL of the
+    same call through every kernel's plain version (``all_plain``) outside
+    the voxels that an exact zero of one route's deconvolution moves (the
+    fill masks data == 0; both routes' zero sets are checked to differ only
+    where the other route is within FFT_TOL of 0), D equal to its plain
+    version on each route's deconvolution; ms/volume (host clock) and the
+    fill's share; (b) the route with no fill and one matrix (``reg_stab``)
+    at the headline, 4 volumes: equal to ``run_chain_warp`` with the xzy
+    handoff bit for bit, launches A, B, C 4, D, E, F 1, ms/volume; (c)
+    general per-timepoint matrices (rotations about (1, 1, 1)) after the
+    deskew (86, 1024, 484): H 7 launches in one union frame, within 1e-5 of
+    the plain route; (d) flat-field -> deskew (mean fill) -> warp over a
+    FUSE_BUDGET of 256 MiB (flat-field in Y slabs, the deskew in X slabs,
+    the fill in Y slabs, the warp in output chunks) against the in-budget
+    result, on the users' data and on smooth data, within the warp's float32
+    coordinate rounding (COORD_ULPS ulp of the largest coordinate in each
+    of its two passes times the largest step of its input), the deskew's
+    slabs bit-equal and the chunked fill equal to the whole fill, and the
+    chunked warp against the whole warp on smooth data: translation and
+    in-plane within 1e-5, general within MULTIPASS_TOL, every voxel that
+    one float32 mask fills and the other does not within EDGE_EPS of the
+    volume's edge; (e) ``deskew_arrays`` with the example deskew settings
+    against its own X-slab route, and ``flat_field_arrays`` (no kernel);
+    (f) ``register_arrays`` at (86, 1024, 484) with ``keep_overhang``
+    false: the crop the LIR of the warped frame, the target copied cropped,
+    the source equal to ``affine_warp_auto`` with the crop folded in.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -491,6 +527,26 @@ Z_SHAPES = {"z_filter": ((256, 256, 513), False), "z_filter_complex": ((86, 1024
             "z_filter_shard": ((256, 64, 513), False)}
 TRACE_REPS = 20
 L2_FLUSH_BYTES = 256 << 20
+# Phase 22, the fused pipeline and the verbs on arrays: T and C of the
+# mantis FOV, settings/example_deskew_settings.yml's fields, the
+# registration block of settings/example_fuse_pipeline_settings.yml (its
+# -5, 2.5 shift, with a small rotation added), a budget that forces the
+# over-budget routes at full width, and the chunked multipass warp's
+# tolerance on smooth data (biahub_tpu/kernels/multipass_warp.py:646-648).
+FUSE_T, FUSE_C = 2, 2
+FUSE_DESKEW = {"pixel_size_um": 0.116, "ls_angle_deg": 36.17, "px_to_scan_ratio": 0.371,
+               "scan_step_um": 0.313, "keep_overhang": True, "average_n_slices": 3,
+               "overhang_fill": "mean"}
+FUSE_REG_DEG, FUSE_REG_SHIFT = 0.5, (-5.0, 2.5)
+FUSE_BUDGET = 256 << 20
+FUSE_REPS = 3
+MULTIPASS_TOL = 3e-3
+# Phase 22d: the in- and over-budget routes' coordinates round apart by at
+# most this many float32 ulp of the largest coordinate in each warp pass.
+COORD_ULPS = 4
+# Phase 22d: voxels whose exact input coordinate lies this close (voxels) to
+# the volume's edge may be filled by one float32 mask and not by another.
+EDGE_EPS = 1e-3
 
 
 def samples_ms(fn, setup=None, reps: int = REPS) -> list[float]:
@@ -3121,6 +3177,388 @@ def pass_library(frame: torch.Tensor, table: torch.Tensor, slot: int, r: int, o:
                                                    padding_mode="border", align_corners=True)
 
 
+@contextlib.contextmanager
+def all_plain():
+    """Every kernel wrapper takes its plain PyTorch version, on the card
+    (``_build.on_card`` is consulted at each call); nothing is counted."""
+    from biahub_tpu_torch.kernels import _build
+
+    saved = _build.on_card
+    _build.on_card = lambda t, what: False
+    try:
+        yield
+    finally:
+        _build.on_card = saved
+
+
+def inplane_about_centre(deg: float, shift, zyx_shape) -> np.ndarray:
+    """Output->input rotation by ``deg`` in the YX plane about the centre
+    of ``zyx_shape``, then ``shift`` (y, x)."""
+    t = np.deg2rad(deg)
+    m = np.eye(4)
+    m[1:3, 1:3] = [[np.cos(t), -np.sin(t)], [np.sin(t), np.cos(t)]]
+    c = (np.asarray(zyx_shape[1:], float) - 1) / 2
+    m[1:3, 3] = c - m[1:3, 1:3] @ c + np.asarray(shift, float)
+    return m
+
+
+def tilted_rotation(deg: float, shift, zyx_shape) -> np.ndarray:
+    """Output->input rotation by ``deg`` about the axis (1, 1, 1) through the
+    centre of ``zyx_shape``, then ``shift``: every canonical slot of the
+    multipass warp is a shear."""
+    axis = np.ones(3) / np.sqrt(3.0)
+    t = np.deg2rad(deg)
+    k = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+    r = np.eye(3) + np.sin(t) * k + (1 - np.cos(t)) * (k @ k)
+    m = np.eye(4)
+    m[:3, :3] = r
+    c = (np.asarray(zyx_shape, float) - 1) / 2
+    m[:3, 3] = c - r @ c + np.asarray(shift, float)
+    return m
+
+
+def edge_voxels(matrix: np.ndarray, in_shape, out_shape, dev: torch.device) -> torch.Tensor:
+    """(Zo, Yo, Xo) bool: the output voxels whose exact input coordinate
+    (float64) lies within EDGE_EPS of an edge of the ``in_shape`` domain on
+    some axis, where float32 masks computed in different frames may
+    disagree."""
+    m = torch.tensor(np.asarray(matrix, dtype=np.float64), device=dev)
+    grid = [torch.arange(n, dtype=torch.float64, device=dev) for n in out_shape]
+    zo, yo, xo = grid[0][:, None, None], grid[1][None, :, None], grid[2][None, None, :]
+    near = torch.zeros(tuple(out_shape), dtype=torch.bool, device=dev)
+    for a in range(3):
+        c = m[a, 0] * zo + m[a, 1] * yo + m[a, 2] * xo + m[a, 3]
+        near |= ((c.abs() <= EDGE_EPS) | ((c - (in_shape[a] - 1)).abs() <= EDGE_EPS))
+        del c
+    return near
+
+
+def fuse_phase(dev: torch.device, tf_half: np.ndarray) -> None:
+    """Phase 22: the fused pipeline and the deskew, flat-field and register
+    verbs on arrays at full width (module docstring, 22a-f)."""
+    from biahub_tpu_torch import deskew_arrays, flat_field_arrays, fuse_arrays, register_arrays
+    from biahub_tpu_torch.deskew import deskew_slabbed, fill_overhang_chunked
+    from biahub_tpu_torch.kernels import fft as kfft
+    from biahub_tpu_torch.kernels.affine import (
+        affine_warp_auto,
+        inplane_affine_warp_zyx,
+        inplane_affine_warp_zyx_batched,
+        inplane_coefficients,
+    )
+    from biahub_tpu_torch.kernels.chain import chain_warp_matrix, flip_y_matrix, run_chain_warp
+    from biahub_tpu_torch.kernels.deconvolve import deconvolve_zyx
+    from biahub_tpu_torch.kernels.deskew import (
+        deskew_geometry,
+        deskew_plain,
+        deskew_zyx,
+        fill_overhang,
+        get_deskewed_data_shape,
+        overhang_mask,
+    )
+    from biahub_tpu_torch.kernels.deskew_cuda import deskew
+    from biahub_tpu_torch.kernels.flat_field import flat_field_zyx
+    from biahub_tpu_torch.kernels.multipass_warp import (
+        chunked_affine_warp_zyx,
+        multipass_affine_warp_zyx,
+    )
+    from biahub_tpu_torch.device import gpu_info
+
+    card = gpu_info()
+    names = ["GFP", "Phase3D"]
+    # The transfer function lives on the card, as a caller that runs many
+    # timepoints holds it: the times below are the volumes', not its upload.
+    tf_half = torch.from_numpy(np.ascontiguousarray(tf_half)).to(dev)
+    z, y, x = SHAPE
+    frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
+    print(f"22. fused pipeline at the users' settings: raw {SHAPE}, deskewed frame {frame}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    raw = torch.randint(0, 65536, (FUSE_T, FUSE_C) + SHAPE, generator=gen, device=dev,
+                        dtype=torch.int32).to(torch.uint16)
+    m_reg = inplane_about_centre(FUSE_REG_DEG, FUSE_REG_SHIFT, frame)
+    m_stab = [inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame)
+              for t in range(FUSE_T)]
+    users = {"flat_field": {"channel_names": ["GFP"]},
+             "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
+             "registration": {"affine_transform_zyx": m_reg.tolist()},
+             "stabilization": {"affine_transform_zyx_list": [m.tolist() for m in m_stab]}}
+
+    # (a) the users' settings: flat-field on channel 0, then deconvolve,
+    # deskew with the mean fill, and register∘stabilize, per timepoint.
+    out_a, launches_a = counted(lambda: fuse_arrays(raw, names, users, tf_half, device=dev))
+    n_units = FUSE_T * FUSE_C
+    want_a = {"fwd_yx": n_units, "z_filter": n_units, "inv_yx": n_units, "deskew": 2,
+              "warp_zy": 2, "warp_x": 2}
+    require(launches_a == want_a, f"fuse (a) launches {launches_a}, want {want_a}")
+    require(out_a.shape == (FUSE_T, FUSE_C) + tuple(frame), f"fuse (a) shape {out_a.shape}")
+    require(bool(torch.isfinite(out_a).all()), "fuse (a) output is not finite")
+    with all_plain():
+        plain_a = fuse_arrays(raw, names, users, tf_half, device=dev)
+    # The fill masks data == 0 (fill_overhang), and a deconvolved volume can
+    # hold exact zeros of its own: where two FFT routes that agree to ~1e-6
+    # round a voxel to 0 in one and not in the other, the mask, and so the
+    # fill, differs in the 7^3 box around it. So: D exact on each route's
+    # deconvolution (values, and so zeros, equal to its plain version); every
+    # difference of the two routes' deskewed zero sets a value within FFT_TOL
+    # of 0 in the other route; the output within FFT_TOL of the plain route
+    # outside those boxes as the warp carries them.
+    filt = kfft.prepare_fourier_filter(SHAPE, tf_half, REG, dev)
+    geo_f = deskew_geometry(SHAPE, ANGLE, RATIO, True, AVG, skip_flip=True)
+    affected = torch.zeros(out_a.shape, dtype=torch.bool, device=dev)
+    data_zeros, d_exact, masked = 0, True, 0
+    for t in range(FUSE_T):
+        m_t = flip_y_matrix(frame[1]) @ m_reg @ m_stab[t]
+        for c in range(FUSE_C):
+            v = flat_field_zyx(raw[t, c], device=dev) if c == 0 else raw[t, c]
+            dec_k = deconvolve_zyx(v, prepared=filt, device=dev)
+            with all_plain():
+                dec_p = deconvolve_zyx(v, prepared=filt, device=dev)
+            data_zeros += int((dec_k == 0).sum()) + int((dec_p == 0).sum())
+            desk_k = deskew(dec_k[None], geo_f)[0]
+            d_exact = d_exact and torch.equal(desk_k, deskew_plain(dec_k[None], geo_f)[0])
+            desk_p = deskew_plain(dec_p[None], geo_f)[0]
+            zk, zp = desk_k == 0, desk_p == 0
+            if not torch.equal(zk, zp):
+                other = torch.where(zk, desk_p, desk_k)[zk != zp]
+                require(float(other.abs().max()) <= FFT_TOL * float(desk_p.abs().max()),
+                        "fuse (a): the zero sets differ by more than the FFT's rounding")
+            mask_k = overhang_mask(desk_k)
+            masked += int(mask_k.sum())
+            diff = (mask_k != overhang_mask(desk_p)).to(torch.float32)
+            affected[t, c] = inplane_affine_warp_zyx(diff, m_t, tuple(frame), device=dev) > 0
+            del dec_k, dec_p, desk_p, zk, zp, diff
+    require(d_exact, "fuse (a): kernel D differs from its plain version")
+    keep = ~affected
+    a_abs, a_err = rel_err(out_a[keep], plain_a[keep])
+    require(a_err <= FFT_TOL, f"fuse (a) rel err {a_err:.3g} > {FFT_TOL}")
+    n_affected = int(affected.sum())
+    # The fill value: the float64 sum against the float32 sum the reference
+    # takes (jnp.sum), reported.
+    valid = ~mask_k
+    f64 = float(torch.where(valid, desk_k, 0.0).sum(dtype=torch.float64)) / int(valid.sum())
+    f32 = float(torch.where(valid, desk_k, 0.0).sum()) / int(valid.sum())
+    ms_a = host_ms(lambda: fuse_arrays(raw, names, users, tf_half, device=dev),
+                   reps=FUSE_REPS) / n_units
+    fill_ms = time_ms(lambda: fill_overhang(desk_k))
+    # The dilation as the port computes it (per axis an OR of shifted
+    # copies) beside three 1-D max-pools of width 7, one 7^3 max-pool and the
+    # reference's three 3^3 pools: the same mask, timed.
+    zero = (desk_k == 0).to(torch.float32)[None, None]
+
+    def pools(kernels):
+        m = zero
+        for k in kernels:
+            m = torch.nn.functional.max_pool3d(m, k, stride=1, padding=[w // 2 for w in k])
+        return m
+
+    variants = {"three 1-D max-pools": [(7, 1, 1), (1, 7, 1), (1, 1, 7)],
+                "one 7^3 max-pool": [(7, 7, 7)], "three 3^3 max-pools": [(3, 3, 3)] * 3}
+    require(all(torch.equal(pools(k)[0, 0] > 0.5, mask_k) for k in variants.values()),
+            "fuse (a): the dilations disagree")
+    mask_ms = {"the port's OR passes": time_ms(lambda: overhang_mask(desk_k))}
+    mask_ms.update({name: time_ms(lambda k=k: pools(k)) for name, k in variants.items()})
+    del zero
+    print("22a the fill's mask, ms a volume: " + ", ".join(f"{k} {v:.4f}" for k, v in mask_ms.items()))
+    # The stages one by one, per volume: flat-field, A + B + C, D (a batch
+    # of FUSE_T), the fill, E + F with the (FUSE_T, 21) table.
+    vol0 = raw[0, 0]
+    batch_d = torch.stack([deconvolve_zyx(raw[t, 1], prepared=filt, device=dev)
+                           for t in range(FUSE_T)])
+    desk_b = deskew(batch_d, geo_f)
+    mats_a = np.stack([flip_y_matrix(frame[1]) @ m_reg @ m for m in m_stab])
+    stages = {
+        "flat-field": time_ms(lambda: flat_field_zyx(vol0, device=dev)),
+        "deconvolve (A, B, C)": time_ms(lambda: deconvolve_zyx(vol0, prepared=filt,
+                                                               device=dev)),
+        "deskew (D)": time_ms(lambda: deskew(batch_d, geo_f)) / FUSE_T,
+        "fill": fill_ms,
+        "warp (E, F)": time_ms(lambda: inplane_affine_warp_zyx_batched(
+            desk_b, mats_a, tuple(frame), device=dev)) / FUSE_T,
+    }
+    del batch_d, desk_b
+    print("22a stages, ms per volume: " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"; sum {sum(stages.values()):.4f} (flat-field on half the volumes)")
+    print(f"22a fuse_arrays (T {FUSE_T}, C {FUSE_C}, uint16 {SHAPE} -> {tuple(frame)}, "
+          f"flat-field ch 0, reg {REG}, deskew keep_overhang + mean fill, avg {AVG}, "
+          f"in-plane register x stabilize): {ms_a:.4f} ms/volume (host clock, "
+          f"{FUSE_REPS} runs); the fill {fill_ms:.4f} ms/volume = {fill_ms / ms_a:.1%} of it; "
+          f"rel err {a_err:.3g} vs every kernel's plain version (tol {FFT_TOL}) outside "
+          f"{n_affected} of {out_a.numel()} output voxels near {data_zeros} exact zeros "
+          f"of the deconvolutions (either route); D equal to its plain version; "
+          f"{masked / n_units:.0f} voxels masked a volume; fill value of the last volume: "
+          f"float64 sum {f64:.9g}, float32 sum {f32:.9g} (rel {abs(f32 - f64) / abs(f64):.3g}); "
+          f"launches {launches_a}; card {card}")
+    del out_a, plain_a, affected, keep, desk_k, mask_k, valid
+
+    # (b) no fill, one matrix, at the headline: the main path's chain.
+    vols_b = raw.reshape((-1,) + SHAPE)
+    chain_cfg = {"deconvolve": {"regularization_strength": REG},
+                 "deskew": dict(FUSE_DESKEW, keep_overhang=False, overhang_fill=0.0),
+                 "registration": {"affine_transform_zyx": reg_stab_matrix().tolist()}}
+    big = 16 << 30
+    out_b, launches_b = counted(lambda: fuse_arrays(vols_b[:, None], ["GFP"], chain_cfg, tf_half,
+                                                    max_batch_bytes=big, device=dev))
+    geo = deskew_geometry(SHAPE, ANGLE, RATIO, False, AVG, skip_flip=True)
+    coeffs = inplane_coefficients(chain_warp_matrix(reg_stab_matrix(), geo)).to(dev)
+    want_b = run_chain_warp(vols_b, filt, geo, coeffs, geo.out_shape, out_layout="xzy")
+    require(torch.equal(out_b[:, 0].view(torch.int32), want_b.view(torch.int32)),
+            "fuse (b): differs from run_chain_warp")
+    nb = vols_b.shape[0]
+    want_lb = {"fwd_yx": nb, "z_filter": nb, "inv_yx": nb, "deskew_xzy": 1, "warp_zy": 1,
+               "warp_x": 1}
+    require(launches_b == want_lb, f"fuse (b) launches {launches_b}, want {want_lb}")
+    ms_b = host_ms(lambda: fuse_arrays(vols_b[:, None], ["GFP"], chain_cfg, tf_half,
+                                       max_batch_bytes=big, device=dev), reps=FUSE_REPS) / nb
+    print(f"22b fuse_arrays, no fill, one matrix (reg_stab), {nb} volumes {SHAPE}: "
+          f"{ms_b:.4f} ms/volume (host clock), bit-equal to run_chain_warp (xzy handoff); "
+          f"launches {launches_b}; card {card}")
+    del out_b, want_b
+
+    # (c) general per-timepoint matrices: H in one union frame.
+    dk_c = dict(FUSE_DESKEW, keep_overhang=False, overhang_fill=0.0)
+    frame_c, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, False, AVG)
+    tilted = {"deskew": dk_c, "stabilization": {"affine_transform_zyx_list": [
+        tilted_rotation(1.0 + t, (0.3, -0.5 * t, 0.25 * t), frame_c).tolist()
+        for t in range(FUSE_T)]}}
+    raw_c = raw[:, :1]
+    out_c, launches_c = counted(lambda: fuse_arrays(raw_c, ["GFP"], tilted, device=dev))
+    with all_plain():
+        plain_c = fuse_arrays(raw_c, ["GFP"], tilted, device=dev)
+    _, c_err = rel_err(out_c, plain_c)
+    require(c_err <= 1e-5, f"fuse (c) rel err {c_err:.3g} > 1e-5")
+    want_lc = {"deskew": 1, "resample_pass": 7}
+    require(launches_c == want_lc, f"fuse (c) launches {launches_c}, want {want_lc}")
+    print(f"22c fuse_arrays, deskew + general per-timepoint matrices (rotations about "
+          f"(1, 1, 1)), frame {tuple(frame_c)}: rel err {c_err:.3g} vs H's plain route "
+          f"(tol 1e-5); launches {launches_c}")
+    del out_c, plain_c
+
+    # (d) over the budget: flat-field -> deskew (mean fill) -> warp. In
+    # budget the warp reads the deskew with Y reversed and the flip folded
+    # into its matrix; over it, the standard frame and the matrix as given:
+    # equal maps whose float32 coordinates round apart by a few ulp in each
+    # of the warp's two passes. The bound: COORD_ULPS ulp of the largest
+    # coordinate, twice, times the largest step between neighbouring voxels
+    # of the warp's input (the flat-fielded, deskewed, filled volume).
+    over = {"flat_field": {"channel_names": ["GFP"]}, "deskew": FUSE_DESKEW,
+            "stabilization": {"affine_transform_zyx_list": [
+                (m_reg @ m).tolist() for m in m_stab]}}
+    smooth_raw = (smooth_rand(SHAPE, gen) * 65535.0).round().to(torch.int32).to(torch.uint16)
+    ulp = 2.0 ** (math.floor(math.log2(max(frame))) - 23)
+    for label, raw_d in (("the users' data", raw[:1, :1]), ("smooth data", smooth_raw[None, None])):
+        in_budget = fuse_arrays(raw_d, ["GFP"], over, device=dev)
+        t0 = time.perf_counter()
+        chunked = fuse_arrays(raw_d, ["GFP"], over, max_batch_bytes=FUSE_BUDGET, device=dev)
+        over_s = time.perf_counter() - t0
+        require(chunked.device.type == "cpu", "fuse (d): the over-budget result is not on the host")
+        _, d_err = rel_err(chunked.to(dev), in_budget)
+        warp_in = fill_overhang(deskew_zyx(flat_field_zyx(raw_d[0, 0], device=dev), ANGLE, RATIO,
+                                           True, AVG, device=dev))
+        step = max(float(warp_in.diff(dim=d).abs().max()) for d in range(3))
+        d_tol = 2 * COORD_ULPS * ulp * step / float(in_budget.abs().max())
+        del warp_in
+        require(d_err <= d_tol, f"fuse (d) on {label}: rel err {d_err:.3g} > {d_tol:.3g}")
+        print(f"22d fuse_arrays over the budget ({FUSE_BUDGET >> 20} MiB: flat-field in Y slabs, "
+              f"deskew in X slabs, chunked fill, chunked in-plane warp), one volume of {label}: "
+              f"rel err {d_err:.3g} vs in budget (tol {d_tol:.3g}), {over_s:.2f} s (host clock)")
+    del smooth_raw, in_budget, chunked
+    # Its stages alone: the deskew's X slabs bit-equal, the chunked fill
+    # equal to the whole fill.
+    dk = {"ls_angle_deg": ANGLE, "px_to_scan_ratio": RATIO, "keep_overhang": True,
+          "average_window": AVG}
+    # The chunk sizes the over-budget route takes at FUSE_BUDGET
+    # (biahub_tpu/fuse.py:203-272, :350-356).
+    vol_bytes = 4 * (z * y * x + int(np.prod(frame)))
+    x_chunk = -(-x // -(-vol_bytes // FUSE_BUDGET))
+    y_chunk = max(8, FUSE_BUDGET // (16 * frame[0] * frame[2]))
+    w_chunk = tuple(max(32, s // -(-8 * int(np.prod(frame)) // FUSE_BUDGET)) for s in frame)
+    vol = raw[0, 0].to(torch.float32)
+    whole = deskew_zyx(vol, ANGLE, RATIO, True, AVG, device=dev)
+    slabs = deskew_slabbed(vol.cpu(), dk, x_chunk, dev)
+    require(torch.equal(slabs.to(dev), whole), "fuse (d): deskew X slabs differ from the whole")
+    filled = fill_overhang(whole)
+    chunk_filled = fill_overhang_chunked(slabs, "mean", y_chunk, dev).to(dev)
+    require(torch.equal(chunk_filled, filled), "fuse (d): the chunked fill differs from the whole")
+    # The chunked warps against the whole warps on smooth data: an in-plane
+    # matrix within 1e-5, a general one within the multipass tolerance.
+    # Smooth data (a box of 9 voxels twice): the tolerance the reference states
+    # for the chunked multipass warp holds on smooth data.
+    smooth = torch.nn.functional.avg_pool3d(smooth_rand(tuple(frame), gen)[None, None], 9, 1, 4,
+                                            count_include_pad=False)[0, 0] * 1000.0
+    host = smooth.cpu()
+    for label, m, tol in (("in-plane", m_reg @ m_stab[1], 1e-5),
+                          ("translation", np.array([[1, 0, 0, 0.4], [0, 1, 0, -3.3],
+                                                    [0, 0, 1, 2.7], [0, 0, 0, 1.0]]), 1e-5),
+                          ("general", tilted_rotation(1.5, (0.2, 0.4, -0.6), frame), MULTIPASS_TOL)):
+        whole_w = affine_warp_auto(smooth, m, tuple(frame), device=dev)
+        got_w = torch.empty(tuple(frame))
+
+        def write(zs, ys, xs, data):
+            got_w[zs, ys, xs] = data.cpu()
+
+        chunked_affine_warp_zyx(lambda zs, ys, xs: host[zs, ys, xs], m, tuple(frame),
+                                tuple(frame), w_chunk, write_fn=write, device=dev)
+        got_w = got_w.to(dev)
+        # The fill mask is float32 in each chunk's own coordinates, as the
+        # reference's is: a voxel whose exact input coordinate lies within
+        # EDGE_EPS of the volume's edge may be filled in one and sampled in
+        # the other. Every such flip must lie there; the rest is compared.
+        flips = (got_w == 0) != (whole_w == 0)
+        near = edge_voxels(m, tuple(frame), tuple(frame), dev)
+        require(not bool((flips & ~near).any()),
+                f"fuse (d): chunked {label} warp's mask differs away from the edge")
+        _, w_err = rel_err(got_w[~flips], whole_w[~flips])
+        require(w_err <= tol, f"fuse (d): chunked {label} warp rel err {w_err:.3g} > {tol}")
+        print(f"22d chunked {label} warp, chunks {w_chunk} of {tuple(frame)}: rel err "
+              f"{w_err:.3g} vs the whole warp (tol {tol}); {int(flips.sum())} voxels filled in "
+              f"one and not the other, each within {EDGE_EPS} of the edge")
+        del got_w, whole_w, flips, near
+    print(f"22d deskew X slabs of {x_chunk} bit-equal to the whole deskew, the fill in Y "
+          f"slabs of {y_chunk} equal to the whole fill")
+    del whole, slabs, filled, chunk_filled, smooth, host
+
+    # (e) the deskew verb on arrays against its own X-slab route.
+    vols_e = raw[:1]
+    got_e, launches_e = counted(lambda: deskew_arrays(vols_e, FUSE_DESKEW, device=dev))
+    require(launches_e == {"deskew": 1}, f"deskew_arrays launches {launches_e}")
+    slab_e = deskew_arrays(vols_e, FUSE_DESKEW, max_batch_bytes=FUSE_BUDGET, device=dev)
+    _, e_err = rel_err(slab_e.to(dev), got_e)
+    require(e_err <= 1e-6, f"deskew_arrays: X-slab route rel err {e_err:.3g}")
+    ms_e = host_ms(lambda: deskew_arrays(vols_e, FUSE_DESKEW, device=dev)) / vols_e[0].shape[0]
+    print(f"22e deskew_arrays, example_deskew_settings.yml, {tuple(vols_e.shape)} -> "
+          f"{tuple(got_e.shape)}: X-slab route within {e_err:.3g}; {ms_e:.4f} ms/volume; "
+          f"launches {launches_e}")
+    ff_e, launches_ff = counted(lambda: flat_field_arrays(vols_e, names, {"channel_names": None},
+                                                          device=dev))
+    require(launches_ff == {}, f"flat_field_arrays launched kernels: {launches_ff}")
+    require(bool(torch.isfinite(ff_e).all()), "flat_field_arrays output is not finite")
+    del got_e, slab_e, ff_e
+
+    # (f) the register verb on arrays, cropped to the overlap.
+    src = torch.rand((1, 1) + LAPSE_SHAPE, generator=gen, device=dev)
+    tgt = torch.rand((1, 1) + LAPSE_SHAPE, generator=gen, device=dev)
+    m_f = inplane_about_centre(2.0, (3.0, -4.5), LAPSE_SHAPE)
+    settings_f = {"source_channel_names": ["Phase3D"], "target_channel_name": "GFP",
+                  "affine_transform_zyx": m_f.tolist(), "keep_overhang": False}
+    (out_f, names_f, voxel_f), launches_f = counted(lambda: register_arrays(
+        src, ["Phase3D"], settings_f, (0.4, 0.116, 0.116), tgt, ["GFP"], device=dev))
+    ones = affine_warp_auto(torch.ones(LAPSE_SHAPE, device=dev), m_f, LAPSE_SHAPE, device=dev)
+    from biahub_tpu_torch.register import find_lir
+    crop = find_lir((ones > 0).cpu().numpy())
+    shape_f = tuple(s.stop - s.start for s in crop)
+    require(names_f == ["GFP", "Phase3D"], f"register_arrays channels {names_f}")
+    require(tuple(out_f.shape) == (1, 2) + shape_f, f"register_arrays shape {out_f.shape}")
+    require(torch.equal(out_f[0, 0], tgt[0, 0][crop]), "register_arrays: the copied target differs")
+    shifted = m_f.copy()
+    shifted[:3, 3] += m_f[:3, :3] @ np.array([s.start for s in crop], float)
+    want_f = affine_warp_auto(src[0, 0], shifted, shape_f, device=dev)
+    require(torch.equal(out_f[0, 1], want_f), "register_arrays: the warped source differs")
+    want_lf = {"warp_zy": 2, "warp_x": 2}
+    require(launches_f == want_lf, f"register_arrays launches {launches_f}, want {want_lf}")
+    print(f"22f register_arrays {LAPSE_SHAPE}, keep_overhang false: crop {shape_f} (the LIR "
+          f"of the warped frame), target copied cropped, source equal to affine_warp_auto; "
+          f"voxel size {np.round(voxel_f, 4).tolist()}; launches {launches_f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3465,6 +3903,7 @@ def main() -> int:
     ej_phase(dev, records)
     hi_phase(dev, records)
     gbx_phase(dev, records)
+    fuse_phase(dev, tf_half)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from biahub_tpu.kernels import chain as jchain
+from biahub_tpu.kernels import deskew as jdk
 from biahub_tpu.kernels.deconvolve import compute_transfer_function
 from biahub_tpu_torch import DeconvolveDeskew, module_from_reference
 from biahub_tpu_torch.kernels import chain as tchain
@@ -76,11 +77,9 @@ def test_module_from_reference_settings(example_deskew_settings,
                                         example_deconvolve_settings, pallas_route):
     _, deskew = example_deskew_settings
     _, deconvolve = example_deconvolve_settings
-    # The example keeps the overhang and fills it with the mean, which the
-    # port does not do yet; the same settings with no fill are compared.
-    with pytest.raises(NotImplementedError, match="overhang_fill"):
-        module_from_reference(tf_half(SHAPE), deskew, deconvolve, SHAPE, device="cpu")
-    deskew = dict(deskew, overhang_fill=0)
+    # The example keeps the overhang and fills it with the mean: the module
+    # fills each deskewed volume as the reference's fill_overhang does.
+    assert deskew["keep_overhang"] and deskew["overhang_fill"] == "mean"
     vols = np.random.default_rng(22).random((2,) + SHAPE, dtype=np.float32)
     tf = tf_half(SHAPE)
     want = np.asarray(jchain.deconvolve_then_deskew_batched(
@@ -88,8 +87,14 @@ def test_module_from_reference_settings(example_deskew_settings,
         deskew["px_to_scan_ratio"], keep_overhang=deskew["keep_overhang"],
         average_window=deskew["average_n_slices"],
     ))
+    filled = np.stack([np.asarray(jdk.fill_overhang(v)) for v in want])
     step = module_from_reference(tf, deskew, deconvolve, SHAPE, device="cpu")
-    assert_close(step(vols), want)
+    assert step.overhang_fill == "mean"
+    assert_close(step(vols), filled)
+    unfilled = module_from_reference(tf, dict(deskew, overhang_fill=0), deconvolve, SHAPE,
+                                     device="cpu")
+    assert unfilled.overhang_fill is None
+    assert_close(unfilled(vols), want)
     # px_to_scan_ratio derived as round(pixel_size_um / scan_step_um, 3).
     derived = dict(deskew)
     del derived["px_to_scan_ratio"]

@@ -163,4 +163,13 @@ def test_chain_from_reference_checks_fields():
     out = chain_from_reference(tf_half(SHAPE), dict(d, output_shape_zyx=[3, 20, 10]),
                                SHAPE, device="cpu")
     assert out.output_shape == (3, 20, 10)
+    # A flat_field block is validated and left to fuse_arrays (a per-channel
+    # prefix on the raw volume): the module runs the rest of the chain.
+    with_ff = chain_from_reference(tf_half(SHAPE), dict(d, flat_field={"channel_names": ["a"]}),
+                                   SHAPE, device="cpu")
+    assert with_ff.geometry == chain_from_reference(tf_half(SHAPE), d, SHAPE,
+                                                    device="cpu").geometry
+    with pytest.raises(ValueError, match="unknown fields"):
+        chain_from_reference(tf_half(SHAPE), dict(d, flat_field={"channels": ["a"]}),
+                             SHAPE, device="cpu")
 

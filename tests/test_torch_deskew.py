@@ -88,10 +88,17 @@ def test_average_n_slices_matches_reference(window):
 
 
 @pytest.mark.parametrize("fill", ["mean", 2.5])
-def test_overhang_fill_is_not_ported_yet(fill):
-    vol = np.zeros(SHAPE, np.float32)
-    with pytest.raises(NotImplementedError, match="overhang_fill"):
-        tdk.deskew_zyx(vol, ANGLE, RATIO, True, overhang_fill=fill, device="cpu")
+def test_overhang_fill_matches_reference(fill):
+    """keep_overhang with a fill: the dilated zero mask filled with the
+    valid voxels' mean or the constant, within ATOL of the reference."""
+    vol = np.random.default_rng(14).random(SHAPE, dtype=np.float32)
+    for avg, skip_flip in ((1, False), (3, True)):
+        want = np.asarray(jdk.deskew_zyx(vol, ANGLE, RATIO, True, average_window=avg,
+                                         overhang_fill=fill, skip_flip=skip_flip))
+        got = tdk.deskew_zyx(vol, ANGLE, RATIO, True, average_window=avg, overhang_fill=fill,
+                             skip_flip=skip_flip, device="cpu").numpy()
+        assert got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=ATOL)
     # Without keep_overhang the reference ignores the fill, and so does the port.
     assert tdk.deskew_zyx(vol, ANGLE, RATIO, False, overhang_fill=fill,
                           device="cpu").shape == (14, 40, 22)
