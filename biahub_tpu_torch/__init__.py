@@ -56,6 +56,14 @@ and the deskew, flat-field and register verbs on arrays
 with the overhang fill, the flat-field correction and, past the batch
 budget, the reference's chunked routes (the chunked warps,
 :func:`~biahub_tpu_torch.kernels.multipass_warp.chunked_affine_warp_zyx`).
+The main path's verbs on OME-Zarr plates, as a user runs them:
+``python -m biahub_tpu_torch.cli`` (:mod:`biahub_tpu_torch.cli.main`) with
+``fuse``, ``deconvolve``, ``deskew``, ``flat-field``, ``register`` and
+``stabilize``, each a store-level function beside its ``*_arrays``
+function (e.g. :func:`biahub_tpu_torch.fuse.fuse`), on the port's own
+OME-Zarr store (:mod:`biahub_tpu_torch.io`: uncompressed zarr v2 and v3
+written; uncompressed, zlib and gzip read) and batch runner
+(:mod:`biahub_tpu_torch.runtime.executor`).
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (

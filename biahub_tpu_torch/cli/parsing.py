@@ -1,0 +1,180 @@
+"""The verbs' options, as argparse arguments.
+
+Counterpart of ``biahub_tpu/cli/parsing.py``: the same flags, short names
+and defaults. Position lists take every following argument (``-i
+plate.zarr/*/*/*`` as the shell expands it); patterns the shell left
+unexpanded are expanded here, and the positions are sorted in natural
+order (``2`` before ``10``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import glob
+import re
+from pathlib import Path
+
+__all__ = [
+    "UsageError",
+    "natsorted",
+    "position_dirpaths",
+    "config_paths",
+    "input_position_dirpaths",
+    "source_position_dirpaths",
+    "target_position_dirpaths",
+    "config_filepath",
+    "config_filepaths",
+    "output_dirpath",
+    "psf_dirpath",
+    "sbatch_filepath",
+    "local",
+    "cluster",
+    "init_only",
+    "monitor",
+    "resume",
+    "num_processes",
+]
+
+_NAT_SPLIT = re.compile(r"(\d+)")
+
+
+class UsageError(Exception):
+    """A bad command-line value: the command exits with status 2 and its usage."""
+
+
+def _natural_key(s) -> tuple:
+    return tuple(int(tok) if tok.isdigit() else tok.lower() for tok in _NAT_SPLIT.split(str(s)))
+
+
+def natsorted(values):
+    """Natural-order sort: '2' before '10'."""
+    return sorted(values, key=_natural_key)
+
+
+def _expand(values) -> list[str]:
+    out = []
+    for v in values:
+        out.extend(glob.glob(v) if glob.has_magic(v) else [v])
+    return out
+
+
+def position_dirpaths(values) -> list[Path]:
+    """The position directories named by ``values``, in natural order;
+    raises on none, or on an HCS plate in place of a position."""
+    from biahub_tpu_torch.io.ngff import Plate, open_ome_zarr
+
+    paths = [p for p in map(Path, natsorted(_expand(values))) if p.is_dir()]
+    if not paths:
+        raise UsageError(f"No input positions found in {tuple(values)}")
+    if isinstance(open_ome_zarr(paths[0], mode="r"), Plate):
+        raise UsageError(
+            "Please supply a single position instead of an HCS plate. Likely "
+            "fix: replace 'input.zarr' with 'input.zarr/0/0/0'"
+        )
+    return paths
+
+
+def config_paths(values) -> list[Path]:
+    """Settings files matching ``values``: existing ``.yml``/``.yaml`` files."""
+    matched = []
+    for pattern in values:
+        expanded = glob.glob(pattern)
+        if not expanded:
+            raise UsageError(f"No files matched pattern: {pattern}")
+        matched.extend(expanded)
+    out = []
+    for p in natsorted(map(Path, matched)):
+        if not p.is_file():
+            raise UsageError(f"Expected a file, not a directory: {p}")
+        if p.suffix.lower() not in (".yml", ".yaml"):
+            raise UsageError(f"Expected a .yml file, got: {p}")
+        out.append(p)
+    return out
+
+
+def _positions(parser, flags, dest, help_text) -> None:
+    parser.add_argument(*flags, dest=dest, nargs="+", required=True, metavar="PATH",
+                        help=help_text)
+
+
+def input_position_dirpaths(parser: argparse.ArgumentParser) -> None:
+    _positions(parser, ("--input-position-dirpaths", "-i"), "input_position_dirpaths",
+               'Paths to input positions, for example: "input.zarr/0/0/0", '
+               '"input.zarr/0/0/[0-9]", or "input.zarr/*/*/*"')
+
+
+def source_position_dirpaths(parser: argparse.ArgumentParser) -> None:
+    _positions(parser, ("--source-position-dirpaths", "-s"), "source_position_dirpaths",
+               'Paths to source positions, for example: "source.zarr/0/0/0" or '
+               '"source.zarr/*/*/*"')
+
+
+def target_position_dirpaths(parser: argparse.ArgumentParser) -> None:
+    _positions(parser, ("--target-position-dirpaths", "-t"), "target_position_dirpaths",
+               'Paths to target positions, for example: "target.zarr/0/0/0" or '
+               '"target.zarr/*/*/*"')
+
+
+def config_filepath(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--config-filepath", "-c", required=True, type=Path,
+                        help="Path to YAML configuration file.")
+
+
+def config_filepaths(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--config-filepaths", "-c", nargs="+", required=True, metavar="PATH",
+                        help="Paths to YAML configuration files. All must be existing files "
+                             "with .yml extension.")
+
+
+def output_dirpath(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--output-dirpath", "-o", required=True, type=Path,
+                        help="Path to output directory")
+
+
+def psf_dirpath(parser: argparse.ArgumentParser, required: bool) -> None:
+    parser.add_argument("--psf-dirpath", "-p", required=required, type=Path, default=None,
+                        help="Path to psf.zarr" + ("" if required else
+                                                   " (required when the config has a "
+                                                   "deconvolve stage)"))
+
+
+def sbatch_filepath(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--sbatch-filepath", "-sb", default=None,
+                        help="Resource override file accepted for compatibility with the "
+                             "Slurm-era CLI; overrides are printed, execution is on the card.")
+
+
+def num_processes(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--num-processes", "-j", type=int, default=1,
+                        help="Number of parallel processes")
+
+
+def local(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--local", "-l", action="store_true",
+                        help="Run jobs locally (compatibility flag; always local).")
+
+
+def cluster(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--cluster", type=str.lower, choices=["slurm", "local", "debug"],
+                        default="slurm",
+                        help="Execution mode: 'debug' runs batches synchronously; 'local' "
+                             "(and 'slurm', kept for compatibility) pipeline them. "
+                             "(default: slurm)")
+
+
+def init_only(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--init", "--init-only", dest="init_only", action="store_true",
+                        help="Only initialize the output store and exit; skip per-position "
+                             "processing.")
+
+
+def monitor(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--monitor", "-m", action="store_true",
+                        help="Monitor progress of submitted jobs.")
+
+
+def resume(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--resume", action=argparse.BooleanOptionalAction, default=False,
+                        help="Skip the (time, channel) units this position already finished "
+                             "in an earlier attempt. A changed config invalidates prior "
+                             "records. (default: --no-resume)")

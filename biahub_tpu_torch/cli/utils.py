@@ -1,0 +1,115 @@
+"""CLI-layer utilities: settings files, output paths, provenance keys.
+
+Counterpart of ``biahub_tpu/cli/utils.py`` (and its ``cli/disk.py``
+preflight): ``yaml_to_model`` reads a settings file with the port's YAML
+reader and validates it through one of the readers of
+:mod:`biahub_tpu_torch.convert`, which refuse unknown fields as the
+reference's models do.
+"""
+
+from __future__ import annotations
+
+import shutil
+import subprocess
+from collections.abc import Callable
+from pathlib import Path
+
+import numpy as np
+
+from biahub_tpu_torch.cli.yaml_reader import load_file
+from biahub_tpu_torch.io.ngff import get_ome_zarr_version, open_ome_zarr
+
+__all__ = [
+    "PROVENANCE_METADATA_KEYS",
+    "yaml_to_model",
+    "get_output_paths",
+    "resolve_ome_zarr_version",
+    "append_channels",
+    "check_disk_space_with_du",
+]
+
+#: fnmatch allowlist of per-position attribute keys carried into output
+#: stores: the provenance records each step stamps.
+PROVENANCE_METADATA_KEYS = ("biahub-*", "waveorder", "cytoland")
+
+
+def yaml_to_model(yaml_path: Path, reader: Callable[[dict], dict]) -> dict:
+    """The settings file at ``yaml_path``, validated by ``reader`` (e.g.
+    ``convert.deskew_settings_dump``)."""
+    yaml_path = Path(yaml_path)
+    if not yaml_path.exists():
+        raise FileNotFoundError(f"The YAML file '{yaml_path}' does not exist.")
+    raw = load_file(yaml_path)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{yaml_path}: want a mapping of settings, got {raw!r}")
+    return reader(raw)
+
+
+def get_output_paths(input_paths: list[Path], output_zarr_path: Path,
+                     ensure_unique_positions: bool | None = None) -> list[Path]:
+    """Mirror input row/col/fov position keys under the output plate path;
+    with ``ensure_unique_positions`` a repeated key gets a ``d<n>`` suffix
+    on its column."""
+    out_paths = []
+    seen: dict[str, int] = {}
+    for path in input_paths:
+        parts = Path(path).parts[-3:]
+        key = "/".join(parts)
+        if ensure_unique_positions and key in seen:
+            seen[key] += 1
+            parts = (parts[0], f"{parts[1]}d{seen[key]}", parts[2])
+        elif ensure_unique_positions:
+            seen[key] = 0
+        out_paths.append(Path(output_zarr_path, *parts))
+    return out_paths
+
+
+def resolve_ome_zarr_version(path) -> str:
+    """The OME-Zarr version of an existing store."""
+    return get_ome_zarr_version(path)
+
+
+def append_channels(input_data_path: Path, target_data_path: Path) -> None:
+    """Append every channel of one store to the positions of another."""
+    appending = open_ome_zarr(input_data_path, mode="r")
+    appending_names = appending.channel_names
+    target = open_ome_zarr(target_data_path, mode="r+")
+    for name, position in target.positions():
+        num_existing = len(position.channel_names)
+        src_pos = appending[name]
+        old = position.data[...]
+        T, C, Z, Y, X = old.shape
+        new = np.zeros((T, C + len(appending_names), Z, Y, X), old.dtype)
+        new[:, :C] = old
+        for i, channel in enumerate(appending_names):
+            position.append_channel(channel)
+            new[:, num_existing + i] = src_pos.data[:, i]
+        position.create_image("0", new)
+
+
+def _size_bytes(path: str | Path) -> int:
+    """Total size of a file or directory (``du -sb``, else a walk)."""
+    try:
+        out = subprocess.run(["du", "-sb", str(path)], capture_output=True, text=True,
+                             check=True)
+        return int(out.stdout.split()[0])
+    except (subprocess.CalledProcessError, FileNotFoundError, ValueError, IndexError):
+        p = Path(path)
+        if p.is_file():
+            return p.stat().st_size
+        return sum(f.stat().st_size for f in p.rglob("*") if f.is_file())
+
+
+def check_disk_space_with_du(input_path: str | Path, output_path: str | Path,
+                             margin: float = 1.1, verbose: bool = False) -> bool:
+    """True when the output's filesystem has ``margin`` x the input's size free."""
+    input_size = _size_bytes(input_path)
+    required = int(input_size * margin)
+    out_parent = Path(output_path).resolve()
+    while not out_parent.exists():
+        out_parent = out_parent.parent
+    free = shutil.disk_usage(out_parent).free
+    if verbose:
+        print(f"Disk preflight: input={input_size / 2**30:.2f} GiB, "
+              f"required={required / 2**30:.2f} GiB, free={free / 2**30:.2f} GiB")
+    return free >= required

@@ -23,7 +23,11 @@ their defaults. ``reconstruction_settings_from_reference``
 validates the reconstruction verbs' settings (``ReconstructionSettings``,
 recon/settings.py) and ``transfer_functions_from_reference`` carries the
 reference's transfer functions into tensors. ``spectral_table_from_reference``
-carries the spectral deskew's lerp-DFT table. The port reads no YAML itself.
+carries the spectral deskew's lerp-DFT table. ``deskew_settings_dump``,
+``fuse_settings_dump`` and ``stabilize_settings_from_reference`` give the
+plate verbs' settings as the reference's models dump them (the provenance
+the verbs stamp on their plates). Settings files are read by
+:mod:`biahub_tpu_torch.cli.yaml_reader`.
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "affine_transform_settings_from_reference", "deconvolve_settings_from_reference",
            "registration_estimate_settings_from_reference",
            "reconstruction_settings_from_reference", "transfer_functions_from_reference",
-           "spectral_table_from_reference"]
+           "spectral_table_from_reference", "deskew_settings_dump", "fuse_settings_dump",
+           "stabilize_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -766,3 +771,61 @@ def fuse_settings_from_reference(settings: dict) -> dict:
             "registration or stabilization block, or drop it"
         )
     return out
+
+
+# -- the settings as the reference's models dump them (the provenance
+# attributes the verbs write to their output plates) ------------------------
+
+def deskew_settings_dump(deskew: dict) -> dict:
+    """``DeskewSettings(**deskew).model_dump()`` (settings.py:373-413):
+    every field, validated as :func:`deskew_settings_from_reference` does,
+    the angle and ratio rounded, the ratio derived where absent."""
+    kw = deskew_settings_from_reference(deskew)
+    if deskew.get("pixel_size_um") is None:
+        raise ValueError("deskew settings: field 'pixel_size_um' is required")
+    scan = deskew.get("scan_step_um")
+    return {
+        "pixel_size_um": _POSITIVE(deskew["pixel_size_um"], "pixel_size_um"),
+        "ls_angle_deg": kw["ls_angle_deg"],
+        "px_to_scan_ratio": kw["px_to_scan_ratio"],
+        "scan_step_um": None if scan is None else _POSITIVE(scan, "scan_step_um"),
+        "keep_overhang": kw["keep_overhang"],
+        "overhang_fill": kw["overhang_fill"],
+        "average_n_slices": kw["average_window"],
+        "device": _typed(str)(deskew.get("device", "cpu"), "device"),
+        "output_ome_zarr_version": _version(deskew.get("output_ome_zarr_version"),
+                                            "output_ome_zarr_version"),
+    }
+
+
+def fuse_settings_dump(settings: dict) -> dict:
+    """``FusePipelineSettings(**settings).model_dump()``: the stage blocks
+    of :func:`fuse_settings_from_reference`, the deskew block as
+    :func:`deskew_settings_dump`."""
+    out = fuse_settings_from_reference(settings)
+    if out["deskew"] is not None:
+        out["deskew"] = deskew_settings_dump(settings["deskew"])
+    return out
+
+
+_STABILIZATION = _model({
+    "stabilization_estimation_channel": (_REQUIRED, _typed(str)),
+    "stabilization_type": (_REQUIRED, _literal("z", "xy", "xyz", "affine")),
+    "stabilization_method": ("focus-finding", _literal("beads", "phase-cross-corr",
+                                                       "focus-finding", "manual", "ants")),
+    "stabilization_channels": (_REQUIRED, _typed(list)),
+    "affine_transform_zyx_list": (_REQUIRED, lambda v, name: (
+        _typed(list)(v, name), [_matrix(m, "each element of affine_transform_zyx_list")
+                                for m in v])[0]),
+    "time_indices": ("all", _non_negative_time_indices),
+    "output_voxel_size": (lambda: [1.0] * 5, lambda v, name: [
+        _POSITIVE(s, name) for s in _typed(list)(v, name)]),
+    "output_ome_zarr_version": (None, _version),
+})
+
+
+def stabilize_settings_from_reference(settings: dict) -> dict:
+    """The stabilize verb's ``StabilizationSettings`` (settings.py:515-535)
+    as its ``model_dump()``: the transforms one 4x4 per timepoint,
+    ``time_indices`` ("all"), ``output_voxel_size`` (five ones)."""
+    return _STABILIZATION(settings, "stabilization settings")

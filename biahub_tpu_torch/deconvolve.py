@@ -1,4 +1,4 @@
-"""deconvolve on arrays in memory: the verb's compute without its plates.
+"""The deconvolve verb, on arrays in memory and on plates.
 
 Counterpart of ``biahub_tpu/deconvolve.py`` (:47-203): the PSF's transfer
 function for the plate's ZYX shape, then the Tikhonov inverse filter of
@@ -15,20 +15,30 @@ every (position, t, c) volume, on one of two routes:
   taken in the reference's order and striped over processes
   (:func:`~biahub_tpu_torch.runtime.executor.stripe_units`).
 
-The OME-Zarr plates (input, output and ``transfer_function.zarr``) wait for
-the port's I/O layer: the transfer function is returned for the caller to
-store.
+:func:`deconvolve_arrays` returns the transfer function for the caller to
+store; :func:`deconvolve` is the verb on plates: it writes
+``transfer_function.zarr`` beside the output plate and runs the batched
+route through the batch runner (the sharded route of the reference's
+``BIAHUB_TPU_SHARDED_FFT=1`` is not taken on plates).
 """
 
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from biahub_tpu_torch.cli.utils import get_output_paths, yaml_to_model
 from biahub_tpu_torch.convert import deconvolve_settings_from_reference
 from biahub_tpu_torch.device import resolve_device
+from biahub_tpu_torch.io.ngff import (
+    TransformationMeta,
+    create_empty_plate,
+    get_ome_zarr_version,
+    open_ome_zarr,
+)
 from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function, deconvolve_zyx
 from biahub_tpu_torch.kernels.fft import prepare_fourier_filter
 from biahub_tpu_torch.parallel.mesh import Mesh, get_mesh
@@ -38,9 +48,10 @@ from biahub_tpu_torch.parallel.sharded_fft import (
     prepare_sharded_filter,
     sharded_fft_supported,
 )
-from biahub_tpu_torch.runtime.executor import stripe_units
+from biahub_tpu_torch.runtime.executor import BatchRunner, resolve_cluster, stripe_units
+from biahub_tpu_torch.runtime.resources import echo_resources, estimate_resources
 
-__all__ = ["deconvolve_arrays"]
+__all__ = ["deconvolve_arrays", "deconvolve"]
 
 
 def deconvolve_arrays(
@@ -105,3 +116,73 @@ def deconvolve_arrays(
                                             device=dev)
     print(f"Deconvolved {len(units)} (t, c) volumes across {len(positions)} positions")
     return out, transfer_function
+
+
+def deconvolve(
+    input_position_dirpaths: list[Path],
+    psf_dirpath: Path,
+    config_filepath: Path,
+    output_dirpath: Path,
+    sbatch_filepath: str | None = None,
+    local: bool = False,
+    monitor: bool = True,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The deconvolve verb on plates (the reference's ``deconvolve``,
+    :45-213): the output plate, the transfer function of
+    ``psf.zarr/0/0/0`` written to ``transfer_function.zarr`` (a FOV store
+    beside the output, the PSF's scale), then every (t, c) volume through
+    kernels A, B, C in device batches, uint16 volumes sent as they are."""
+    dev = resolve_device(device)
+    output_dirpath = Path(output_dirpath)
+    output_position_paths = get_output_paths(input_position_dirpaths, output_dirpath)
+    settings = yaml_to_model(config_filepath, deconvolve_settings_from_reference)
+    input_dataset = open_ome_zarr(str(input_position_dirpaths[0]), mode="r")
+    shape = input_dataset.data.shape
+    scale = input_dataset.scale
+    T, C, Z, Y, X = shape
+    print("Creating empty output zarr...")
+    create_empty_plate(
+        store_path=output_dirpath,
+        position_keys=[Path(p).parts[-3:] for p in input_position_dirpaths],
+        channel_names=input_dataset.channel_names,
+        shape=shape,
+        scale=scale,
+        version=settings["output_ome_zarr_version"] or get_ome_zarr_version(
+            Path(input_position_dirpaths[0]).parents[2]),
+    )
+    print("Computing transfer function...")
+    psf_dataset = open_ome_zarr(Path(psf_dirpath, "0/0/0"), mode="r")
+    if list(scale[-3:]) != list(psf_dataset.scale[-3:]):
+        print(f"Warning: PSF scale: {psf_dataset.scale[-3:]} does not match data "
+              f"scale: {scale[-3:]}. Consider resampling the PSF.")
+    transfer_function = compute_transfer_function(psf_dataset.data[0, 0], (Z, Y, X))
+    tf_store = open_ome_zarr(output_dirpath.parent / "transfer_function.zarr", layout="fov",
+                             mode="w", channel_names=["PSF"])
+    tf_store.create_image("0", transfer_function[None, None],
+                          chunks=(1, 1, min(Z, 256), Y, X),
+                          transform=[TransformationMeta(type="scale", scale=psf_dataset.scale)])
+    _, num_cpus, gb_ram_per_cpu = estimate_resources(shape=(T, C, Z, Y, X), ram_multiplier=16,
+                                                     max_num_cpus=16)
+    echo_resources(num_cpus, num_cpus * gb_ram_per_cpu, 60)
+    resolved = resolve_cluster(None, local)
+    print(f"Running on-device batches (mode='{resolved}')")
+    filt = prepare_fourier_filter((Z, Y, X), transfer_function[..., : X // 2 + 1],
+                                  settings["regularization_strength"], dev)
+
+    def kernel(vols: torch.Tensor) -> torch.Tensor:
+        return torch.stack([deconvolve_zyx(v, prepared=filt, device=dev) for v in vols])
+
+    # Kernel A reads uint16 itself.
+    kernel.native_ingest_dtypes = ("uint16",)
+    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
+    output_positions = [open_ome_zarr(p, mode="r+") for p in output_position_paths]
+    for out_pos in output_positions:
+        out_pos.update_zattrs({"biahub-deconvolve": settings})
+    runner = BatchRunner(cluster=resolved, device=dev)
+    # The spectrum of a volume beside its input and output.
+    n = runner.run_zyx(kernel, input_positions, output_positions,
+                       monitor=monitor and resolved != "debug",
+                       unit_workspace_bytes=4 * Z * Y * X)
+    print(f"Deconvolved {n} (t, c) volumes across {len(input_positions)} positions")
+    runner.echo_stats()

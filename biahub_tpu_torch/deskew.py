@@ -1,7 +1,9 @@
-"""deskew on arrays in memory.
+"""The deskew verb, on arrays in memory and on plates.
 
-Counterpart of the compute of ``biahub_tpu/deskew.py::deskew`` (:143-296)
-without its plate I/O: every (t, c) volume of a (T, C, Z, Y, X) array is
+Counterpart of ``biahub_tpu/deskew.py::deskew`` (:143-296):
+:func:`deskew_arrays` is its compute on a (T, C, Z, Y, X) array,
+:func:`deskew` the verb on plates through the batch runner. Every (t, c)
+volume is
 deskewed by kernel D in batches, its overhang filled where the settings ask
 (``kernels/deskew.py::fill_overhang``), in the standard frame (the
 reference deskews with ``skip_flip`` and flips Y on the host, ``post_fetch``
@@ -15,19 +17,26 @@ the split is exact) without the fill, and the fill then runs in output-Y
 slabs with a 4-voxel halo and the mean from a first sweep
 (:func:`fill_overhang_chunked`, the reference's ``_fill_overhang_chunked``,
 :103-140). That result is in host memory, as the reference's is on its
-plate.
+plate. The plate verb computes the same functions on the same volumes,
+so its plate equals :func:`deskew_arrays` bit for bit (the coverslip flip
+stays inside kernel D rather than in the runner's ``post_fetch``).
 """
 
 from __future__ import annotations
 
 import sys
+import warnings
+from pathlib import Path
 
 import numpy as np
 import torch
 
-from biahub_tpu_torch.convert import deskew_settings_from_reference
+from biahub_tpu_torch.cli.utils import PROVENANCE_METADATA_KEYS, get_output_paths, yaml_to_model
+from biahub_tpu_torch.convert import deskew_settings_dump, deskew_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
+from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
+from biahub_tpu_torch.io.progress import ProgressStore
 from biahub_tpu_torch.kernels.deskew import (
     deskew_geometry,
     deskew_zyx,
@@ -36,9 +45,20 @@ from biahub_tpu_torch.kernels.deskew import (
     overhang_fill_value,
     overhang_mask,
 )
-from biahub_tpu_torch.kernels.deskew_cuda import deskew
+from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_batch
+from biahub_tpu_torch.runtime.executor import (
+    BatchRunner,
+    resolve_cluster,
+    sbatch_to_overrides,
+    stripe_units,
+)
+from biahub_tpu_torch.runtime.resources import (
+    echo_resources,
+    estimate_resources,
+    settings_fingerprint,
+)
 
-__all__ = ["deskew_arrays", "deskew_slabbed", "fill_overhang_chunked"]
+__all__ = ["deskew_arrays", "deskew_slabbed", "fill_overhang_chunked", "deskew"]
 
 # The dilation reaches 3 voxels: a 4-voxel halo gives each slab the mask of
 # the whole volume.
@@ -136,5 +156,102 @@ def deskew_arrays(
     for i in range(0, len(units), step):
         batch = units[i:i + step]
         vols = torch.stack([as_tensor(tczyx[t, c], dev) for t, c in batch])
-        flat[i:i + len(batch)] = fill_overhang_(deskew(vols, geo), fill)
+        flat[i:i + len(batch)] = fill_overhang_(deskew_batch(vols, geo), fill)
     return out
+
+
+def deskew(
+    input_position_dirpaths: list[Path],
+    config_filepath: Path,
+    output_dirpath: Path,
+    sbatch_filepath: str | None = None,
+    cluster: str = "slurm",
+    monitor: bool = True,
+    init_only: bool = False,
+    resume: bool = False,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The deskew verb on plates (the reference's ``deskew``, :143-296):
+    the output plate at the deskewed shape and voxel size, then every (t, c)
+    volume through kernel D and the fill in device batches; over the batch
+    budget, each volume in X slabs and a chunked fill
+    (:func:`deskew_slabbed`, :func:`fill_overhang_chunked`)."""
+    dev = resolve_device(device)
+    output_dirpath = Path(output_dirpath)
+    settings = yaml_to_model(config_filepath, deskew_settings_dump)
+    dk = deskew_settings_from_reference(settings)
+    zarr_pixel_size = float(open_ome_zarr(str(input_position_dirpaths[0]), mode="r").scale[-1])
+    if zarr_pixel_size > 0 and not np.isclose(settings["pixel_size_um"], zarr_pixel_size,
+                                              rtol=0.05):
+        warnings.warn(f"Config pixel_size_um={settings['pixel_size_um']} differs from the input "
+                      f"zarr metadata XY scale ({zarr_pixel_size:.4f}).", stacklevel=2)
+    input_dataset = open_ome_zarr(str(input_position_dirpaths[0]), mode="r")
+    T, C, Z, Y, X = input_dataset.data.shape
+    args = ((Z, Y, X), dk["ls_angle_deg"], dk["px_to_scan_ratio"], dk["keep_overhang"],
+            dk["average_window"])
+    out_zyx, voxel_size = get_deskewed_data_shape(*args, settings["pixel_size_um"])
+    input_plate = Path(input_position_dirpaths[0]).parents[2]
+    create_empty_plate(
+        store_path=output_dirpath,
+        position_keys=[Path(p).parts[-3:] for p in input_position_dirpaths],
+        channel_names=input_dataset.channel_names,
+        shape=(T, C) + tuple(out_zyx),
+        scale=(1, 1) + tuple(voxel_size),
+        version=settings["output_ome_zarr_version"] or get_ome_zarr_version(input_plate),
+        metadata_sources=input_plate,
+        metadata_keys=PROVENANCE_METADATA_KEYS,
+    )
+    time_minutes, num_cpus, gb_ram_per_cpu = estimate_resources(
+        shape=(T, C, Z, Y, X), ram_multiplier=8, time_multiplier=0.5, max_num_cpus=16)
+    echo_resources(num_cpus, num_cpus * gb_ram_per_cpu, time_minutes)
+    if init_only:
+        print(f"Initialized {output_dirpath} ({len(input_position_dirpaths)} positions)")
+        return
+    if sbatch_filepath:
+        print(f"Resource overrides (compatibility): {sbatch_to_overrides(sbatch_filepath)}")
+    resolved = resolve_cluster(cluster=cluster)
+    print(f"Running on-device batches (mode='{resolved}')")
+
+    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
+    output_positions = [open_ome_zarr(p, mode="r+")
+                        for p in get_output_paths(input_position_dirpaths, output_dirpath)]
+    for out_pos in output_positions:
+        out_pos.update_zattrs({"biahub-deskew": settings})
+    fill = overhang_fill_value(dk["keep_overhang"], dk["overhang_fill"])
+    token = settings_fingerprint(settings)
+    runner = BatchRunner(cluster=resolved, device=dev)
+    volume_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx)))
+    if volume_bytes > runner.max_batch_bytes:
+        n_splits = -(-volume_bytes // runner.max_batch_bytes)
+        x_chunk = max(1, -(-X // int(n_splits)))
+        print(f"Volume exceeds the device batch budget; deskewing in {n_splits} X-slabs of "
+              f"{x_chunk}")
+        progress: dict[int, ProgressStore] = {}
+        n = 0
+        for p_idx, t, c in stripe_units([(p, t, c) for p in range(len(input_positions))
+                                         for t in range(T) for c in range(C)]):
+            out_pos = output_positions[p_idx]
+            if resume and p_idx not in progress:
+                progress[p_idx] = ProgressStore(out_pos.path, token)
+            if p_idx in progress and progress[p_idx].is_done(t, c):
+                n += 1
+                continue
+            vol = deskew_slabbed(input_positions[p_idx].data[t, c], dk, x_chunk, dev)
+            if fill is not None:
+                fill_overhang_chunked(vol, fill, x_chunk, dev)
+            out_pos["0"][t, c] = vol.numpy()
+            if p_idx in progress:
+                progress[p_idx].mark_done(t, c)
+            n += 1
+    else:
+        geo = deskew_geometry(*args)
+
+        def kernel(vols: torch.Tensor) -> torch.Tensor:
+            return fill_overhang_(deskew_batch(vols, geo), fill)
+
+        n = runner.run_zyx(kernel, input_positions, output_positions, resume=resume,
+                           resume_token=token, monitor=monitor and resolved != "debug")
+    print(f"Deskewed {n} (t, c) volumes across {len(input_positions)} positions")
+    for path in input_position_dirpaths:
+        print(f"Deskew complete: {path}")
+    runner.echo_stats()

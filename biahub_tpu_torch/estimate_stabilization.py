@@ -43,6 +43,7 @@ from biahub_tpu_torch.kernels.pcc import (
 )
 from biahub_tpu_torch.registration.beads import estimate_tczyx
 from biahub_tpu_torch.registration.utils import evaluate_transforms
+from biahub_tpu_torch.runtime.executor import DEFAULT_MAX_BATCH_BYTES
 
 __all__ = [
     "ArrayPosition",
@@ -57,9 +58,6 @@ __all__ = [
 
 NA_DET = 1.35
 LAMBDA_ILL = 0.500
-# The reference's device batch budget (runtime/executor.py:58): the focus
-# sweep and the PCC pairs are chunked over timepoints to it.
-DEFAULT_MAX_BATCH_BYTES = 4 * 2**30
 
 
 @dataclass

@@ -1,9 +1,9 @@
-"""fuse on arrays in memory: flat-field -> deconvolve -> deskew ->
-register/stabilize, stage by stage on the device.
+"""The fuse verb: flat-field -> deconvolve -> deskew -> register/stabilize,
+stage by stage on the device, on arrays in memory (:func:`fuse_arrays`)
+and on plates (:func:`fuse`).
 
-Counterpart of the compute of ``biahub_tpu/fuse.py::fuse`` (:376-868)
-without its plate I/O. Each stage is the standalone verb's computation, and
-the routes are the reference's:
+Counterpart of ``biahub_tpu/fuse.py::fuse`` (:376-868). Each stage is the
+standalone verb's computation, and the routes are the reference's:
 
 - **no fill, one matrix**, with deconvolve and deskew: the main path's
   chain as :class:`~biahub_tpu_torch.pipeline.DeconvolveDeskewWarp` runs it
@@ -34,21 +34,34 @@ its fill in Y slabs, the warp whole or in output chunks; that result is in
 host memory, as the reference's is on its plate. ``spectral=True`` takes the
 spectral engine where the chain takes it (no fill), as the reference's
 ``BIAHUB_TPU_SPECTRAL_DESKEW=1`` does.
+
+:func:`fuse` runs the same plan (:class:`_Plan`) on the batches the batch
+runner hands it, the flat-field channels and the others as two runs, so
+its plate equals :func:`fuse_arrays` on the same arrays bit for bit.
 """
 
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from biahub_tpu_torch.apply_inverse_transfer_function import time_indices
-from biahub_tpu_torch.convert import fuse_settings_from_reference
+from biahub_tpu_torch.cli.utils import PROVENANCE_METADATA_KEYS, get_output_paths, yaml_to_model
+from biahub_tpu_torch.convert import fuse_settings_dump, fuse_settings_from_reference
 from biahub_tpu_torch.deskew import deskew_slabbed, fill_overhang_chunked
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
 from biahub_tpu_torch.flat_field import resolve_target_indices
+from biahub_tpu_torch.io.ngff import (
+    TransformationMeta,
+    create_empty_plate,
+    get_ome_zarr_version,
+    open_ome_zarr,
+)
+from biahub_tpu_torch.io.progress import ProgressStore
 from biahub_tpu_torch.kernels.affine import (
     affine_warp_auto,
     affine_warp_auto_batched,
@@ -64,7 +77,11 @@ from biahub_tpu_torch.kernels.chain import (
     run_chain_warp,
     run_chain_warp_general,
 )
-from biahub_tpu_torch.kernels.deconvolve import deconvolve_zyx, volume_tensor
+from biahub_tpu_torch.kernels.deconvolve import (
+    compute_transfer_function,
+    deconvolve_zyx,
+    volume_tensor,
+)
 from biahub_tpu_torch.kernels.deskew import (
     deskew_geometry,
     fill_overhang,
@@ -82,8 +99,20 @@ from biahub_tpu_torch.kernels.spectral import (
     run_spectral_warp,
     spectral_deskew_supported,
 )
+from biahub_tpu_torch.runtime.executor import (
+    BatchRunner,
+    WorkUnit,
+    resolve_cluster,
+    sbatch_to_overrides,
+    stripe_units,
+)
+from biahub_tpu_torch.runtime.resources import (
+    echo_resources,
+    estimate_resources,
+    settings_fingerprint,
+)
 
-__all__ = ["fuse_arrays", "warp_matrices"]
+__all__ = ["fuse_arrays", "warp_matrices", "fuse"]
 
 
 def warp_matrices(fs: dict, time_indices: list[int]):
@@ -226,20 +255,7 @@ def fuse_arrays(
             others_note=("Other channels skip the correction but run the rest of the chain"
                          if other_stages else "Other channels will be copied as-is")))
     unit_bytes = 4 * (Z * Y * X + int(np.prod(plan.out_zyx))) + plan.workspace
-    if unit_bytes > max_batch_bytes:
-        decon_bytes = 4 * 4 * Z * Y * X
-        if plan.decon is not None and decon_bytes > max_batch_bytes:
-            raise ValueError(
-                f"One deconvolution volume needs ~{decon_bytes / 2**30:.1f} "
-                f"GiB on device, over the batch budget "
-                f"({max_batch_bytes / 2**30:.1f} GiB; "
-                "BIAHUB_TPU_MAX_BATCH_BYTES). An FFT has no exact spatial "
-                "split on one chip — raise the budget or shard the FFT "
-                "across chips (BIAHUB_TPU_SHARDED_FFT=1)."
-            )
-        print(f"One fused (t, c) volume needs ~{unit_bytes / 2**30:.1f} GiB, over the device "
-              f"batch budget ({max_batch_bytes / 2**30:.1f} GiB); composing the standalone "
-              "verbs' chunked kernels per unit instead.", file=sys.stderr)
+    if _over_budget(plan, (Z, Y, X), unit_bytes, max_batch_bytes, sys.stderr):
         return _fuse_over_budget(tczyx, plan, times, C, targets, max_batch_bytes)
     out = torch.empty((len(times), C) + plan.out_zyx, dtype=torch.float32, device=dev)
     units = [(t_out, t, c) for t_out, t in enumerate(times) for c in range(C)]
@@ -250,17 +266,46 @@ def fuse_arrays(
         for i in range(0, len(group), step):
             batch = group[i:i + step]
             tc = [(t, c) for _, t, c in batch]
-            # uint16 goes into kernel A as it is; flat-field, a deskew or a
-            # warp that comes first takes float32.
             vols = torch.stack([volume_tensor(tczyx[t, c], dev) for t, c in tc])
-            if flat:
-                vols = torch.stack([flat_field_zyx(v, device=dev) for v in vols])
-            elif plan.decon is None:
-                vols = vols.to(torch.float32)
-            res = plan.run(vols, [t for t, _ in tc]) if (flat or other_stages) else vols
+            res = _fuse_batch(plan, vols, [t for t, _ in tc], flat, other_stages)
             for (t_out, _, c), r in zip(batch, res):
                 out[t_out, c] = r
     return out
+
+
+def _over_budget(plan: _Plan, zyx, unit_bytes: int, budget: int, file) -> bool:
+    """Whether one fused unit exceeds the budget (said on ``file``); raises
+    the reference's error when a deconvolution cannot fit at all."""
+    if unit_bytes <= budget:
+        return False
+    decon_bytes = 4 * 4 * int(np.prod(zyx))
+    if plan.decon is not None and decon_bytes > budget:
+        raise ValueError(
+            f"One deconvolution volume needs ~{decon_bytes / 2**30:.1f} "
+            f"GiB on device, over the batch budget "
+            f"({budget / 2**30:.1f} GiB; "
+            "BIAHUB_TPU_MAX_BATCH_BYTES). An FFT has no exact spatial "
+            "split on one chip — raise the budget or shard the FFT "
+            "across chips (BIAHUB_TPU_SHARDED_FFT=1)."
+        )
+    print(f"One fused (t, c) volume needs ~{unit_bytes / 2**30:.1f} GiB, over the device "
+          f"batch budget ({budget / 2**30:.1f} GiB); composing the standalone "
+          "verbs' chunked kernels per unit instead.", file=file)
+    return True
+
+
+def _fuse_batch(plan: _Plan, vols: torch.Tensor, times: list[int], flat: bool,
+                other_stages: bool) -> torch.Tensor:
+    """Every stage of a batch of raw volumes (uint16 or float32) of raw
+    timepoints ``times``: the flat-field when ``flat``, then the plan's
+    stages, or nothing but the cast when flat-field is the only stage."""
+    # uint16 goes into kernel A as it is; flat-field, a deskew or a warp
+    # that comes first takes float32.
+    if flat:
+        vols = torch.stack([flat_field_zyx(v, device=plan.dev) for v in vols])
+    elif plan.decon is None:
+        vols = vols.to(torch.float32)
+    return plan.run(vols, times) if (flat or other_stages) else vols
 
 
 def _flat_field_slabbed(vol: torch.Tensor, budget: int, dev) -> torch.Tensor:
@@ -308,42 +353,200 @@ def _deskew_slabbed(vol: torch.Tensor, plan: _Plan, budget: int, dev) -> torch.T
 
 def _fuse_over_budget(tczyx, plan: _Plan, times, C: int, targets: set,
                       budget: int) -> torch.Tensor:
-    """Each (t, c) through the standalone verbs' chunked routes in turn, in
-    the standard deskewed frame with the warp matrices as given (the
+    """Each (t, c) through the standalone verbs' chunked routes in turn (the
     reference's ``_fuse_over_budget``, :275-373). Host memory in and out."""
-    dev = plan.dev
     out = torch.empty((len(times), C) + plan.out_zyx, dtype=torch.float32)
     for t_out, t in enumerate(times):
         for c in range(C):
-            vol = as_tensor(tczyx[t, c], torch.device("cpu"))
-            if c in targets:
-                vol = _flat_field_slabbed(vol, budget, dev)
-            if plan.decon is not None:
-                vol = deconvolve_zyx(as_tensor(vol, dev), prepared=plan.filt,
-                                     device=dev).cpu()
-            if plan.dk is not None:
-                vol = _deskew_slabbed(vol, plan, budget, dev)
-            m = plan.m_single if plan.m_single is not None else (
-                plan.mats_per_t[t] if plan.mats_per_t is not None else None)
-            if m is None:
-                out[t_out, c] = vol
-                continue
-            shape = tuple(vol.shape)
-            warp_bytes = (4 * (vol.numel() + int(np.prod(plan.out_zyx)))
-                          + common_frame_bytes(m, shape, plan.out_zyx))
-            if warp_bytes <= budget:
-                out[t_out, c] = affine_warp_auto(as_tensor(vol, dev), m, plan.out_zyx,
-                                                 device=dev).cpu()
-                continue
-            chunk = tuple(max(32, s // max(1, int(np.ceil(warp_bytes / budget))))
-                          for s in plan.out_zyx)
-
-            def read_fn(zs, ys, xs, _v=vol):
-                return _v[zs, ys, xs]
-
-            def write_fn(zs, ys, xs, data, _t=t_out, _c=c):
-                out[_t, _c, zs, ys, xs] = data.cpu()
-
-            chunked_affine_warp_zyx(read_fn, m, shape, plan.out_zyx, chunk,
-                                    write_fn=write_fn, order=1, device=dev)
+            out[t_out, c] = _fuse_unit_over_budget(
+                as_tensor(tczyx[t, c], torch.device("cpu")), plan, t, c in targets, budget)
     return out
+
+
+def _fuse_unit_over_budget(vol: torch.Tensor, plan: _Plan, t: int, flat: bool,
+                           budget: int) -> torch.Tensor:
+    """One float32 host volume of raw timepoint ``t`` through the standalone
+    verbs' chunked routes, in the standard deskewed frame with the warp
+    matrices as given -> its host output."""
+    dev = plan.dev
+    if flat:
+        vol = _flat_field_slabbed(vol, budget, dev)
+    if plan.decon is not None:
+        vol = deconvolve_zyx(as_tensor(vol, dev), prepared=plan.filt, device=dev).cpu()
+    if plan.dk is not None:
+        vol = _deskew_slabbed(vol, plan, budget, dev)
+    m = plan.m_single if plan.m_single is not None else (
+        plan.mats_per_t[t] if plan.mats_per_t is not None else None)
+    if m is None:
+        return vol
+    shape = tuple(vol.shape)
+    warp_bytes = (4 * (vol.numel() + int(np.prod(plan.out_zyx)))
+                  + common_frame_bytes(m, shape, plan.out_zyx))
+    if warp_bytes <= budget:
+        return affine_warp_auto(as_tensor(vol, dev), m, plan.out_zyx, device=dev).cpu()
+    chunk = tuple(max(32, s // max(1, int(np.ceil(warp_bytes / budget))))
+                  for s in plan.out_zyx)
+    out = torch.empty(plan.out_zyx, dtype=torch.float32)
+
+    def write_fn(zs, ys, xs, data):
+        out[zs, ys, xs] = data.cpu()
+
+    chunked_affine_warp_zyx(lambda zs, ys, xs: vol[zs, ys, xs], m, shape, plan.out_zyx, chunk,
+                            write_fn=write_fn, order=1, device=dev)
+    return out
+
+
+def fuse(
+    input_position_dirpaths: list[Path],
+    config_filepath: Path,
+    output_dirpath: Path,
+    psf_dirpath: Path | None = None,
+    sbatch_filepath: str | None = None,
+    cluster: str = "slurm",
+    monitor: bool = True,
+    init_only: bool = False,
+    resume: bool = False,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The fuse verb on plates (the reference's ``fuse``, :376-749): the
+    output plate (the deskewed frame's shape and voxel size, or
+    ``output_shape_zyx``; provenance copied from the input plate), the
+    transfer function of ``psf.zarr/0/0/0`` written to
+    ``transfer_function.zarr`` when a deconvolve stage is set, then every
+    (t, c) unit of ``time_indices`` through :func:`_fuse_batch` in device
+    batches, or, when one unit exceeds the budget, through the standalone
+    verbs' chunked routes one unit at a time. ``--resume`` skips the units
+    recorded under this settings' fingerprint."""
+    dev = resolve_device(device)
+    output_dirpath = Path(output_dirpath)
+    settings = yaml_to_model(config_filepath, fuse_settings_dump)
+    fs = fuse_settings_from_reference(settings)
+    if fs["deconvolve"] is not None and psf_dirpath is None:
+        raise ValueError("the deconvolve stage needs a PSF: pass -p/--psf-dirpath psf.zarr")
+    input_dataset = open_ome_zarr(str(input_position_dirpaths[0]), mode="r")
+    channel_names = input_dataset.channel_names
+    T, C, Z, Y, X = input_dataset.data.shape
+    in_scale = input_dataset.scale
+    times = time_indices(fs, T)
+    dk = fs["deskew"]
+    if dk is not None:
+        frame, voxel_size = get_deskewed_data_shape(
+            (Z, Y, X), dk["ls_angle_deg"], dk["px_to_scan_ratio"], dk["keep_overhang"],
+            dk["average_window"], settings["deskew"]["pixel_size_um"])
+        out_scale = (1, 1) + tuple(voxel_size)
+    else:
+        frame, out_scale = (Z, Y, X), tuple(in_scale)
+    warp_matrices(fs, times)  # the reference's check of the matrix count
+    out_zyx = (tuple(int(s) for s in fs["output_shape_zyx"])
+               if fs["output_shape_zyx"] is not None else tuple(int(s) for s in frame))
+    input_plate = Path(input_position_dirpaths[0]).parents[2]
+    create_empty_plate(
+        store_path=output_dirpath,
+        position_keys=[Path(p).parts[-3:] for p in input_position_dirpaths],
+        channel_names=channel_names,
+        shape=(len(times), C) + out_zyx,
+        scale=out_scale,
+        version=fs["output_ome_zarr_version"] or get_ome_zarr_version(input_plate),
+        metadata_sources=input_plate,
+        metadata_keys=PROVENANCE_METADATA_KEYS,
+    )
+    n_stages = sum(fs[k] is not None for k in ("flat_field", "deconvolve", "deskew",
+                                                "registration", "stabilization"))
+    time_minutes, num_cpus, gb_ram_per_cpu = estimate_resources(
+        shape=(T, C, Z, Y, X), ram_multiplier=8 + 4 * n_stages, time_multiplier=0.5,
+        max_num_cpus=16)
+    echo_resources(num_cpus, num_cpus * gb_ram_per_cpu, time_minutes)
+    if init_only:
+        print(f"Initialized {output_dirpath} ({len(input_position_dirpaths)} positions)")
+        return
+    if sbatch_filepath:
+        print(f"Resource overrides (compatibility): {sbatch_to_overrides(sbatch_filepath)}")
+    resolved = resolve_cluster(cluster=cluster)
+    print(f"Running on-device batches (mode='{resolved}')")
+
+    tf_half = None
+    if fs["deconvolve"] is not None:
+        psf_dataset = open_ome_zarr(Path(psf_dirpath, "0/0/0"), mode="r")
+        if list(in_scale[-3:]) != list(psf_dataset.scale[-3:]):
+            print(f"Warning: PSF scale: {psf_dataset.scale[-3:]} does not match "
+                  f"data scale: {in_scale[-3:]}. Consider resampling the PSF.")
+        transfer_function = compute_transfer_function(psf_dataset.data[0, 0], (Z, Y, X))
+        tf_store = open_ome_zarr(output_dirpath.parent / "transfer_function.zarr",
+                                 layout="fov", mode="w", channel_names=["PSF"])
+        tf_store.create_image("0", transfer_function[None, None],
+                              chunks=(1, 1, min(Z, 256), Y, X),
+                              transform=[TransformationMeta(type="scale",
+                                                            scale=psf_dataset.scale)])
+        tf_half = transfer_function[..., : X // 2 + 1]
+    plan = _Plan(fs, (Z, Y, X), tf_half, times, dev, spectral=False)
+    other_stages = plan.decon is not None or plan.dk is not None or plan.warped
+    targets: set[int] = set()
+    if fs["flat_field"] is not None:
+        targets = set(resolve_target_indices(
+            fs["flat_field"], channel_names,
+            others_note=("Other channels skip the correction but run the rest of the chain"
+                         if other_stages else "Other channels will be copied as-is")))
+    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
+    output_positions = [open_ome_zarr(p, mode="r+")
+                        for p in get_output_paths(input_position_dirpaths, output_dirpath)]
+    for out_pos in output_positions:
+        out_pos.update_zattrs({"biahub-fuse": settings})
+    token = settings_fingerprint(settings)
+    runner = BatchRunner(cluster=resolved, device=dev)
+    units = [WorkUnit(p, int(t), c, c, int(t_out)) for p in range(len(input_positions))
+             for t_out, t in enumerate(times) for c in range(C)]
+    unit_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx))) + plan.workspace
+    if _over_budget(plan, (Z, Y, X), unit_bytes, runner.max_batch_bytes, sys.stdout):
+        progress: dict[int, ProgressStore] = {}
+        n = 0
+        for u in stripe_units(units):
+            out_pos = output_positions[u.pos_idx]
+            if resume and u.pos_idx not in progress:
+                progress[u.pos_idx] = ProgressStore(out_pos.path, token)
+            if u.pos_idx in progress and progress[u.pos_idx].is_done(u.out_t, u.c_out):
+                n += 1
+                continue
+            vol = torch.from_numpy(np.asarray(input_positions[u.pos_idx].data[u.t, u.c_in],
+                                              dtype=np.float32))
+            out_pos["0"][u.out_t, u.c_out] = _fuse_unit_over_budget(
+                vol, plan, u.t, u.c_in in targets, runner.max_batch_bytes).numpy()
+            if u.pos_idx in progress:
+                progress[u.pos_idx].mark_done(u.out_t, u.c_out)
+            n += 1
+        print(f"Fused (chunked fallback): {n} (t, c) volumes across "
+              f"{len(input_position_dirpaths)} positions")
+        return
+
+    def make_kernel(flat: bool):
+        def kernel(vols: torch.Tensor, t: np.ndarray) -> torch.Tensor:
+            return _fuse_batch(plan, vols, [int(x) for x in t], flat, other_stages)
+
+        # uint16 volumes go to the card as they are (kernel A, or the cast).
+        kernel.native_ingest_dtypes = ("uint16",)
+        return kernel
+
+    run_kwargs = dict(resume=resume, resume_token=token,
+                      per_unit_params=lambda u: {"t": np.int64(u.t)},
+                      monitor=monitor and resolved != "debug",
+                      unit_workspace_bytes=plan.workspace)
+    ff_units = [u for u in units if u.c_in in targets]
+    plain_units = [u for u in units if u.c_in not in targets]
+    n = 0
+    if ff_units:
+        n += runner.run_units(make_kernel(True), ff_units, input_positions, output_positions,
+                              **run_kwargs)
+    if plain_units and not other_stages:
+        # flat-field is the only stage: the other channels are copied.
+        runner.copy_channels(input_positions, output_positions,
+                             sorted({(u.c_in, u.c_out) for u in plain_units}),
+                             time_indices=times)
+        n += len(plain_units)
+    elif plain_units:
+        n += runner.run_units(make_kernel(False), plain_units, input_positions,
+                              output_positions, **run_kwargs)
+    stages = [name for name, key in (("flat-field", "flat_field"), ("deconvolve", "deconvolve"),
+                                     ("deskew", "deskew"), ("register", "registration"),
+                                     ("stabilize", "stabilization")) if fs[key] is not None]
+    print(f"Fused {'+'.join(stages)}: {n} (t, c) volumes across {len(input_positions)} "
+          "positions")
+    runner.echo_stats()

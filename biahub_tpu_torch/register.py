@@ -1,4 +1,4 @@
-"""register on arrays in memory, and the register verb's helpers.
+"""The register verb, on arrays in memory and on plates, and its helpers.
 
 Counterpart of ``biahub_tpu/register.py``: the matrix helpers
 (``get_3D_rescaling_matrix``, ``get_3D_rotation_matrix``,
@@ -10,22 +10,29 @@ channels the settings name are warped into the target frame by
 ``affine_warp_auto`` (the crop start folded into the matrix when the output
 is cropped to the overlap), and the target's other channels are copied
 cropped. A volume over the batch budget is warped in output chunks
-(``kernels/multipass_warp.py::chunked_affine_warp_zyx``).
+(``kernels/multipass_warp.py::chunked_affine_warp_zyx``). :func:`register`
+is the verb on plates (``register_cli``, :197-398) through the batch runner,
+the same functions on the same volumes as :func:`register_arrays`.
 """
 
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from biahub_tpu_torch.apply_inverse_transfer_function import time_indices
+from biahub_tpu_torch.cli.utils import yaml_to_model
 from biahub_tpu_torch.convert import registration_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
+from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels.affine import affine_warp_auto, affine_warp_auto_batched
 from biahub_tpu_torch.kernels.multipass_warp import chunked_affine_warp_zyx, common_frame_bytes
+from biahub_tpu_torch.runtime.executor import BatchRunner, resolve_cluster, stripe_units
+from biahub_tpu_torch.runtime.resources import estimate_resources
 from biahub_tpu_torch.transforms.lir import largest_interior_rectangle
 
 __all__ = [
@@ -37,6 +44,7 @@ __all__ = [
     "find_overlapping_volume",
     "rescale_voxel_size",
     "register_arrays",
+    "register",
 ]
 
 # Interpolation names that take the nearest neighbour (order 0).
@@ -270,3 +278,117 @@ def register_arrays(
         for c_in, c_out in copies:
             out[t_out, c_out] = as_tensor(target[t, c_in][crop], out.device)
     return out, out_names, voxel_size
+
+
+def register(
+    source_position_dirpaths: list[Path],
+    target_position_dirpaths: list[Path],
+    config_filepath: Path,
+    output_dirpath: Path,
+    local: bool = False,
+    sbatch_filepath: str | None = None,
+    monitor: bool = True,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The register verb on plates (the reference's ``register_cli``,
+    :197-398): the output plate in the target's frame (cropped to the
+    overlap's LIR without ``keep_overhang``, the crop start folded into the
+    matrix) at :func:`rescale_voxel_size`, the named source channels warped
+    by ``affine_warp_auto`` in device batches (over the budget in output
+    chunks, read from and written to the plates), the target's other
+    channels copied cropped."""
+    dev = resolve_device(device)
+    output_dirpath = Path(output_dirpath)
+    settings = yaml_to_model(config_filepath, registration_settings_from_reference)
+    matrix = np.array(settings["affine_transform_zyx"], dtype=np.float64)
+    keep_overhang = settings["keep_overhang"]
+    source_dataset = open_ome_zarr(source_position_dirpaths[0])
+    T, C, Z, Y, X = source_dataset.data.shape
+    source_channel_names = source_dataset.channel_names
+    source_shape = tuple(source_dataset.data.shape[-3:])
+    output_voxel_size = rescale_voxel_size(matrix[:3, :3], source_dataset.scale[-3:])
+    target_dataset = open_ome_zarr(target_position_dirpaths[0])
+    target_channel_names = target_dataset.channel_names
+    target_shape = tuple(target_dataset.data.shape[-3:])
+    print("\nREGISTRATION PARAMETERS:")
+    print(f"Transformation matrix:\n{matrix}")
+    print(f"Voxel size: {output_voxel_size}")
+    times = time_indices(settings, T)
+    output_channel_names = list(target_channel_names)
+    if target_position_dirpaths != source_position_dirpaths:
+        output_channel_names += list(source_channel_names)
+    if not keep_overhang:
+        print("\nFinding largest overlapping volume between source and target datasets")
+        crop = find_overlapping_volume(source_shape, target_shape, matrix, device=dev)
+        out_shape = _slice_shape(crop)
+        print(f"Shape of cropped output dataset: {out_shape}\n")
+    else:
+        crop = tuple(slice(0, s) for s in target_shape)
+        out_shape = target_shape
+    create_empty_plate(
+        store_path=output_dirpath,
+        position_keys=[Path(p).parts[-3:] for p in source_position_dirpaths],
+        channel_names=output_channel_names,
+        shape=(len(times), len(output_channel_names)) + tuple(out_shape),
+        scale=(1, 1) + tuple(output_voxel_size),
+        dtype=np.float32,
+        version=settings["output_ome_zarr_version"] or get_ome_zarr_version(
+            Path(source_position_dirpaths[0]).parents[2]),
+    )
+    estimate_resources(shape=(T, C, Z, Y, X), ram_multiplier=5)
+    resolved = resolve_cluster(None, local)
+    print(f"Running on-device batches (mode='{resolved}')")
+    warp_matrix = matrix if keep_overhang else _shift_to(matrix, [s.start for s in crop])
+    order = 0 if settings["interpolation"] in ("nearest", "nearestNeighbor") else 1
+    source_positions = [open_ome_zarr(p, mode="r") for p in source_position_dirpaths]
+    target_positions = [open_ome_zarr(p, mode="r") for p in target_position_dirpaths]
+    output_positions = [open_ome_zarr(output_dirpath / Path(*Path(p).parts[-3:]), mode="r+")
+                        for p in source_position_dirpaths]
+    for out_pos in output_positions:
+        out_pos.update_zattrs({"biahub-register": {
+            "affine_transformation": {"transform_matrix": matrix.tolist()},
+            "settings": settings}})
+    runner = BatchRunner(cluster=resolved, device=dev)
+    pairs = [(source_channel_names.index(name), output_channel_names.index(name))
+             for name in source_channel_names if name in settings["source_channel_names"]]
+    workspace = common_frame_bytes(warp_matrix, source_shape, out_shape)
+    volume_bytes = 4 * (int(np.prod(source_shape)) + int(np.prod(out_shape))) + workspace
+    if volume_bytes > runner.max_batch_bytes:
+        chunk = tuple(max(32, s // max(1, int(np.ceil(volume_bytes / runner.max_batch_bytes))))
+                      for s in out_shape)
+        print(f"Volume exceeds the device batch budget; warping in output chunks of {chunk}")
+        units = [(src, out, int(t), t_out, c_in, c_out)
+                 for src, out in zip(source_positions, output_positions)
+                 for t_out, t in enumerate(times) for c_in, c_out in pairs]
+        n = 0
+        for src, out, t, t_out, c_in, c_out in stripe_units(units):
+            def read_fn(zs, ys, xs, _t=t, _c=c_in, _p=src):
+                return _p.data[_t, _c, zs, ys, xs]
+
+            def write_fn(zs, ys, xs, data, _t=t_out, _c=c_out, _p=out):
+                _p["0"][_t, _c, zs, ys, xs] = data.cpu().numpy()
+
+            chunked_affine_warp_zyx(read_fn, warp_matrix, source_shape, out_shape, chunk,
+                                    write_fn=write_fn, order=order, device=dev)
+            n += 1
+    else:
+        def kernel(vols: torch.Tensor) -> torch.Tensor:
+            return affine_warp_auto_batched(vols, warp_matrix, out_shape, order=order,
+                                            device=dev)
+
+        n = runner.run_zyx(kernel, source_positions, output_positions, channel_pairs=pairs,
+                           time_indices=times, monitor=monitor and resolved != "debug",
+                           unit_workspace_bytes=workspace)
+    copies = [(target_channel_names.index(name), output_channel_names.index(name))
+              for name in target_channel_names if name not in settings["source_channel_names"]]
+    futures = []
+    for in_pos, out_pos in zip(target_positions, output_positions):
+        for t_out, t in enumerate(times):
+            for c_in, c_out in copies:
+                data = in_pos.data[(int(t), int(c_in)) + tuple(crop)]
+                futures.append(out_pos["0"].write_async((t_out, c_out),
+                                                        data.astype(np.float32)))
+    for f in futures:
+        f.result()
+    print(f"Registered {n} (t, c) volumes")
+    runner.echo_stats()

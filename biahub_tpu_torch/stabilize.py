@@ -1,6 +1,7 @@
-"""stabilize on arrays in memory: per-timepoint 4x4 transforms.
+"""The stabilize verb: per-timepoint 4x4 transforms, on arrays in memory
+(:func:`stabilize_tczyx`) and on plates (:func:`stabilize`).
 
-Counterpart of ``biahub_tpu/stabilize.py`` without its plate I/O: the
+Counterpart of ``biahub_tpu/stabilize.py``: the
 first transform's rotation decides whether the output YX axes swap
 (:func:`_output_yx`), every channel of a timepoint is warped by that
 timepoint's matrix, and the kernel is chosen from the whole matrix list
@@ -14,22 +15,38 @@ batch, with a (B, 7, 3) table, in one frame for the whole run), or the
 exact gather when a matrix has a vanishing pivot
 (:func:`~biahub_tpu_torch.kernels.affine.make_batched_warp`). When one
 volume, its output and its frames exceed the batch budget, each volume is
-warped in output chunks (the reference's :216-262).
+warped in output chunks (the reference's :216-262). The plate verb reads
+one settings file per position (matched by ``<row>_<col>_<fov>`` in its
+name when there are several) and chooses the kernel and the output frame
+from every position's matrices.
 """
 
 from __future__ import annotations
 
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
 
+from biahub_tpu_torch.apply_inverse_transfer_function import time_indices as select_times
+from biahub_tpu_torch.cli.utils import check_disk_space_with_du, yaml_to_model
+from biahub_tpu_torch.convert import stabilize_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
 from biahub_tpu_torch.kernels.affine import affine_warp_auto, make_batched_warp
+from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels.multipass_warp import chunked_affine_warp_zyx
+from biahub_tpu_torch.runtime.executor import (
+    BatchRunner,
+    WorkUnit,
+    resolve_cluster,
+    stripe_units,
+)
+from biahub_tpu_torch.runtime.resources import estimate_resources
 
-__all__ = ["apply_stabilization_transform", "stabilize_tczyx", "stabilize_batch_size"]
+__all__ = ["apply_stabilization_transform", "stabilize_tczyx", "stabilize_batch_size",
+           "stabilize"]
 
 
 def apply_stabilization_transform(
@@ -152,3 +169,97 @@ def _stabilize_chunked(tczyx, mats, times, out_zyx, volume_bytes: int,
             chunked_affine_warp_zyx(read_fn, mats[t], (Z, Y, X), out_zyx, chunk,
                                     write_fn=write_fn, device=dev)
     return out
+
+
+def stabilize(
+    input_position_dirpaths: list[Path],
+    output_dirpath: Path,
+    config_filepaths: list[Path],
+    sbatch_filepath: str | None = None,
+    local: bool = False,
+    monitor: bool = True,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The stabilize verb on plates (the reference's ``stabilize``,
+    :85-279): the output plate (YX swapped when the first settings file's
+    first transform turns by ~90 deg, ``output_voxel_size`` as the scale),
+    then every (t, c) unit warped by its position's float32 matrix of
+    timepoint t, the kernel chosen from every position's matrices
+    (:func:`~biahub_tpu_torch.kernels.affine.make_batched_warp`); over the
+    batch budget in output chunks read from and written to the plates."""
+    dev = resolve_device(device)
+    settings = yaml_to_model(config_filepaths[0], stabilize_settings_from_reference)
+    output_dirpath = Path(output_dirpath)
+    dataset = open_ome_zarr(input_position_dirpaths[0])
+    T, C, Z, Y, X = dataset.data.shape
+    out_zyx = (Z,) + _output_yx(settings["affine_transform_zyx_list"], Y, X)
+    times = select_times(settings, T)
+    create_empty_plate(
+        store_path=output_dirpath,
+        position_keys=[Path(p).parts[-3:] for p in input_position_dirpaths],
+        channel_names=dataset.channel_names,
+        shape=(len(times), C) + out_zyx,
+        scale=settings["output_voxel_size"],
+        dtype=np.float32,
+        version=settings["output_ome_zarr_version"] or get_ome_zarr_version(
+            Path(input_position_dirpaths[0]).parents[2]),
+    )
+    if not check_disk_space_with_du(input_position_dirpaths[0], output_dirpath, margin=1.1,
+                                    verbose=True):
+        raise RuntimeError(f"Not enough disk space to store the output at {output_dirpath}")
+    estimate_resources(shape=(T, C, Z, Y, X), ram_multiplier=16, max_num_cpus=16)
+    resolved = resolve_cluster(None, local)
+    print(f"Running on-device batches (mode='{resolved}')")
+
+    def config_for(path: Path) -> dict:
+        if len(config_filepaths) > 1:
+            fov = "_".join(Path(path).parts[-3:])
+            matches = [p for p in config_filepaths if fov in Path(p).name]
+            if not matches:
+                raise ValueError(f"No config file matches position {fov}")
+            return yaml_to_model(matches[0], stabilize_settings_from_reference)
+        return settings
+
+    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
+    output_positions = [open_ome_zarr(output_dirpath / Path(*Path(p).parts[-3:]), mode="r+")
+                        for p in input_position_dirpaths]
+    per_position = []
+    for path, out_pos in zip(input_position_dirpaths, output_positions):
+        fov_settings = config_for(path)
+        per_position.append(np.asarray(fov_settings["affine_transform_zyx_list"],
+                                       dtype=np.float32))
+        out_pos.update_zattrs({"biahub-stabilize": fov_settings})
+    units = [WorkUnit(p, int(t), c, c, int(t_out)) for p in range(len(input_positions))
+             for t_out, t in enumerate(times) for c in range(C)]
+    warp, workspace = make_batched_warp(np.concatenate(per_position), (Z, Y, X), out_zyx, dev)
+    runner = BatchRunner(cluster=resolved, device=dev)
+    volume_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx))) + workspace
+    if volume_bytes > runner.max_batch_bytes:
+        n_splits = max(1, int(np.ceil(volume_bytes / runner.max_batch_bytes)))
+        chunk = tuple(max(32, s // n_splits) for s in out_zyx)
+        print(f"Volume exceeds the device batch budget; stabilizing in output chunks of "
+              f"{chunk}")
+        n = 0
+        for u in stripe_units(units):
+            def read_fn(zs, ys, xs, _u=u):
+                return input_positions[_u.pos_idx].data[_u.t, _u.c_in, zs, ys, xs]
+
+            def write_fn(zs, ys, xs, data, _u=u):
+                output_positions[_u.pos_idx]["0"][_u.out_t, _u.c_out, zs, ys, xs] = \
+                    data.cpu().numpy()
+
+            chunked_affine_warp_zyx(read_fn, per_position[u.pos_idx][u.t].astype(np.float64),
+                                    (Z, Y, X), out_zyx, chunk, write_fn=write_fn, device=dev)
+            n += 1
+        print(f"Stabilized {n} (t, c) volumes")
+        return
+
+    def kernel(vols: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
+        return warp(vols, matrix.astype(np.float64))
+
+    n = runner.run_units(kernel, units, input_positions, output_positions,
+                         per_unit_params=lambda u: {"matrix": per_position[u.pos_idx][u.t]},
+                         monitor=monitor and resolved != "debug",
+                         unit_workspace_bytes=workspace)
+    print(f"Stabilized {n} (t, c) volumes")
+    runner.echo_stats()

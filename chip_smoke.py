@@ -261,6 +261,25 @@ Then the fused pipeline and the verbs on arrays, at full width:
     false: the crop the LIR of the warped frame, the target copied cropped,
     the source equal to ``affine_warp_auto`` with the crop folded in.
 
+Then the verbs on plates, through the command line a user calls:
+
+23. writes the users' plate (22a's T 2, C 2 uint16 volumes) and a PSF
+    plate with the port's OME-Zarr writer in a ``tempfile.mkdtemp()``
+    directory, runs ``python -m biahub_tpu_torch.cli fuse`` there (as
+    ``cli.main``) at 22a's settings with ``--resume``: launches A, B, C 4
+    and D, E, F 2, the plate read back bit-equal to ``fuse_arrays`` on the
+    same arrays; prints the verb's ms a volume (host clock, the whole call
+    and the runner's part), the runner's split (host time waiting on
+    reads, the copies to the card, the kernels, the copies back, host time
+    waiting on writes; the copies and kernels by CUDA events) and the bytes
+    read and written, beside ``fuse_arrays``' ms a volume in this run; runs
+    it again with ``--resume`` (no unit computed, the plate's chunks
+    untouched), the deskew verb on the same plate (bit-equal to
+    ``deskew_arrays``), the flat-field verb into an OME-Zarr 0.5 plate on a
+    small cut (bit-equal to ``flat_field_arrays``, read back as written),
+    and requires a blosc ``.zarray`` to raise naming its codec; the
+    directory is deleted at the end.
+
 Times are CUDA-event medians on this card.
 
 Prints the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -3559,6 +3578,196 @@ def fuse_phase(dev: torch.device, tf_half: np.ndarray) -> None:
           f"voxel size {np.round(voxel_f, 4).tolist()}; launches {launches_f}")
 
 
+def yaml_flow(obj) -> str:
+    """``obj`` as one line of YAML flow style that the port's reader (and
+    PyYAML) read back as ``obj``: floats with a dot before an exponent."""
+    if isinstance(obj, dict):
+        return "{" + ", ".join(f"{k}: {yaml_flow(v)}" for k, v in obj.items()) + "}"
+    if isinstance(obj, (list, tuple)):
+        return "[" + ", ".join(yaml_flow(v) for v in obj) + "]"
+    if isinstance(obj, bool):
+        return "true" if obj else "false"
+    if obj is None:
+        return "null"
+    if isinstance(obj, float):
+        text = repr(obj)
+        return text.replace("e", ".0e") if "e" in text and "." not in text else text
+    if isinstance(obj, int):
+        return str(obj)
+    return json.dumps(str(obj))
+
+
+def run_verb(argv: list[str]) -> tuple[float, dict, dict, str]:
+    """``python -m biahub_tpu_torch.cli`` as ``cli.main(argv)`` on the card:
+    its host-clock seconds, the launches it made, its runner's
+    ``RUN_STATS`` and its stdout. Fails unless it returns 0."""
+    from biahub_tpu_torch.cli.main import main as cli_main
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc, launches = counted(lambda: cli_main(argv))
+    seconds = time.perf_counter() - t0
+    text = buf.getvalue()
+    require(rc == 0, f"{' '.join(argv[:1])} verb exited {rc}")
+    stats = [json.loads(line[len("RUN_STATS:"):]) for line in text.splitlines()
+             if line.startswith("RUN_STATS:")]
+    return seconds, launches, (stats[-1] if stats else {}), text
+
+
+def chunk_stamps(root) -> dict:
+    """Modification times of the chunk files of a plate."""
+    return {p: p.stat().st_mtime_ns for p in root.rglob("*")
+            if p.is_file() and not p.name.startswith(".") and p.name != "zarr.json"
+            and ".biahub_tpu_progress" not in p.parts}
+
+
+def plates_phase(dev: torch.device, psf: np.ndarray) -> None:
+    """Phase 23: the verbs on plates through the command line (module
+    docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from biahub_tpu_torch import deskew_arrays, flat_field_arrays, fuse_arrays
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function
+    from biahub_tpu_torch.kernels.deskew import get_deskewed_data_shape
+
+    card = gpu_info()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_plates_"))
+    try:
+        names = ["GFP", "Phase3D"]
+        scale = [1.0, 1.0, FUSE_DESKEW["scan_step_um"], FUSE_DESKEW["pixel_size_um"],
+                 FUSE_DESKEW["pixel_size_um"]]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        raw = torch.randint(0, 65536, (FUSE_T, FUSE_C) + SHAPE, generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint16)
+        t0 = time.perf_counter()
+        plate = open_ome_zarr(tmp / "raw.zarr", layout="hcs", mode="w", channel_names=names)
+        plate.create_position("A", "1", "0").create_image(
+            "0", raw.cpu().numpy(), transform=[TransformationMeta(type="scale", scale=scale)])
+        psf_plate = open_ome_zarr(tmp / "psf.zarr", layout="hcs", mode="w",
+                                  channel_names=["PSF"])
+        psf_plate.create_position("0", "0", "0").create_image(
+            "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=scale)])
+        write_s = time.perf_counter() - t0
+        frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
+        m_reg = inplane_about_centre(FUSE_REG_DEG, FUSE_REG_SHIFT, frame)
+        users = {"flat_field": {"channel_names": ["GFP"]},
+                 "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
+                 "registration": {"affine_transform_zyx": m_reg.tolist()},
+                 "stabilization": {"affine_transform_zyx_list": [
+                     inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame).tolist()
+                     for t in range(FUSE_T)]}}
+        (tmp / "fuse.yml").write_text(yaml_flow(users) + "\n")
+        position = str(tmp / "raw.zarr" / "A" / "1" / "0")
+        out = tmp / "fused.zarr"
+        argv = ["fuse", "-i", position, "-c", str(tmp / "fuse.yml"), "-o", str(out), "-p",
+                str(tmp / "psf.zarr"), "--resume"]
+        n_units = FUSE_T * FUSE_C
+        print(f"23. plates in {tmp}: raw {FUSE_T}x{FUSE_C} uint16 {SHAPE} written in "
+              f"{write_s:.2f} s by the port's writer (uncompressed OME-Zarr 0.4)")
+
+        seconds, launches, stats, text = run_verb(argv)
+        want_l = {"fwd_yx": n_units, "z_filter": n_units, "inv_yx": n_units, "deskew": 2,
+                  "warp_zy": 2, "warp_x": 2}
+        require(launches == want_l, f"fuse verb launches {launches}, want {want_l}")
+        require(stats.get("n_units") == n_units, f"fuse verb computed {stats.get('n_units')}")
+        got = open_ome_zarr(out / "A" / "1" / "0").data[...]
+        t0 = time.perf_counter()
+        tf = compute_transfer_function(psf, SHAPE)  # the verb's host FFT, as the reference's
+        tf_s = time.perf_counter() - t0
+        tf_half = torch.from_numpy(np.ascontiguousarray(tf[..., : SHAPE[2] // 2 + 1])).to(dev)
+        del tf
+        want = fuse_arrays(raw, names, users, tf_half, device=dev).cpu().numpy()
+        require(got.shape == want.shape == (FUSE_T, FUSE_C) + tuple(frame),
+                f"fuse verb shape {got.shape}, want {want.shape}")
+        require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                "fuse verb: the plate differs from fuse_arrays")
+        del want
+        arrays_ms = host_ms(lambda: fuse_arrays(raw, names, users, tf_half, device=dev),
+                            reps=FUSE_REPS) / n_units
+        wall = stats["wall_s"]
+        keys = ("read_s", "h2d_s", "device_s", "d2h_s", "write_s")
+        shares = ", ".join(f"{k[:-2]} {1e3 * stats[k] / n_units:.3f} ms/volume "
+                           f"({stats[k] / wall:.1%})" for k in keys)
+        print(f"23 fuse verb (cli.main, T {FUSE_T}, C {FUSE_C}, uint16 {SHAPE} -> float32 "
+              f"{tuple(frame)}, 22a's settings): {1e3 * seconds / n_units:.4f} ms/volume "
+              f"(host clock, the whole call: plates, transfer function, filter, runs; the "
+              f"transfer function's host FFT alone {tf_s:.2f} s), the runner "
+              f"{1e3 * wall / n_units:.4f} ms/volume; split of the runner's wall: {shares}; "
+              f"the rest {1e3 * (wall - sum(stats[k] for k in keys)) / n_units:.3f} "
+              f"ms/volume; read {stats['bytes_read'] / 2**20:.1f} MiB, written "
+              f"{stats['bytes_written'] / 2**20:.1f} MiB (page cache, warm); fuse_arrays "
+              f"{arrays_ms:.4f} ms/volume (host clock, {FUSE_REPS} runs, the arrays on the "
+              f"card); launches {launches}; bit-equal to fuse_arrays; card {card}")
+
+        stamps = chunk_stamps(out)
+        _, launches_r, stats_r, text_r = run_verb(argv)
+        require(text_r.count("Resume: skipping 2 finished units") == 2,
+                "fuse --resume: the finished units were not skipped")
+        require(not launches_r and not stats_r.get("n_units"),
+                f"fuse --resume computed units (launches {launches_r})")
+        require(stamps and chunk_stamps(out) == stamps, "fuse --resume rewrote chunks")
+        require(np.array_equal(open_ome_zarr(out / "A" / "1" / "0").data[...].view(np.int32),
+                               got.view(np.int32)), "fuse --resume changed the plate")
+        del got
+        print("23 fuse --resume: 0 units computed, no launch, the plate's chunks untouched")
+
+        deskew_cfg = {k: v for k, v in FUSE_DESKEW.items() if k != "scan_step_um"}
+        (tmp / "deskew.yml").write_text(yaml_flow(deskew_cfg) + "\n")
+        seconds_d, launches_d, stats_d, _ = run_verb(
+            ["deskew", "-i", position, "-c", str(tmp / "deskew.yml"), "-o",
+             str(tmp / "deskewed.zarr")])
+        got_d = open_ome_zarr(tmp / "deskewed.zarr" / "A" / "1" / "0").data[...]
+        want_d = deskew_arrays(raw, deskew_cfg, device=dev).cpu().numpy()
+        require(np.array_equal(got_d.view(np.int32), want_d.view(np.int32)),
+                "deskew verb: the plate differs from deskew_arrays")
+        print(f"23 deskew verb ({tuple(got_d.shape)} float32): "
+              f"{1e3 * seconds_d / n_units:.4f} ms/volume (host clock), the runner "
+              f"{1e3 * stats_d['wall_s'] / n_units:.4f}; bit-equal to deskew_arrays; "
+              f"launches {launches_d}")
+        del got_d, want_d, raw
+
+        small = np.random.default_rng(3).random((2, 2, 16, 64, 128)).astype(np.float32)
+        small_plate = open_ome_zarr(tmp / "small.zarr", layout="hcs", mode="w",
+                                    channel_names=names)
+        small_plate.create_position("A", "1", "0").create_image(
+            "0", small, transform=[TransformationMeta(type="scale", scale=scale)])
+        (tmp / "ff.yml").write_text(yaml_flow({"channel_names": ["GFP"],
+                                               "output_ome_zarr_version": "0.5"}) + "\n")
+        run_verb(["flat-field", "-i", str(tmp / "small.zarr" / "A" / "1" / "0"), "-c",
+                  str(tmp / "ff.yml"), "-o", str(tmp / "ff.zarr")])
+        ff = open_ome_zarr(tmp / "ff.zarr" / "A" / "1" / "0")
+        require(ff.version == "0.5" and (tmp / "ff.zarr" / "zarr.json").exists(),
+                "flat-field verb: the output is not OME-Zarr 0.5")
+        want_ff = flat_field_arrays(small, names, {"channel_names": ["GFP"]},
+                                    device=dev).cpu().numpy()
+        require(np.array_equal(ff.data[...].view(np.int32), want_ff.view(np.int32)),
+                "flat-field verb (0.5): the plate differs from flat_field_arrays")
+        print("23 flat-field verb into OME-Zarr 0.5 (2x2 (16, 64, 128)): bit-equal to "
+              "flat_field_arrays, read back as written")
+
+        blosc = tmp / "blosc.zarr"
+        open_ome_zarr(blosc, layout="fov", mode="w", channel_names=["a"]).create_zeros(
+            "0", (1, 1, 2, 4, 4), np.float32)
+        meta = json.loads((blosc / "0" / ".zarray").read_text())
+        meta["compressor"] = {"id": "blosc", "cname": "zstd", "clevel": 1, "shuffle": 1}
+        (blosc / "0" / ".zarray").write_text(json.dumps(meta))
+        try:
+            open_ome_zarr(blosc).data[...]
+            raised = ""
+        except ValueError as exc:
+            raised = str(exc)
+        require("blosc" in raised, "a blosc .zarray did not raise naming its codec")
+        print(f"23 a blosc chunk raises: {raised.split(': ', 1)[-1]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3904,6 +4113,7 @@ def main() -> int:
     hi_phase(dev, records)
     gbx_phase(dev, records)
     fuse_phase(dev, tf_half)
+    plates_phase(dev, psf)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,
