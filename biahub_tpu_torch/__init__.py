@@ -63,7 +63,14 @@ The main path's verbs on OME-Zarr plates, as a user runs them:
 function (e.g. :func:`biahub_tpu_torch.fuse.fuse`), on the port's own
 OME-Zarr store (:mod:`biahub_tpu_torch.io`: uncompressed zarr v2 and v3
 written; uncompressed, zlib and gzip read) and batch runner
-(:mod:`biahub_tpu_torch.runtime.executor`).
+(:mod:`biahub_tpu_torch.runtime.executor`); and the reconstruction and
+estimate verbs the same way: ``compute-tf``, ``apply-inv-tf``,
+``reconstruct``, ``estimate-stabilization``, ``estimate-psf``,
+``estimate-registration`` (``beads``, ``ants``) and
+``optimize-registration``, which write the settings YAML (the port's
+writer, :mod:`biahub_tpu_torch.cli.yaml_writer`), CSV, ``.npy`` transform
+files and, where matplotlib is installed, plots that ``register`` and
+``stabilize`` and their users read.
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (

@@ -2,11 +2,16 @@
 
 The verbs and options of the reference's ``biahub`` command
 (``biahub_tpu/cli/main.py``) for what the port runs on plates: ``fuse``,
-``deconvolve``, ``deskew``, ``flat-field``, ``register`` and
-``stabilize``. Every other verb of the reference exits with status 2 and
-says that it is not ported yet. The verbs run on the card and raise without
-one; :func:`main` takes the device as a Python argument (the tests pass
-``device="cpu"``).
+``deconvolve``, ``deskew``, ``flat-field``, ``register``, ``stabilize``,
+``compute-tf``, ``apply-inv-tf``, ``reconstruct``,
+``estimate-stabilization``, ``estimate-psf``, ``estimate-registration``
+and ``optimize-registration``. Every other verb of the reference exits with
+status 2 and says that it is not ported yet. A bad option exits with status
+2 and the verb's usage; a failure the reference reports as a
+``click.ClickException`` (:class:`~biahub_tpu_torch.cli.parsing.
+CommandError`) prints ``Error: <message>`` and exits with status 1. The
+verbs run on the card and raise without one; :func:`main` takes the device
+as a Python argument (the tests pass ``device="cpu"``).
 """
 
 from __future__ import annotations
@@ -67,6 +72,20 @@ PORTED = {
                  P.output_dirpath, P.local, P.sbatch_filepath, P.monitor],
     "stabilize": [P.input_position_dirpaths, P.output_dirpath, P.config_filepaths,
                   P.sbatch_filepath, P.local, P.monitor],
+    "compute-tf": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath],
+    "apply-inv-tf": [P.input_position_dirpaths, P.transfer_function_dirpath,
+                     P.config_filepath, P.output_dirpath, P.sbatch_filepath, P.cluster,
+                     P.monitor, P.init_only],
+    "reconstruct": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+                    P.sbatch_filepath, P.cluster, P.monitor],
+    "estimate-stabilization": [P.input_position_dirpaths, P.output_dirpath,
+                               P.config_filepath, P.sbatch_filepath, P.local],
+    "estimate-psf": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath],
+    "estimate-registration": [P.source_position_dirpaths, P.target_position_dirpaths,
+                              P.output_filepath, P.config_filepath, P.sbatch_filepath,
+                              P.local, P.registration_channels, P.point_files],
+    "optimize-registration": [P.source_position_dirpaths, P.target_position_dirpaths,
+                              P.config_filepath, P.output_filepath, P.display_viewer],
 }
 
 
@@ -94,15 +113,70 @@ def _existing(path, what: str, directory: bool):
 
 def _run(ns: argparse.Namespace, device) -> None:
     """Call the verb's store-level function with the parsed options."""
-    common = {}
-    if hasattr(ns, "config_filepath"):
-        common["config_filepath"] = _existing(ns.config_filepath, "config file", False)
-    common["output_dirpath"] = ns.output_dirpath
+    verb = ns.verb
+    config = _existing(ns.config_filepath, "config file", False) if hasattr(
+        ns, "config_filepath") else None
     if getattr(ns, "sbatch_filepath", None) is not None:
         _existing(ns.sbatch_filepath, "sbatch file", False)
-    common["sbatch_filepath"] = ns.sbatch_filepath
-    common["monitor"] = ns.monitor
-    common["device"] = device
+    if verb in ("register", "estimate-registration", "optimize-registration"):
+        sources = P.position_dirpaths(ns.source_position_dirpaths)
+        targets = P.position_dirpaths(ns.target_position_dirpaths)
+    else:
+        inputs = P.position_dirpaths(ns.input_position_dirpaths)
+    if verb == "estimate-registration":
+        from biahub_tpu_torch.estimate_registration import estimate_registration
+
+        for points in (ns.source_points, ns.target_points):
+            _existing(points, "point file", False)
+        estimate_registration(sources, targets, ns.output_filepath, config,
+                              ns.registration_target_channel, ns.registration_source_channel,
+                              ns.sbatch_filepath, ns.local, ns.source_points,
+                              ns.target_points, ns.source_points_frame, device=device)
+    elif verb == "optimize-registration":
+        from biahub_tpu_torch.optimize_registration import optimize_registration
+
+        optimize_registration(sources, targets, config, ns.output_filepath,
+                              ns.display_viewer, device=device)
+    elif verb == "compute-tf":
+        from biahub_tpu_torch.compute_transfer_function import compute_transfer_function
+
+        compute_transfer_function(inputs[0], config, ns.output_dirpath, device=device)
+        print(f"Transfer function computed and saved to {ns.output_dirpath}.")
+    elif verb == "apply-inv-tf":
+        from biahub_tpu_torch.apply_inverse_transfer_function import (
+            apply_inverse_transfer_function,
+        )
+
+        apply_inverse_transfer_function(
+            inputs, _existing(ns.transfer_function_dirpath, "transfer function store", True),
+            config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster, ns.monitor,
+            ns.init_only, device=device)
+    elif verb == "reconstruct":
+        from biahub_tpu_torch.reconstruct import reconstruct
+
+        reconstruct(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster,
+                    ns.monitor, device=device)
+    elif verb == "estimate-stabilization":
+        from biahub_tpu_torch.estimate_stabilization import estimate_stabilization
+
+        estimate_stabilization(inputs, ns.output_dirpath, config, ns.sbatch_filepath, ns.local,
+                               device=device)
+    elif verb == "estimate-psf":
+        from biahub_tpu_torch.estimate_psf import estimate_psf
+
+        estimate_psf(inputs, config, ns.output_dirpath, device=device)
+    else:
+        _run_plate_verb(ns, device, config, sources if verb == "register" else inputs,
+                        targets if verb == "register" else None)
+
+
+def _run_plate_verb(ns: argparse.Namespace, device, config, inputs, targets) -> None:
+    """The main path's verbs: fuse, deconvolve, deskew, flat-field,
+    register and stabilize."""
+    common = {"output_dirpath": ns.output_dirpath, "sbatch_filepath": ns.sbatch_filepath,
+              "monitor": ns.monitor, "device": device}
+    if config is not None:
+        common["config_filepath"] = config
     if ns.verb in ("deskew", "flat-field", "fuse"):
         common.update(cluster=ns.cluster, init_only=ns.init_only, resume=ns.resume)
     else:
@@ -110,11 +184,8 @@ def _run(ns: argparse.Namespace, device) -> None:
     if ns.verb == "register":
         from biahub_tpu_torch.register import register
 
-        register(P.position_dirpaths(ns.source_position_dirpaths),
-                 P.position_dirpaths(ns.target_position_dirpaths), **common)
-        return
-    inputs = P.position_dirpaths(ns.input_position_dirpaths)
-    if ns.verb == "stabilize":
+        register(inputs, targets, **common)
+    elif ns.verb == "stabilize":
         from biahub_tpu_torch.stabilize import stabilize
 
         stabilize(inputs, config_filepaths=P.config_paths(ns.config_filepaths), **common)
@@ -138,8 +209,9 @@ def _run(ns: argparse.Namespace, device) -> None:
 
 def main(argv=None, device="cuda") -> int:
     """Run one verb; returns the exit status. Unported verbs return 2 with
-    a message; usage errors exit with status 2 (argparse); a failure of the
-    run raises."""
+    a message; usage errors exit with status 2 (argparse); a
+    :class:`~biahub_tpu_torch.cli.parsing.CommandError` returns 1 with its
+    message on stderr; any other failure of the run raises."""
     argv = list(sys.argv[1:] if argv is None else argv)
     names = [name for name, _ in COMMANDS]
     if argv and argv[0] in names and argv[0] not in PORTED:
@@ -160,6 +232,9 @@ def main(argv=None, device="cuda") -> int:
     except P.UsageError as exc:
         sub = parser._subparsers._group_actions[0].choices[ns.verb]
         sub.error(str(exc))
+    except P.CommandError as exc:
+        print(f"Error: {exc}", file=sys.stderr)
+        return 1
     return 0
 
 

@@ -16,6 +16,7 @@ from pathlib import Path
 
 __all__ = [
     "UsageError",
+    "CommandError",
     "natsorted",
     "position_dirpaths",
     "config_paths",
@@ -25,7 +26,12 @@ __all__ = [
     "config_filepath",
     "config_filepaths",
     "output_dirpath",
+    "output_filepath",
     "psf_dirpath",
+    "transfer_function_dirpath",
+    "registration_channels",
+    "point_files",
+    "display_viewer",
     "sbatch_filepath",
     "local",
     "cluster",
@@ -40,6 +46,12 @@ _NAT_SPLIT = re.compile(r"(\d+)")
 
 class UsageError(Exception):
     """A bad command-line value: the command exits with status 2 and its usage."""
+
+
+class CommandError(Exception):
+    """A failure the command reports as the reference's ``click.
+    ClickException``: ``Error: <message>`` on stderr, exit status 1, no
+    traceback."""
 
 
 def _natural_key(s) -> tuple:
@@ -129,6 +141,48 @@ def config_filepaths(parser: argparse.ArgumentParser) -> None:
 def output_dirpath(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--output-dirpath", "-o", required=True, type=Path,
                         help="Path to output directory")
+
+
+def output_filepath(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--output-filepath", "-o", required=True, type=Path,
+                        help="Path to output file")
+
+
+def transfer_function_dirpath(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--transfer-function-dirpath", "-t", required=True, type=Path,
+                        help="Path to the transfer function zarr written by compute-tf")
+
+
+def registration_channels(parser: argparse.ArgumentParser) -> None:
+    """estimate-registration's ``-rt`` and ``-rs`` (the latter repeats)."""
+    parser.add_argument("--registration-target-channel", "-rt", default=None,
+                        help="Name of the target channel to be used when registration params "
+                             "are applied. If not provided, the target channel from the "
+                             "config file will be used.")
+    parser.add_argument("--registration-source-channel", "-rs", action="append", default=[],
+                        help="Name of the source channels to be used when registration params "
+                             "are applied. May be passed multiple times. If not provided, the "
+                             "source channels from the config file will be used.")
+
+
+def point_files(parser: argparse.ArgumentParser) -> None:
+    """The manual method's headless point files (refused by the port's
+    estimate-registration, which does not port that method)."""
+    parser.add_argument("--source-points", default=None,
+                        help="Manual method, headless: (N, 3) ZYX source point file "
+                             "(.csv/.npy) picked on the pre-aligned overlay.")
+    parser.add_argument("--target-points", default=None,
+                        help="Manual method, headless: (N, 3) ZYX target point file "
+                             "(.csv/.npy) matching --source-points pair for pair.")
+    parser.add_argument("--source-points-frame", choices=["pre_aligned", "original"],
+                        default="pre_aligned",
+                        help="Frame of --source-points: 'pre_aligned' or 'original'. "
+                             "(default: pre_aligned)")
+
+
+def display_viewer(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--display-viewer", "-d", action="store_true",
+                        help="Display the registered channels in a napari viewer")
 
 
 def psf_dirpath(parser: argparse.ArgumentParser, required: bool) -> None:

@@ -4,7 +4,9 @@ Counterpart of ``biahub_tpu/cli/utils.py`` (and its ``cli/disk.py``
 preflight): ``yaml_to_model`` reads a settings file with the port's YAML
 reader and validates it through one of the readers of
 :mod:`biahub_tpu_torch.convert`, which refuse unknown fields as the
-reference's models do.
+reference's models do; ``model_to_yaml`` writes a settings dict as the
+reference's ``model_to_yaml`` writes its model (:mod:`biahub_tpu_torch.cli.
+yaml_writer`).
 """
 
 from __future__ import annotations
@@ -17,11 +19,13 @@ from pathlib import Path
 import numpy as np
 
 from biahub_tpu_torch.cli.yaml_reader import load_file
+from biahub_tpu_torch.cli.yaml_writer import dump_file
 from biahub_tpu_torch.io.ngff import get_ome_zarr_version, open_ome_zarr
 
 __all__ = [
     "PROVENANCE_METADATA_KEYS",
     "yaml_to_model",
+    "model_to_yaml",
     "get_output_paths",
     "resolve_ome_zarr_version",
     "append_channels",
@@ -43,6 +47,15 @@ def yaml_to_model(yaml_path: Path, reader: Callable[[dict], dict]) -> dict:
     if not isinstance(raw, dict):
         raise ValueError(f"{yaml_path}: want a mapping of settings, got {raw!r}")
     return reader(raw)
+
+
+def model_to_yaml(model: dict, yaml_path: Path) -> None:
+    """Write a settings dict (a reference model's ``model_dump()``, e.g.
+    from ``convert.registration_settings_dump``) to ``yaml_path``, its
+    top-level None values dropped, as the reference's ``model_to_yaml``."""
+    if not isinstance(model, dict):
+        raise TypeError(f"model_to_yaml: want a settings dict, got {type(model).__name__}")
+    dump_file({k: v for k, v in model.items() if v is not None}, yaml_path)
 
 
 def get_output_paths(input_paths: list[Path], output_zarr_path: Path,

@@ -24,9 +24,13 @@ validates the reconstruction verbs' settings (``ReconstructionSettings``,
 recon/settings.py) and ``transfer_functions_from_reference`` carries the
 reference's transfer functions into tensors. ``spectral_table_from_reference``
 carries the spectral deskew's lerp-DFT table. ``deskew_settings_dump``,
-``fuse_settings_dump`` and ``stabilize_settings_from_reference`` give the
-plate verbs' settings as the reference's models dump them (the provenance
-the verbs stamp on their plates). Settings files are read by
+``fuse_settings_dump``, ``stabilize_settings_from_reference`` and
+``reconstruction_settings_dump`` give the plate verbs' settings as the
+reference's models dump them (the provenance the verbs stamp on their
+plates); ``registration_settings_dump`` and ``stabilization_settings_dump``
+build the YAML files the estimate verbs write, and
+``psf_from_beads_settings_from_reference`` validates estimate-psf's
+``PsfFromBeadsSettings``. Settings files are read by
 :mod:`biahub_tpu_torch.cli.yaml_reader`.
 """
 
@@ -45,7 +49,9 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "registration_estimate_settings_from_reference",
            "reconstruction_settings_from_reference", "transfer_functions_from_reference",
            "spectral_table_from_reference", "deskew_settings_dump", "fuse_settings_dump",
-           "stabilize_settings_from_reference"]
+           "stabilize_settings_from_reference", "reconstruction_settings_dump",
+           "registration_settings_dump", "stabilization_settings_dump",
+           "psf_from_beads_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -829,3 +835,49 @@ def stabilize_settings_from_reference(settings: dict) -> dict:
     as its ``model_dump()``: the transforms one 4x4 per timepoint,
     ``time_indices`` ("all"), ``output_voxel_size`` (five ones)."""
     return _STABILIZATION(settings, "stabilization settings")
+
+
+def reconstruction_settings_dump(settings: dict) -> dict:
+    """``ReconstructionSettings(**settings).model_dump()``: the
+    ``biahub-compute-tf`` and ``biahub-reconstruct`` attributes (the reader
+    :func:`reconstruction_settings_from_reference` gives that layout)."""
+    return reconstruction_settings_from_reference(settings)
+
+
+def registration_settings_dump(source_channel_names: list, target_channel_name: str,
+                               affine_transform_zyx: list, **fields) -> dict:
+    """``RegistrationSettings(...).model_dump()`` (settings.py:422-433): the
+    file estimate-registration writes for one transform and
+    optimize-registration for its refined one; ``fields`` the model's other
+    fields (``keep_overhang``, ``time_indices``, ...)."""
+    return registration_settings_from_reference(dict(
+        source_channel_names=source_channel_names, target_channel_name=target_channel_name,
+        affine_transform_zyx=affine_transform_zyx, **fields))
+
+
+def stabilization_settings_dump(stabilization_estimation_channel: str, stabilization_type: str,
+                                stabilization_method: str, stabilization_channels: list,
+                                affine_transform_zyx_list: list, output_voxel_size) -> dict:
+    """``StabilizationSettings(...).model_dump()`` (settings.py:515-535) with
+    ``time_indices="all"``, as estimate-stabilization's ``_model()`` and
+    estimate-registration (several transforms) build it: the files
+    ``stabilize`` reads."""
+    return stabilize_settings_from_reference(dict(
+        stabilization_estimation_channel=stabilization_estimation_channel,
+        stabilization_type=stabilization_type, stabilization_method=stabilization_method,
+        stabilization_channels=list(stabilization_channels),
+        affine_transform_zyx_list=affine_transform_zyx_list, time_indices="all",
+        output_voxel_size=list(output_voxel_size)))
+
+
+_PSF_FROM_BEADS = _model({
+    f"axis{i}_patch_size": (101, _bounded(int, lambda x: x > 0, "greater than 0"))
+    for i in range(3)
+})
+
+
+def psf_from_beads_settings_from_reference(settings: dict | None = None) -> dict:
+    """``PsfFromBeadsSettings`` (settings.py:444-447) as its ``model_dump()``:
+    ``axis{0,1,2}_patch_size``, positive ints, 101 by default; unknown
+    fields raise."""
+    return _PSF_FROM_BEADS(settings or {}, "estimate-psf settings")

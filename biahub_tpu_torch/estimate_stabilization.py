@@ -16,22 +16,40 @@ methods:
 Each per-position function takes a *position-like* object: anything with
 ``.data`` (an indexable (T, C, Z, Y, X) array: numpy or a tensor),
 ``.scale`` and ``.channel_names``, the only attributes the reference's
-per-position functions read. :class:`ArrayPosition` is one in memory. The
-OME-Zarr reader, the CSV, YAML and plot outputs and the CLI wait for the
-I/O layer (ROADMAP queue 1).
+per-position functions read. :class:`ArrayPosition` is one in memory, a
+position of the port's OME-Zarr store another.
+
+:func:`estimate_stabilization_arrays` runs the dispatch on positions in
+memory; the verb, :func:`estimate_stabilization` (reference :498-668), on
+plates, writes the reference's outputs: ``positions_focus.csv`` (merged
+with the file an earlier run left, which is state: the xy route and the
+well average read it back), ``<kind>_stabilization_settings/<fov>.yml`` (or
+``xyz_stabilization_settings.yml`` and ``xyz_transforms/<t>.npy`` for
+beads), and when ``verbose`` ``z_focus_shift.npy``,
+``shifts_per_position/<fov>.csv`` and the plots (only where matplotlib is
+installed). The PCC and beads routes read the estimation channel of a
+position once and move it to the device once.
 """
 
 from __future__ import annotations
 
 import copy
+import csv
+import os
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any
 
 import numpy as np
 import torch
 
-from biahub_tpu_torch.convert import stabilization_settings_from_reference
+from biahub_tpu_torch.cli.utils import yaml_to_model
+from biahub_tpu_torch.convert import (
+    stabilization_settings_dump,
+    stabilization_settings_from_reference,
+)
 from biahub_tpu_torch.device import as_tensor, resolve_device
+from biahub_tpu_torch.io.ngff import open_ome_zarr
 from biahub_tpu_torch.kernels.focus import focus_from_transverse_band_tzyx
 from biahub_tpu_torch.kernels.pcc import (
     _pcc_peak_indices_pairwise,
@@ -42,7 +60,8 @@ from biahub_tpu_torch.kernels.pcc import (
     subpixel_shift_2d,
 )
 from biahub_tpu_torch.registration.beads import estimate_tczyx
-from biahub_tpu_torch.registration.utils import evaluate_transforms
+from biahub_tpu_torch.plots import pyplot
+from biahub_tpu_torch.registration.utils import evaluate_transforms, save_transforms
 from biahub_tpu_torch.runtime.executor import DEFAULT_MAX_BATCH_BYTES
 
 __all__ = [
@@ -54,6 +73,7 @@ __all__ = [
     "estimate_xyz_stabilization_pcc_per_position",
     "get_tform_from_pcc",
     "estimate_stabilization_arrays",
+    "estimate_stabilization",
 ]
 
 NA_DET = 1.35
@@ -141,20 +161,26 @@ def _z_transforms_from_focus(focus_idx) -> np.ndarray:
     return np.asarray(transforms)
 
 
+def _mean_focus(rows, method: str = "mean") -> np.ndarray:
+    """Focus index per timepoint over positions, failed findings (0) left
+    out: the reference's ``groupby("time_idx")["focus_idx"].mean()`` (or
+    ``median()``) over the rows of its focus table, by ascending
+    ``time_idx``."""
+    by_t: dict[int, list] = {}
+    for row in sorted(rows, key=lambda r: r["time_idx"]):
+        by_t.setdefault(row["time_idx"], []).append(
+            np.nan if row["focus_idx"] == 0 else float(row["focus_idx"]))
+    reduce = np.nanmean if method == "mean" else np.nanmedian
+    return np.array([np.nan if np.isnan(v).all() else reduce(v)
+                     for v in map(np.asarray, by_t.values())])
+
+
 def get_mean_z_positions(fov_focus: dict[str, list], method: str = "mean") -> np.ndarray:
     """Across-position mean (or median) focus index per timepoint, failed
     findings (0) left out, from ``{fov: focus indices}``: the averaging of
     the reference's ``get_mean_z_positions`` without its CSV."""
-    n_t = max(len(v) for v in fov_focus.values())
-    table = np.full((len(fov_focus), n_t), np.nan)
-    for i, vals in enumerate(fov_focus.values()):
-        table[i, :len(vals)] = vals
-    table[table == 0] = np.nan
-    avg = np.full(n_t, np.nan)
-    has = ~np.isnan(table).all(axis=0)
-    reduce = np.nanmean if method == "mean" else np.nanmedian
-    avg[has] = reduce(table[:, has], axis=0)
-    return avg
+    return _mean_focus([{"time_idx": t, "focus_idx": f} for vals in fov_focus.values()
+                        for t, f in enumerate(vals)], method)
 
 
 def _focus_per_position(positions: dict, channel_index: int, focus_settings: dict,
@@ -259,6 +285,14 @@ def estimate_xyz_stabilization_pcc_per_position(
     max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
     device: str | torch.device = "cuda",
 ) -> list:
+    """Per-timepoint 4x4 transforms (lists) from volumetric PCC (see
+    :func:`_pcc_transforms_and_shifts`)."""
+    return _pcc_transforms_and_shifts(position, channel_index, phase_cross_corr_settings,
+                                      verbose, max_batch_bytes, device)[0]
+
+
+def _pcc_transforms_and_shifts(position, channel_index: int, phase_cross_corr_settings: dict,
+                               verbose: bool, max_batch_bytes: int, device) -> tuple[list, list]:
     """Per-timepoint 4x4 transforms (lists) from volumetric PCC of the crop
     against the first or the previous timepoint. The pairs run in chunks of
     ``max_batch_bytes // (8 * crop bytes)`` timepoints, as the reference's;
@@ -266,7 +300,8 @@ def estimate_xyz_stabilization_pcc_per_position(
     once (kernel A) and keeps its spectrum for the chunk's pairs.
     ``function_type="custom_padding"`` pads each axis to ``next_fast_len``
     (lengths with no prime factor above 11, which the kernels take as
-    Bluestein lines)."""
+    Bluestein lines). Also the rows ``(t, dz, dy, dx)`` of each pair's
+    shift, the reference's ``shifts_per_position`` table."""
     from scipy.fft import next_fast_len  # at call time, as in kernels/pcc.py
 
     dev = resolve_device(device)
@@ -314,6 +349,7 @@ def estimate_xyz_stabilization_pcc_per_position(
         all_shifts[1:] = found.astype(np.float64)
 
     transforms = [np.eye(4).tolist()]
+    shifts = [(0, 0.0, 0.0, 0.0)]
     cumulative = np.zeros(3)
     for t in range(1, T):
         shift = all_shifts[t]
@@ -323,9 +359,10 @@ def estimate_xyz_stabilization_pcc_per_position(
         else:
             total = shift
         transforms.append(get_tform_from_pcc(total))
+        shifts.append((t, *(float(v) for v in shift)))
         if verbose:
             print(f"Time {t}: shift (dz,dy,dx) = {tuple(np.round(shift, 2))}")
-    return transforms
+    return transforms, shifts
 
 
 def get_tform_from_pcc(shift) -> list:
@@ -338,6 +375,21 @@ def get_tform_from_pcc(shift) -> list:
 # ---------------------------------------------------------------------------
 # Orchestration
 # ---------------------------------------------------------------------------
+
+
+def _compose_xyz(xy_dict: dict, z_dict: dict) -> tuple[dict, dict]:
+    """``({fov: xy_t @ z_t}, {fov: z transforms})`` for the FOVs of
+    ``xy_dict``, each FOV's z transforms its own or the well average's."""
+    z_of = {fov: np.asarray(z_dict[fov if fov in z_dict else "average"]).tolist()
+            for fov in xy_dict}
+    xyz = {}
+    for fov, xy_transforms in xy_dict.items():
+        xy_t, z_t = np.asarray(xy_transforms), np.asarray(z_of[fov])
+        if xy_t.shape[0] != z_t.shape[0]:
+            raise ValueError("The number of translation matrices and z drift matrices "
+                             "must be the same")
+        xyz[fov] = np.asarray([a @ b for a, b in zip(xy_t, z_t)]).tolist()
+    return xyz, z_of
 
 
 def _fov_name(key: str) -> str:
@@ -429,14 +481,7 @@ def estimate_stabilization_arrays(
     if kind == "xyz" and method == "focus-finding":
         fov_focus, z_dict = z_focus()
         xy = xy_dict(s["stack_reg_settings"], fov_focus)
-        z_of = {f: z_dict[f if f in z_dict else "average"] for f in xy}
-        xyz = {}
-        for fov, xy_transforms in xy.items():
-            xy_t, z_t = np.asarray(xy_transforms), np.asarray(z_of[fov])
-            if xy_t.shape[0] != z_t.shape[0]:
-                raise ValueError("The number of translation matrices and z drift "
-                                 "matrices must be the same")
-            xyz[fov] = np.asarray([a @ b for a, b in zip(xy_t, z_t)]).tolist()
+        xyz, z_of = _compose_xyz(xy, z_dict)
         return {"xyz": evaluate(xyz), "z": evaluate(z_of), "xy": evaluate(xy)}
     if kind == "xyz" and method == "phase-cross-corr":
         pcc = s["phase_cross_corr_settings"]
@@ -451,3 +496,241 @@ def estimate_stabilization_arrays(
     if kind == "xy" and method == "focus-finding":
         return {"xy": evaluate(xy_dict(s["stack_reg_settings"], None))}
     return {}
+
+
+# ---------------------------------------------------------------------------
+# The verb on plates
+# ---------------------------------------------------------------------------
+
+_FOCUS_COLUMNS = ("position", "time_idx", "channel", "focus_idx")
+
+
+def _read_focus_csv(path: Path) -> list[dict]:
+    with open(path, newline="") as f:
+        return [{"position": r["position"], "time_idx": int(r["time_idx"]),
+                 "channel": r["channel"], "focus_idx": int(r["focus_idx"])}
+                for r in csv.DictReader(f)]
+
+
+def _write_csv(path: Path, columns, rows) -> None:
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(columns)
+        writer.writerows(rows)
+
+
+def _remove_beads_fov(paths: list, skip_beads_fov: str) -> list:
+    """Drop the beads FOV from the estimation inputs (the reference matches
+    the string in the path)."""
+    if skip_beads_fov != "0":
+        print(f"Removing beads FOV {skip_beads_fov} from input data paths")
+        paths = [p for p in paths if skip_beads_fov not in str(p)]
+    return paths
+
+
+def _on_device(path, channel_index: int, dev) -> ArrayPosition:
+    """One channel of a stored position, read once as (T, Z, Y, X) and moved
+    to the device once, as a one-channel position."""
+    position = open_ome_zarr(path, mode="r")
+    data = as_tensor(position.data[:, channel_index], dev)[:, None]
+    return ArrayPosition(data, position.scale, [position.channel_names[channel_index]])
+
+
+def _mean_focus_from_csv(focus_csv: Path, method: str, verbose: bool) -> np.ndarray:
+    """The well-averaged focus index per timepoint of the whole focus table
+    (earlier runs' positions included); when ``verbose`` its plot,
+    ``z_drift.png``."""
+    avg = _mean_focus(_read_focus_csv(focus_csv), method)
+    if verbose:
+        plt = pyplot(focus_csv.parent / "z_drift.png")
+        if plt is not None:
+            plt.plot(avg, linestyle="--", label="mean of all positions")
+            plt.xlabel("Time index")
+            plt.ylabel("Focus index")
+            plt.legend()
+            plt.savefig(focus_csv.parent / "z_drift.png")
+            plt.close()
+    return avg
+
+
+def estimate_z_stabilization(input_position_dirpaths: list, output_folder_path: Path,
+                             focus_finding_settings: dict, channel_index: int,
+                             verbose: bool = False, estimate_z_index: bool = False,
+                             max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                             device: str | torch.device = "cuda"):
+    """Focus-based z transforms per FOV through ``positions_focus.csv``
+    (reference :131-185): the new rows first, an existing file's rows after
+    them, one row per (position, time_idx), sorted. ``{fov: transforms}``,
+    ``{"average": transforms}`` with ``average_across_wells`` (over the
+    whole file), or None with ``estimate_z_index``."""
+    paths = _remove_beads_fov(input_position_dirpaths, focus_finding_settings["skip_beads_fov"])
+    output_folder_path = Path(output_folder_path)
+    output_folder_path.mkdir(parents=True, exist_ok=True)
+    rows, fov_focus = [], {}
+    for path in paths:
+        fov = _fov_name(path)
+        found = estimate_z_focus_per_position(
+            open_ome_zarr(path, mode="r"), fov, channel_index,
+            focus_finding_settings["center_crop_xy"], verbose, max_batch_bytes, device)
+        rows += found
+        fov_focus[fov] = [r["focus_idx"] for r in found]
+    focus_csv = output_folder_path / "positions_focus.csv"
+    if focus_csv.exists():
+        print("Using existing focus CSV file.")
+        rows += _read_focus_csv(focus_csv)
+    unique = {}
+    for row in rows:
+        unique.setdefault((row["position"], row["time_idx"]), row)
+    _write_csv(focus_csv, _FOCUS_COLUMNS, [[r[k] for k in _FOCUS_COLUMNS]
+                                           for _, r in sorted(unique.items())])
+    if estimate_z_index:
+        return None
+    if focus_finding_settings["average_across_wells"]:
+        z_offsets = _mean_focus_from_csv(
+            focus_csv, focus_finding_settings["average_across_wells_method"], verbose)
+        transforms = _z_transforms_from_focus(list(z_offsets)).tolist()
+        if verbose:
+            print(f"Saving z focus shift matrices to {output_folder_path}")
+            np.save(output_folder_path / "z_focus_shift.npy", transforms)
+        return {"average": transforms}
+    return {fov: _z_transforms_from_focus(vals).tolist() for fov, vals in fov_focus.items()}
+
+
+def estimate_xy_stabilization(input_position_dirpaths: list, output_folder_path: Path,
+                              stack_reg_settings: dict, channel_index: int,
+                              verbose: bool = False,
+                              max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                              device: str | torch.device = "cuda") -> dict[str, list]:
+    """XY transforms per FOV from the focus slices that
+    ``positions_focus.csv`` names, the file written first when absent
+    (reference :261-312)."""
+    paths = _remove_beads_fov(input_position_dirpaths, stack_reg_settings["skip_beads_fov"])
+    output_folder_path = Path(output_folder_path)
+    output_folder_path.mkdir(parents=True, exist_ok=True)
+    focus_csv = output_folder_path / "positions_focus.csv"
+    if focus_csv.exists():
+        print("Using existing Z focus index file.")
+    else:
+        print("Estimating Z focus positions...")
+        estimate_z_stabilization(paths, output_folder_path,
+                                 stack_reg_settings["focus_finding_settings"], channel_index,
+                                 verbose, True, max_batch_bytes, device)
+    rows = _read_focus_csv(focus_csv)
+    out = {}
+    for path in paths:
+        key = str(Path(*Path(path).parts[-3:]))
+        out[_fov_name(path)] = estimate_xy_stabilization_per_position(
+            open_ome_zarr(path, mode="r"), [r["focus_idx"] for r in rows if r["position"] == key],
+            channel_index, stack_reg_settings["center_crop_xy"],
+            t_reference=stack_reg_settings["t_reference"], verbose=verbose,
+            device=device).tolist()
+    return out
+
+
+def estimate_xyz_stabilization_pcc(input_position_dirpaths: list, output_folder_path: Path,
+                                   phase_cross_corr_settings: dict, channel_index: int,
+                                   verbose: bool = False,
+                                   max_batch_bytes: int = DEFAULT_MAX_BATCH_BYTES,
+                                   device: str | torch.device = "cuda") -> dict[str, list]:
+    """Volumetric PCC transforms per FOV (reference :439-462); when
+    ``verbose`` each FOV's shifts as ``shifts_per_position/<fov>.csv``."""
+    paths = _remove_beads_fov(input_position_dirpaths,
+                              phase_cross_corr_settings["skip_beads_fov"])
+    Path(output_folder_path).mkdir(parents=True, exist_ok=True)
+    out = {}
+    for path in paths:
+        fov = _fov_name(path)
+        out[fov], shifts = _pcc_transforms_and_shifts(
+            _on_device(path, channel_index, resolve_device(device)), 0,
+            phase_cross_corr_settings, verbose, max_batch_bytes, device)
+        if verbose:
+            folder = Path(output_folder_path) / "shifts_per_position"
+            folder.mkdir(parents=True, exist_ok=True)
+            _write_csv(folder / f"{fov}.csv", ("TimepointID", "ShiftZ", "ShiftY", "ShiftX"),
+                       shifts)
+    return out
+
+
+def estimate_stabilization(
+    input_position_dirpaths: list[Path],
+    output_dirpath: Path,
+    config_filepath: Path,
+    sbatch_filepath: str | None = None,
+    local: bool = False,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The estimate-stabilization verb on plates (module docstring); the
+    batch budget is ``BIAHUB_TPU_MAX_BATCH_BYTES``, as the reference's."""
+    dev = resolve_device(device)
+    settings = yaml_to_model(Path(config_filepath), stabilization_settings_from_reference)
+    print(f"Settings: {settings}")
+    verbose = settings["verbose"]
+    kind, method = settings["stabilization_type"], settings["stabilization_method"]
+    output_dirpath = Path(output_dirpath)
+    output_dirpath.mkdir(parents=True, exist_ok=True)
+    dataset = open_ome_zarr(input_position_dirpaths[0], mode="r")
+    channel_index = dataset.channel_names.index(settings["stabilization_estimation_channel"])
+    shape_zyx = tuple(dataset.data.shape[2:])
+    budget = int(os.environ.get("BIAHUB_TPU_MAX_BATCH_BYTES", DEFAULT_MAX_BATCH_BYTES))
+    eval_settings = settings["eval_transform_settings"]
+    model = stabilization_settings_dump(
+        settings["stabilization_estimation_channel"], kind, method,
+        settings["stabilization_channels"], [], dataset.scale)
+
+    def evaluate(transforms):
+        if not eval_settings:
+            return transforms
+        return evaluate_transforms(
+            transforms=copy.deepcopy(transforms), shape_zyx=shape_zyx,
+            validation_window_size=eval_settings["validation_window_size"],
+            validation_tolerance=eval_settings["validation_tolerance"],
+            interpolation_window_size=eval_settings["interpolation_window_size"],
+            interpolation_type=eval_settings["interpolation_type"], verbose=verbose)
+
+    def save(fov_transforms: dict, what: str) -> None:
+        for fov, transforms in fov_transforms.items():
+            save_transforms(model, evaluate(transforms),
+                            output_dirpath / f"{what}_stabilization_settings" / f"{fov}.yml",
+                            output_dirpath / "translation_plots" / f"{fov}.png", verbose)
+
+    paths = list(input_position_dirpaths)
+    focus_kw = {"verbose": verbose, "max_batch_bytes": budget, "device": dev}
+    if kind == "xyz" and method == "focus-finding":
+        print("Estimating xyz stabilization parameters with focus finding and stack "
+              "registration")
+        z_dict = estimate_z_stabilization(paths, output_dirpath,
+                                          settings["focus_finding_settings"], channel_index,
+                                          **focus_kw)
+        xy_dict = estimate_xy_stabilization(paths, output_dirpath,
+                                            settings["stack_reg_settings"], channel_index,
+                                            **focus_kw)
+        xyz_dict, z_of = _compose_xyz(xy_dict, z_dict)
+        save(xyz_dict, "xyz")
+        save(z_of, "z")
+        save(xy_dict, "xy")
+    elif kind == "xyz" and method == "beads":
+        print("Estimating xyz stabilization parameters with beads")
+        beads = _on_device(paths[0], channel_index, dev)
+        transforms = estimate_tczyx(
+            mov_tczyx=beads.data, ref_tczyx=beads.data, mov_channel_index=0,
+            ref_channel_index=0, beads_match_settings=settings["beads_match_settings"],
+            affine_transform_settings=settings["affine_transform_settings"],
+            verbose=verbose, output_folder_path=output_dirpath, mode="stabilization",
+            device=dev)
+        save_transforms(model, evaluate(transforms),
+                        output_dirpath / "xyz_stabilization_settings.yml",
+                        output_dirpath / "translation_plots" / "beads.png", verbose)
+    elif kind == "xyz" and method == "phase-cross-corr":
+        print("Estimating xyz stabilization parameters with phase cross correlation")
+        save(estimate_xyz_stabilization_pcc(paths, output_dirpath,
+                                            settings["phase_cross_corr_settings"],
+                                            channel_index, **focus_kw), "xyz")
+    elif kind == "z" and method == "focus-finding":
+        print("Estimating z stabilization parameters with focus finding")
+        save(estimate_z_stabilization(paths, output_dirpath, settings["focus_finding_settings"],
+                                      channel_index, **focus_kw), "z")
+    elif kind == "xy" and method == "focus-finding":
+        print("Estimating xy stabilization parameters with focus finding and stack "
+              "registration")
+        save(estimate_xy_stabilization(paths, output_dirpath, settings["stack_reg_settings"],
+                                       channel_index, **focus_kw), "xy")

@@ -159,23 +159,36 @@ def _wrapped_shift(idx: torch.Tensor, shape) -> torch.Tensor:
     return torch.where(maxima > midpoint, maxima - sizes, maxima)
 
 
-def _pcc_peak_index_device(ref_img, mov_img, normalization=None) -> torch.Tensor:
-    """Unshifted argmax index of |corr| on the inputs' device, int64 (ndim,)."""
-    return _peak_index(_corr_surface(ref_img, mov_img, normalization))
+def _plot_corr(corr: np.ndarray, output_path) -> None:
+    """The fftshifted |corr| as a heatmap (its max along Z for a volume),
+    the reference's ``_plot_corr`` (kernels/fft.py:244); only where
+    matplotlib is installed."""
+    from biahub_tpu_torch.plots import pyplot
+
+    plt = pyplot(output_path)
+    if plt is None:
+        return
+    corr_to_plot = np.max(corr, axis=0) if corr.ndim == 3 else corr
+    fig, ax = plt.subplots(figsize=(6, 5))
+    im = ax.imshow(corr_to_plot, cmap="viridis")
+    ax.set_title("Cross-Correlation")
+    ax.set_xlabel("X shift (pixels)")
+    ax.set_ylabel("Y shift (pixels)")
+    fig.colorbar(im, ax=ax, label="Correlation strength")
+    fig.tight_layout()
+    fig.savefig(output_path, bbox_inches="tight")
+    plt.close(fig)
 
 
-def _pcc_shift_device(ref_img, mov_img, normalization=None) -> torch.Tensor:
-    """Wrap-corrected PCC peak as a float32 (ndim,) shift on the inputs'
-    device; only the shift, never the correlation volume, leaves it."""
-    return _wrapped_shift(_pcc_peak_index_device(ref_img, mov_img, normalization),
-                          tuple(ref_img.shape))
-
-
-def _no_plot(output_path) -> None:
-    if output_path is not None:
-        raise NotImplementedError(
-            "biahub_tpu_torch: output_path (the correlation plot) needs "
-            "matplotlib and the I/O layer, not ported yet (ROADMAP queue 1)")
+def _host_corr(corr: torch.Tensor, output_path) -> np.ndarray | None:
+    """None without ``output_path``; else the fftshifted |corr| on the host,
+    plotted there: the correlation volume leaves the device only when a plot
+    is asked for."""
+    if output_path is None:
+        return None
+    host = np.fft.fftshift(np.abs(corr.cpu().numpy()))
+    _plot_corr(host, output_path)
+    return host
 
 
 def phase_cross_corr(
@@ -189,14 +202,15 @@ def phase_cross_corr(
     """Integer shift (the input axes' order) between two arrays: the
     wrap-corrected argmax of ``irfftn(F_ref * conj(F_mov))``, the
     translation that maps the MOVING image onto the REFERENCE. Returns
-    ``(shift, None)`` (float32 numpy)."""
-    _no_plot(output_path)
+    ``(shift, None)`` (float32 numpy); with ``output_path``, ``(shift,
+    fftshift(|corr|))`` and the plot of it written there."""
     dev = resolve_device(device)
-    shift = _pcc_shift_device(as_tensor(ref_img, dev), as_tensor(mov_img, dev),
-                              normalization).cpu().numpy()
+    corr = _corr_surface(as_tensor(ref_img, dev), as_tensor(mov_img, dev), normalization)
+    shift = _wrapped_shift(_peak_index(corr), tuple(corr.shape)).cpu().numpy()
+    host = _host_corr(corr, output_path)
     if verbose:
         print(f"phase cross corr. peak at {tuple(shift)}")
-    return shift, None
+    return shift, host
 
 
 def phase_cross_corr_padding(
@@ -211,12 +225,13 @@ def phase_cross_corr_padding(
     """PCC with both arrays center-matched to ``next_fast_len(max(shape) *
     maximum_shift)`` per axis; the peak is reported relative to the
     fftshifted center. On the card those lengths run as Bluestein
-    lines in kernels A, Bx and C. Returns ``(peak, None)``."""
+    lines in kernels A, Bx and C. Returns ``(peak, None)``; with
+    ``output_path``, ``(peak, fftshift(|corr|))`` and its plot written
+    there."""
     # scipy is imported at call time: its import starts a process (numpy's
     # CPU probe), and importing the port starts none.
     from scipy.fft import next_fast_len
 
-    _no_plot(output_path)
     dev = resolve_device(device)
     shape = tuple(
         int(next_fast_len(int(max(s1, s2) * maximum_shift)))
@@ -232,11 +247,13 @@ def phase_cross_corr_padding(
     mov_m = match_shape(as_tensor(mov_img, dev), shape)
     # The fftshifted argmax p maps to the unshifted index p0 by
     # p = (p0 + s//2) % s, so peak = s//2 - p.
-    p0 = _pcc_peak_index_device(ref_m, mov_m, normalization).cpu().numpy()
+    corr = _corr_surface(ref_m, mov_m, normalization)
+    p0 = _peak_index(corr).cpu().numpy()
     peak = tuple(int(s // 2 - ((q + s // 2) % s)) for s, q in zip(shape, p0))
+    host = _host_corr(corr, output_path)
     if verbose:
         print(f"phase cross corr. peak at {peak}")
-    return np.asarray(peak, dtype=np.float32), None
+    return np.asarray(peak, dtype=np.float32), host
 
 
 def subpixel_shift_2d(ref_img, mov_img, normalization: str | None = "magnitude",

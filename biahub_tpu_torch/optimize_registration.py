@@ -1,21 +1,33 @@
-"""optimize-registration on arrays in memory: refine a registration.
+"""optimize-registration: refine a registration.
 
-Counterpart of ``biahub_tpu/optimize_registration.py:29-62``
-(``_optimize_registration``): the initial source->target warp is refined by
-intensity registration (:mod:`biahub_tpu_torch.registration.intensity`) on
-the LIR-cropped overlap when ``crop``, as the verb does. Reading the plates
-and writing the refined YAML wait for the I/O layer (ROADMAP queue 1).
+Counterpart of ``biahub_tpu/optimize_registration.py``: on arrays,
+:func:`optimize_registration_arrays` (``_optimize_registration``, :29-62)
+refines the initial source->target warp by intensity registration
+(:mod:`biahub_tpu_torch.registration.intensity`), on the LIR-cropped
+overlap when ``crop``; the verb, :func:`optimize_registration` (:64-138),
+reads one timepoint of the first source and target positions, refines the
+settings file's ``affine_transform_zyx`` with ``crop=True`` and writes the
+settings with the refined matrix.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
+from biahub_tpu_torch.cli.parsing import CommandError
+from biahub_tpu_torch.cli.utils import model_to_yaml, yaml_to_model
+from biahub_tpu_torch.convert import (
+    registration_settings_dump,
+    registration_settings_from_reference,
+)
 from biahub_tpu_torch.device import as_tensor, resolve_device
+from biahub_tpu_torch.io.ngff import open_ome_zarr
 from biahub_tpu_torch.registration.intensity import estimate_czyx
 
-__all__ = ["optimize_registration_arrays"]
+__all__ = ["optimize_registration_arrays", "optimize_registration"]
 
 
 def optimize_registration_arrays(
@@ -46,3 +58,45 @@ def optimize_registration_arrays(
         target_channel_index, crop=crop, ref_mask_radius=target_mask_radius, clip=clip,
         sobel_filter=sobel_filter, verbose=verbose,
         output_folder_path=output_folder_path, device=dev)
+
+
+def optimize_registration(
+    source_position_dirpaths: list[Path],
+    target_position_dirpaths: list[Path],
+    config_filepath: Path,
+    output_filepath: Path,
+    display_viewer: bool = False,
+    device: str | torch.device = "cuda",
+) -> None:
+    """The optimize-registration verb on plates (module docstring). A
+    ``time_indices`` other than an int takes timepoint 0; all-zero inputs
+    are a :class:`~biahub_tpu_torch.cli.parsing.CommandError`."""
+    dev = resolve_device(device)
+    settings = yaml_to_model(config_filepath, registration_settings_from_reference)
+    t_idx = settings["time_indices"]
+    if not isinstance(t_idx, int):
+        print("Time index 'all' is not supported for optimize-registration, using first "
+              "time index")
+        t_idx = 0
+    source = open_ome_zarr(source_position_dirpaths[0], mode="r")
+    source_index = source.channel_names.index(settings["source_channel_names"][0])
+    source_czyx = as_tensor(source.data[t_idx], dev)
+    print("Source data shape:", tuple(source_czyx.shape))
+    target = open_ome_zarr(target_position_dirpaths[0], mode="r")
+    target_index = target.channel_names.index(settings["target_channel_name"])
+    target_czyx = as_tensor(target.data[t_idx], dev)
+    print("Target data shape:", tuple(target_czyx.shape))
+    print(f"\nOptimizing registration using source channel "
+          f"{source.channel_names[source_index]} and target channel "
+          f"{target.channel_names[target_index]}")
+    composed = optimize_registration_arrays(
+        source_czyx, target_czyx, np.asarray(settings["affine_transform_zyx"], np.float32),
+        source_index, target_index, crop=True, verbose=settings["verbose"], device=dev)
+    if composed is None:
+        raise CommandError("Input data contains only NaN or zeros.")
+    print(f"Writing registration parameters to {output_filepath}")
+    model_to_yaml(registration_settings_dump(**dict(
+        settings, affine_transform_zyx=composed.tolist())), output_filepath)
+    if display_viewer:
+        print("napari viewing is unavailable in a headless run; inspect the registered "
+              "output with `register` instead.")

@@ -18,13 +18,15 @@ right: W' = W @ F^-1.
 Settings are the reference models' dicts
 (:func:`~biahub_tpu_torch.convert.beads_match_settings_from_reference`,
 :func:`~biahub_tpu_torch.convert.affine_transform_settings_from_reference`).
-Saving transforms (``output_filepath``, ``output_folder_path``) waits for
-the I/O layer (ROADMAP queue 1) and raises; ``optimize_matches`` is not
-ported yet.
+``output_filepath`` saves the best transform as ``.npy`` and
+``output_folder_path`` each timepoint's (``<t>.npy``, under
+``xyz_transforms/`` for a stack), as the reference's. ``optimize_matches``
+is not ported yet.
 """
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Literal
 
 import numpy as np
@@ -37,7 +39,6 @@ from biahub_tpu_torch.convert import (
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.affine import affine_warp_auto
 from biahub_tpu_torch.kernels.peaks import detect_peaks
-from biahub_tpu_torch.registration.utils import no_output
 from biahub_tpu_torch.transforms.fitting import fit_transform
 from biahub_tpu_torch.transforms.graph_matching import Graph, GraphMatcher
 
@@ -64,9 +65,12 @@ def _all_zeros_or_nan(t: torch.Tensor) -> bool:
 
 
 def peaks_from_beads(mov, ref, mov_peaks_settings: dict, ref_peaks_settings: dict,
-                     verbose: bool = False, device: str | torch.device = "cuda"):
+                     verbose: bool = False, mask_path=None,
+                     device: str | torch.device = "cuda"):
     """Bead peaks of the moving and reference volumes, or (None, None) when
-    either has fewer than two."""
+    either has fewer than two. With ``mask_path`` (a position whose first
+    (t, c) volume is the mask) only the reference peaks whose (y, x) column
+    the mask leaves clean at every z are kept."""
     peaks = []
     for name, vol, ps in (("moving", mov, mov_peaks_settings),
                           ("reference", ref, ref_peaks_settings)):
@@ -83,6 +87,16 @@ def peaks_from_beads(mov, ref, mov_peaks_settings: dict, ref_peaks_settings: dic
     if len(mov_peaks) < 2 or len(ref_peaks) < 2:
         print("Not enough beads detected")
         return None, None
+    if mask_path is not None:
+        from biahub_tpu_torch.io.ngff import open_ome_zarr
+
+        print("Filtering peaks with mask")
+        mask = np.asarray(open_ome_zarr(mask_path).data[0, 0])
+        ref_peaks = np.array([
+            p for p in np.asarray(ref_peaks)
+            if 0 <= int(p[1]) < mask.shape[1] and 0 <= int(p[2]) < mask.shape[2]
+            and not mask[:, int(p[1]), int(p[2])].any()
+        ])
     return mov_peaks, ref_peaks
 
 
@@ -198,8 +212,8 @@ def estimate(mov, ref, beads_match_settings: dict | None = None,
              output_filepath=None, user_transform=None, debug: bool = False,
              device: str | torch.device = "cuda"):
     """Iteratively estimate the best warp between a moving and a reference
-    (Z, Y, X) volume; None when either is all zeros or NaN."""
-    no_output(output_filepath, "output_filepath")
+    (Z, Y, X) volume; None when either is all zeros or NaN. With
+    ``output_filepath`` the best transform is saved there (``np.save``)."""
     dev = resolve_device(device)
     bms = beads_match_settings_from_reference(beads_match_settings)
     ats = affine_transform_settings_from_reference(affine_transform_settings)
@@ -245,6 +259,9 @@ def estimate(mov, ref, beads_match_settings: dict | None = None,
     if verbose:
         print(f"Best transform:\n{best_transform}")
         print(f"Best quality score: {best_score}")
+    if output_filepath:
+        print(f"Saving transform to {output_filepath}")
+        np.save(output_filepath, np.asarray(best_transform))
     return best_transform
 
 
@@ -254,8 +271,8 @@ def estimate_tzyx(t_idx: int, mov_tzyx, ref_tzyx, beads_match_settings: dict | N
                   mode: Literal["registration", "stabilization"] = "registration",
                   user_transform=None, device: str | torch.device = "cuda"):
     """The warp of one timepoint; in stabilization mode the reference volume
-    is the first timepoint or the previous one (``t_reference``)."""
-    no_output(output_folder_path, "output_folder_path")
+    is the first timepoint or the previous one (``t_reference``). With
+    ``output_folder_path`` the result is saved there as ``<t_idx>.npy``."""
     dev = resolve_device(device)
     ats = affine_transform_settings_from_reference(affine_transform_settings)
     if verbose:
@@ -266,8 +283,13 @@ def estimate_tzyx(t_idx: int, mov_tzyx, ref_tzyx, beads_match_settings: dict | N
         ref_zyx = as_tensor(mov_tzyx[t_ref], dev)
     else:
         ref_zyx = as_tensor(ref_tzyx[t_idx], dev)
+    output_filepath = None
+    if output_folder_path:
+        Path(output_folder_path).mkdir(parents=True, exist_ok=True)
+        output_filepath = Path(output_folder_path) / f"{t_idx}.npy"
     return estimate(mov_zyx, ref_zyx, beads_match_settings, ats, verbose=verbose,
-                    user_transform=user_transform, device=dev)
+                    output_filepath=output_filepath, user_transform=user_transform,
+                    device=dev)
 
 
 class _ChannelView:
@@ -298,8 +320,9 @@ def estimate_tczyx(
 ) -> list:
     """Per-timepoint beads warps (4x4 nested lists) of a whole (T, C, Z, Y,
     X) stack, numpy or a tensor; failed timepoints become the identity. With
-    ``use_prev_t_transform`` each result seeds the next timepoint."""
-    no_output(output_folder_path, "output_folder_path")
+    ``use_prev_t_transform`` each result seeds the next timepoint. With
+    ``output_folder_path`` each timepoint's result is saved as
+    ``xyz_transforms/<t>.npy`` there."""
     dev = resolve_device(device)
     bms = beads_match_settings_from_reference(beads_match_settings)
     ats = affine_transform_settings_from_reference(affine_transform_settings)
@@ -317,6 +340,10 @@ def estimate_tczyx(
             print(f"Computed approx transform: {approx}")
         ats["approx_transform"] = approx.tolist()
 
+    transforms_dir = None
+    if output_folder_path is not None:
+        transforms_dir = Path(output_folder_path) / "xyz_transforms"
+        transforms_dir.mkdir(parents=True, exist_ok=True)
     initial = ats["approx_transform"]
     transforms: list = []
     for t in range(mov_tzyx.shape[0]):
@@ -329,7 +356,8 @@ def estimate_tczyx(
             transforms.append(None)
             continue
         user = initial if ats["use_prev_t_transform"] else None
-        result = estimate_tzyx(t, mov_tzyx, ref_tzyx, bms, ats, verbose=verbose, mode=mode,
+        result = estimate_tzyx(t, mov_tzyx, ref_tzyx, bms, ats, verbose=verbose,
+                               output_folder_path=transforms_dir, mode=mode,
                                user_transform=user, device=dev)
         if result is not None:
             transforms.append(np.asarray(result).tolist())

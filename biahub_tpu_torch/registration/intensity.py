@@ -12,11 +12,13 @@ the losses stay on the device; the losses are read once per level.
 Preprocessing (initial warp, LIR crop, circular mask, clip, Sobel, channel
 sum) and the composition of the result follow the reference; the LIR, the
 clip's quantile and the Sobel filter run on the host with numpy and scipy,
-as there. Saving transforms (``output_folder_path``) waits for the I/O
-layer (ROADMAP queue 1) and raises.
+as there. ``output_folder_path`` saves each composed transform as
+``<t>.npy`` (under ``xyz_transforms/`` for a stack), as the reference's.
 """
 
 from __future__ import annotations
+
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -25,7 +27,6 @@ from biahub_tpu_torch.convert import affine_transform_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.kernels.affine import affine_warp_auto
 from biahub_tpu_torch.kernels.multipass_warp import make_traced_multipass_warp
-from biahub_tpu_torch.registration.utils import no_output
 
 __all__ = [
     "estimate",
@@ -298,12 +299,13 @@ def estimate_czyx(
     clip: bool = False,
     sobel_filter: bool = False,
     verbose: bool = False,
+    t_idx: int = 0,
     output_folder_path=None,
     device: str | torch.device = "cuda",
 ) -> np.ndarray:
     """Preprocess, optimize, and compose the registration of one CZYX pair
-    -> the float64 4x4 output->input warp of the moving volume."""
-    no_output(output_folder_path, "output_folder_path")
+    -> the float64 4x4 output->input warp of the moving volume; saved as
+    ``<t_idx>.npy`` in ``output_folder_path`` when given."""
     ref_zyx, mov_zyx, offset = preprocess_czyx(
         mov_czyx, ref_czyx, initial_tform, mov_channel_index, ref_channel_index, crop=crop,
         ref_mask_radius=ref_mask_radius, clip=clip, sobel_filter=sobel_filter,
@@ -312,6 +314,10 @@ def estimate_czyx(
     composed = postprocess_transform(np.asarray(initial_tform), fwd, offset)
     if verbose:
         print(f"Composed transform:\n{composed}")
+    if output_folder_path:
+        output_folder_path = Path(output_folder_path)
+        output_folder_path.mkdir(parents=True, exist_ok=True)
+        np.save(output_folder_path / f"{t_idx}.npy", composed)
     return composed
 
 
@@ -330,8 +336,8 @@ def estimate_tczyx(
     (numpy or a tensor) -> one 4x4 nested list per timepoint. Settings are
     the reference models' dicts (``AntsRegistrationSettings``,
     ``AffineTransformSettings``); with ``use_prev_t_transform`` each result
-    seeds the next timepoint."""
-    no_output(output_folder_path, "output_folder_path")
+    seeds the next timepoint. With ``output_folder_path`` each result is
+    saved as ``xyz_transforms/<t>.npy`` there."""
     sobel = bool((ants_registration_settings or {}).get("sobel_filter", False))
     ats = affine_transform_settings_from_reference(affine_transform_settings)
     initial = np.asarray(ats["approx_transform"])
@@ -339,9 +345,11 @@ def estimate_tczyx(
     for t in range(mov_tczyx.shape[0]):
         if verbose:
             print(f"Registering timepoint {t}")
-        composed = estimate_czyx(mov_tczyx[t], ref_tczyx[t], initial, mov_channel_index,
-                                 ref_channel_index, sobel_filter=sobel, verbose=verbose,
-                                 device=device)
+        composed = estimate_czyx(
+            mov_tczyx[t], ref_tczyx[t], initial, mov_channel_index, ref_channel_index,
+            sobel_filter=sobel, verbose=verbose, t_idx=t,
+            output_folder_path=(Path(output_folder_path) / "xyz_transforms"
+                                if output_folder_path else None), device=device)
         transforms.append(composed.tolist())
         if ats["use_prev_t_transform"]:
             initial = composed

@@ -5,8 +5,10 @@ Counterpart of ``biahub_tpu/registration/utils.py:38-180``, on numpy and
 ``scipy.interpolate``: a moving-window mean of accepted transforms is the
 reference; a candidate whose mean grid-point displacement against it
 exceeds the tolerance is dropped and filled by local (or global)
-interpolation over the 4x4 entries. ``save_transforms`` and the plots need
-YAML and matplotlib, which wait for the I/O layer (ROADMAP queue 1). Also
+interpolation over the 4x4 entries. ``save_transforms`` writes the
+transforms into a settings YAML (the port's writer) and, when verbose,
+their translations as a plot (:func:`plot_translations`; only where
+matplotlib is installed, :func:`biahub_tpu_torch.plots.pyplot`). Also
 the approximate source->target transform from voxel sizes
 (:func:`approx_transform_from_scale`, utils.py:236) with its matrix helpers
 (the reference's ``register.py:47-95``).
@@ -14,30 +16,26 @@ the approximate source->target transform from voxel sizes
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Literal
 
 import numpy as np
+
+from biahub_tpu_torch.cli.utils import model_to_yaml
+from biahub_tpu_torch.plots import pyplot
 
 __all__ = [
     "check_transforms_difference",
     "validate_transforms",
     "interpolate_transforms",
     "evaluate_transforms",
+    "save_transforms",
+    "plot_translations",
     "approx_transform_from_scale",
-    "no_output",
     "get_3D_rescaling_matrix",
     "get_3D_rotation_matrix",
     "get_3D_fliplr_matrix",
 ]
-
-
-def no_output(path, what: str) -> None:
-    """Raise when a caller asks to save transforms (``path`` not None):
-    that needs the I/O layer, which is not ported yet."""
-    if path is not None:
-        raise NotImplementedError(
-            f"biahub_tpu_torch: {what} (saving transforms) needs the I/O layer, "
-            "not ported yet (ROADMAP queue 1)")
 
 
 def check_transforms_difference(
@@ -237,6 +235,53 @@ def get_3D_fliplr_matrix(start_shape_zyx, end_shape_zyx=None):
             [0, 0, 0, 1],
         ]
     )
+
+
+def save_transforms(
+    model: dict,
+    transforms,
+    output_filepath_settings,
+    output_filepath_plot=None,
+    verbose: bool = False,
+) -> None:
+    """Write the per-timepoint transforms into a settings YAML: ``model``
+    (a ``StabilizationSettings`` dict, e.g. ``convert.
+    stabilization_settings_dump``) with ``affine_transform_zyx_list``
+    replaced; when ``verbose``, also the translations' plot (reference
+    ``registration/utils.py:182-206``). A path without ``.yml``/``.yaml``
+    (``.png`` for the plot) takes that suffix."""
+    if transforms is None or len(transforms) == 0:
+        raise ValueError("Transforms are empty")
+    if not isinstance(transforms, list):
+        transforms = transforms.tolist()
+    output_filepath_settings = Path(output_filepath_settings)
+    if output_filepath_settings.suffix not in (".yml", ".yaml"):
+        output_filepath_settings = output_filepath_settings.with_suffix(".yml")
+    output_filepath_settings.parent.mkdir(parents=True, exist_ok=True)
+    model_to_yaml(dict(model, affine_transform_zyx_list=transforms), output_filepath_settings)
+    if verbose and output_filepath_plot is not None:
+        output_filepath_plot = Path(output_filepath_plot)
+        if output_filepath_plot.suffix != ".png":
+            output_filepath_plot = output_filepath_plot.with_suffix(".png")
+        plot_translations(np.asarray(transforms), output_filepath_plot)
+
+
+def plot_translations(transforms_zyx, output_filepath) -> None:
+    """The Z, X and Y translations of (T, 4, 4) transforms over time, one
+    panel each (reference ``registration/utils.py:209-225``)."""
+    plt = pyplot(output_filepath)
+    if plt is None:
+        return
+    transforms_zyx = np.asarray(transforms_zyx)
+    _, axs = plt.subplots(3, 1, figsize=(10, 10))
+    axs[0].plot(transforms_zyx[:, 0, 3])
+    axs[0].set_title("Z-Translation")
+    axs[1].plot(transforms_zyx[:, 2, 3])
+    axs[1].set_title("X-Translation")
+    axs[2].plot(transforms_zyx[:, 1, 3])
+    axs[2].set_title("Y-Translation")
+    plt.savefig(output_filepath, dpi=300, bbox_inches="tight")
+    plt.close()
 
 
 def approx_transform_from_scale(

@@ -279,6 +279,24 @@ Then the verbs on plates, through the command line a user calls:
     small cut (bit-equal to ``flat_field_arrays``, read back as written),
     and requires a blosc ``.zarray`` to raise naming its codec; the
     directory is deleted at the end.
+24. the reconstruction and estimate verbs on plates at full width, each
+    plate written by the port in a ``tempfile.mkdtemp()`` directory and
+    deleted once its verb is checked: reconstruct on 15's polarization
+    timelapse cut to T_PLATE_RECON timepoints (launches A, Bc, C once a
+    timepoint; the plate bit-equal to ``reconstruct_arrays``; apply-inv-tf's
+    runner split and bytes); estimate-stabilization with phase-cross-corr
+    on 5's timelapse (the drift exact, the YAML's transforms equal to
+    ``estimate_stabilization_arrays``', launches as 5) and with beads on
+    9's (equal, ``xyz_transforms/`` written, G and H launched);
+    estimate-psf on two of its volumes (bit-equal to
+    ``estimate_psf_arrays``, G 2); estimate-registration (ants) on 12's
+    pair started REG_START_ERROR off (equal to
+    ``estimate_registration_arrays``), optimize-registration on the YAML it
+    wrote (two runs of ``optimize_registration_arrays`` measure the
+    run-to-run difference, which the verb must keep within), and register
+    on the optimized YAML (bit-equal to ``register_arrays``); H, I and J
+    launched. Each verb's ms for the whole call (host clock) is printed
+    beside its ``*_arrays`` function's on the same arrays in this run.
 
 Times are CUDA-event medians on this card.
 
@@ -1124,18 +1142,9 @@ def multipass_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def beads_phases(dev: torch.device, records: dict) -> None:
-    """Phases 9-10: estimate-stabilization with beads, stabilize with its
-    transforms, and estimate-psf, on rendered beads."""
-    from biahub_tpu_torch import (
-        ArrayPosition,
-        estimate_psf_arrays,
-        estimate_stabilization_arrays,
-        stabilize_tczyx,
-    )
-    from biahub_tpu_torch.kernels.peaks import detect_peaks
-    from biahub_tpu_torch.registration.beads import overlap_score
-
+def beads_timelapse(dev: torch.device):
+    """The beads timelapse (T_BEADS, 1, *LAPSE_SHAPE) and its drifts (seed
+    9): N_BEADS beads, each timepoint a rigid drift about the centre."""
     gen = torch.Generator(device=dev).manual_seed(9)
     rng = np.random.default_rng(9)
     lo = np.array([10.0, 10.0, 10.0])
@@ -1148,6 +1157,22 @@ def beads_phases(dev: torch.device, records: dict) -> None:
     lapse = torch.stack([
         render_beads(torch.tensor(points @ w[:3, :3].T + w[:3, 3], device=dev), LAPSE_SHAPE,
                      gen) for w in truth])[:, None]
+    return lapse, truth
+
+
+def beads_phases(dev: torch.device, records: dict) -> None:
+    """Phases 9-10: estimate-stabilization with beads, stabilize with its
+    transforms, and estimate-psf, on rendered beads."""
+    from biahub_tpu_torch import (
+        ArrayPosition,
+        estimate_psf_arrays,
+        estimate_stabilization_arrays,
+        stabilize_tczyx,
+    )
+    from biahub_tpu_torch.kernels.peaks import detect_peaks
+    from biahub_tpu_torch.registration.beads import overlap_score
+
+    lapse, truth = beads_timelapse(dev)
     print(f"beads timelapse: {T_BEADS} x {LAPSE_SHAPE}, {N_BEADS} beads, drifts up to "
           f"{DRIFT_DEG} deg and {DRIFT_SHIFT} voxels")
 
@@ -1400,6 +1425,19 @@ def vjp_phase(dev: torch.device, records: dict) -> None:
     torch.cuda.empty_cache()
 
 
+def registration_pair(dev: torch.device):
+    """The registration pair at LAPSE_SHAPE (seed 12): the reference volume,
+    the moving one (the reference through the truth's inverse), the truth,
+    the start (REG_START_ERROR off) and the generator, drawn on."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    ref = gaussian_noise(LAPSE_SHAPE, REG_SIGMA, gen)
+    truth = similarity_about_centre(LAPSE_SHAPE)
+    mov = warp_trilinear(ref, np.linalg.inv(truth))
+    initial = truth.copy()
+    initial[:3, 3] += REG_START_ERROR
+    return ref, mov, truth, initial, gen
+
+
 def registration_phase(dev: torch.device, records: dict) -> None:
     """Phase 12: optimize-registration on a rendered pair, against the truth
     and the plain route; per-level launches and times; ms per step at
@@ -1410,12 +1448,7 @@ def registration_phase(dev: torch.device, records: dict) -> None:
     from biahub_tpu_torch.registration import intensity as ti
 
     shape = LAPSE_SHAPE
-    gen = torch.Generator(device=dev).manual_seed(12)
-    ref = gaussian_noise(shape, REG_SIGMA, gen)
-    truth = similarity_about_centre(shape)
-    mov = warp_trilinear(ref, np.linalg.inv(truth))
-    initial = truth.copy()
-    initial[:3, 3] += REG_START_ERROR
+    ref, mov, truth, initial, gen = registration_pair(dev)
     print(f"registration pair: {shape}, noise blurred by sigma {REG_SIGMA}; truth "
           f"{REG_ANGLES} deg about (z, y), scale {REG_SCALE}, shift {REG_SHIFT}; start "
           f"{REG_START_ERROR} voxels off")
@@ -3768,6 +3801,233 @@ def plates_phase(dev: torch.device, psf: np.ndarray) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 24: reconstruct's timelapse depth (cut from T_RECON), its plate's
+# scale (example_reconstruct_settings.yml's voxel size) and the patch of
+# estimate-psf.
+T_PLATE_RECON = 2
+RECON_SCALE = [1.0, 1.0, 2.0, 0.325, 0.325]
+PSF_SETTINGS = {f"axis{i}_patch_size": n for i, n in enumerate(PSF_PATCH)}
+
+
+def estimate_plates_phase(dev: torch.device) -> None:
+    """Phase 24: the reconstruction and estimate verbs on plates through the
+    command line (module docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from biahub_tpu_torch import (
+        ArrayPosition,
+        compute_transfer_function_arrays,
+        estimate_psf_arrays,
+        estimate_stabilization_arrays,
+        optimize_registration_arrays,
+        reconstruct_arrays,
+        register_arrays,
+    )
+    from biahub_tpu_torch.cli.yaml_reader import load_file
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.estimate_registration import estimate_registration_arrays
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+
+    card = gpu_info()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_estimate_"))
+    phase_t0 = time.perf_counter()
+
+    def plate(name: str, arrays: dict, names: list, scale=(1.0,) * 5) -> list[str]:
+        root = open_ome_zarr(tmp / name, layout="hcs", mode="w", channel_names=names)
+        for key, arr in arrays.items():
+            root.create_position(*key.split("/")).create_image(
+                "0", arr.cpu().numpy(),
+                transform=[TransformationMeta(type="scale", scale=list(scale))])
+        return [str(tmp / name / key) for key in arrays]
+
+    def config(name: str, settings: dict) -> str:
+        (tmp / name).write_text(yaml_flow(settings) + "\n")
+        return str(tmp / name)
+
+    def arrays_call(fn):
+        """``fn()`` and its host-clock ms (the arrays already on the card)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0)
+
+    def line(verb: str, seconds: float, arrays_ms: float, launches: dict, note: str) -> None:
+        print(f"24 {verb}: {1e3 * seconds:.1f} ms for the whole call (host clock, cli.main), "
+              f"its *_arrays function {arrays_ms:.1f} ms on the same arrays; {note}; "
+              f"launches {launches}; card {card}")
+
+    def launched(launches: dict, names) -> bool:
+        return all(launches.get(n, 0) >= 1 for n in names)
+
+    try:
+        # -- reconstruct: compute-tf, then apply-inv-tf through the runner ---
+        tfs = compute_transfer_function_arrays(LAPSE_SHAPE, RECON_SETTINGS, device=dev)
+        stack = render_polarization(dev, tfs["phase"], torch.Generator(device=dev)
+                                    .manual_seed(24))[0][:T_PLATE_RECON]
+        del tfs
+        pos = plate("pol.zarr", {"A/1/0": stack}, RECON_CHANNELS, RECON_SCALE)
+        out = tmp / "recon" / "out.zarr"
+        seconds, launches, stats, _ = run_verb(["reconstruct", "-i", *pos, "-c", config(
+            "recon.yml", RECON_SETTINGS), "-o", str(out)])
+        want_l = {"fwd_yx": T_PLATE_RECON, "z_filter_complex": T_PLATE_RECON,
+                  "inv_yx": T_PLATE_RECON}
+        require(launches == want_l, f"reconstruct verb launches {launches}, want {want_l}")
+        got = open_ome_zarr(out / "A" / "1" / "0").data[...]
+        want, arrays_ms = arrays_call(lambda: reconstruct_arrays(stack, RECON_CHANNELS,
+                                                                 RECON_SETTINGS, device=dev))
+        want = want.cpu().numpy()
+        require(got.shape == want.shape == (T_PLATE_RECON, 5) + LAPSE_SHAPE
+                and np.array_equal(got.view(np.int32), want.view(np.int32)),
+                "reconstruct verb: the plate differs from reconstruct_arrays")
+        wall = stats["wall_s"]
+        keys = ("read_s", "h2d_s", "device_s", "d2h_s", "write_s")
+        split = ", ".join(f"{k[:-2]} {1e3 * stats[k] / T_PLATE_RECON:.2f} ms/timepoint "
+                          f"({stats[k] / wall:.1%})" for k in keys)
+        line("reconstruct", seconds, arrays_ms, launches,
+             f"T {T_PLATE_RECON} x 5 uint16 states {LAPSE_SHAPE} -> 5 float32 channels, "
+             f"bit-equal to reconstruct_arrays; apply-inv-tf's runner "
+             f"{1e3 * wall / T_PLATE_RECON:.2f} ms/timepoint: {split}; read "
+             f"{stats['bytes_read'] / 2**20:.1f} MiB, written "
+             f"{stats['bytes_written'] / 2**20:.1f} MiB (page cache, warm)")
+        del stack, got, want
+        shutil.rmtree(tmp / "pol.zarr")
+        shutil.rmtree(tmp / "recon")
+
+        # -- estimate-stabilization, phase-cross-corr -------------------------
+        lapse, drift, _, _ = pcc_timelapse(dev)
+        pos = plate("pcc.zarr", {"A/1/0": lapse}, ["Phase3D"])
+        seconds, launches, _, _ = run_verb(["estimate-stabilization", "-i", *pos, "-o",
+                                            str(tmp / "pcc"), "-c",
+                                            config("pcc.yml", PCC_SETTINGS)])
+        got = load_file(tmp / "pcc" / "xyz_stabilization_settings" / "A_1_0.yml")
+        want, arrays_ms = arrays_call(lambda: estimate_stabilization_arrays(
+            {"A/1/0": ArrayPosition(lapse, [1.0] * 5, ["Phase3D"])}, PCC_SETTINGS,
+            device=dev)["xyz"]["A_1_0"])
+        require(got["affine_transform_zyx_list"] == want,
+                "estimate-stabilization (PCC) verb: transforms differ from the arrays route")
+        require(np.array_equal(np.asarray(want)[:, :3, 3], drift),
+                "estimate-stabilization (PCC) verb: the drift is not recovered exactly")
+        require(launched(launches, ("fwd_yx", "z_cross", "inv_yx"))
+                and launches["z_cross"] == T_LAPSE - 1,
+                f"estimate-stabilization (PCC) verb launches {launches}")
+        t0 = time.perf_counter()
+        host = open_ome_zarr(pos[0]).data[:, 0]
+        read_ms = 1e3 * (time.perf_counter() - t0)
+        _, h2d_ms = arrays_call(lambda: torch.from_numpy(host).to(dev))
+        line("estimate-stabilization (phase-cross-corr)", seconds, arrays_ms, launches,
+             f"{T_LAPSE} x float32 {LAPSE_SHAPE} read from the plate, the YAML's transforms "
+             f"equal to estimate_stabilization_arrays', the drift exact; apart, reading the "
+             f"channel ({host.nbytes / 2**20:.0f} MiB, page cache, warm) {read_ms:.1f} ms and "
+             f"its copy to the card from pageable memory {h2d_ms:.1f} ms")
+        del host
+        del lapse
+        shutil.rmtree(tmp / "pcc.zarr")
+
+        # -- estimate-stabilization, beads; estimate-psf ----------------------
+        lapse, _ = beads_timelapse(dev)
+        pos = plate("beads.zarr", {"A/1/0": lapse}, ["GFP"])
+        seconds, launches, _, _ = run_verb(["estimate-stabilization", "-i", *pos, "-o",
+                                            str(tmp / "beads"), "-c",
+                                            config("beads.yml", BEADS_SETTINGS)])
+        got = load_file(tmp / "beads" / "xyz_stabilization_settings.yml")
+        want, arrays_ms = arrays_call(lambda: estimate_stabilization_arrays(
+            {"A/1/0": ArrayPosition(lapse, [1.0] * 5, ["GFP"])}, BEADS_SETTINGS,
+            device=dev)["xyz"]["A_1_0"])
+        require(got["affine_transform_zyx_list"] == want,
+                "estimate-stabilization (beads) verb: transforms differ from the arrays route")
+        saved = sorted(p.name for p in (tmp / "beads" / "xyz_transforms").glob("*.npy"))
+        require(saved == [f"{t}.npy" for t in range(1, T_BEADS)],
+                f"estimate-stabilization (beads) verb: transform files {saved}")
+        require(launched(launches, ("block_max_argmin", "resample_pass")),
+                f"estimate-stabilization (beads) verb launches {launches}")
+        line("estimate-stabilization (beads)", seconds, arrays_ms, launches,
+             f"{T_BEADS} x float32 {LAPSE_SHAPE}, the YAML's transforms equal to "
+             "estimate_stabilization_arrays', xyz_transforms/ written")
+        shutil.rmtree(tmp / "beads.zarr")
+
+        pos = plate("psf.zarr", {"0/0/0": lapse[0:1], "0/1/0": lapse[1:2]}, ["GFP"])
+        seconds, launches, _, _ = run_verb(["estimate-psf", "-i", *pos, "-c", config(
+            "psf.yml", PSF_SETTINGS), "-o", str(tmp / "psf_out.zarr")])
+        got = open_ome_zarr(tmp / "psf_out.zarr" / "0" / "0" / "0").data[0, 0]
+        want, arrays_ms = arrays_call(lambda: estimate_psf_arrays(
+            lapse[:2, 0], (1.0, 1.0, 1.0), PSF_PATCH, device=dev).cpu().numpy())
+        require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                "estimate-psf verb: the PSF differs from estimate_psf_arrays")
+        require(launches == {"block_max_argmin": 2}, f"estimate-psf verb launches {launches}")
+        line("estimate-psf", seconds, arrays_ms, launches,
+             f"2 positions, patch {PSF_PATCH}, bit-equal to estimate_psf_arrays")
+        del lapse
+        shutil.rmtree(tmp / "psf.zarr")
+        shutil.rmtree(tmp / "psf_out.zarr")
+
+        # -- estimate-registration (ants), optimize-registration, register ---
+        ref, mov, truth, initial, _ = registration_pair(dev)
+        src = plate("src.zarr", {"0/0/0": mov[None, None]}, ["GFP"])
+        tgt = plate("tgt.zarr", {"0/0/0": ref[None, None]}, ["Phase3D"])
+        ants = {"target_channel_name": "Phase3D", "source_channel_name": "GFP",
+                "estimation_method": "ants",
+                "affine_transform_settings": {"approx_transform": initial.tolist()}}
+        estimated = tmp / "reg" / "registration.yml"
+        seconds, launches, _, _ = run_verb(["estimate-registration", "-s", *src, "-t", *tgt,
+                                            "-o", str(estimated), "-c",
+                                            config("ants.yml", ants)])
+        got = load_file(estimated)["affine_transform_zyx"]
+        want, arrays_ms = arrays_call(lambda: estimate_registration_arrays(
+            mov[None, None], ref[None, None], ["GFP"], ["Phase3D"], ants, [1.0] * 5,
+            device=dev)["affine_transform_zyx"])
+        require(got == want, "estimate-registration verb: the transform differs from "
+                "estimate_registration_arrays")
+        require(launched(launches, ("resample_pass", "resample_pass_deriv",
+                                    "resample_pass_adjoint")),
+                f"estimate-registration verb launches {launches}")
+        far = float(np.abs(np.asarray(got)[:3, 3] - truth[:3, 3]).max())
+        line("estimate-registration (ants)", seconds, arrays_ms, launches,
+             f"one timepoint float32 {LAPSE_SHAPE}, equal to estimate_registration_arrays, "
+             f"{far:.3g} voxels from the truth in the translation column")
+
+        optimized = tmp / "reg" / "optimized.yml"
+        seconds, launches, _, _ = run_verb(["optimize-registration", "-s", *src, "-t", *tgt,
+                                            "-c", str(estimated), "-o", str(optimized)])
+        got = np.asarray(load_file(optimized)["affine_transform_zyx"])
+        start = np.asarray(load_file(estimated)["affine_transform_zyx"], np.float32)
+        runs = [arrays_call(lambda: optimize_registration_arrays(
+            mov[None], ref[None], start, crop=True, device=dev)) for _ in range(2)]
+        (want, arrays_ms), (again, _) = runs
+        run_to_run = float(np.abs(want - again).max())
+        verb_err = float(np.abs(got - want).max())
+        require(verb_err <= run_to_run, f"optimize-registration verb: {verb_err:.3g} from "
+                f"optimize_registration_arrays, beyond its run-to-run {run_to_run:.3g}")
+        require(launched(launches, ("resample_pass", "resample_pass_deriv",
+                                    "resample_pass_adjoint")),
+                f"optimize-registration verb launches {launches}")
+        line("optimize-registration", seconds, arrays_ms, launches,
+             f"crop, {verb_err:.3g} from optimize_registration_arrays (two runs of it "
+             f"{run_to_run:.3g} apart)")
+
+        registered = tmp / "registered.zarr"
+        seconds, launches, _, _ = run_verb(["register", "-s", *src, "-t", *tgt, "-c",
+                                            str(optimized), "-o", str(registered)])
+        got = open_ome_zarr(registered / "0" / "0" / "0").data[...]
+        (want, _, _), arrays_ms = arrays_call(lambda: register_arrays(
+            mov[None, None], ["GFP"], load_file(optimized), (1.0, 1.0, 1.0), ref[None, None],
+            ["Phase3D"], device=dev))
+        want = want.cpu().numpy()
+        require(got.shape == want.shape and np.array_equal(got.view(np.int32),
+                                                           want.view(np.int32)),
+                "register verb on the optimized YAML: the plate differs from register_arrays")
+        require(launched(launches, ("resample_pass",)), f"register verb launches {launches}")
+        line("register (the optimized YAML)", seconds, arrays_ms, launches,
+             f"{tuple(got.shape)} float32, bit-equal to register_arrays")
+        del ref, mov, got, want
+        torch.cuda.empty_cache()
+        print(f"24: {time.perf_counter() - phase_t0:.1f} s for the phase")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4114,6 +4374,7 @@ def main() -> int:
     gbx_phase(dev, records)
     fuse_phase(dev, tf_half)
     plates_phase(dev, psf)
+    estimate_plates_phase(dev)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

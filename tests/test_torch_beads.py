@@ -175,7 +175,7 @@ def assert_near_truth(w, truth):
     np.testing.assert_allclose(np.asarray(w)[:3, :3], truth[:3, :3], atol=0.05)
 
 
-def test_estimate_matches_the_reference(accelerator_route):
+def test_estimate_matches_the_reference(accelerator_route, tmp_path):
     frames = render_frames(TRUTH[:2])
     bms = {"source_peaks_settings": PEAKS, "target_peaks_settings": PEAKS}
     ats = {"transform_type": "euclidean"}
@@ -187,8 +187,12 @@ def test_estimate_matches_the_reference(accelerator_route):
     assert not np.allclose(got, np.eye(4))
     assert tbeads.estimate(np.zeros(SHAPE, np.float32), frames[0], bms, ats,
                            device="cpu") is None
-    with pytest.raises(NotImplementedError, match="I/O layer"):
-        tbeads.estimate(frames[1], frames[0], bms, ats, output_filepath="t.npy", device="cpu")
+    jbeads.estimate(frames[1], frames[0], BeadsMatchSettings(**bms),
+                    AffineTransformSettings(**ats), output_filepath=tmp_path / "ref.npy")
+    tbeads.estimate(frames[1], frames[0], bms, ats, output_filepath=tmp_path / "port.npy",
+                    device="cpu")
+    np.testing.assert_allclose(np.load(tmp_path / "port.npy"), np.load(tmp_path / "ref.npy"),
+                               rtol=0, atol=1e-9)
 
 
 def beads_settings() -> dict:

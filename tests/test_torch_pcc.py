@@ -76,7 +76,17 @@ def smooth(shape, seed=3):
     return ndi.gaussian_filter(rng.random(shape).astype(np.float32), 2)
 
 
-def test_phase_cross_corr_matches_reference():
+def same_plot(got, want) -> bool:
+    """Two plots of the same size whose pixels agree but for at most 0.1%
+    of them (a colorbar tick label may move where the arrays differ in the
+    last float32 bit)."""
+    import matplotlib.image as mimage
+
+    a, b = mimage.imread(got), mimage.imread(want)
+    return a.shape == b.shape and (np.abs(a - b).max(-1) > 0).mean() <= 1e-3
+
+
+def test_phase_cross_corr_matches_reference(tmp_path):
     base = smooth((16, 32, 24))
     moved = np.roll(base, (2, -3, 5), axis=(0, 1, 2))
     for ref, mov in ((base, moved), (base[3], moved[3])):  # 3D kernels, 2D torch.fft
@@ -85,8 +95,13 @@ def test_phase_cross_corr_matches_reference():
         assert corr is None and got.dtype == np.float32
         np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, [3, -5])
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        tpcc.phase_cross_corr(base, moved, output_path="corr.png", device="cpu")
+    want, want_corr = jfft.phase_cross_corr(base, moved, "magnitude",
+                                            output_path=tmp_path / "ref.png")
+    got, got_corr = tpcc.phase_cross_corr(base, moved, "magnitude",
+                                          output_path=tmp_path / "port.png", device="cpu")
+    np.testing.assert_array_equal(got, want)
+    assert_close(got_corr, want_corr)
+    assert same_plot(tmp_path / "port.png", tmp_path / "ref.png")
 
 
 def test_phase_cross_corr_padding_matches_reference():
