@@ -70,7 +70,17 @@ estimate verbs the same way: ``compute-tf``, ``apply-inv-tf``,
 ``optimize-registration``, which write the settings YAML (the port's
 writer, :mod:`biahub_tpu_torch.cli.yaml_writer`), CSV, ``.npy`` transform
 files and, where matplotlib is installed, plots that ``register`` and
-``stabilize`` and their users read.
+``stabilize`` and their users read; and the stitching and assembly verbs:
+``estimate-stitch`` (:func:`~biahub_tpu_torch.estimate_stitch.
+estimate_stitch`: stage metadata, refined by the strips' phase correlation
+on the device, :mod:`biahub_tpu_torch.stitching`), ``stitch``
+(:func:`~biahub_tpu_torch.stitch.stitch`: each chunk's FOVs blended on the
+device, :mod:`biahub_tpu_torch.kernels.stitch_blend`), ``concatenate``,
+``flip`` and ``pyramid`` (host I/O, as the reference's). The deconvolve
+verb on plates takes the sharded route under ``BIAHUB_TPU_SHARDED_FFT=1``
+(:func:`~biahub_tpu_torch.deconvolve.deconvolve`, ``mesh=``), and
+``BIAHUB_TPU_PROFILE`` times every verb and, with a directory, writes its
+``torch.profiler`` trace (:mod:`biahub_tpu_torch.runtime.profiling`).
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (
@@ -79,6 +89,7 @@ from biahub_tpu_torch.apply_inverse_transfer_function import (
 from biahub_tpu_torch.compute_transfer_function import compute_transfer_function_arrays
 from biahub_tpu_torch.convert import (
     chain_from_reference,
+    concatenate_settings_from_reference,
     deconvolve_settings_from_reference,
     deskew_settings_from_reference,
     flat_field_settings_from_reference,
@@ -89,6 +100,7 @@ from biahub_tpu_torch.convert import (
     registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
     spectral_table_from_reference,
+    stitch_settings_from_reference,
     transfer_functions_from_reference,
 )
 from biahub_tpu_torch.deconvolve import deconvolve_arrays
@@ -160,6 +172,7 @@ from biahub_tpu_torch.reconstruct import reconstruct_arrays
 from biahub_tpu_torch.register import register_arrays
 from biahub_tpu_torch.runtime.executor import stripe_units
 from biahub_tpu_torch.stabilize import apply_stabilization_transform, stabilize_tczyx
+from biahub_tpu_torch.kernels.stitch_blend import blend_chunk, pad_distance_map
 
 __all__ = [
     "DeconvolveDeskew",
@@ -233,4 +246,8 @@ __all__ = [
     "flat_field_settings_from_reference",
     "registration_settings_from_reference",
     "fuse_settings_from_reference",
+    "stitch_settings_from_reference",
+    "concatenate_settings_from_reference",
+    "blend_chunk",
+    "pad_distance_map",
 ]

@@ -4,14 +4,18 @@ The verbs and options of the reference's ``biahub`` command
 (``biahub_tpu/cli/main.py``) for what the port runs on plates: ``fuse``,
 ``deconvolve``, ``deskew``, ``flat-field``, ``register``, ``stabilize``,
 ``compute-tf``, ``apply-inv-tf``, ``reconstruct``,
-``estimate-stabilization``, ``estimate-psf``, ``estimate-registration``
-and ``optimize-registration``. Every other verb of the reference exits with
-status 2 and says that it is not ported yet. A bad option exits with status
+``estimate-stabilization``, ``estimate-psf``, ``estimate-registration``,
+``optimize-registration``, ``estimate-stitch``, ``stitch``,
+``concatenate``, ``flip`` and ``pyramid``. Every other verb of the
+reference exits with status 2 and says that it is not ported yet. A bad option exits with status
 2 and the verb's usage; a failure the reference reports as a
 ``click.ClickException`` (:class:`~biahub_tpu_torch.cli.parsing.
 CommandError`) prints ``Error: <message>`` and exits with status 1. The
 verbs run on the card and raise without one; :func:`main` takes the device
-as a Python argument (the tests pass ``device="cpu"``).
+as a Python argument (the tests pass ``device="cpu"``). A verb runs
+inside :func:`~biahub_tpu_torch.runtime.profiling.profiled_section`:
+``BIAHUB_TPU_PROFILE=1`` prints its wall time, ``BIAHUB_TPU_PROFILE=<dir>``
+also writes its trace there and prints its device-time table.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import os
 import sys
 
 from biahub_tpu_torch.cli import parsing as P
+from biahub_tpu_torch.runtime.profiling import profiled_section
 
 __all__ = ["COMMANDS", "PORTED", "main"]
 
@@ -86,6 +91,14 @@ PORTED = {
                               P.local, P.registration_channels, P.point_files],
     "optimize-registration": [P.source_position_dirpaths, P.target_position_dirpaths,
                               P.config_filepath, P.output_filepath, P.display_viewer],
+    "estimate-stitch": [P.input_position_dirpaths, P.output_filepath,
+                        P.estimate_stitch_options, P.local, P.monitor],
+    "stitch": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+               P.sbatch_filepath, P.local, P.stitch_options, P.monitor],
+    "concatenate": [P.config_filepath, P.output_dirpath, P.sbatch_filepath, P.cluster,
+                    P.monitor, P.init_only, P.resume, P.num_processes, P.concat_data_paths],
+    "flip": [P.input_position_dirpaths, P.flip_options],
+    "pyramid": [P.input_position_dirpaths, P.sbatch_filepath, P.local, P.pyramid_options],
 }
 
 
@@ -118,12 +131,21 @@ def _run(ns: argparse.Namespace, device) -> None:
         ns, "config_filepath") else None
     if getattr(ns, "sbatch_filepath", None) is not None:
         _existing(ns.sbatch_filepath, "sbatch file", False)
+    if verb == "concatenate":
+        from biahub_tpu_torch.concatenate import concatenate_verb
+
+        concatenate_verb(config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster, ns.monitor,
+                         ns.init_only, ns.resume, tuple(ns.concat_data_paths),
+                         ns.num_processes)
+        return
     if verb in ("register", "estimate-registration", "optimize-registration"):
         sources = P.position_dirpaths(ns.source_position_dirpaths)
         targets = P.position_dirpaths(ns.target_position_dirpaths)
     else:
         inputs = P.position_dirpaths(ns.input_position_dirpaths)
-    if verb == "estimate-registration":
+    if verb in ("estimate-stitch", "stitch", "flip", "pyramid"):
+        _run_assembly_verb(ns, device, config, inputs)
+    elif verb == "estimate-registration":
         from biahub_tpu_torch.estimate_registration import estimate_registration
 
         for points in (ns.source_points, ns.target_points):
@@ -168,6 +190,29 @@ def _run(ns: argparse.Namespace, device) -> None:
     else:
         _run_plate_verb(ns, device, config, sources if verb == "register" else inputs,
                         targets if verb == "register" else None)
+
+
+def _run_assembly_verb(ns: argparse.Namespace, device, config, inputs) -> None:
+    """estimate-stitch, stitch, flip and pyramid."""
+    if ns.verb == "estimate-stitch":
+        from biahub_tpu_torch.estimate_stitch import estimate_stitch
+
+        estimate_stitch(inputs, ns.output_filepath, ns.fliplr, ns.flipud, ns.flipxy,
+                        ns.pcc_channel_name, ns.pcc_z_index, ns.add_offset, ns.local,
+                        ns.monitor, device=device)
+    elif ns.verb == "stitch":
+        from biahub_tpu_torch.stitch import stitch
+
+        stitch(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.local, ns.verbose,
+               ns.blending_exponent, ns.debug, ns.monitor, device=device)
+    elif ns.verb == "flip":
+        from biahub_tpu_torch.flip import flip
+
+        flip(inputs, ns.x, ns.y)
+    else:
+        from biahub_tpu_torch.pyramid import pyramid_verb
+
+        pyramid_verb(inputs, ns.levels, ns.method, ns.sbatch_filepath, ns.local)
 
 
 def _run_plate_verb(ns: argparse.Namespace, device, config, inputs, targets) -> None:
@@ -228,7 +273,8 @@ def main(argv=None, device="cuda") -> int:
 
         maybe_initialize_distributed()
     try:
-        _run(ns, device)
+        with profiled_section(ns.verb):
+            _run(ns, device)
     except P.UsageError as exc:
         sub = parser._subparsers._group_actions[0].choices[ns.verb]
         sub.error(str(exc))

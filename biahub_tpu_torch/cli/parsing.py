@@ -39,6 +39,11 @@ __all__ = [
     "monitor",
     "resume",
     "num_processes",
+    "estimate_stitch_options",
+    "stitch_options",
+    "concat_data_paths",
+    "flip_options",
+    "pyramid_options",
 ]
 
 _NAT_SPLIT = re.compile(r"(\d+)")
@@ -232,3 +237,53 @@ def resume(parser: argparse.ArgumentParser) -> None:
                         help="Skip the (time, channel) units this position already finished "
                              "in an earlier attempt. A changed config invalidates prior "
                              "records. (default: --no-resume)")
+
+
+def estimate_stitch_options(parser: argparse.ArgumentParser) -> None:
+    """estimate-stitch's flips, PCC refinement and ``--add_offset``."""
+    parser.add_argument("--fliplr", action="store_true",
+                        help="Flip images left-right before stitching")
+    parser.add_argument("--flipud", action="store_true",
+                        help="Flip images up-down before stitching")
+    parser.add_argument("--flipxy", action="store_true",
+                        help="Flip images along the diagonal before stitching")
+    parser.add_argument("--pcc-channel-name", default=None, type=str,
+                        help="Channel name to use for phase cross-correlation optimization "
+                             "(default: None, disables optimization)")
+    parser.add_argument("--pcc-z-index", default=0, type=int,
+                        help="Z slice index to use for phase cross-correlation optimization "
+                             "(default: 0)")
+    parser.add_argument("--add_offset", action="store_true",
+                        help="add the offset to estimated shifts, needed for OPS experiments")
+
+
+def stitch_options(parser: argparse.ArgumentParser) -> None:
+    """stitch's ``-v``, ``-b`` and ``--debug``."""
+    parser.add_argument("--verbose", "-v", action="store_true",
+                        help="Verbose stitching output. Default is False.")
+    parser.add_argument("--blending-exponent", "-b", type=float, default=1.0,
+                        help="Exponent for blending weights. 0.0 is average blending, 1.0 is "
+                             "linear blending, and >1.0 is progressively sharper S-curve "
+                             "blending.")
+    parser.add_argument("--debug", action="store_true", help="Run in debug mode")
+
+
+def concat_data_paths(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--concat-data-paths", action="append", default=[], type=str,
+                        help="Resolve mode: inject these concat_data_paths into the config and "
+                             "write the resolved config to -o (a YAML file), then exit. Repeat "
+                             "the flag once per source store.")
+
+
+def flip_options(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("-x", action="store_true", help="Enable the x flag.")
+    parser.add_argument("-y", action="store_true", help="Enable the y flag.")
+
+
+def pyramid_options(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--levels", "-lv", type=int, default=4,
+                        help="Total number of resolution levels including level 0. E.g., "
+                             "levels=4 creates 0, 1, 2, 3. (default: 4)")
+    parser.add_argument("--method", "-m", default="mean",
+                        choices=["stride", "median", "mode", "mean", "min", "max"],
+                        help="Downsampling method to use. (default: mean)")

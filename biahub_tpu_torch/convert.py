@@ -30,7 +30,11 @@ reference's models dump them (the provenance the verbs stamp on their
 plates); ``registration_settings_dump`` and ``stabilization_settings_dump``
 build the YAML files the estimate verbs write, and
 ``psf_from_beads_settings_from_reference`` validates estimate-psf's
-``PsfFromBeadsSettings``. Settings files are read by
+``PsfFromBeadsSettings``. ``stitch_settings_from_reference`` and
+``concatenate_settings_from_reference`` give ``StitchSettings`` and
+``ConcatenateSettings`` as their models dump them: the files the stitch
+and concatenate verbs read, and those estimate-stitch and concatenate's
+resolve mode write. Settings files are read by
 :mod:`biahub_tpu_torch.cli.yaml_reader`.
 """
 
@@ -51,7 +55,8 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "spectral_table_from_reference", "deskew_settings_dump", "fuse_settings_dump",
            "stabilize_settings_from_reference", "reconstruction_settings_dump",
            "registration_settings_dump", "stabilization_settings_dump",
-           "psf_from_beads_settings_from_reference"]
+           "psf_from_beads_settings_from_reference", "stitch_settings_from_reference",
+           "concatenate_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -881,3 +886,149 @@ def psf_from_beads_settings_from_reference(settings: dict | None = None) -> dict
     ``axis{0,1,2}_patch_size``, positive ints, 101 by default; unknown
     fields raise."""
     return _PSF_FROM_BEADS(settings or {}, "estimate-psf settings")
+
+
+# -- stitch and concatenate settings (settings.py:480-530, 636-651) ---------
+
+def _translation_table(v, name):
+    """``dict[str, list[float]]`` as pydantic's lax mode reads it; a (y, x)
+    entry gets a leading z = 0, as ``StitchSettings.__init__`` adds it."""
+    if not isinstance(v, dict):
+        raise ValueError(f"{name}: want a mapping of position to translation, got {v!r}")
+    out = {}
+    for key, value in v.items():
+        if not isinstance(key, str) or not isinstance(value, list):
+            raise ValueError(f"{name}: want position: [z, y, x], got {key!r}: {value!r}")
+        if len(value) == 2:
+            value = [0] + value
+        out[key] = [_lax_number(float)(x, f"{name}.{key}") for x in value]
+    return out
+
+
+def _affine_table(v, name):
+    if not isinstance(v, dict) or not all(
+            isinstance(k, str) and isinstance(m, list) for k, m in v.items()):
+        raise ValueError(f"{name}: want a mapping of position to a list, got {v!r}")
+    return dict(v)
+
+
+def stitch_settings_from_reference(settings: dict) -> dict:
+    """``StitchSettings`` (settings.py:636-651) as its ``model_dump()``:
+    ``channels`` (None: every channel), ``total_translation`` ({position:
+    [z, y, x]} floats; a (y, x) entry gets a leading z = 0),
+    ``affine_transform`` and ``output_ome_zarr_version``. As the model (a
+    plain ``BaseModel``), unknown fields are dropped; without a translation
+    table or an affine one it raises "Either affine_transform or
+    total_translation must be provided"."""
+    if not isinstance(settings, dict):
+        raise ValueError(f"stitch settings: want a mapping, got {settings!r}")
+    if not any((settings.get("total_translation"), settings.get("affine_transform"))):
+        raise ValueError("Either affine_transform or total_translation must be provided")
+    channels = settings.get("channels")
+    translation, affine = settings.get("total_translation"), settings.get("affine_transform")
+    return {
+        "channels": None if channels is None else _str_list(channels, "channels"),
+        "total_translation": None if translation is None else _translation_table(
+            translation, "total_translation"),
+        "affine_transform": None if affine is None else _affine_table(affine,
+                                                                      "affine_transform"),
+        "output_ome_zarr_version": _version(settings.get("output_ome_zarr_version"),
+                                            "output_ome_zarr_version"),
+    }
+
+
+def _slice_pair(pair) -> None:
+    if not (isinstance(pair, list) and len(pair) == 2 and all(_is_int(i) for i in pair)):
+        raise ValueError("Each slice item must be 'all' or a list of two non-negative "
+                         "integers [start, end].")
+    if not all(i >= 0 for i in pair):
+        raise ValueError("Slice indices must be non-negative integers.")
+
+
+def _is_int(v) -> bool:
+    return isinstance(v, int) and not isinstance(v, bool)
+
+
+def _is_pair(v) -> bool:
+    return isinstance(v, list) and len(v) == 2 and all(_is_int(i) for i in v)
+
+
+def _concat_slice(v, name):
+    """``SliceSpec`` and ``_validate_slice_spec`` (settings.py:87-134):
+    "all", [start, end], or one such item (or a list of them) per path."""
+    if v == "all":
+        return v
+    if not isinstance(v, list):
+        raise ValueError("Slice must be 'all' or a list.")
+    if _is_pair(v):
+        _slice_pair(v)
+        return v
+    for item in v:
+        if item == "all":
+            continue
+        if _is_pair(item):
+            _slice_pair(item)
+        elif isinstance(item, list):
+            for sub in item:
+                if sub != "all":
+                    _slice_pair(sub)
+        else:
+            raise ValueError("Each item in a per-path slice list must be 'all' or a valid "
+                             "slice specification.")
+    return v
+
+
+def _concat_paths(v, name):
+    if not isinstance(v, list) or not all(isinstance(p, str) for p in v):
+        raise ValueError("concat_data_paths must be a list of positions.")
+    return list(v)
+
+
+def _concat_channels(v, name):
+    if not isinstance(v, list) or not all(
+            isinstance(n, str) or (isinstance(n, list) and all(isinstance(s, str) for s in n))
+            for n in v):
+        raise ValueError("channel_names must be a list of strings or lists of strings.")
+    return list(v)
+
+
+def _chunks_czyx(v, name):
+    if v is not None and (not isinstance(v, list) or len(v) != 4
+                          or not all(_is_int(i) for i in v)):
+        raise ValueError("chunks_czyx must be a list of 4 integers (C, Z, Y, X)")
+    return v
+
+
+_CONCATENATE = _model({
+    "concat_data_paths": (_REQUIRED, _concat_paths),
+    "time_indices": ("all", _time_indices),
+    "channel_names": (_REQUIRED, _concat_channels),
+    "X_slice": ("all", _concat_slice),
+    "Y_slice": ("all", _concat_slice),
+    "Z_slice": ("all", _concat_slice),
+    "chunks_czyx": (None, _chunks_czyx),
+    "shards_ratio": (None, _optional(_int_list)),
+    "ensure_unique_positions": (False, _optional(_lax_bool)),
+    "output_ome_zarr_version": ("0.5", _version),
+})
+
+
+def concatenate_settings_from_reference(settings: dict) -> dict:
+    """``ConcatenateSettings`` (settings.py:480-530) as its ``model_dump()``,
+    in its field order, with its checks and their messages as
+    ``ValueError``: ``concat_data_paths`` (a list of position paths or
+    globs), ``time_indices`` ("all"), ``channel_names`` (per path "all" or a
+    list of names), ``X_slice`` / ``Y_slice`` / ``Z_slice`` ("all", [start,
+    end] or one per path), ``chunks_czyx`` (None or 4 ints),
+    ``shards_ratio`` (None; the store refuses any other value by name),
+    ``ensure_unique_positions`` (False) and ``output_ome_zarr_version``
+    ("0.5": concatenate writes OME-Zarr 0.5 unless asked otherwise)."""
+    out = _CONCATENATE(settings, "concatenate settings")
+    n = len(out["concat_data_paths"])
+    for name in ("X_slice", "Y_slice", "Z_slice"):
+        spec = out[name]
+        if n and isinstance(spec, list) and not _is_pair(spec) and len(spec) != n:
+            raise ValueError(
+                f"{name} must be 'all', a single slice specification, or a list with the "
+                f"same length as concat_data_paths ({n})")
+    return out

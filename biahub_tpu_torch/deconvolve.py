@@ -18,12 +18,18 @@ every (position, t, c) volume, on one of two routes:
 :func:`deconvolve_arrays` returns the transfer function for the caller to
 store; :func:`deconvolve` is the verb on plates: it writes
 ``transfer_function.zarr`` beside the output plate and runs the batched
-route through the batch runner (the sharded route of the reference's
-``BIAHUB_TPU_SHARDED_FFT=1`` is not taken on plates).
+route through the batch runner or, under the reference's
+``BIAHUB_TPU_SHARDED_FFT=1`` with a mesh of more than one shard
+(``mesh=``, default :func:`~biahub_tpu_torch.parallel.mesh.get_mesh`: every
+card) over which the volume's shape shards, the sharded route (:160-203):
+the units in the reference's (position, t, c) order, striped over
+processes, the next volume read while the mesh computes the current one,
+the writes draining asynchronously.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 from pathlib import Path
 
@@ -127,12 +133,16 @@ def deconvolve(
     local: bool = False,
     monitor: bool = True,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The deconvolve verb on plates (the reference's ``deconvolve``,
     :45-213): the output plate, the transfer function of
     ``psf.zarr/0/0/0`` written to ``transfer_function.zarr`` (a FOV store
     beside the output, the PSF's scale), then every (t, c) volume through
-    kernels A, B, C in device batches, uint16 volumes sent as they are."""
+    kernels A, B, C in device batches, uint16 volumes sent as they are;
+    under ``BIAHUB_TPU_SHARDED_FFT=1`` each volume sharded over ``mesh``
+    (default: every card) when it has more than one shard and the shape
+    shards over it (:func:`_deconvolve_sharded`)."""
     dev = resolve_device(device)
     output_dirpath = Path(output_dirpath)
     output_position_paths = get_output_paths(input_position_dirpaths, output_dirpath)
@@ -167,18 +177,24 @@ def deconvolve(
     echo_resources(num_cpus, num_cpus * gb_ram_per_cpu, 60)
     resolved = resolve_cluster(None, local)
     print(f"Running on-device batches (mode='{resolved}')")
-    filt = prepare_fourier_filter((Z, Y, X), transfer_function[..., : X // 2 + 1],
-                                  settings["regularization_strength"], dev)
+    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
+    output_positions = [open_ome_zarr(p, mode="r+") for p in output_position_paths]
+    for out_pos in output_positions:
+        out_pos.update_zattrs({"biahub-deconvolve": settings})
+    tf_half = transfer_function[..., : X // 2 + 1]
+    if os.environ.get("BIAHUB_TPU_SHARDED_FFT") == "1":
+        mesh = mesh if mesh is not None else get_mesh(device=dev)
+        if mesh.size > 1 and sharded_fft_supported((Z, Y, X), mesh.size, mesh.devices[0]):
+            _deconvolve_sharded(input_positions, output_positions, tf_half,
+                                settings["regularization_strength"], mesh)
+            return
+    filt = prepare_fourier_filter((Z, Y, X), tf_half, settings["regularization_strength"], dev)
 
     def kernel(vols: torch.Tensor) -> torch.Tensor:
         return torch.stack([deconvolve_zyx(v, prepared=filt, device=dev) for v in vols])
 
     # Kernel A reads uint16 itself.
     kernel.native_ingest_dtypes = ("uint16",)
-    input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
-    output_positions = [open_ome_zarr(p, mode="r+") for p in output_position_paths]
-    for out_pos in output_positions:
-        out_pos.update_zattrs({"biahub-deconvolve": settings})
     runner = BatchRunner(cluster=resolved, device=dev)
     # The spectrum of a volume beside its input and output.
     n = runner.run_zyx(kernel, input_positions, output_positions,
@@ -186,3 +202,36 @@ def deconvolve(
                        unit_workspace_bytes=4 * Z * Y * X)
     print(f"Deconvolved {n} (t, c) volumes across {len(input_positions)} positions")
     runner.echo_stats()
+
+
+def _deconvolve_sharded(input_positions: list, output_positions: list, tf_half: np.ndarray,
+                        regularization_strength: float, mesh: Mesh) -> None:
+    """The sharded route on plates (the reference's :160-203): every
+    (position, t, c) volume of this process's stripe through
+    :func:`~biahub_tpu_torch.parallel.sharded_fft.deconvolve_zyx_sharded`
+    over ``mesh``, with the next volume's read started before the current
+    one is computed and the writes left to drain until the end."""
+    T, C, Z, Y, X = input_positions[0].data.shape
+    print(f"BIAHUB_TPU_SHARDED_FFT: each volume sharded over {mesh.size} local devices "
+          "(per-volume spatial parallelism; the batch executor's job table is not "
+          "available on this path)")
+    prepared = prepare_sharded_filter((Z, Y, X), tf_half, regularization_strength, mesh)
+    units = stripe_units([(p_idx, t, c) for p_idx in range(len(input_positions))
+                          for t in range(T) for c in range(C)])
+
+    def start_read(unit):
+        p_idx, t, c = unit
+        return input_positions[p_idx].data.read_async((t, c))
+
+    writes = []
+    pending = start_read(units[0]) if units else None
+    for i, (p_idx, t, c) in enumerate(units):
+        vol = pending.result()
+        pending = start_read(units[i + 1]) if i + 1 < len(units) else None
+        slabs = deconvolve_zyx_sharded(vol, None, mesh, prepared=prepared)
+        writes.append(output_positions[p_idx]["0"].write_async(
+            (t, c), gather(slabs, "cpu").numpy()))
+        print(f"  sharded deconvolve {i + 1}/{len(units)}", file=sys.stderr)
+    for f in writes:
+        f.result()
+    print(f"Deconvolved {len(units)} (t, c) volumes across {len(input_positions)} positions")

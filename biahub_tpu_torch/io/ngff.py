@@ -15,8 +15,10 @@ The zarr layer is this module's own:
 - **v3**: ``zarr.json`` (``chunk_key_encoding`` ``default`` or ``v2``, the
   ``bytes`` codec and optionally ``gzip``).
 
-Chunks are written uncompressed. They are read uncompressed, ``zlib`` or
-``gzip`` (v2) and ``gzip`` (v3); any other codec (blosc, zstd,
+Chunks are written uncompressed. They are read uncompressed (a box that
+covers part of a chunk through a memory map of its file, so that only the
+pages it touches are read), ``zlib`` or ``gzip`` (v2) and ``gzip`` (v3);
+any other codec (blosc, zstd,
 ``sharding_indexed``, ...) raises an error that names it. Each chunk is
 written to a temporary name and renamed over its key (``os.replace``), so a
 run that is killed leaves no torn chunk. ``read_async`` and ``write_async``
@@ -353,12 +355,18 @@ class ImageArray:
                 except FileNotFoundError:
                     dest[...] = m.fill
                     continue
+            inner = tuple(slice(lo - blo, hi - blo) for (lo, hi), (blo, _) in zip(inter, bounds))
+            if raw_ok and not whole:
+                # Part of an uncompressed chunk: map the file, so that only
+                # the pages the box touches are read.
+                try:
+                    dest[...] = np.memmap(self._chunk_path(idx), m.dtype, "r",
+                                          shape=m.chunks)[inner]
+                except FileNotFoundError:
+                    dest[...] = m.fill
+                continue
             chunk = self._read_chunk(idx)
-            if chunk is None:
-                dest[...] = m.fill
-            else:
-                dest[...] = chunk[tuple(slice(lo - blo, hi - blo)
-                                        for (lo, hi), (blo, _) in zip(inter, bounds))]
+            dest[...] = m.fill if chunk is None else chunk[inner]
 
     def read_into(self, key, out: np.ndarray) -> np.ndarray:
         """Read the selection ``key`` into ``out`` (its shape, any dtype the
@@ -416,11 +424,18 @@ class ImageArray:
             src = value[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in zip(inter, box))]
             inner = tuple(slice(lo - blo, hi - blo) for (lo, hi), (blo, _) in zip(inter, bounds))
             covered = all(lo == blo and hi == bhi for (lo, hi), (blo, bhi) in zip(inter, bounds))
-            if covered and all(b - a == c for (a, b), c in zip(bounds, m.chunks)):
-                _replace_bytes(self._chunk_path(idx), self._encode(src))
+            if covered:
+                # The write decides the whole chunk (an edge chunk's rest is
+                # past the array, fill): no read, no lock.
+                if all(b - a == c for (a, b), c in zip(bounds, m.chunks)):
+                    _replace_bytes(self._chunk_path(idx), self._encode(src))
+                else:
+                    chunk = np.full(m.chunks, m.fill, m.dtype)
+                    chunk[inner] = src
+                    _replace_bytes(self._chunk_path(idx), self._encode(chunk))
                 continue
             with self._lock:
-                old = None if covered else self._read_chunk(idx)
+                old = self._read_chunk(idx)
                 chunk = np.full(m.chunks, m.fill, m.dtype) if old is None else old.copy()
                 chunk[inner] = src
                 _replace_bytes(self._chunk_path(idx), self._encode(chunk))

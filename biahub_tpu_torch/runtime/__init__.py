@@ -1,7 +1,7 @@
 """Execution runtime: the batch runner (:mod:`~biahub_tpu_torch.runtime.
 executor`), resource estimates and the resume token
-(:mod:`~biahub_tpu_torch.runtime.resources`), per-batch timing lines
-(:mod:`~biahub_tpu_torch.runtime.profiling`)."""
+(:mod:`~biahub_tpu_torch.runtime.resources`), per-batch timing lines and
+device traces (:mod:`~biahub_tpu_torch.runtime.profiling`)."""
 
 from biahub_tpu_torch.runtime.executor import (
     BatchRunner,

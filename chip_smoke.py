@@ -297,6 +297,30 @@ Then the verbs on plates, through the command line a user calls:
     on the optimized YAML (bit-equal to ``register_arrays``); H, I and J
     launched. Each verb's ms for the whole call (host clock) is printed
     beside its ``*_arrays`` function's on the same arrays in this run.
+25. the stitching and assembly verbs on plates at full width, in a
+    ``tempfile.mkdtemp()`` directory (page cache warm), through
+    ``cli.main``: a 3x3 well of (2, 2, 16, 1024, 1024) float32 tiles, windows
+    of one smooth random mosaic (seed 25) at the pitch of
+    ``settings/example_stitch_settings.yml`` with up to 3 px of integer
+    jitter, the stage positions in the plate's micromanager metadata up to
+    5 px off: estimate-stitch with the strips' PCC (every tile within 1 px
+    of its true offset), stitch -b 1.0 on the true offsets (within one
+    float16 ulp of the mosaic wherever a tile weighs, 0 elsewhere; the
+    workers' reads, stacking, copies, blend by CUDA events, writes, bytes
+    and the peak card memory), the same with ``BIAHUB_TPU_HOST_BLEND=1``
+    (within one float16 ulp of the card's blend) and under
+    ``BIAHUB_TPU_PROFILE=<dir>`` (bit-equal; its device table printed, and
+    the device operations of one ``blend_chunk`` traced alone all in it);
+    flip -x and pyramid --levels 4 on a copy of the mosaic (bit-equal to
+    NumPy's flip and to the 2x2 means); the pipeline's assemble step
+    (three (T 2, 86, 1024, 897) float32 plates: concatenate's resolve mode
+    with three ``--concat-data-paths``, then ``--cluster debug --resume``
+    into OME-Zarr 0.5, bit-equal channel by channel, GB/s; a second
+    ``--resume`` writes nothing); the deconvolve verb on a (T 2, C 1,
+    256, 256, 1024) plate under ``BIAHUB_TPU_SHARDED_FFT=1`` over
+    ``Mesh.virtual(cuda:0, 4)`` (bit-equal to ``deconvolve_arrays(
+    sharded=True)``, within FFT_TOL of the batched verb, A, B, C 4 each a
+    volume), ms/volume beside the batched verb's.
 
 Times are CUDA-event medians on this card.
 
@@ -4028,6 +4052,386 @@ def estimate_plates_phase(dev: torch.device) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 25: the stitching and assembly plates. A 3 x 3 well of tiles at the
+# pitch of settings/example_stitch_settings.yml (about 884 px in Y, 881 in
+# X), each a window of one smooth random mosaic with up to STITCH_JITTER px
+# of integer jitter, its stage position in the plate's micromanager
+# metadata up to STAGE_ERROR px off; the three plates of the pipeline's
+# assemble step in the deskewed frame; the headline FOV as a plate for the
+# deconvolve verb's sharded route.
+STITCH_GRID = 3
+STITCH_TILE = (2, 2, 16, 1024, 1024)
+STITCH_PITCH = (884, 881)
+STITCH_JITTER = 3
+STAGE_ERROR = 5.0
+STITCH_PIXEL_UM = 0.116
+STITCH_NAMES = ["GFP", "RFP"]
+ASSEMBLY_TZYX = (2, 86, 1024, 897)
+ASSEMBLY_PLATES = {"deskew": ["GFP", "mCherry"], "reconstruct": ["Phase3D"],
+                   "virtual_stain": ["nucleus", "membrane"]}
+PYRAMID_LEVELS = 4
+T_SHARD_PLATE = 2
+
+
+def f16_ulp(v: torch.Tensor) -> torch.Tensor:
+    """``np.spacing`` of float16 values, as float32: 2**(e - 11) for |v| in
+    [2**(e-1), 2**e), at least 2**-24 (the subnormals' spacing)."""
+    a = v.float().abs()
+    ulp = torch.ldexp(torch.ones_like(a), (torch.frexp(a).exponent - 11).clamp_min(-24))
+    return torch.where(a == 0, torch.full_like(a, 2.0 ** -24), ulp)
+
+
+def ulp_close(got: np.ndarray, want: np.ndarray, dev: torch.device, mask=None) -> bool:
+    """``got`` within one float16 ulp of the value of ``want`` (both float16
+    (T, C, ...) arrays) wherever ``mask`` (over the trailing axes) holds;
+    compared on the card a (t, c) volume at a time."""
+    m = None if mask is None else torch.from_numpy(mask).to(dev)
+    for t, c in np.ndindex(*want.shape[:2]):
+        g = torch.from_numpy(got[t, c]).to(dev)
+        w = torch.from_numpy(want[t, c]).to(dev)
+        ok = (g.float() - w.float()).abs() <= f16_ulp(w)
+        if not bool(ok.all() if m is None else ok[..., m].all()):
+            return False
+    return True
+
+
+def pyramid_levels_equal(pyr, levels: int, dev: torch.device) -> list:
+    """Each level of ``pyr`` against the 2 x 2 float32 mean of the level
+    before (as NumPy's float16 ``mean`` sums in float32; four float16 values
+    of one binade or two add exactly in float32, so the order of the sum
+    does not matter), cast to float16 on the card; the levels' shapes, or
+    None where one differs."""
+    shapes = [tuple(pyr["0"].shape[-2:])]
+    for lv in range(1, levels):
+        prev, level = pyr[str(lv - 1)], pyr[str(lv)]
+        for t, c in np.ndindex(*prev.shape[:2]):
+            p = torch.from_numpy(prev[t, c]).to(dev).float()
+            y2, x2 = max(p.shape[-2] // 2, 1), max(p.shape[-1] // 2, 1)
+            want = (p[:, :2 * y2, :2 * x2].reshape(p.shape[0], y2, 2, x2, 2).sum((2, 4))
+                    / 4).half()
+            got = torch.from_numpy(level[t, c]).to(dev)
+            if got.shape != want.shape or not torch.equal(got.view(torch.int16),
+                                                          want.view(torch.int16)):
+                return None
+        shapes.append(tuple(level.shape[-2:]))
+    return shapes
+
+
+def blend_kernel_names(stack: torch.Tensor, offsets: np.ndarray, padded: torch.Tensor,
+                       pad, tmp) -> set:
+    """The device operations of one ``blend_chunk`` call and its cast to
+    float16, read from its own torch.profiler trace by
+    ``summarize_device_trace``."""
+    from biahub_tpu_torch.kernels.stitch_blend import blend_chunk
+    from biahub_tpu_torch.runtime.profiling import summarize_device_trace
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        blend_chunk(padded, offsets, stack, 1.0, pad).to(torch.float16)
+        sync()
+    os.makedirs(tmp / "blend_trace", exist_ok=True)
+    prof.export_chrome_trace(str(tmp / "blend_trace" / "blend.pt.trace.json.gz"))
+    return {name for name, _, _ in summarize_device_trace(str(tmp / "blend_trace"),
+                                                          file=io.StringIO())}
+
+
+def assembly_plates_phase(dev: torch.device, psf: np.ndarray) -> None:
+    """Phase 25: estimate-stitch, stitch, concatenate, flip, pyramid and the
+    deconvolve verb's sharded route on plates (module docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from biahub_tpu_torch import ArrayPosition, Mesh, deconvolve_arrays
+    from biahub_tpu_torch.cli.yaml_reader import load_file
+    from biahub_tpu_torch.deconvolve import deconvolve
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.kernels.stitch_blend import pad_distance_map
+    from biahub_tpu_torch.runtime.profiling import summarize_device_trace
+    from biahub_tpu_torch.stitch import CARD_CHUNKS, chunk_stack, fov_edge_distance
+
+    card = gpu_info()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_assembly_"))
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rng = np.random.default_rng(25)
+    saved_env = {k: os.environ.get(k) for k in ("BIAHUB_TPU_PROFILE", "BIAHUB_TPU_HOST_BLEND",
+                                                 "BIAHUB_TPU_SHARDED_FFT")}
+
+    def set_env(name: str, value: str | None) -> None:
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+
+    def line(verb: str, seconds: float, note: str) -> None:
+        print(f"25 {verb}: {1e3 * seconds:.1f} ms for the whole call (host clock); {note}; "
+              f"card {card}; {time.perf_counter() - phase_t0:.1f} s into the phase")
+
+    try:
+        # -- the tiles of one well, cut from one mosaic ----------------------
+        T, C, Z, TY, TX = STITCH_TILE
+        n = STITCH_GRID
+        grid = [(r, c) for r in range(n) for c in range(n)]
+        jitter = rng.integers(-STITCH_JITTER, STITCH_JITTER + 1, (n, n, 2))
+        offsets = {(r, c): np.array([r * STITCH_PITCH[0], c * STITCH_PITCH[1]]) + jitter[r, c]
+                   for r, c in grid}
+        low = np.min(list(offsets.values()), axis=0)
+        offsets = {k: v - low for k, v in offsets.items()}
+        extent = tuple(int(v) for v in np.max(list(offsets.values()), axis=0) + (TY, TX))
+        mosaic = torch.stack([smooth_rand((Z,) + extent, gen) for _ in range(T * C)]).view(
+            (T, C, Z) + extent).cpu().numpy()
+        names = [f"A/1/{r:03d}{c:03d}" for r, c in grid]
+        scale = [1.0, 1.0, 1.0, STITCH_PIXEL_UM, STITCH_PIXEL_UM]
+        t0 = time.perf_counter()
+        plate = open_ome_zarr(tmp / "tiles.zarr", layout="hcs", mode="w",
+                              channel_names=STITCH_NAMES)
+        entries = []
+        for (r, c), name in zip(grid, names):
+            y, x = offsets[(r, c)]
+            plate.create_position("A", "1", f"{r:03d}{c:03d}").create_image(
+                "0", mosaic[..., y:y + TY, x:x + TX],
+                transform=[TransformationMeta(type="scale", scale=scale)])
+            sy, sx = (offsets[(r, c)] + rng.uniform(-STAGE_ERROR, STAGE_ERROR, 2)) * \
+                STITCH_PIXEL_UM
+            entries.append({"Label": name, "DefaultXYStage": "XYStage", "DevicePositions": [
+                {"Device": "XYStage", "Position_um": [float(sx), float(sy)]},
+                {"Device": "ZStage", "Position_um": [12.5]}]})
+        plate.update_zattrs({"Summary": {"StagePositions": entries}})
+        inputs = [str(tmp / "tiles.zarr" / name) for name in names]
+        print(f"25. plates in {tmp}: a {n}x{n} well of {STITCH_TILE} float32 tiles (mosaic "
+              f"{extent}, pitch {STITCH_PITCH}, jitter up to {STITCH_JITTER} px, stage "
+              f"metadata up to {STAGE_ERROR} px off) written in {time.perf_counter() - t0:.2f} "
+              "s by the port's writer")
+
+        # -- estimate-stitch with the strips' PCC -----------------------------
+        est = tmp / "estimated.yml"
+        seconds, _, _, _ = run_verb(["estimate-stitch", "-i", *inputs, "-o", str(est),
+                                     "--pcc-channel-name", STITCH_NAMES[0]])
+        table = load_file(est)["total_translation"]
+        placed = np.array([table[name][1:] for name in names]) - table[names[0]][1:]
+        true = np.array([offsets[k] for k in grid]) - offsets[(0, 0)]
+        worst = float(np.abs(placed - true).max())
+        require(worst <= 1.0, f"estimate-stitch: a tile {worst:.3g} px from its true offset")
+        line("estimate-stitch (--pcc-channel-name)", seconds,
+             f"{len(names)} tiles, {2 * n * (n - 1)} strip correlations, every tile within "
+             f"{worst:.3g} px of its true offset relative to tile 0")
+
+        # -- stitch on the true offsets: the card, the host route, traced ----
+        true_yaml = tmp / "true.yml"
+        true_yaml.write_text(yaml_flow({"total_translation": {
+            name: [0.0, float(offsets[k][0]), float(offsets[k][1])]
+            for k, name in zip(grid, names)}}) + "\n")
+        argv = ["stitch", "-i", *inputs, "-c", str(true_yaml), "-b", "1.0", "-o"]
+        torch.cuda.empty_cache()
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        seconds, _, _, text = run_verb(argv + [str(tmp / "card.zarr")])
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+        stats = [json.loads(x[len("STITCH_STATS:"):]) for x in text.splitlines()
+                 if x.startswith("STITCH_STATS:")][-1]
+        got = open_ome_zarr(tmp / "card.zarr" / "A" / "1" / "0").data[...]
+        require(got.shape == (T, C, Z) + extent and got.dtype == np.float16,
+                f"stitch: mosaic {got.shape} {got.dtype}")
+        cover = np.zeros(extent, bool)
+        for y, x in offsets.values():
+            cover[y + 1:y + TY - 1, x + 1:x + TX - 1] = True
+        truth16 = mosaic.astype(np.float16)
+        require(ulp_close(got, truth16, dev, cover),
+                "stitch: the mosaic differs from the true mosaic by more than a float16 ulp")
+        require(not np.any(got[..., ~cover]), "stitch: voxels of no tile's weight are not 0")
+        keys = ("read_s", "stack_s", "h2d_s", "blend_s", "d2h_s", "write_s")
+        split = ", ".join(f"{k[:-2]} {1e3 * stats[k]:.1f} ms" for k in keys)
+        line("stitch (card blend, -b 1.0)", seconds,
+             f"mosaic {got.shape} float16 within one float16 ulp of the truth wherever a tile "
+             f"weighs, 0 elsewhere ({int((~cover).sum())} px a plane); the workers' sums "
+             f"({stats['workers']} workers, {stats['chunks']} chunks): {split}; well wall "
+             f"{1e3 * stats['wall_s']:.1f} ms; read and sent to the card "
+             f"{stats['bytes_read'] / 2**30:.3f} GiB, written "
+             f"{stats['bytes_written'] / 2**30:.3f} GiB (page cache, warm); peak card memory "
+             f"{peak / 2**30:.2f} GiB (at most {CARD_CHUNKS} chunk stacks on the card)")
+
+        set_env("BIAHUB_TPU_HOST_BLEND", "1")
+        seconds_h, _, _, text_h = run_verb(argv + [str(tmp / "host.zarr")])
+        set_env("BIAHUB_TPU_HOST_BLEND", saved_env["BIAHUB_TPU_HOST_BLEND"])
+        stats_h = [json.loads(x[len("STITCH_STATS:"):]) for x in text_h.splitlines()
+                   if x.startswith("STITCH_STATS:")][-1]
+        host = open_ome_zarr(tmp / "host.zarr" / "A" / "1" / "0").data[...]
+        require(ulp_close(got, host, dev) and ulp_close(host, got, dev),
+                "stitch: the card's blend differs from the host route by more than a float16 ulp")
+        line("stitch (BIAHUB_TPU_HOST_BLEND=1)", seconds_h,
+             f"within one float16 ulp of the card's blend; the workers' reads "
+             f"{1e3 * stats_h['read_s']:.1f} ms, NumPy blend {1e3 * stats_h['blend_s']:.1f} ms, "
+             f"writes {1e3 * stats_h['write_s']:.1f} ms")
+        del host
+
+        set_env("BIAHUB_TPU_PROFILE", str(tmp / "trace"))
+        seconds_p, _, _, _ = run_verb(argv + [str(tmp / "traced.zarr")])
+        set_env("BIAHUB_TPU_PROFILE", saved_env["BIAHUB_TPU_PROFILE"])
+        rows = summarize_device_trace(str(tmp / "trace"), file=io.StringIO())
+        traced = open_ome_zarr(tmp / "traced.zarr" / "A" / "1" / "0").data[...]
+        require(np.array_equal(traced.view(np.int16), got.view(np.int16)),
+                "stitch under the profiler differs from the untraced run")
+        chunk0 = (slice(0, Z), slice(0, TY), slice(0, TX))
+        shifts = {name: [0.0, float(offsets[k][0]), float(offsets[k][1])]
+                  for k, name in zip(grid, names)}
+        offs, stack = chunk_stack(chunk0, shifts, np.arange(C), open_ome_zarr(tmp / "tiles.zarr"),
+                                  STITCH_TILE, dev)
+        padded = pad_distance_map(fov_edge_distance((Z, TY, TX)), (Z, TY, TX), dev)
+        blend_ops = blend_kernel_names(stack, offs, padded, (Z, TY, TX), tmp)
+        del stack, padded
+        table_names = {name for name, _, _ in rows}
+        require(blend_ops and blend_ops <= table_names,
+                f"stitch trace: the blend's operations {sorted(blend_ops - table_names)} are "
+                "not in its device table")
+        print(f"25 stitch under BIAHUB_TPU_PROFILE=<dir>: {1e3 * seconds_p:.1f} ms for the "
+              f"whole call (host clock), bit-equal to the untraced run; the blend's "
+              f"{len(blend_ops)} device operations (one blend_chunk of chunk 0 traced alone) "
+              f"all in the verb's table; device time by op, top 15:")
+        for name, ms, count in rows[:15]:
+            print(f"25   {ms:10.3f} ms  x{count:4d}  {name[:100]}")
+        shutil.rmtree(tmp / "trace")
+        shutil.rmtree(tmp / "traced.zarr")
+        shutil.rmtree(tmp / "host.zarr")
+        shutil.rmtree(tmp / "tiles.zarr")
+        del mosaic, truth16, traced
+
+        # -- flip and pyramid on a copy of the mosaic --------------------------
+        shutil.copytree(tmp / "card.zarr", tmp / "flip.zarr")
+        flip_pos = str(tmp / "flip.zarr" / "A" / "1" / "0")
+        seconds, _, _, _ = run_verb(["flip", "-i", flip_pos, "-x"])
+        flipped = open_ome_zarr(flip_pos).data[...]
+        require(np.array_equal(flipped.view(np.int16), got[..., ::-1].view(np.int16)),
+                "flip -x: the plate differs from NumPy's flip")
+        line("flip -x", seconds, f"{got.nbytes / 2**30:.3f} GiB float16 read and written in "
+             "place, bit-equal to NumPy's flip")
+        del got, flipped
+        seconds, _, _, _ = run_verb(["pyramid", "-i", flip_pos, "--levels",
+                                     str(PYRAMID_LEVELS)])
+        pyr = open_ome_zarr(flip_pos)
+        require(pyr.array_names() == [str(lv) for lv in range(PYRAMID_LEVELS)],
+                f"pyramid: arrays {pyr.array_names()}")
+        shapes = pyramid_levels_equal(pyr, PYRAMID_LEVELS, dev)
+        require(shapes is not None, "pyramid: a level differs from the 2x2 mean of the one "
+                "before")
+        line(f"pyramid --levels {PYRAMID_LEVELS}", seconds,
+             f"levels {shapes} bit-equal to the cascade of 2x2 means (float32 sums)")
+        del pyr
+        shutil.rmtree(tmp / "flip.zarr")
+        shutil.rmtree(tmp / "card.zarr")
+
+        # -- the assemble step: resolve mode, then --cluster debug --resume ----
+        t0 = time.perf_counter()
+        sources = {}
+        for name, channels in ASSEMBLY_PLATES.items():
+            src = open_ome_zarr(tmp / f"{name}.zarr", layout="hcs", mode="w",
+                                channel_names=channels)
+            arr = torch.rand((ASSEMBLY_TZYX[0], len(channels)) + ASSEMBLY_TZYX[1:],
+                             generator=gen, device=dev).cpu().numpy()
+            src.create_position("A", "1", "0").create_image(
+                "0", arr, transform=[TransformationMeta(type="scale",
+                                                        scale=[1.0, 1.0, 0.2, 0.116, 0.116])])
+            sources[name] = arr
+        write_s = time.perf_counter() - t0
+        template = tmp / "concat.yml"
+        template.write_text(yaml_flow({"concat_data_paths": ["placeholder"],
+                                       "time_indices": "all",
+                                       "channel_names": ["all"] * len(ASSEMBLY_PLATES)}) + "\n")
+        resolved = tmp / "resolved.yml"
+        seconds_r, _, _, _ = run_verb(
+            ["concatenate", "-c", str(template), "-o", str(resolved)]
+            + [a for name in ASSEMBLY_PLATES for a in ("--concat-data-paths",
+                                                       str(tmp / f"{name}.zarr/*/*/*"))])
+        require(load_file(resolved)["concat_data_paths"] == [
+            str(tmp / f"{name}.zarr/*/*/*") for name in ASSEMBLY_PLATES],
+            "concatenate resolve mode: the paths were not injected")
+        out = tmp / "assembled.zarr"
+        argv_c = ["concatenate", "--cluster", "debug", "--resume", "-c", str(resolved), "-o",
+                  str(out)]
+        seconds, _, _, _ = run_verb(argv_c)
+        assembled = open_ome_zarr(out / "A" / "1" / "0")
+        channels = [ch for chs in ASSEMBLY_PLATES.values() for ch in chs]
+        require(assembled.version == "0.5" and assembled.channel_names == channels,
+                f"concatenate: version {assembled.version}, channels {assembled.channel_names}")
+        c_out = 0
+        for name, arr in sources.items():
+            for c in range(arr.shape[1]):
+                require(np.array_equal(assembled.data[:, c_out].view(np.int32),
+                                       arr[:, c].view(np.int32)),
+                        f"concatenate: channel {channels[c_out]} differs from {name}'s")
+                c_out += 1
+        nbytes = sum(a.nbytes for a in sources.values())
+        stamps = chunk_stamps(out)
+        seconds_2, _, _, _ = run_verb(argv_c)
+        require(stamps and chunk_stamps(out) == stamps, "concatenate --resume rewrote chunks")
+        line("concatenate (assemble step: --cluster debug --resume into OME-Zarr 0.5)", seconds,
+             f"{len(ASSEMBLY_PLATES)} plates (T {ASSEMBLY_TZYX[0]}, {ASSEMBLY_TZYX[1:]} float32, "
+             f"written in {write_s:.2f} s), {c_out} channels bit-equal to the inputs; "
+             f"{nbytes / 2**30:.3f} GiB read and written: {nbytes / 1e9 / seconds:.3f} GB/s "
+             f"each way (page cache, warm); resolve mode {1e3 * seconds_r:.1f} ms; a second "
+             f"--resume {1e3 * seconds_2:.1f} ms, nothing written")
+        del sources, assembled
+        for name in ASSEMBLY_PLATES:
+            shutil.rmtree(tmp / f"{name}.zarr")
+        shutil.rmtree(out)
+
+        # -- the deconvolve verb's sharded route on a plate --------------------
+        vols = torch.rand((T_SHARD_PLATE, 1) + SHAPE, generator=gen, device=dev).cpu().numpy()
+        dscale = [1.0, 1.0, 0.2, 0.116, 0.116]
+        raw = open_ome_zarr(tmp / "raw.zarr", layout="hcs", mode="w", channel_names=["GFP"])
+        raw.create_position("A", "1", "0").create_image(
+            "0", vols, transform=[TransformationMeta(type="scale", scale=dscale)])
+        psf_plate = open_ome_zarr(tmp / "psf.zarr", layout="hcs", mode="w",
+                                  channel_names=["PSF"])
+        psf_plate.create_position("0", "0", "0").create_image(
+            "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=dscale)])
+        (tmp / "decon.yml").write_text(yaml_flow({"regularization_strength": REG}) + "\n")
+        position = tmp / "raw.zarr" / "A" / "1" / "0"
+        mesh = Mesh.virtual(dev, SHARD_N)
+        set_env("BIAHUB_TPU_SHARDED_FFT", "1")
+        buf = io.StringIO()
+        sync()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            _, launches = counted(lambda: deconvolve(
+                [position], tmp / "psf.zarr", tmp / "decon.yml", tmp / "sharded" / "out.zarr",
+                device=dev, mesh=mesh))
+        seconds_s = time.perf_counter() - t0
+        set_env("BIAHUB_TPU_SHARDED_FFT", saved_env["BIAHUB_TPU_SHARDED_FFT"])
+        require(f"sharded over {SHARD_N} local devices" in buf.getvalue(),
+                "deconvolve verb: the sharded route was not taken")
+        want_l = {k: SHARD_N * T_SHARD_PLATE for k in ("fwd_yx", "z_filter", "inv_yx")}
+        require(launches == want_l, f"sharded deconvolve verb launches {launches}, "
+                f"want {want_l}")
+        got = open_ome_zarr(tmp / "sharded" / "out.zarr" / "A" / "1" / "0").data[...]
+        want = deconvolve_arrays({"A/1/0": ArrayPosition(vols, dscale, ["GFP"])}, psf, dscale,
+                                 {"regularization_strength": REG}, mesh=mesh, sharded=True,
+                                 device=dev)[0]["A/1/0"].cpu().numpy()
+        require(np.array_equal(got.view(np.int32), want.view(np.int32)),
+                "sharded deconvolve verb: the plate differs from deconvolve_arrays(sharded=True)")
+        seconds_b, launches_b, _, _ = run_verb(
+            ["deconvolve", "-i", str(position), "-p", str(tmp / "psf.zarr"), "-c",
+             str(tmp / "decon.yml"), "-o", str(tmp / "batched" / "out.zarr")])
+        batched = open_ome_zarr(tmp / "batched" / "out.zarr" / "A" / "1" / "0").data[...]
+        err = float(np.abs(got - batched).max() / np.abs(batched).max())
+        require(err <= FFT_TOL, f"sharded deconvolve verb: rel err {err:.3g} from the batched "
+                f"verb > {FFT_TOL}")
+        line(f"deconvolve (BIAHUB_TPU_SHARDED_FFT=1, Mesh.virtual({dev}, {SHARD_N}))",
+             seconds_s, f"T {T_SHARD_PLATE} x float32 {SHAPE}: "
+             f"{1e3 * seconds_s / T_SHARD_PLATE:.1f} ms/volume against the batched verb's "
+             f"{1e3 * seconds_b / T_SHARD_PLATE:.1f} ms/volume (both whole calls: plates, "
+             f"transfer function, runs); bit-equal to deconvolve_arrays(sharded=True), rel "
+             f"err {err:.3g} from the batched verb (tol {FFT_TOL}); launches {launches} "
+             f"({SHARD_N} each a volume), the batched verb's {launches_b}")
+        del vols, got, want, batched
+        print(f"25: {time.perf_counter() - phase_t0:.1f} s for the phase")
+    finally:
+        for name, value in saved_env.items():
+            set_env(name, value)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4375,6 +4779,7 @@ def main() -> int:
     fuse_phase(dev, tf_half)
     plates_phase(dev, psf)
     estimate_plates_phase(dev)
+    assembly_plates_phase(dev, psf)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

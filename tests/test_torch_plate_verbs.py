@@ -17,7 +17,11 @@ fuse, deskew, register and stabilize run in budget and over it
 (``BIAHUB_TPU_MAX_BATCH_BYTES`` for both packages: the chunked routes); deconvolve also compares ``transfer_function.zarr``; flat-field
 writes a v0.5 plate from the v0.4 input (provenance copied across). General
 matrices do not occur here (in-plane ones only), so the reference's CPU
-dispatch needs no patch.
+dispatch needs no patch. flip and pyramid run in place on copies of the
+input plate, bit-equal to the reference's and to NumPy; the deconvolve
+verb's sharded route (``BIAHUB_TPU_SHARDED_FFT=1``, a virtual mesh of two
+CPU shards) is bit-equal to ``deconvolve_arrays(sharded=True)`` on that
+mesh and within 2e-5 * max |batched| of the batched verb.
 """
 
 import json
@@ -281,3 +285,100 @@ def test_fuse_flat_field_only_copies_a_time_subset_at_its_output_index(plates):
     assert got.shape == (2, 1, 2) + SHAPE[2:]
     assert np.array_equal(got, want)
     assert np.array_equal(got[:, 0, 1], data[:, 1, 1])
+
+
+# -- flip and pyramid: in place, bit-equal to the reference and to NumPy ------
+
+ASSEMBLY = {
+    "flip_x": ["flip", "-x"],
+    "flip_y": ["flip", "-y"],
+    "flip_xy": ["flip", "-x", "-y"],
+    "pyramid_mean": ["pyramid", "--levels", "3"],
+    "pyramid_mode": ["pyramid", "-lv", "2", "-m", "mode"],
+    "pyramid_median": ["pyramid", "--levels", "4", "--method", "median"],
+    "pyramid_stride": ["pyramid", "--levels", "3", "--method", "stride"],
+}
+
+
+def numpy_pyramid(arr: np.ndarray, levels: int, method: str) -> list[np.ndarray]:
+    """Each level's 2 x 2 reduction of the one before, in NumPy."""
+    out = [arr]
+    for _ in range(1, levels):
+        prev = out[-1]
+        y2, x2 = max(prev.shape[-2] // 2, 1), max(prev.shape[-1] // 2, 1)
+        if method == "stride":
+            out.append(prev[..., ::2, ::2][..., :y2, :x2])
+            continue
+        blocks = prev[..., :y2 * 2, :x2 * 2].reshape(prev.shape[:-2] + (y2, 2, x2, 2))
+        if method == "mode":
+            flat = np.moveaxis(blocks, -3, -2).reshape(prev.shape[:-2] + (y2, x2, 4))
+            out.append(np.sort(flat, axis=-1)[..., 1])
+        else:
+            out.append(getattr(np, method)(blocks, axis=(-3, -1)).astype(prev.dtype))
+    return out
+
+
+@pytest.mark.parametrize("name", list(ASSEMBLY))
+def test_flip_and_pyramid_match_the_reference_bit_for_bit(plates, name):
+    import shutil
+
+    tmp, data = plates
+    roots = {k: tmp / "assembly" / name / k for k in ("ref", "port")}
+    for root in roots.values():
+        shutil.copytree(tmp / "in.zarr", root)
+    args = ASSEMBLY[name]
+    res = CliRunner().invoke(reference_cli, [args[0], "-i", *[str(roots["ref"] / p)
+                                                            for p in POSITIONS], *args[1:]])
+    assert res.exit_code == 0, (res.output, res.exception)
+    assert main([args[0], "-i", *[str(roots["port"] / p) for p in POSITIONS], *args[1:]],
+                device="cpu") == 0
+    assert attributes(roots["port"]) == attributes(roots["ref"])
+    for key, arr in zip(POSITIONS, data):
+        got, want = open_ome_zarr(roots["port"] / key), reference_open(roots["ref"] / key)
+        assert got.array_names() == want.array_names()
+        if args[0] == "flip":
+            flipped = arr[..., ::-1] if "-x" in args else arr
+            flipped = flipped[..., ::-1, :] if "-y" in args else flipped
+            assert np.array_equal(got.data[...], flipped)
+            assert np.array_equal(got.data[...], want.data[...])
+            continue
+        levels = int(args[args.index("--levels" if "--levels" in args else "-lv") + 1])
+        method = args[-1] if len(args) > 3 else "mean"
+        for level, expect in enumerate(numpy_pyramid(arr, levels, method)):
+            assert np.array_equal(got[str(level)][...], expect)
+            assert np.array_equal(got[str(level)][...], want[str(level)][...])
+
+
+# -- the deconvolve verb's sharded route on plates -------------------------------
+
+def test_sharded_deconvolve_on_plates(plates, monkeypatch, capsys):
+    """Under BIAHUB_TPU_SHARDED_FFT=1 with a mesh of two shards the plate is
+    bit-equal to ``deconvolve_arrays(sharded=True)`` on that mesh and within
+    2e-5 * max |batched| of the batched verb; a mesh of one shard takes the
+    batched route."""
+    from biahub_tpu_torch.deconvolve import deconvolve
+    from biahub_tpu_torch.parallel.mesh import Mesh
+
+    tmp, data = plates
+    mesh = Mesh.virtual("cpu", 2)
+    inputs = [tmp / "in.zarr" / p for p in POSITIONS]
+    monkeypatch.setenv("BIAHUB_TPU_SHARDED_FFT", "1")
+    out = tmp / "port" / "sharded" / "out.zarr"
+    deconvolve(inputs, tmp / "psf.zarr", tmp / "deconvolve.yml", out, device="cpu", mesh=mesh)
+    text = capsys.readouterr()
+    assert "each volume sharded over 2 local devices" in text.out
+    assert text.err.count("sharded deconvolve") == 2 * SHAPE[0] * SHAPE[1]
+    settings = CASES["deconvolve"][1]
+    got = read(out)
+    for arr, plate_arr in zip(data, got):
+        pos = {"A/1/0": ArrayPosition(arr, list(SCALE), NAMES)}
+        want = deconvolve_arrays(pos, psf(), SCALE, settings, mesh=mesh, sharded=True,
+                                 device="cpu")[0]["A/1/0"].numpy()
+        assert np.array_equal(plate_arr, want)
+    batched = tmp / "port" / "sharded_one" / "out.zarr"
+    capsys.readouterr()
+    deconvolve(inputs, tmp / "psf.zarr", tmp / "deconvolve.yml", batched, device="cpu")
+    assert "sharded" not in capsys.readouterr().out
+    want = read(batched)
+    assert np.abs(got - want).max() <= 2e-5 * np.abs(want).max()
+    assert attributes(out) == attributes(batched)
