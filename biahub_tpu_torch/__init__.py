@@ -81,6 +81,15 @@ verb on plates takes the sharded route under ``BIAHUB_TPU_SHARDED_FFT=1``
 (:func:`~biahub_tpu_torch.deconvolve.deconvolve`, ``mesh=``), and
 ``BIAHUB_TPU_PROFILE`` times every verb and, with a directory, writes its
 ``torch.profiler`` trace (:mod:`biahub_tpu_torch.runtime.profiling`).
+The model verbs: ``virtual-stain`` (:mod:`biahub_tpu_torch.virtual_stain`:
+UNeXt2 or UNet25D, :mod:`biahub_tpu_torch.models`, or a TorchScript file,
+over sliding z windows on the device), ``segment``
+(:mod:`biahub_tpu_torch.segment`: Otsu on the host, CPnet and the flow
+following on the device, :mod:`biahub_tpu_torch.segmentation`) and
+``track`` (:mod:`biahub_tpu_torch.track`, :mod:`biahub_tpu_torch.tracking`:
+on the host, as the reference); ``BIAHUB_TPU_MODEL_PRECISION`` scopes the
+networks' TF32 to each call (:func:`biahub_tpu_torch.models.
+model_precision`).
 """
 
 from biahub_tpu_torch.apply_inverse_transfer_function import (
@@ -100,7 +109,9 @@ from biahub_tpu_torch.convert import (
     registration_estimate_settings_from_reference,
     stabilization_settings_from_reference,
     spectral_table_from_reference,
+    segmentation_settings_from_reference,
     stitch_settings_from_reference,
+    tracking_settings_from_reference,
     transfer_functions_from_reference,
 )
 from biahub_tpu_torch.deconvolve import deconvolve_arrays
@@ -247,6 +258,8 @@ __all__ = [
     "registration_settings_from_reference",
     "fuse_settings_from_reference",
     "stitch_settings_from_reference",
+    "segmentation_settings_from_reference",
+    "tracking_settings_from_reference",
     "concatenate_settings_from_reference",
     "blend_chunk",
     "pad_distance_map",

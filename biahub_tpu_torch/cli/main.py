@@ -6,7 +6,8 @@ The verbs and options of the reference's ``biahub`` command
 ``compute-tf``, ``apply-inv-tf``, ``reconstruct``,
 ``estimate-stabilization``, ``estimate-psf``, ``estimate-registration``,
 ``optimize-registration``, ``estimate-stitch``, ``stitch``,
-``concatenate``, ``flip`` and ``pyramid``. Every other verb of the
+``concatenate``, ``flip``, ``pyramid``, ``virtual-stain``, ``segment`` and
+``track``. Every other verb of the
 reference exits with status 2 and says that it is not ported yet. A bad option exits with status
 2 and the verb's usage; a failure the reference reports as a
 ``click.ClickException`` (:class:`~biahub_tpu_torch.cli.parsing.
@@ -99,6 +100,12 @@ PORTED = {
                     P.monitor, P.init_only, P.resume, P.num_processes, P.concat_data_paths],
     "flip": [P.input_position_dirpaths, P.flip_options],
     "pyramid": [P.input_position_dirpaths, P.sbatch_filepath, P.local, P.pyramid_options],
+    "segment": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+                P.sbatch_filepath, P.local, P.monitor],
+    "virtual-stain": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+                      P.sbatch_filepath, P.cluster, P.local, P.monitor, P.init_only],
+    "track": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+              P.sbatch_filepath, P.cluster, P.monitor, P.init_only, P.input_images_path],
 }
 
 
@@ -145,6 +152,8 @@ def _run(ns: argparse.Namespace, device) -> None:
         inputs = P.position_dirpaths(ns.input_position_dirpaths)
     if verb in ("estimate-stitch", "stitch", "flip", "pyramid"):
         _run_assembly_verb(ns, device, config, inputs)
+    elif verb in ("virtual-stain", "segment", "track"):
+        _run_model_verb(ns, device, config, inputs)
     elif verb == "estimate-registration":
         from biahub_tpu_torch.estimate_registration import estimate_registration
 
@@ -213,6 +222,26 @@ def _run_assembly_verb(ns: argparse.Namespace, device, config, inputs) -> None:
         from biahub_tpu_torch.pyramid import pyramid_verb
 
         pyramid_verb(inputs, ns.levels, ns.method, ns.sbatch_filepath, ns.local)
+
+
+def _run_model_verb(ns: argparse.Namespace, device, config, inputs) -> None:
+    """virtual-stain, segment and track."""
+    if ns.verb == "virtual-stain":
+        from biahub_tpu_torch.virtual_stain import virtual_stain
+
+        virtual_stain(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster,
+                      ns.local, ns.monitor, ns.init_only, device=device)
+    elif ns.verb == "segment":
+        from biahub_tpu_torch.segment import segment
+
+        segment(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.local, ns.monitor,
+                device=device)
+    else:
+        from biahub_tpu_torch.track import track
+
+        track(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster, ns.monitor,
+              ns.init_only, _existing(ns.input_images_path, "input images path", True),
+              device=device)
 
 
 def _run_plate_verb(ns: argparse.Namespace, device, config, inputs, targets) -> None:

@@ -44,6 +44,7 @@ __all__ = [
     "concat_data_paths",
     "flip_options",
     "pyramid_options",
+    "input_images_path",
 ]
 
 _NAT_SPLIT = re.compile(r"(\d+)")
@@ -287,3 +288,11 @@ def pyramid_options(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--method", "-m", default="mean",
                         choices=["stride", "median", "mode", "mean", "min", "max"],
                         help="Downsampling method to use. (default: mean)")
+
+
+def input_images_path(parser: argparse.ArgumentParser) -> None:
+    """track's ``--input-images-path`` (an existing path)."""
+    parser.add_argument("--input-images-path", default=None,
+                        help="Pixel-data source filling the first null input_images path (used "
+                             "by pipelines). If omitted, that null path falls back to the -i "
+                             "input plate.")

@@ -40,6 +40,8 @@ resolve mode write. Settings files are read by
 
 from __future__ import annotations
 
+from pathlib import Path
+
 import numpy as np
 import torch
 
@@ -56,7 +58,9 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "stabilize_settings_from_reference", "reconstruction_settings_dump",
            "registration_settings_dump", "stabilization_settings_dump",
            "psf_from_beads_settings_from_reference", "stitch_settings_from_reference",
-           "concatenate_settings_from_reference"]
+           "concatenate_settings_from_reference", "segmentation_settings_from_reference",
+           "tracking_settings_from_reference", "zslicing_from_reference",
+           "cellpose_config_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -291,13 +295,15 @@ def _optional(check):
     return lambda v, name: None if v is None else check(v, name)
 
 
-def _model(schema):
-    """A checker of a settings block: unknown fields raise, absent ones take
-    their defaults (a callable default is a factory)."""
+def _model(schema, forbid: bool = True):
+    """A checker of a settings block: unknown fields raise (are dropped
+    with ``forbid=False``, as a plain pydantic ``BaseModel`` drops them),
+    absent ones take their defaults (a callable default is a factory)."""
     def check(d, name):
         if not isinstance(d, dict):
             raise ValueError(f"{name}: want a mapping, got {d!r}")
-        _unknown(d, set(schema), name)
+        if forbid:
+            _unknown(d, set(schema), name)
         out = {}
         for field, (default, check_field) in schema.items():
             if field in d:
@@ -1032,3 +1038,133 @@ def concatenate_settings_from_reference(settings: dict) -> dict:
                 f"{name} must be 'all', a single slice specification, or a list with the "
                 f"same length as concat_data_paths ({n})")
     return out
+
+
+# -- segment and track settings (settings.py:659-799) -------------------------
+
+def _list_of(check):
+    def check_list(v, name):
+        if not isinstance(v, list):
+            raise ValueError(f"{name}: want a list, got {v!r}")
+        return [check(item, f"{name}[{i}]") for i, item in enumerate(v)]
+    return check_list
+
+
+def _dict_of(check):
+    def check_dict(v, name):
+        if not isinstance(v, dict):
+            raise ValueError(f"{name}: want a mapping, got {v!r}")
+        return {_typed(str)(k, f"{name} key"): check(item, f"{name}.{k}")
+                for k, item in v.items()}
+    return check_dict
+
+
+def _zarr_path(v, name):
+    """``ProcessingInputChannel.path``: None or a path ending in ``.zarr``."""
+    if v is None:
+        return None
+    if not isinstance(v, str):
+        raise ValueError(f"{name}: want a path, got {v!r}")
+    if Path(v).suffix != ".zarr":
+        raise ValueError("Path must be a valid OME-Zarr dataset.")
+    return str(Path(v))
+
+
+def _int_pair(v, name):
+    if not isinstance(v, (list, tuple)) or len(v) != 2:
+        raise ValueError(f"{name}: want [start, stop], got {v!r}")
+    return [_lax_number(int)(i, name) for i in v]
+
+
+_PREPROCESSING_FUNCTION = _model({
+    "function": (_REQUIRED, _typed(str)),
+    "channel": (_REQUIRED, _typed(str)),
+    "kwargs": (dict, _typed(dict)),
+}, forbid=False)
+_SEGMENTATION_MODEL = _model({
+    "path_to_model": (_REQUIRED, _typed(str)),
+    "eval_args": (_REQUIRED, _typed(dict)),
+    "z_slice_2D": (None, _optional(_lax_number(int))),
+    "preprocessing": (list, _list_of(_PREPROCESSING_FUNCTION)),
+}, forbid=False)
+_PROCESSING_FUNCTION = _model({
+    "function": (_REQUIRED, _typed(str)),
+    "input_channels": (None, _optional(_str_list)),
+    "kwargs": (dict, _typed(dict)),
+    "per_timepoint": (True, _optional(_lax_bool)),
+})
+_PROCESSING_INPUT_CHANNEL = _model({
+    "path": (None, _zarr_path),
+    "channels": (_REQUIRED, _dict_of(_list_of(_PROCESSING_FUNCTION))),
+})
+_CELLPOSE_CONFIG = _model({
+    "model_type": ("nuclei", _typed(str)),
+    "diameter": (80, _lax_number(float)),
+    "cellprob_threshold": (0.0, _lax_number(float)),
+    "flow_threshold": (0.4, _lax_number(float)),
+    "gpu": (True, _lax_bool),
+    "min_size": (500, _lax_number(int)),
+    "input_channel": ("nuclei_prediction", _typed(str)),
+    "labels_sigma": (5.0, _lax_number(float)),
+})
+_ZSLICING = _model({
+    "method": ("all", _literal("all", "central", "range", "focus")),
+    "range": (None, _optional(_int_pair)),
+    "window_size": (48, _lax_number(int)),
+    "frac_below": (1 / 3, _lax_number(float)),
+    "frac_above": (2 / 3, _lax_number(float)),
+    "focus_channel": (None, _optional(_typed(str))),
+})
+_TRACKING = _model({
+    "target_channel": ("nuclei_prediction", _typed(str)),
+    "fov": ("*/*/*", _typed(str)),
+    "blank_frames_path": (None, _optional(lambda v, name: str(Path(_typed(str)(v, name))))),
+    "output_mode": ("2D", _literal("2D", "3D")),
+    "z_slicing": (lambda: _ZSLICING({}, "z_slicing"), _ZSLICING),
+    "input_images": (_REQUIRED, _list_of(_PROCESSING_INPUT_CHANNEL)),
+    "tracking_config": (dict, _typed(dict)),
+    "segmentation_method": ("foreground_contour", _literal("foreground_contour", "cellpose")),
+    "cellpose_config": (None, _optional(_CELLPOSE_CONFIG)),
+    "output_ome_zarr_version": (None, _version),
+})
+
+
+def segmentation_settings_from_reference(settings: dict) -> dict:
+    """``SegmentationSettings`` (settings.py:726-770) as its ``model_dump(
+    mode="json")``: ``models`` ({name: {path_to_model, eval_args,
+    z_slice_2D, preprocessing: [{function, channel, kwargs}]}}; a model's and
+    a step's unknown fields dropped, the settings' own refused) and
+    ``output_ome_zarr_version``. As the model's validator, a ``z_slice_2D``
+    that is set becomes 0, and refuses ``do_3D`` in ``eval_args``."""
+    out = _model({"models": (_REQUIRED, _dict_of(_SEGMENTATION_MODEL)),
+                  "output_ome_zarr_version": (None, _version)})(settings, "segmentation settings")
+    for model in out["models"].values():
+        if model["z_slice_2D"] is not None:
+            if model["eval_args"].get("do_3D", None):
+                raise ValueError("If 'z_slice_2D' is provided, 'do_3D' in 'eval_args' must be "
+                                 "set to False.")
+            model["z_slice_2D"] = 0
+    return out
+
+
+def zslicing_from_reference(settings: dict | None = None) -> dict:
+    """``ZSlicing`` (settings.py:694-711) as a plain dict with its
+    defaults: ``method`` ("all"), ``range`` (None or [start, stop]),
+    ``window_size`` (48), ``frac_below`` (1/3), ``frac_above`` (2/3) and
+    ``focus_channel``."""
+    return _ZSLICING(settings or {}, "z_slicing")
+
+
+def cellpose_config_from_reference(settings: dict | None = None) -> dict:
+    """``CellposeConfig`` (settings.py:682-692) as a plain dict with its
+    defaults."""
+    return _CELLPOSE_CONFIG(settings or {}, "cellpose_config")
+
+
+def tracking_settings_from_reference(settings: dict) -> dict:
+    """``TrackingSettings`` (settings.py:714-724) as a plain dict, nested
+    blocks included (``ProcessingInputChannel``, ``ProcessingFunctions``,
+    ``CellposeConfig``, ``ZSlicing``; unknown fields refused, as every
+    ``MyBaseModel``); paths are strings, so the dict is also its
+    ``model_dump(mode="json")``."""
+    return _TRACKING(settings, "tracking settings")

@@ -321,6 +321,32 @@ Then the verbs on plates, through the command line a user calls:
     ``Mesh.virtual(cuda:0, 4)`` (bit-equal to ``deconvolve_arrays(
     sharded=True)``, within FFT_TOL of the batched verb, A, B, C 4 each a
     volume), ms/volume beside the batched verb's.
+26. the model verbs on plates through ``cli.main``, in a
+    ``tempfile.mkdtemp()`` directory: virtual-stain with the example
+    settings' UNeXt2 at full width (dims 96/192/384/768, blocks 3/3/9/3,
+    depth 15, stem (5, 4, 4), 2 outputs; random weights from seed 26 saved
+    as a checkpoint) on a (T 2, C 1) x (86, 1024, 484) Phase3D plate, step 1,
+    under ``BIAHUB_TPU_MODEL_PRECISION`` default (TF32): the plate bit-equal
+    to ``predict_timepoint`` on the card, rotation TTA on one timepoint, ms a
+    window, a timepoint and the whole call, and the peak card memory; one
+    full-width window within MODEL_HIGHEST_TOL (highest) and
+    MODEL_DEFAULT_TOL (default) x max|ref| of the same weights in float32 on
+    the host; segment on a (T 1, C 2, 8, 1024, 484) plate with
+    ``threshold_otsu`` (bit-equal to the host function) and a CPnet at
+    cellpose's default width (random weights and BatchNorm statistics,
+    diameter 40: resized on the card), its output on one slice within the
+    same bounds of the host's float32 run and that slice's labels against
+    the plain route's up to a permutation (printed); the flow round trip on
+    rendered instance masks at 1024 x 484 (``masks_to_flows`` ->
+    ``compute_masks_zyx`` on the card: every instance recovered, equal to
+    the plain route up to a permutation; ``follow_flows`` timed per
+    volume); track with settings/example_track_settings.yml on a rendered
+    (8, 1024, 484) time-lapse of 40 moving nuclei (labels bit-equal to the
+    engine on arrays, each nucleus one track); then the pipeline's order:
+    virtual-stain's plate (its TorchScript route on the card: a model that
+    passes its input through, on the nuclei repeated over 5 planes) joined
+    by concatenate into an assembled plate, and track on its
+    ``nuclei_prediction`` (each nucleus one track).
 
 Times are CUDA-event medians on this card.
 
@@ -4432,6 +4458,440 @@ def assembly_plates_phase(dev: torch.device, psf: np.ndarray) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 26: the model verbs. The example settings' UNeXt2 (fcmae), on the
+# deskewed FOV that reconstruct feeds it; cellpose's default CPnet width on
+# two channels of 8 slices, rescaled by SEG_DIAMETER; a rendered time-lapse
+# of moving nuclei for track.
+T_STAIN = 2
+STAIN_MODEL = {"in_channels": 1, "out_channels": 2, "in_stack_depth": 15,
+               "encoder_blocks": [3, 3, 9, 3], "dims": [96, 192, 384, 768],
+               "decoder_conv_blocks": 2, "stem_kernel_size": [5, 4, 4]}
+STAIN_OUTPUTS = ["nuclei_prediction", "membrane_prediction"]
+# max |card - CPU float32| / max |CPU float32| of one window (and of CPnet's
+# output on one slice) under BIAHUB_TPU_MODEL_PRECISION=highest and default.
+MODEL_HIGHEST_TOL = 1e-4
+MODEL_DEFAULT_TOL = 1e-2
+SEG_TCZYX = (1, 2, 8, 1024, 484)
+SEG_DIAMETER = 40.0
+CPNET_WIDTH = (2, 32, 64, 128, 256)
+# The flow round trip: slices of rendered instance masks.
+ROUND_TRIP_Z = 4
+TRACK_TYX = (8, 1024, 484)
+TRACK_NUCLEI = (10, 4)  # a grid of rows x columns of nuclei
+TRACK_SCALE = [1.0, 1.0, 1.0, 0.325, 0.325]
+# The wiring run's stack: the track run's frames repeated over this depth.
+WIRING_DEPTH = 5
+
+
+def label_mismatch(a: np.ndarray, b: np.ndarray) -> int:
+    """Pixels where two label images disagree up to a permutation of ids:
+    each label of ``a`` maps to the label of ``b`` it overlaps most, and
+    the other way; the larger count of pixels off that map."""
+    def one_way(p, q):
+        pairs, counts = np.unique(np.stack([p.ravel(), q.ravel()]), axis=1, return_counts=True)
+        best = {}
+        for (i, j), n in zip(pairs.T.tolist(), counts.tolist()):
+            if n > best.get(i, (None, -1))[1]:
+                best[i] = (j, n)
+        return int(p.size - sum(n for _, n in best.values()))
+    return max(one_way(a, b), one_way(b, a))
+
+
+def render_masks(shape, rng: np.random.Generator) -> np.ndarray:
+    """(Z, Y, X) uint32 instance masks: per slice, ellipses on a jittered
+    48 px grid, radii 10 to 18 px, no two overlapping."""
+    Z, Y, X = shape
+    yy, xx = np.mgrid[:Y, :X]
+    out = np.zeros(shape, np.uint32)
+    for z in range(Z):
+        label = 0
+        for cy in range(24, Y - 24, 48):
+            for cx in range(24, X - 24, 48):
+                ry, rx = rng.uniform(10, 18, 2)
+                py, px = cy + rng.uniform(-3, 3), cx + rng.uniform(-3, 3)
+                window = (slice(int(py - ry - 1), int(py + ry + 2)),
+                          slice(int(px - rx - 1), int(px + rx + 2)))
+                inside = (((yy[window] - py) / ry) ** 2 + ((xx[window] - px) / rx) ** 2) < 1
+                label += 1
+                out[z][window][inside] = label
+    return out
+
+
+def moving_nuclei(rng: np.random.Generator):
+    """(T, Y, X) float32 nuclei predictions in [0, 1] (Gaussian blobs of
+    sigma 6 px) moving in straight lines, and their centres (T, N, 2)."""
+    T, Y, X = TRACK_TYX
+    rows, cols = TRACK_NUCLEI
+    start = np.array([(Y * (r + 0.5) / rows, X * (c + 0.5) / cols)
+                      for r in range(rows) for c in range(cols)])
+    start += rng.uniform(-8, 8, start.shape)
+    velocity = rng.uniform(-3, 3, start.shape)
+    centres = start[None] + np.arange(T)[:, None, None] * velocity[None]
+    yy, xx = np.mgrid[:Y, :X]
+    frames = np.zeros((T, Y, X), np.float32)
+    for t in range(T):
+        for cy, cx in centres[t]:
+            window = (slice(max(int(cy) - 30, 0), int(cy) + 31),
+                      slice(max(int(cx) - 30, 0), int(cx) + 31))
+            blob = np.exp(-((yy[window] - cy) ** 2 + (xx[window] - cx) ** 2) / (2 * 6.0 ** 2))
+            frames[t][window] = np.maximum(frames[t][window], blob)
+    return frames, centres
+
+
+def model_plates_phase(dev: torch.device) -> None:
+    """Phase 26: virtual-stain, segment and track on plates through the
+    command line (module docstring)."""
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import torch.nn.functional as F
+
+    from biahub_tpu_torch.cli.yaml_reader import load_file
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.models import model_precision
+    from biahub_tpu_torch.models.convert import (
+        load_cpnet_checkpoint,
+        load_into,
+        load_torch_checkpoint,
+    )
+    from biahub_tpu_torch.models.cpnet import CPnet
+    from biahub_tpu_torch.models.unext2 import UNeXt2
+    from biahub_tpu_torch.segment import threshold_instance_labels
+    from biahub_tpu_torch.segmentation.engine import (
+        _assemble_channels,
+        _normalize,
+        cpnet_segment_czyx,
+        load_engine,
+    )
+    from biahub_tpu_torch.segmentation.flows import (
+        compute_masks_zyx,
+        follow_flows,
+        masks_to_flows,
+    )
+    from biahub_tpu_torch.track import run_preprocessing_pipeline
+    from biahub_tpu_torch.tracking.engine import track_from_foreground_contour
+    from biahub_tpu_torch.virtual_stain import load_model, normalize_with_stats, predict_timepoint
+
+    card = gpu_info()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_models_"))
+    phase_t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(26)
+    rng = np.random.default_rng(26)
+    saved_precision = os.environ.get("BIAHUB_TPU_MODEL_PRECISION")
+
+    def set_precision(mode: str | None) -> None:
+        if mode is None:
+            os.environ.pop("BIAHUB_TPU_MODEL_PRECISION", None)
+        else:
+            os.environ["BIAHUB_TPU_MODEL_PRECISION"] = mode
+
+    def line(verb: str, text: str) -> None:
+        print(f"26 {verb}: {text}; card {card}; {time.perf_counter() - phase_t0:.1f} s into "
+              "the phase")
+
+    def peak_reset() -> None:
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+
+    def peak_gib() -> float:
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else 0.0
+
+    def position(plate: Path) -> str:
+        return str(plate / "A" / "1" / "0")
+
+    try:
+        set_precision(None)
+        # -- virtual-stain: the example settings' UNeXt2 at full width --------
+        Z, Y, X = LAPSE_SHAPE
+        phase = torch.stack([smooth_rand(LAPSE_SHAPE, gen) for _ in range(T_STAIN)]).cpu().numpy()
+        recon = tmp / "reconstruct.zarr"
+        plate = open_ome_zarr(recon, layout="hcs", mode="w", channel_names=["Phase3D"])
+        plate.create_position("A", "1", "0").create_image(
+            "0", phase[:, None], transform=[TransformationMeta(type="scale", scale=RECON_SCALE)])
+        torch.manual_seed(26)
+        net = UNeXt2(**STAIN_MODEL)
+        with torch.no_grad():
+            for name, p in net.named_parameters():
+                if name.endswith(("grn.gamma", "grn.beta")):
+                    p.uniform_(-0.5, 0.5)
+        ckpt = tmp / "unext2.pth"
+        torch.save(net.state_dict(), ckpt)
+        config = {"architecture": "fcmae", "model_config": STAIN_MODEL, "ckpt_path": str(ckpt),
+                  "source_channel": "Phase3D", "output_channels": STAIN_OUTPUTS,
+                  "sliding_window_step": 1, "rotation_tta": False}
+        cfg = tmp / "virtual_stain.yml"
+        cfg.write_text(yaml_flow(config) + "\n")
+        stain = tmp / "virtual_stain.zarr"
+        peak_reset()
+        seconds, _, _, _ = run_verb(["virtual-stain", "-i", position(recon), "-c", str(cfg),
+                                     "-o", str(stain)])
+        peak = peak_gib()
+        got = open_ome_zarr(position(stain), mode="r").data[...]
+        require(got.shape == (T_STAIN, 2, Z, Y, X) and got.dtype == np.float32
+                and bool(np.isfinite(got).all()), f"virtual-stain: output {got.shape} {got.dtype}")
+        model = load_model(config, dev)
+        for t in range(T_STAIN):
+            sync()
+            t0 = time.perf_counter()
+            arrays = predict_timepoint(phase[t][None], ["Phase3D"], config, model, None, dev)
+            per_timepoint = time.perf_counter() - t0
+            require(np.array_equal(arrays, got[t]),
+                    f"virtual-stain: timepoint {t} differs from predict_timepoint on the card")
+        window = torch.from_numpy(normalize_with_stats(phase[0], None)[None]).to(dev)[:, :15]
+        window_ms = time_ms(lambda: model[0](window))
+        windows = Z - 15 + 1
+        tta_config = dict(config, rotation_tta=True)
+        sync()
+        t0 = time.perf_counter()
+        tta = predict_timepoint(phase[0][None], ["Phase3D"], tta_config, model, None, dev)
+        tta_seconds = time.perf_counter() - t0
+        require(bool(np.isfinite(tta).all()) and not np.array_equal(tta, got[0]),
+                "virtual-stain: rotation TTA")
+        line("virtual-stain", f"{T_STAIN} x {LAPSE_SHAPE} Phase3D through UNeXt2 "
+             f"{STAIN_MODEL['dims']} / {STAIN_MODEL['encoder_blocks']} (stem "
+             f"{STAIN_MODEL['stem_kernel_size']}, depth 15, step 1: {windows} windows a "
+             f"timepoint, Y, X padded to {Y - Y % -32}, {X - X % -32}), "
+             f"BIAHUB_TPU_MODEL_PRECISION default: "
+             f"{1e3 * seconds:.1f} ms for the whole call (host clock), "
+             f"{1e3 * per_timepoint:.1f} ms a timepoint (predict_timepoint, host clock), "
+             f"{window_ms:.3f} ms a window (CUDA events), peak card memory {peak:.2f} GiB; "
+             f"the plate bit-equal to predict_timepoint at every timepoint; rotation TTA on "
+             f"one timepoint {1e3 * tta_seconds:.1f} ms ({4 * windows} windows)")
+        pad_x = -X % 32
+        padded = F.pad(window[None], (0, pad_x, 0, -Y % 32, 0, 0), mode="replicate")
+        cpu_net = load_into(UNeXt2(**STAIN_MODEL), load_torch_checkpoint(str(ckpt))).eval()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ref = cpu_net(padded.cpu())
+        cpu_seconds = time.perf_counter() - t0
+        dev_net = load_into(UNeXt2(**STAIN_MODEL), load_torch_checkpoint(str(ckpt))).to(dev).eval()
+        errs = {}
+        for mode in ("highest", "default"):
+            set_precision(mode)
+            with model_precision():
+                out = dev_net(padded)
+            errs[mode] = rel_err(out.cpu(), ref)[1]
+            window_mode_ms = time_ms(lambda: model[0](window))
+            line("virtual-stain precision", f"{mode}: one full-width window "
+                 f"{tuple(padded.shape)} within {errs[mode]:.3g} x max|ref| of the CPU float32 "
+                 f"run ({1e3 * cpu_seconds:.0f} ms on the host), {window_mode_ms:.3f} ms a window")
+        set_precision(None)
+        require(errs["highest"] <= MODEL_HIGHEST_TOL,
+                f"virtual-stain: highest {errs['highest']:.3g} > {MODEL_HIGHEST_TOL}")
+        require(errs["default"] <= MODEL_DEFAULT_TOL,
+                f"virtual-stain: default {errs['default']:.3g} > {MODEL_DEFAULT_TOL}")
+        del model, dev_net, cpu_net, window, padded, ref, out, arrays, tta, got
+        peak_reset()
+
+        # -- segment: threshold_otsu and a CPnet at cellpose's default width --
+        T, C, Zs, Ys, Xs = SEG_TCZYX
+        seg_data = torch.stack([smooth_rand((Zs, Ys, Xs), gen, width=5)
+                                for _ in range(T * C)]).view(
+            SEG_TCZYX).cpu().numpy()
+        seg_in = tmp / "seg_in.zarr"
+        plate = open_ome_zarr(seg_in, layout="hcs", mode="w", channel_names=["nuclei", "membrane"])
+        plate.create_position("A", "1", "0").create_image(
+            "0", seg_data, transform=[TransformationMeta(type="scale", scale=RECON_SCALE)])
+        torch.manual_seed(27)
+        cp = CPnet(nbase=CPNET_WIDTH)
+        with torch.no_grad():
+            for m in cp.modules():
+                if isinstance(m, torch.nn.BatchNorm2d):
+                    m.running_mean.uniform_(-0.5, 0.5)
+                    m.running_var.uniform_(0.5, 2.0)
+        cp_ckpt = tmp / "cpnet.pt"
+        torch.save(cp.state_dict(), cp_ckpt)
+        # CPnet's output on one slice against the host's float32 run; its
+        # median cell probability is the verb's threshold, so that random
+        # weights still give foreground to follow.
+        x = _normalize(_assemble_channels(seg_data[0][:, :1], (1, 2), 2))
+        x = F.pad(torch.from_numpy(x), (0, -Xs % 16, 0, -Ys % 16), mode="replicate")
+        cpu_cp = load_into(CPnet(nbase=CPNET_WIDTH), load_cpnet_checkpoint(str(cp_ckpt))[0]).eval()
+        with torch.no_grad():
+            ref = cpu_cp(x)[0]
+        threshold = round(float(ref[0, 2].median()), 4)
+        dev_cp = load_engine(str(cp_ckpt), str(dev))[0]
+        notes = []
+        for mode, tol in (("highest", MODEL_HIGHEST_TOL), ("default", MODEL_DEFAULT_TOL)):
+            set_precision(mode)
+            with model_precision():
+                out = dev_cp(x.to(dev))[0]
+            err = rel_err(out.cpu(), ref)[1]
+            notes.append(f"{mode} within {err:.3g} x max|ref| (tol {tol}), "
+                         f"{time_ms(lambda: dev_cp(x.to(dev))):.3f} ms a slice")
+            require(err <= tol, f"segment: CPnet {mode} error {err:.3g} > {tol}")
+        set_precision(None)
+        line("segment precision", f"CPnet's output on one slice {tuple(x.shape)} against the "
+             f"CPU float32 run: {'; '.join(notes)} (CUDA events)")
+        del dev_cp, cpu_cp, ref, out, x
+
+        eval_args = {"channels": [1, 2], "diameter": SEG_DIAMETER, "flow_threshold": None,
+                     "cellprob_threshold": threshold}
+        seg_cfg = tmp / "segment.yml"
+        seg_cfg.write_text(yaml_flow({"models": {
+            "nuclei": {"path_to_model": "threshold_otsu", "eval_args": {"min_size": 20},
+                       "preprocessing": []},
+            "cells": {"path_to_model": str(cp_ckpt), "eval_args": eval_args,
+                      "preprocessing": []}}}) + "\n")
+        seg_out = tmp / "segment.zarr"
+        peak_reset()
+        seconds, _, _, _ = run_verb(["segment", "-i", position(seg_in), "-c", str(seg_cfg),
+                                     "-o", str(seg_out)])
+        peak = peak_gib()
+        labels = open_ome_zarr(position(seg_out), mode="r").data[...]
+        require(labels.shape == (T, 2, Zs, Ys, Xs) and labels.dtype == np.uint32,
+                f"segment: labels {labels.shape} {labels.dtype}")
+        otsu = np.stack([threshold_instance_labels(v, min_size=20) for v in seg_data[0]]).max(0)
+        require(np.array_equal(labels[0, 0], otsu), "segment: threshold_otsu differs from the host")
+        require(int(labels[0, 1].max()) > 0, "segment: CPnet found no cell")
+        one = seg_data[0][:, :1]
+        seg_kwargs = dict(eval_args, channels=(1, 2))
+        card_labels = cpnet_segment_czyx(one, str(cp_ckpt), device=dev, **seg_kwargs)
+        plain_labels = cpnet_segment_czyx(one, str(cp_ckpt), device="cpu", **seg_kwargs)
+        line("segment", f"{SEG_TCZYX} float32, threshold_otsu and CPnet {CPNET_WIDTH} (random "
+             f"weights and BatchNorm statistics, diameter {SEG_DIAMETER}: rescaled to "
+             f"{round(Ys * 30 / SEG_DIAMETER)} x {round(Xs * 30 / SEG_DIAMETER)}, cellprob "
+             f"threshold {threshold}): {1e3 * seconds:.1f} ms for the whole call (host clock), "
+             f"peak card memory {peak:.2f} GiB; {int(otsu.max())} Otsu instances bit-equal to "
+             f"the host function, {len(np.unique(labels[0, 1])) - 1} CPnet labels; slice 0's "
+             f"labels ({int(card_labels.max())} on the card, {int(plain_labels.max())} on the "
+             f"plain route) differ in {label_mismatch(card_labels, plain_labels)} of "
+             f"{card_labels.size} pixels up to a permutation")
+
+        masks = render_masks((ROUND_TRIP_Z, Ys, Xs), rng)
+        t0 = time.perf_counter()
+        flows = np.stack([masks_to_flows(m) for m in masks]) * 5.0
+        flows_s = time.perf_counter() - t0
+        cellprob = np.where(masks > 0, 4.0, -4.0).astype(np.float32)
+        card_masks = compute_masks_zyx(torch.from_numpy(flows).to(dev),
+                                       torch.from_numpy(cellprob).to(dev))
+        t0 = time.perf_counter()
+        plain_masks = compute_masks_zyx(torch.from_numpy(flows), torch.from_numpy(cellprob))
+        plain_s = time.perf_counter() - t0
+        fg = torch.from_numpy(cellprob > 0).to(dev)
+        dPm = torch.from_numpy(flows / np.float32(5.0)).to(dev) * fg[:, None]
+        follow_ms = time_ms(lambda: follow_flows(dPm, fg))
+        for z in range(ROUND_TRIP_Z):
+            n = int(masks[z].max())
+            require(int(card_masks[z].max()) == n,
+                    f"round trip: slice {z} has {int(card_masks[z].max())} of {n} instances")
+            require(label_mismatch(card_masks[z], plain_masks[z]) == 0,
+                    f"round trip: slice {z} differs from the plain route")
+        off = max(label_mismatch(card_masks[z], masks[z]) for z in range(ROUND_TRIP_Z))
+        require(off <= 0.02 * masks[0].size, f"round trip: {off} pixels off the rendered masks")
+        line("segment flow round trip", f"{ROUND_TRIP_Z} slices of {int(masks.max())} rendered "
+             f"instances at {Ys} x {Xs} (masks_to_flows {1e3 * flows_s:.0f} ms on the host): "
+             f"compute_masks_zyx on the card recovers every instance (at most {off} pixels a "
+             f"slice off the rendered masks), equal to the plain route up to a permutation "
+             f"(plain route {1e3 * plain_s:.0f} ms); follow_flows (200 steps, "
+             f"{int(fg.sum())} foreground pixels) {follow_ms:.2f} ms a volume on the card "
+             "(CUDA events)")
+        del flows, dPm, fg
+
+        # -- track: the example settings on moving nuclei ----------------------
+        frames, centres = moving_nuclei(rng)
+        Tt = frames.shape[0]
+        track_in = tmp / "track_in.zarr"
+        plate = open_ome_zarr(track_in, layout="hcs", mode="w",
+                              channel_names=["nuclei_prediction"])
+        plate.create_position("A", "1", "0").create_image(
+            "0", frames[:, None, None],
+            transform=[TransformationMeta(type="scale", scale=TRACK_SCALE)])
+        settings = load_file(Path(__file__).resolve().parent / "settings" /
+                             "example_track_settings.yml")
+        track_cfg = tmp / "track.yml"
+        track_cfg.write_text(yaml_flow(settings) + "\n")
+        track_out = tmp / "track.zarr"
+        seconds, _, _, _ = run_verb(["track", "-i", position(track_in), "-c", str(track_cfg),
+                                     "-o", str(track_out)])
+        got = open_ome_zarr(position(track_out), mode="r").data[...]
+        require(got.shape == (Tt, 1, 1) + TRACK_TYX[1:] and got.dtype == np.uint32,
+                f"track: labels {got.shape} {got.dtype}")
+        with contextlib.redirect_stdout(io.StringIO()):
+            data = run_preprocessing_pipeline({"nuclei_prediction": frames[:, None]},
+                                              settings["input_images"])
+        want, table = track_from_foreground_contour(
+            data["foreground"].mean(axis=1), data["contour"].mean(axis=1),
+            scale=TRACK_SCALE[-2:], max_distance=50.0)
+        require(np.array_equal(got[:, 0, 0], want), "track: the plate differs from the engine")
+        ids = np.zeros(centres.shape[:2], np.int64)
+        for t in range(Tt):
+            for n, (cy, cx) in enumerate(centres[t]):
+                ids[t, n] = got[t, 0, 0, int(round(cy)), int(round(cx))]
+        require(bool((ids > 0).all()) and bool((ids == ids[:1]).all())
+                and len(set(ids[0].tolist())) == ids.shape[1],
+                "track: a rendered nucleus lost or swapped its identity")
+        csv = (track_out / "A/1/0/tracks_A_1_0.csv").read_text().splitlines()
+        require(len(csv) == 1 + len(table["track_id"]), "track: the CSV's rows")
+        line("track", f"{Tt} x {TRACK_TYX[1:]} moving nuclei ({ids.shape[1]}), the example "
+             f"settings (detect_foreground sigma 15, max_distance 50): {1e3 * seconds:.1f} ms "
+             f"for the whole call (host clock); labels bit-equal to the engine on arrays, every "
+             f"nucleus one track over all {Tt} frames, {len(csv) - 1} CSV rows")
+
+        # -- the pipeline's order: virtual-stain -> concatenate -> track -------
+        # The track run's nuclei as a Phase3D stack, stained through
+        # virtual-stain's TorchScript route by a model that passes its input
+        # through as both outputs. (Random UNeXt2 weights would hand track
+        # noise: tens of thousands of fragments a frame, for which the
+        # linker's Hungarian assignment is quadratic in memory and cubic in
+        # time.)
+        class PassThrough(torch.nn.Module):
+            def forward(self, x: torch.Tensor) -> torch.Tensor:
+                return torch.cat([x, x], dim=1)
+
+        script = tmp / "pass_through.pt"
+        torch.jit.script(PassThrough()).save(str(script))
+        raw = tmp / "wiring_raw.zarr"
+        plate = open_ome_zarr(raw, layout="hcs", mode="w", channel_names=["Phase3D"])
+        pos = plate.create_position("A", "1", "0")
+        pos.create_image("0", np.repeat(frames[:, None, None], WIRING_DEPTH, axis=2),
+                         transform=[TransformationMeta(type="scale", scale=TRACK_SCALE)])
+        pos.update_zattrs({"normalization": {"Phase3D": {"fov_statistics": {
+            "median": 0.0, "iqr": 1.0}}}})
+        vs_cfg = tmp / "virtual_stain_script.yml"
+        vs_cfg.write_text(yaml_flow({
+            "ckpt_path": str(script), "source_channel": "Phase3D", "n_output_channels": 2,
+            "sliding_window_z": WIRING_DEPTH, "output_channels": STAIN_OUTPUTS}) + "\n")
+        stained = tmp / "wiring_stained.zarr"
+        seconds_v, _, _, _ = run_verb(["virtual-stain", "-i", position(raw), "-c", str(vs_cfg),
+                                       "-o", str(stained)])
+        concat_cfg = tmp / "concatenate.yml"
+        concat_cfg.write_text(yaml_flow({
+            "concat_data_paths": [position(raw), position(stained)],
+            "channel_names": [["Phase3D"], STAIN_OUTPUTS], "time_indices": "all",
+            "output_ome_zarr_version": "0.4"}) + "\n")
+        assembled = tmp / "assembled.zarr"
+        seconds_c, _, _, _ = run_verb(["concatenate", "-c", str(concat_cfg), "-o",
+                                       str(assembled)])
+        wired = tmp / "track_wired.zarr"
+        seconds_t, _, _, _ = run_verb(["track", "-i", position(assembled), "-c",
+                                       str(track_cfg), "-o", str(wired)])
+        names = open_ome_zarr(position(assembled), mode="r").channel_names
+        wired_labels = open_ome_zarr(position(wired), mode="r").data[...]
+        require(names == ["Phase3D"] + STAIN_OUTPUTS, f"concatenate: channels {names}")
+        require(wired_labels.shape == (Tt, 1, 1) + TRACK_TYX[1:],
+                f"wired track: labels {wired_labels.shape}")
+        wired_ids = np.array([[wired_labels[t, 0, 0, int(round(cy)), int(round(cx))]
+                               for cy, cx in centres[t]] for t in range(Tt)])
+        require(bool((wired_ids > 0).all()) and bool((wired_ids == wired_ids[:1]).all())
+                and len(set(wired_ids[0].tolist())) == wired_ids.shape[1],
+                "wired track: a nucleus lost or swapped its identity")
+        off = label_mismatch(wired_labels[:, 0, 0], got[:, 0, 0])
+        line("pipeline order", f"virtual-stain (TorchScript on the card, {Tt} x "
+             f"{WIRING_DEPTH} x {TRACK_TYX[1:]}: {1e3 * seconds_v:.1f} ms), concatenate "
+             f"({1e3 * seconds_c:.1f} ms) into {names}, track on the assembled plate "
+             f"({1e3 * seconds_t:.1f} ms): labels {wired_labels.shape}, every nucleus one "
+             f"track; {off} pixels differ from the track run on the 2D plate up to a "
+             "permutation")
+    finally:
+        set_precision(saved_precision)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4780,6 +5240,7 @@ def main() -> int:
     plates_phase(dev, psf)
     estimate_plates_phase(dev)
     assembly_plates_phase(dev, psf)
+    model_plates_phase(dev)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

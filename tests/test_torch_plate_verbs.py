@@ -249,7 +249,7 @@ def test_init_only_creates_the_plate_and_computes_nothing(plates, monkeypatch, c
 
 def test_unported_verbs_and_the_device(plates, capsys):
     tmp, _ = plates
-    assert main(["track", "-i", "x"], device="cpu") == 2
+    assert main(["estimate-crop", "-i", "x"], device="cpu") == 2
     assert "not ported yet" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv("deskew", tmp, tmp / "port" / "nocard.zarr"))
