@@ -1,14 +1,10 @@
 """``python -m biahub_tpu_torch.cli <verb> ...``: the port's command line.
 
 The verbs and options of the reference's ``biahub`` command
-(``biahub_tpu/cli/main.py``) for what the port runs on plates: ``fuse``,
-``deconvolve``, ``deskew``, ``flat-field``, ``register``, ``stabilize``,
-``compute-tf``, ``apply-inv-tf``, ``reconstruct``,
-``estimate-stabilization``, ``estimate-psf``, ``estimate-registration``,
-``optimize-registration``, ``estimate-stitch``, ``stitch``,
-``concatenate``, ``flip``, ``pyramid``, ``virtual-stain``, ``segment`` and
-``track``. Every other verb of the
-reference exits with status 2 and says that it is not ported yet. A bad option exits with status
+(``biahub_tpu/cli/main.py``), all 29 of its entries: the plate verbs,
+the estimate verbs, the model verbs, ``process-with-config``,
+``characterize-psf``, ``check-disk-space``, ``crop-background`` and the
+``nf`` group (``nf list-positions``). A bad option exits with status
 2 and the verb's usage; a failure the reference reports as a
 ``click.ClickException`` (:class:`~biahub_tpu_torch.cli.parsing.
 CommandError`) prints ``Error: <message>`` and exits with status 1. The
@@ -65,7 +61,7 @@ COMMANDS = [
 
 _PLATE_VERB = [P.sbatch_filepath, P.cluster, P.monitor, P.init_only, P.resume, P.num_processes]
 
-# verb: the options after -i/-c/-o (as the reference's decorators order them)
+# verb: its options and arguments (as the reference's decorators order them)
 PORTED = {
     "deskew": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath, *_PLATE_VERB],
     "flat-field": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
@@ -106,6 +102,17 @@ PORTED = {
                       P.sbatch_filepath, P.cluster, P.local, P.monitor, P.init_only],
     "track": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
               P.sbatch_filepath, P.cluster, P.monitor, P.init_only, P.input_images_path],
+    "estimate-bleaching": [P.input_position_dirpaths, P.output_dirpath],
+    "estimate-deskew": [P.input_position_dirpaths, P.output_filepath,
+                        P.estimate_deskew_options],
+    "estimate-crop": [P.config_filepath, P.output_filepath, P.sbatch_filepath, P.local,
+                      P.lf_mask_radius],
+    "characterize-psf": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath],
+    "process-with-config": [P.input_position_dirpaths, P.config_filepath, P.output_dirpath,
+                            P.sbatch_filepath, P.local, P.monitor],
+    "check-disk-space": [P.disk_space_options],
+    "crop-background": [P.crop_background_arguments],
+    "nf": [P.nf_commands],
 }
 
 
@@ -115,10 +122,9 @@ def build_parser() -> argparse.ArgumentParser:
         description="command-line tools for biahub (PyTorch/CUDA port)")
     sub = parser.add_subparsers(dest="verb", metavar="<verb>")
     for name, help_text in COMMANDS:
-        if name in PORTED:
-            verb = sub.add_parser(name, help=help_text, description=help_text)
-            for add in PORTED[name]:
-                add(verb)
+        verb = sub.add_parser(name, help=help_text, description=help_text)
+        for add in PORTED[name]:
+            add(verb)
     return parser
 
 
@@ -138,12 +144,8 @@ def _run(ns: argparse.Namespace, device) -> None:
         ns, "config_filepath") else None
     if getattr(ns, "sbatch_filepath", None) is not None:
         _existing(ns.sbatch_filepath, "sbatch file", False)
-    if verb == "concatenate":
-        from biahub_tpu_torch.concatenate import concatenate_verb
-
-        concatenate_verb(config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster, ns.monitor,
-                         ns.init_only, ns.resume, tuple(ns.concat_data_paths),
-                         ns.num_processes)
+    if verb in ("concatenate", "estimate-crop", "check-disk-space", "crop-background", "nf"):
+        _run_without_positions(ns, config)
         return
     if verb in ("register", "estimate-registration", "optimize-registration"):
         sources = P.position_dirpaths(ns.source_position_dirpaths)
@@ -154,6 +156,9 @@ def _run(ns: argparse.Namespace, device) -> None:
         _run_assembly_verb(ns, device, config, inputs)
     elif verb in ("virtual-stain", "segment", "track"):
         _run_model_verb(ns, device, config, inputs)
+    elif verb in ("estimate-bleaching", "estimate-deskew", "characterize-psf",
+                  "process-with-config"):
+        _run_host_verb(ns, device, config, inputs)
     elif verb == "estimate-registration":
         from biahub_tpu_torch.estimate_registration import estimate_registration
 
@@ -199,6 +204,64 @@ def _run(ns: argparse.Namespace, device) -> None:
     else:
         _run_plate_verb(ns, device, config, sources if verb == "register" else inputs,
                         targets if verb == "register" else None)
+
+
+def _run_without_positions(ns: argparse.Namespace, config) -> None:
+    """concatenate, estimate-crop, check-disk-space, crop-background and nf."""
+    if ns.verb == "concatenate":
+        from biahub_tpu_torch.concatenate import concatenate_verb
+
+        concatenate_verb(config, ns.output_dirpath, ns.sbatch_filepath, ns.cluster, ns.monitor,
+                         ns.init_only, ns.resume, tuple(ns.concat_data_paths),
+                         ns.num_processes)
+    elif ns.verb == "estimate-crop":
+        from biahub_tpu_torch.estimate_crop import estimate_crop
+
+        estimate_crop(config, ns.output_filepath, ns.lf_mask_radius, ns.sbatch_filepath,
+                      ns.local)
+    elif ns.verb == "check-disk-space":
+        from biahub_tpu_torch.cli.utils import check_disk_space_with_du
+
+        if check_disk_space_with_du(ns.input_path, ns.output_path, ns.margin, ns.verbose):
+            print("Disk space check passed. Good to go!")
+        else:
+            print("Disk space check failed. Not enough space available.")
+    elif ns.verb == "crop-background":
+        from biahub_tpu_torch.visualize.crop_background import crop_background
+
+        crop_background(_existing(ns.input_dir, "input directory", True), ns.output_dir)
+    else:
+        from biahub_tpu_torch.io.ngff import open_ome_zarr
+
+        plate = open_ome_zarr(_existing(ns.plate_path, "plate", True), mode="r")
+        for name, _ in plate.positions():
+            print(name)
+
+
+def _run_host_verb(ns: argparse.Namespace, device, config, inputs) -> None:
+    """estimate-bleaching, estimate-deskew, characterize-psf and
+    process-with-config."""
+    if ns.verb == "estimate-bleaching":
+        from biahub_tpu_torch.estimate_bleaching import estimate_bleaching
+
+        estimate_bleaching(inputs, ns.output_dirpath, device=device)
+    elif ns.verb == "estimate-deskew":
+        from biahub_tpu_torch.estimate_deskew import estimate_deskew
+
+        for points in (ns.rect_points, ns.line_points):
+            _existing(points, "point file", False)
+        estimate_deskew(ns.output_filepath, ns.pixel_size_um, ns.scan_step_um,
+                        ns.px_to_scan_ratio, ns.ls_angle_deg, ns.rect_points, ns.line_points,
+                        ns.interactive)
+    elif ns.verb == "characterize-psf":
+        from biahub_tpu_torch.characterize_psf import characterize_psf
+
+        characterize_psf(inputs, config, ns.output_dirpath, device=device)
+    else:
+        from biahub_tpu_torch.process_data import process_with_config
+
+        process_with_config(inputs, config, ns.output_dirpath, ns.sbatch_filepath, ns.local,
+                            ns.monitor)
 
 
 def _run_assembly_verb(ns: argparse.Namespace, device, config, inputs) -> None:
@@ -282,16 +345,11 @@ def _run_plate_verb(ns: argparse.Namespace, device, config, inputs, targets) -> 
 
 
 def main(argv=None, device="cuda") -> int:
-    """Run one verb; returns the exit status. Unported verbs return 2 with
-    a message; usage errors exit with status 2 (argparse); a
+    """Run one verb; returns the exit status. Usage errors exit with
+    status 2 (argparse); a
     :class:`~biahub_tpu_torch.cli.parsing.CommandError` returns 1 with its
     message on stderr; any other failure of the run raises."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    names = [name for name, _ in COMMANDS]
-    if argv and argv[0] in names and argv[0] not in PORTED:
-        print(f"biahub_tpu_torch: the verb '{argv[0]}' is not ported yet; the port runs "
-              f"{', '.join(PORTED)}.", file=sys.stderr)
-        return 2
     parser = build_parser()
     ns = parser.parse_args(argv)
     if ns.verb is None:
@@ -306,6 +364,8 @@ def main(argv=None, device="cuda") -> int:
             _run(ns, device)
     except P.UsageError as exc:
         sub = parser._subparsers._group_actions[0].choices[ns.verb]
+        if ns.verb == "nf":
+            sub = sub._subparsers._group_actions[0].choices[ns.nf_command]
         sub.error(str(exc))
     except P.CommandError as exc:
         print(f"Error: {exc}", file=sys.stderr)

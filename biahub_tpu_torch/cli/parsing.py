@@ -45,6 +45,11 @@ __all__ = [
     "flip_options",
     "pyramid_options",
     "input_images_path",
+    "estimate_deskew_options",
+    "lf_mask_radius",
+    "disk_space_options",
+    "crop_background_arguments",
+    "nf_commands",
 ]
 
 _NAT_SPLIT = re.compile(r"(\d+)")
@@ -296,3 +301,60 @@ def input_images_path(parser: argparse.ArgumentParser) -> None:
                         help="Pixel-data source filling the first null input_images path (used "
                              "by pipelines). If omitted, that null path falls back to the -i "
                              "input plate.")
+
+
+def estimate_deskew_options(parser: argparse.ArgumentParser) -> None:
+    """estimate-deskew's measurements, point files and ``--interactive``."""
+    parser.add_argument("--pixel-size-um", type=float, default=None,
+                        help="Image pixel size (um).")
+    parser.add_argument("--scan-step-um", type=float, default=None,
+                        help="Estimated galvo scan step (um).")
+    parser.add_argument("--px-to-scan-ratio", type=float, default=None,
+                        help="Measured px_to_scan_ratio (skip the rectangle measurement).")
+    parser.add_argument("--ls-angle-deg", type=float, default=None,
+                        help="Measured light-sheet angle in degrees (skip the line "
+                             "measurement).")
+    parser.add_argument("--rect-points", default=None,
+                        help="(4, 3) rectangle-corner file (.csv/.npy) in (scan, tilt, "
+                             "coverslip) order, exported from any viewer; measures "
+                             "px_to_scan_ratio.")
+    parser.add_argument("--line-points", default=None,
+                        help="(2, 2) coverslip-normal line file (.csv/.npy) on the X "
+                             "projection; measures the light-sheet angle.")
+    parser.add_argument("--interactive", action="store_true",
+                        help="Measure in napari as the reference does (requires napari).")
+
+
+def lf_mask_radius(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("--lf-mask-radius", type=float, default=None,
+                        help="(Optional) Radius of the circular mask given as fraction of "
+                             "image width to apply to the phase channel.")
+
+
+def disk_space_options(parser: argparse.ArgumentParser) -> None:
+    """check-disk-space's ``-i``, ``-o``, ``--margin`` and ``--verbose``
+    (on by default, as in the reference)."""
+    parser.add_argument("--input-path", "-i", required=True,
+                        help="Path whose size determines the space the output will need.")
+    parser.add_argument("--output-path", "-o", required=True,
+                        help="Destination whose filesystem is checked for free space.")
+    parser.add_argument("--margin", type=float, default=1.1,
+                        help="Safety margin for the disk space check (1.1 = 10%% extra). "
+                             "(default: 1.1)")
+    parser.add_argument("--verbose", action="store_true", default=True,
+                        help="Print detailed diagnostics.")
+
+
+def crop_background_arguments(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument("input_dir", metavar="INPUT_DIR",
+                        help="Folder of the *.mp4 videos (an existing folder).")
+    parser.add_argument("output_dir", metavar="OUTPUT_DIR", help="Folder of the crops.")
+
+
+def nf_commands(parser: argparse.ArgumentParser) -> None:
+    """The ``nf`` group: ``list-positions PLATE_PATH``."""
+    sub = parser.add_subparsers(dest="nf_command", metavar="<command>", required=True)
+    lp = sub.add_parser("list-positions",
+                        help="Print one row/col/fov position key per line for Nextflow "
+                             "fan-out.")
+    lp.add_argument("plate_path", metavar="PLATE_PATH", help="An existing plate folder.")

@@ -30,7 +30,10 @@ reference's models dump them (the provenance the verbs stamp on their
 plates); ``registration_settings_dump`` and ``stabilization_settings_dump``
 build the YAML files the estimate verbs write, and
 ``psf_from_beads_settings_from_reference`` validates estimate-psf's
-``PsfFromBeadsSettings``. ``stitch_settings_from_reference`` and
+``PsfFromBeadsSettings``, ``characterize_settings_from_reference``
+characterize-psf's ``CharacterizeSettings`` and
+``processing_settings_from_reference`` process-with-config's
+``ProcessingImportFuncSettings``. ``stitch_settings_from_reference`` and
 ``concatenate_settings_from_reference`` give ``StitchSettings`` and
 ``ConcatenateSettings`` as their models dump them: the files the stitch
 and concatenate verbs read, and those estimate-stitch and concatenate's
@@ -60,7 +63,8 @@ __all__ = ["module_from_reference", "chain_from_reference",
            "psf_from_beads_settings_from_reference", "stitch_settings_from_reference",
            "concatenate_settings_from_reference", "segmentation_settings_from_reference",
            "tracking_settings_from_reference", "zslicing_from_reference",
-           "cellpose_config_from_reference"]
+           "cellpose_config_from_reference", "characterize_settings_from_reference",
+           "processing_settings_from_reference"]
 
 _DESKEW_FIELDS = {
     "pixel_size_um", "ls_angle_deg", "px_to_scan_ratio", "scan_step_um",
@@ -1026,7 +1030,7 @@ def concatenate_settings_from_reference(settings: dict) -> dict:
     globs), ``time_indices`` ("all"), ``channel_names`` (per path "all" or a
     list of names), ``X_slice`` / ``Y_slice`` / ``Z_slice`` ("all", [start,
     end] or one per path), ``chunks_czyx`` (None or 4 ints),
-    ``shards_ratio`` (None; the store refuses any other value by name),
+    ``shards_ratio`` (None, or one ratio an axis: sharded OME-Zarr 0.5 arrays),
     ``ensure_unique_positions`` (False) and ``output_ome_zarr_version``
     ("0.5": concatenate writes OME-Zarr 0.5 unless asked otherwise)."""
     out = _CONCATENATE(settings, "concatenate settings")
@@ -1168,3 +1172,58 @@ def tracking_settings_from_reference(settings: dict) -> dict:
     ``MyBaseModel``); paths are strings, so the dict is also its
     ``model_dump(mode="json")``."""
     return _TRACKING(settings, "tracking settings")
+
+
+# -- characterize-psf and process-with-config settings (settings.py:455-477,
+# 659-668) -------------------------------------------------------------------
+
+def _non_negative_ints(v, name):
+    if not isinstance(v, (list, tuple)):
+        raise ValueError(f"{name}: want a list, got {v!r}")
+    return [_NON_NEGATIVE_INT(i, f"{name}[{k}]") for k, i in enumerate(v)]
+
+
+def _patch_size(v, name):
+    if not isinstance(v, (list, tuple)) or len(v) != 3:
+        raise ValueError(f"{name}: want 3 positive numbers, got {v!r}")
+    return tuple(_POSITIVE(x, f"{name}[{k}]") for k, x in enumerate(v))
+
+
+_CHARACTERIZE = _model({
+    "block_size": ((64, 64, 32), _non_negative_ints),
+    "blur_kernel_size": (3, _NON_NEGATIVE_INT),
+    "nms_distance": (32, _NON_NEGATIVE_INT),
+    "min_distance": (50, _NON_NEGATIVE_INT),
+    "threshold_abs": (200.0, _POSITIVE),
+    "max_num_peaks": (2000, _NON_NEGATIVE_INT),
+    "exclude_border": ((5, 10, 5), _non_negative_ints),
+    "device": ("cuda", _typed(str)),
+    "patch_size": (None, _optional(_patch_size)),
+    "axis_labels": (lambda: ["AXIS0", "AXIS1", "AXIS2"], _str_list),
+    "offset": (0.0, _lax_number(float)),
+    "gain": (1.0, _lax_number(float)),
+    "use_robust_1d_fwhm": (False, _lax_bool),
+    "fwhm_plot_type": ("3D", _literal("1D", "3D")),
+})
+_PROCESSING_SETTINGS = _model({
+    "processing_functions": (list, _list_of(_PROCESSING_FUNCTION)),
+    "output_ome_zarr_version": (None, _version),
+})
+
+
+def characterize_settings_from_reference(settings: dict | None = None) -> dict:
+    """``CharacterizeSettings`` (settings.py:455-477) as its
+    ``model_dump()``: the peak detector's settings, ``patch_size`` (None or
+    three um), ``axis_labels``, ``offset``, ``gain``,
+    ``use_robust_1d_fwhm`` and ``fwhm_plot_type`` ("1D" or "3D"); unknown
+    fields raise. ``device`` is accepted and not used: the verb runs where
+    its caller says."""
+    return _CHARACTERIZE(settings or {}, "characterize settings")
+
+
+def processing_settings_from_reference(settings: dict) -> dict:
+    """``ProcessingImportFuncSettings`` (settings.py:666-668) as its
+    ``model_dump()``: ``processing_functions``, each a
+    ``ProcessingFunctions`` (``function``, ``input_channels``, ``kwargs``,
+    ``per_timepoint``), and ``output_ome_zarr_version``."""
+    return _PROCESSING_SETTINGS(settings, "processing settings")

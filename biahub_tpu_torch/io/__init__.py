@@ -1,5 +1,6 @@
 """OME-Zarr HCS plates on numpy and the standard library
-(:mod:`biahub_tpu_torch.io.ngff`), and the resume records
+(:mod:`biahub_tpu_torch.io.ngff`, its chunk codecs in
+:mod:`biahub_tpu_torch.io.codecs`), and the resume records
 (:mod:`biahub_tpu_torch.io.progress`)."""
 
 from biahub_tpu_torch.io.ngff import (

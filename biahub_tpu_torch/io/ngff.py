@@ -11,23 +11,31 @@ The zarr layer is this module's own:
 
 - **v2**: ``.zgroup``, ``.zattrs``, ``.zarray`` (``dimension_separator``
   ``.`` or ``/``, ``fill_value`` for chunks that are absent, ``<`` or ``>``
-  byte order, C order);
-- **v3**: ``zarr.json`` (``chunk_key_encoding`` ``default`` or ``v2``, the
-  ``bytes`` codec and optionally ``gzip``).
+  byte order, C order; no compressor, ``blosc``, ``zlib`` or ``gzip``);
+- **v3**: ``zarr.json`` (``chunk_key_encoding`` ``default`` or ``v2``; the
+  ``bytes`` codec, then at most one of ``blosc``, ``zstd`` or ``gzip``, then
+  optionally ``crc32c``; or ``sharding_indexed`` over such a chain, a box
+  reading only the inner chunks it touches).
 
-Chunks are written uncompressed. They are read uncompressed (a box that
-covers part of a chunk through a memory map of its file, so that only the
-pages it touches are read), ``zlib`` or ``gzip`` (v2) and ``gzip`` (v3);
-any other codec (blosc, zstd,
-``sharding_indexed``, ...) raises an error that names it. Each chunk is
-written to a temporary name and renamed over its key (``os.replace``), so a
-run that is killed leaves no torn chunk. ``read_async`` and ``write_async``
-run on a thread pool (file reads, writes and ``zlib`` release the GIL).
+The codecs are :mod:`biahub_tpu_torch.io.codecs`'; any other codec,
+filter or chain raises an error that names it. Chunks are written
+uncompressed unless the creator is given ``compressor="zstd"``: the
+reference's layouts, blosc (zstd level 1, byte shuffle) for v2 and
+``bytes`` then ``zstd`` level 1 for v3; ``shards_ratio`` writes the
+reference's ``sharding_indexed`` v3 arrays (inner ``bytes`` then ``zstd``
+level 1, the index ``bytes`` then ``crc32c`` at the shard's end).
+Uncompressed chunks are read in place (a box that covers part of a chunk
+through a memory map of its file, so that only the pages it touches are
+read). Each chunk or shard is written to a temporary name and renamed over
+its key (``os.replace``), so a run that is killed leaves none torn.
+``read_async`` and ``write_async`` run on a thread pool (file reads and
+writes, ``zlib`` and the ``ctypes`` calls into ``libzstd`` release the
+GIL).
 """
 
 from __future__ import annotations
 
-import gzip
+import io
 import itertools
 import json
 import math
@@ -35,13 +43,14 @@ import os
 import shutil
 import threading
 import uuid
-import zlib
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
 from typing import Iterator, Literal, Sequence
 
 import numpy as np
+
+from biahub_tpu_torch.io.codecs import Chain, ShardLayout, chain_from_v2, chain_from_v3
 
 __all__ = [
     "TransformationMeta",
@@ -138,6 +147,8 @@ def _replace_bytes(path: Path, data) -> None:
 
 # -- zarr arrays ------------------------------------------------------------
 
+_EMPTY = 2**64 - 1  # a sharding_indexed index entry of an empty inner chunk
+
 _V3_DTYPES = {"bool", "int8", "int16", "int32", "int64", "uint8", "uint16", "uint32",
               "uint64", "float16", "float32", "float64", "complex64", "complex128"}
 
@@ -155,41 +166,36 @@ class _ArrayMeta:
     """What reading and writing an array needs from its metadata."""
 
     shape: tuple[int, ...]
-    chunks: tuple[int, ...]
+    chunks: tuple[int, ...]  # the read and write grid: a shard's inner chunks
     dtype: np.dtype          # in the stored byte order
     fill: object
-    compressor: str | None   # None, "zlib" or "gzip"
+    compressor: Chain        # the chunks' codecs after ``bytes``
     key_prefix: str          # "c/" for v3 default keys, else ""
     separator: str
+    shard: ShardLayout | None = None
+    shard_shape: tuple[int, ...] | None = None
+
+    @property
+    def raw(self) -> bool:
+        """Chunk files that are the chunks' bytes."""
+        return self.compressor.raw and self.shard is None
 
 
 def _v2_meta(meta: dict, path: Path) -> _ArrayMeta:
-    comp = meta.get("compressor")
-    name = None if comp is None else comp.get("id")
-    if name not in (None, "zlib", "gzip"):
-        raise ValueError(f"{path}: zarr v2 compressor {name!r} is not supported "
-                         "(uncompressed, zlib and gzip chunks are read)")
-    for flt in meta.get("filters") or []:
-        raise ValueError(f"{path}: zarr v2 filter {flt.get('id')!r} is not supported")
     if meta.get("order", "C") != "C":
         raise ValueError(f"{path}: zarr v2 order {meta['order']!r} is not supported")
     dtype = np.dtype(meta["dtype"])
+    chain = chain_from_v2(meta.get("compressor"), meta.get("filters"), dtype, path)
     return _ArrayMeta(tuple(meta["shape"]), tuple(meta["chunks"]), dtype,
-                      _fill_value(meta.get("fill_value"), dtype), name, "",
+                      _fill_value(meta.get("fill_value"), dtype), chain, "",
                       meta.get("dimension_separator", "."))
 
 
 def _v3_meta(meta: dict, path: Path) -> _ArrayMeta:
-    codecs = meta.get("codecs", [])
-    names = [c.get("name") for c in codecs]
-    unsupported = [n for n in names if n not in ("bytes", "gzip")]
-    if unsupported or names[:1] != ["bytes"] or len(names) > 2:
-        raise ValueError(f"{path}: zarr v3 codecs {names} are not supported: only bytes, "
-                         "optionally followed by gzip, is read")
-    endian = (codecs[0].get("configuration") or {}).get("endian", "little")
     name = meta["data_type"]
     if name not in _V3_DTYPES:
         raise ValueError(f"{path}: zarr v3 data type {name!r} is not supported")
+    endian, chain, shard = chain_from_v3(meta.get("codecs", []), np.dtype(name), path)
     dtype = np.dtype(name).newbyteorder("<" if endian == "little" else ">")
     grid = meta["chunk_grid"]
     if grid.get("name") != "regular":
@@ -203,21 +209,52 @@ def _v3_meta(meta: dict, path: Path) -> _ArrayMeta:
     else:
         raise ValueError(f"{path}: zarr v3 chunk key encoding {enc.get('name')!r} is not "
                          "supported")
-    return _ArrayMeta(tuple(meta["shape"]), tuple(grid["configuration"]["chunk_shape"]),
-                      dtype, _fill_value(meta.get("fill_value"), dtype),
-                      "gzip" if len(names) == 2 else None, prefix, sep)
+    grid_shape = tuple(grid["configuration"]["chunk_shape"])
+    chunks, shard_shape = grid_shape, None
+    if shard is not None:
+        chunks, shard_shape = shard.chunk_shape, grid_shape
+        if len(chunks) != len(grid_shape) or any(
+                s % c for s, c in zip(grid_shape, chunks)):
+            raise ValueError(f"{path}: sharding_indexed inner chunks {list(chunks)} do not "
+                             f"tile the shard {list(grid_shape)}")
+    return _ArrayMeta(tuple(meta["shape"]), chunks, dtype,
+                      _fill_value(meta.get("fill_value"), dtype), chain, prefix, sep,
+                      shard, shard_shape)
 
 
-def _array_metadata(shape, dtype, chunks, version: str) -> dict:
-    """The metadata this module writes: uncompressed chunks, little endian."""
+_V3_BYTES = {"configuration": {"endian": "little"}, "name": "bytes"}
+_V3_ZSTD = {"configuration": {"checksum": False, "level": 1}, "name": "zstd"}
+
+
+def _array_metadata(shape, dtype, chunks, version: str, compressor: str | None = None,
+                    shards_ratio: Sequence[int] | None = None) -> dict:
+    """The metadata this module writes, little endian: uncompressed chunks,
+    or with ``compressor="zstd"`` the reference's (v2 blosc with zstd level
+    1 and byte shuffle; v3 ``bytes`` then ``zstd`` level 1); a v3 array
+    with ``shards_ratio`` is the reference's ``sharding_indexed`` one
+    (``shards_ratio`` x ``chunks`` a shard, cut to the shape)."""
+    if compressor not in (None, "zstd"):
+        raise ValueError(f"compressor {compressor!r}: chunks are written uncompressed (None) "
+                         "or as the reference's zstd layouts ('zstd')")
     dtype = np.dtype(dtype)
     chunks = [int(c) for c in (chunks if chunks is not None else _default_chunks(shape, dtype))]
     fill = 0.0 if dtype.kind in "fc" else (False if dtype.kind == "b" else 0)
     if version == "0.5":
+        codecs = [_V3_BYTES] + ([_V3_ZSTD] if compressor else [])
+        grid = chunks
+        if shards_ratio is not None:
+            if len(shards_ratio) != len(chunks):
+                raise ValueError(f"shards_ratio {list(shards_ratio)} wants one ratio per axis "
+                                 f"of {list(shape)}")
+            grid = [min(c * int(r), int(n)) for c, r, n in zip(chunks, shards_ratio, shape)]
+            codecs = [{"configuration": {
+                "chunk_shape": chunks, "codecs": [_V3_BYTES, _V3_ZSTD],
+                "index_codecs": [_V3_BYTES, {"name": "crc32c"}]},
+                "name": "sharding_indexed"}]
         return {
-            "chunk_grid": {"configuration": {"chunk_shape": chunks}, "name": "regular"},
+            "chunk_grid": {"configuration": {"chunk_shape": grid}, "name": "regular"},
             "chunk_key_encoding": {"name": "default"},
-            "codecs": [{"configuration": {"endian": "little"}, "name": "bytes"}],
+            "codecs": codecs,
             "data_type": dtype.name,
             "fill_value": fill,
             "node_type": "array",
@@ -226,7 +263,8 @@ def _array_metadata(shape, dtype, chunks, version: str) -> dict:
         }
     return {
         "chunks": chunks,
-        "compressor": None,
+        "compressor": ({"blocksize": 0, "clevel": 1, "cname": "zstd", "id": "blosc",
+                        "shuffle": 1} if compressor else None),
         "dimension_separator": ".",
         "dtype": dtype.newbyteorder("<").str,
         "fill_value": fill,
@@ -313,21 +351,54 @@ class ImageArray:
     def _chunk_bounds(self, idx) -> list[tuple[int, int]]:
         return [(i * c, min((i + 1) * c, n)) for i, c, n in zip(idx, self.chunks, self.shape)]
 
-    def _decode(self, raw: bytes) -> np.ndarray:
+    def _decode(self, raw, out: np.ndarray | None = None) -> np.ndarray:
+        """A stored chunk's values (decoded into ``out``, a C-contiguous
+        array of the chunk's shape and stored dtype, where given)."""
         m = self._meta
-        if m.compressor == "zlib":
-            raw = zlib.decompress(raw)
-        elif m.compressor == "gzip":
-            raw = gzip.decompress(raw)
-        return np.frombuffer(raw, m.dtype).reshape(m.chunks)
+        nbytes = math.prod(m.chunks) * m.dtype.itemsize
+        buf = m.compressor.decode(raw, nbytes, None if out is None else
+                                  out.reshape(-1).view(np.uint8))
+        return out if out is not None else buf.view(m.dtype).reshape(m.chunks)
 
-    def _read_chunk(self, idx) -> np.ndarray | None:
-        try:
-            with open(self._chunk_path(idx), "rb") as f:
-                raw = f.read()
-        except FileNotFoundError:
+    def _shard_of(self, idx) -> tuple[tuple[int, ...], int]:
+        """The shard holding inner chunk ``idx``, and the chunk's entry in
+        the shard's index."""
+        m = self._meta
+        per = m.shard.per_shard(m.shard_shape)
+        shard = tuple(i // p for i, p in zip(idx, per))
+        return shard, int(np.ravel_multi_index(tuple(i % p for i, p in zip(idx, per)), per))
+
+    def _read_stored(self, idx, indexes: dict | None = None):
+        """Chunk ``idx``'s stored bytes, None where it is absent; a sharded
+        array's shard indexes are kept in ``indexes`` across calls."""
+        m = self._meta
+        if m.shard is None:
+            try:
+                with open(self._chunk_path(idx), "rb") as f:
+                    return f.read()
+            except FileNotFoundError:
+                return None
+        shard, entry = self._shard_of(idx)
+        indexes = {} if indexes is None else indexes
+        if indexes.get(shard, ()) is None:
             return None
-        return self._decode(raw)
+        try:
+            with open(self._chunk_path(shard), "rb") as f:
+                if shard not in indexes:
+                    indexes[shard] = m.shard.read_index(
+                        f, math.prod(m.shard.per_shard(m.shard_shape)))
+                offset, nbytes = (int(v) for v in indexes[shard][entry])
+                if offset == _EMPTY and nbytes == _EMPTY:
+                    return None
+                f.seek(offset)
+                return f.read(nbytes)
+        except FileNotFoundError:
+            indexes[shard] = None
+            return None
+
+    def _read_chunk(self, idx, indexes: dict | None = None) -> np.ndarray | None:
+        raw = self._read_stored(idx, indexes)
+        return None if raw is None else self._decode(raw)
 
     def _chunk_ranges(self, box) -> Iterator[tuple]:
         return itertools.product(*[range(a // c, (b - 1) // c + 1) if b > a else range(0)
@@ -338,7 +409,8 @@ class ImageArray:
     def _read_box(self, box, out: np.ndarray) -> None:
         """Fill ``out`` (the box's shape) with the box ``[(start, stop)]``."""
         m = self._meta
-        raw_ok = m.compressor is None and m.dtype.isnative
+        raw_ok = m.raw and m.dtype.isnative
+        indexes: dict = {}
         for idx in self._chunk_ranges(box):
             bounds = self._chunk_bounds(idx)
             inter = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi) in zip(box, bounds)]
@@ -365,8 +437,13 @@ class ImageArray:
                 except FileNotFoundError:
                     dest[...] = m.fill
                 continue
-            chunk = self._read_chunk(idx)
-            dest[...] = m.fill if chunk is None else chunk[inner]
+            raw = self._read_stored(idx, indexes)
+            if raw is None:
+                dest[...] = m.fill
+            elif whole and dest.flags.c_contiguous and m.dtype.isnative:
+                self._decode(raw, out=dest)
+            else:
+                dest[...] = self._decode(raw)[inner]
 
     def read_into(self, key, out: np.ndarray) -> np.ndarray:
         """Read the selection ``key`` into ``out`` (its shape, any dtype the
@@ -408,16 +485,13 @@ class ImageArray:
     # -- writes -------------------------------------------------------------
 
     def _encode(self, chunk: np.ndarray) -> bytes | memoryview:
-        m = self._meta
-        data = np.ascontiguousarray(chunk, dtype=m.dtype)
-        if m.compressor == "zlib":
-            return zlib.compress(data.tobytes())
-        if m.compressor == "gzip":
-            return gzip.compress(data.tobytes())
-        return memoryview(data).cast("B")
+        return self._meta.compressor.encode(np.ascontiguousarray(chunk, dtype=self._meta.dtype))
 
     def _write_box(self, box, value: np.ndarray) -> None:
         m = self._meta
+        if m.shard is not None:
+            self._write_shards(box, value)
+            return
         for idx in self._chunk_ranges(box):
             bounds = self._chunk_bounds(idx)
             inter = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi) in zip(box, bounds)]
@@ -439,6 +513,56 @@ class ImageArray:
                 chunk = np.full(m.chunks, m.fill, m.dtype) if old is None else old.copy()
                 chunk[inner] = src
                 _replace_bytes(self._chunk_path(idx), self._encode(chunk))
+
+    def _write_shards(self, box, value: np.ndarray) -> None:
+        """Write the box into each shard it touches: a shard the box covers
+        is encoded from ``value`` alone; any other is read, its untouched
+        inner chunks kept as stored, under the array's lock."""
+        m = self._meta
+        for shard in itertools.product(*[range(a // s, (b - 1) // s + 1)
+                                         for (a, b), s in zip(box, m.shard_shape)]):
+            bounds = [(i * s, min((i + 1) * s, n)) for i, s, n in
+                      zip(shard, m.shard_shape, m.shape)]
+            if all(a <= lo and hi <= b for (a, b), (lo, hi) in zip(box, bounds)):
+                self._write_shard(shard, box, value, None)
+                continue
+            with self._lock:
+                try:
+                    with open(self._chunk_path(shard), "rb") as f:
+                        old = f.read()
+                except FileNotFoundError:
+                    old = None
+                self._write_shard(shard, box, value, old)
+
+    def _write_shard(self, shard, box, value: np.ndarray, old: bytes | None) -> None:
+        m = self._meta
+        per = m.shard.per_shard(m.shard_shape)
+        index = None
+        if old is not None:
+            index = m.shard.read_index(io.BytesIO(old), math.prod(per))
+        encoded = []
+        for entry, idx in enumerate(itertools.product(
+                *[range(i * p, (i + 1) * p) for i, p in zip(shard, per)])):
+            bounds = self._chunk_bounds(idx)
+            inter = [(max(a, lo), min(b, hi)) for (a, b), (lo, hi) in zip(box, bounds)]
+            stored = None
+            if index is not None and int(index[entry][0]) != _EMPTY:
+                offset, nbytes = (int(v) for v in index[entry])
+                stored = old[offset:offset + nbytes]
+            if any(lo >= hi for lo, hi in bounds) or any(lo >= hi for lo, hi in inter):
+                encoded.append(stored)  # past the array, or not written now
+                continue
+            src = value[tuple(slice(lo - a, hi - a) for (lo, hi), (a, _) in zip(inter, box))]
+            inner = tuple(slice(lo - blo, hi - blo) for (lo, hi), (blo, _) in zip(inter, bounds))
+            if all(lo == blo and hi == blo + c for (lo, hi), (blo, _), c
+                   in zip(inter, bounds, m.chunks)):
+                chunk = src
+            else:
+                chunk = (np.full(m.chunks, m.fill, m.dtype) if stored is None
+                         else self._decode(stored).copy())
+                chunk[inner] = src
+            encoded.append(bytes(self._encode(chunk)))
+        _replace_bytes(self._chunk_path(shard), m.shard.assemble(encoded))
 
     def __setitem__(self, key, value) -> None:
         sel = _normalize(key, self.shape)
@@ -466,10 +590,11 @@ class ImageArray:
         return _io_pool().submit(self.__setitem__, key, value)
 
 
-def _create_array(path: Path, version: str, shape, dtype, chunks) -> ImageArray:
+def _create_array(path: Path, version: str, shape, dtype, chunks, compressor=None,
+                  shards_ratio=None) -> ImageArray:
     """Create the array at ``path``, or open it when it exists with the
     same metadata; an array there with other metadata is replaced."""
-    meta = _array_metadata(shape, dtype, chunks, version)
+    meta = _array_metadata(shape, dtype, chunks, version, compressor, shards_ratio)
     name = "zarr.json" if version == "0.5" else ".zarray"
     target = path / name
     if target.exists():
@@ -633,20 +758,26 @@ class Position(_Group):
         return names
 
     def create_image(self, name: str, data: np.ndarray, chunks: Sequence[int] | None = None,
-                     transform: list[TransformationMeta] | None = None) -> ImageArray:
+                     transform: list[TransformationMeta] | None = None,
+                     shards_ratio: Sequence[int] | None = None,
+                     compressor: str | None = None) -> ImageArray:
         data = np.asarray(data)
-        arr = self.create_zeros(name, data.shape, data.dtype, chunks=chunks, transform=transform)
+        arr = self.create_zeros(name, data.shape, data.dtype, chunks=chunks, transform=transform,
+                                shards_ratio=shards_ratio, compressor=compressor)
         arr[...] = data
         return arr
 
     def create_zeros(self, name: str, shape: Sequence[int], dtype,
                      chunks: Sequence[int] | None = None,
                      transform: list[TransformationMeta] | None = None,
-                     shards_ratio: Sequence[int] | None = None) -> ImageArray:
-        if shards_ratio is not None:
-            raise ValueError("sharded zarr v3 arrays (shards_ratio) are not written: the "
-                             "sharding_indexed codec is not supported")
-        arr = _create_array(self.path / name, self.version, shape, dtype, chunks)
+                     shards_ratio: Sequence[int] | None = None,
+                     compressor: str | None = None) -> ImageArray:
+        """Create (or open, when its metadata is the same) the array
+        ``name``: uncompressed chunks, the reference's zstd layout with
+        ``compressor="zstd"``, the reference's shards (OME-Zarr 0.5 only, as
+        the reference ignores the ratio for 0.4) with ``shards_ratio``."""
+        arr = _create_array(self.path / name, self.version, shape, dtype, chunks, compressor,
+                            shards_ratio if self.version == "0.5" else None)
         self._arrays[name] = arr
         ms = self.zattrs.get("multiscales")
         tforms = ([t.to_ngff() for t in transform] if transform
@@ -862,23 +993,22 @@ def create_empty_plate(
     version: Literal["0.4", "0.5"] = "0.4",
     metadata_sources: str | Path | None = None,
     metadata_keys: Sequence[str] | None = None,
+    compressor: str | None = None,
 ) -> Plate:
     """Idempotently create an output plate with empty arrays for each position.
 
     Re-running with the same positions changes nothing; new positions are
     appended. Attributes whose keys match the ``metadata_keys`` fnmatch
     allowlist are copied from the same position of ``metadata_sources``
-    (which may be of the other OME-Zarr version). In a run of several
+    (which may be of the other OME-Zarr version). ``shards_ratio`` and
+    ``compressor`` are :meth:`Position.create_zeros`'. In a run of several
     processes the coordinator creates the plate while the others wait at a
     barrier.
     """
     from biahub_tpu_torch.parallel.distributed import barrier, is_coordinator, process_count
 
-    if shards_ratio is not None:
-        raise ValueError("sharded zarr v3 arrays (shards_ratio) are not written: the "
-                         "sharding_indexed codec is not supported")
-    args = (store_path, position_keys, channel_names, shape, chunks, scale, dtype, version,
-            metadata_sources, metadata_keys)
+    args = (store_path, position_keys, channel_names, shape, chunks, shards_ratio, scale, dtype,
+            version, metadata_sources, metadata_keys, compressor)
     if process_count() > 1:
         if not is_coordinator():
             barrier(f"plate-create:{store_path}")
@@ -890,8 +1020,9 @@ def create_empty_plate(
     return _create_empty_plate_local(*args)
 
 
-def _create_empty_plate_local(store_path, position_keys, channel_names, shape, chunks, scale,
-                              dtype, version, metadata_sources, metadata_keys) -> Plate:
+def _create_empty_plate_local(store_path, position_keys, channel_names, shape, chunks,
+                              shards_ratio, scale, dtype, version, metadata_sources,
+                              metadata_keys, compressor) -> Plate:
     import fnmatch
 
     store_path = Path(store_path)
@@ -906,7 +1037,8 @@ def _create_empty_plate_local(store_path, position_keys, channel_names, shape, c
         position = plate.create_position(row, col, fov, channel_names=channel_names)
         if "0" not in position:
             position.create_zeros("0", shape, np.dtype(dtype), chunks=chunks,
-                                  transform=[TransformationMeta(type="scale", scale=scale)])
+                                  transform=[TransformationMeta(type="scale", scale=scale)],
+                                  shards_ratio=shards_ratio, compressor=compressor)
         if source_plate is not None and metadata_keys:
             try:
                 src_attrs = source_plate[f"{row}/{col}/{fov}"].zattrs

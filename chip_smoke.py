@@ -277,7 +277,8 @@ Then the verbs on plates, through the command line a user calls:
     untouched), the deskew verb on the same plate (bit-equal to
     ``deskew_arrays``), the flat-field verb into an OME-Zarr 0.5 plate on a
     small cut (bit-equal to ``flat_field_arrays``, read back as written),
-    and requires a blosc ``.zarray`` to raise naming its codec; the
+    and requires a v2 filter (``delta``, outside the store's codecs) to
+    raise naming itself; the
     directory is deleted at the end.
 24. the reconstruction and estimate verbs on plates at full width, each
     plate written by the port in a ``tempfile.mkdtemp()`` directory and
@@ -335,8 +336,9 @@ Then the verbs on plates, through the command line a user calls:
     ``threshold_otsu`` (bit-equal to the host function) and a CPnet at
     cellpose's default width (random weights and BatchNorm statistics,
     diameter 40: resized on the card), its output on one slice within the
-    same bounds of the host's float32 run and that slice's labels against
-    the plain route's up to a permutation (printed); the flow round trip on
+    same bounds of the host's float32 run and that slice's labels under
+    TF32 and under highest against the plain route's up to a permutation
+    (both counts printed); the flow round trip on
     rendered instance masks at 1024 x 484 (``masks_to_flows`` ->
     ``compute_masks_zyx`` on the card: every instance recovered, equal to
     the plain route up to a permutation; ``follow_flows`` timed per
@@ -347,6 +349,28 @@ Then the verbs on plates, through the command line a user calls:
     passes its input through, on the nuclei repeated over 5 planes) joined
     by concatenate into an assembled plate, and track on its
     ``nuclei_prediction`` (each nucleus one track).
+27. the store's codecs and the last eight CLI entries, in a
+    ``tempfile.mkdtemp()`` directory (page cache warm): the libraries
+    ``ctypes.util.find_library`` finds (``zstd`` must be found); phase 23's
+    fuse input (uniform random: blosc's memcpyed route) and a camera-like
+    copy (Poisson noise around a smooth field with an offset of 100) written
+    uncompressed and in the reference's three layouts (v2 blosc-zstd with
+    byte shuffle, v3 ``bytes`` + ``zstd``, v3 ``sharding_indexed``) on the
+    store's I/O threads, each read back bit-equal (write and read ms,
+    MB/s, the compression ratio); the fuse verb once over all eight plates'
+    positions (A-F launched; each compressed plate's output bit-equal to
+    the uncompressed plate's); the fused volume written uncompressed and at
+    zstd level 1; process-with-config's example binning on phase 23's plate
+    (bit-equal to the rule in NumPy); characterize-psf with the example
+    settings on a (118, 1043, 518) volume of rendered integer-valued beads
+    (G launched once, the peaks equal to the plain route's, the mean fitted
+    FWHM within FWHM_TOL of the rendered one; whole-call ms and its host
+    part); estimate-crop on two (T 2, 86, 1024, 484) arms with zero borders
+    (the boxes' intersection); estimate-bleaching on a (6, 2, 86, 1024, 484)
+    rendered decay (the card's means within BLEACH_MEAN_TOL of NumPy's, the
+    lifetimes within BLEACH_TAU_TOL); estimate-deskew from point files (the
+    known angle and ratio); check-disk-space, nf list-positions and
+    crop-background.
 
 Times are CUDA-event medians on this card.
 
@@ -3834,19 +3858,19 @@ def plates_phase(dev: torch.device, psf: np.ndarray) -> None:
         print("23 flat-field verb into OME-Zarr 0.5 (2x2 (16, 64, 128)): bit-equal to "
               "flat_field_arrays, read back as written")
 
-        blosc = tmp / "blosc.zarr"
-        open_ome_zarr(blosc, layout="fov", mode="w", channel_names=["a"]).create_zeros(
+        filtered = tmp / "filtered.zarr"
+        open_ome_zarr(filtered, layout="fov", mode="w", channel_names=["a"]).create_zeros(
             "0", (1, 1, 2, 4, 4), np.float32)
-        meta = json.loads((blosc / "0" / ".zarray").read_text())
-        meta["compressor"] = {"id": "blosc", "cname": "zstd", "clevel": 1, "shuffle": 1}
-        (blosc / "0" / ".zarray").write_text(json.dumps(meta))
+        meta = json.loads((filtered / "0" / ".zarray").read_text())
+        meta["filters"] = [{"id": "delta", "dtype": "<f4"}]
+        (filtered / "0" / ".zarray").write_text(json.dumps(meta))
         try:
-            open_ome_zarr(blosc).data[...]
+            open_ome_zarr(filtered).data[...]
             raised = ""
         except ValueError as exc:
             raised = str(exc)
-        require("blosc" in raised, "a blosc .zarray did not raise naming its codec")
-        print(f"23 a blosc chunk raises: {raised.split(': ', 1)[-1]}")
+        require("delta" in raised, "a v2 filter did not raise naming itself")
+        print(f"23 a v2 filter raises: {raised.split(': ', 1)[-1]}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4750,6 +4774,9 @@ def model_plates_phase(dev: torch.device) -> None:
         one = seg_data[0][:, :1]
         seg_kwargs = dict(eval_args, channels=(1, 2))
         card_labels = cpnet_segment_czyx(one, str(cp_ckpt), device=dev, **seg_kwargs)
+        set_precision("highest")
+        highest_labels = cpnet_segment_czyx(one, str(cp_ckpt), device=dev, **seg_kwargs)
+        set_precision(None)
         plain_labels = cpnet_segment_czyx(one, str(cp_ckpt), device="cpu", **seg_kwargs)
         line("segment", f"{SEG_TCZYX} float32, threshold_otsu and CPnet {CPNET_WIDTH} (random "
              f"weights and BatchNorm statistics, diameter {SEG_DIAMETER}: rescaled to "
@@ -4757,8 +4784,11 @@ def model_plates_phase(dev: torch.device) -> None:
              f"threshold {threshold}): {1e3 * seconds:.1f} ms for the whole call (host clock), "
              f"peak card memory {peak:.2f} GiB; {int(otsu.max())} Otsu instances bit-equal to "
              f"the host function, {len(np.unique(labels[0, 1])) - 1} CPnet labels; slice 0's "
-             f"labels ({int(card_labels.max())} on the card, {int(plain_labels.max())} on the "
-             f"plain route) differ in {label_mismatch(card_labels, plain_labels)} of "
+             f"labels ({int(card_labels.max())} on the card under TF32, the default, "
+             f"{int(highest_labels.max())} under highest, {int(plain_labels.max())} on the "
+             f"plain route) differ from the plain route's in "
+             f"{label_mismatch(card_labels, plain_labels)} (TF32) and "
+             f"{label_mismatch(highest_labels, plain_labels)} (highest) of "
              f"{card_labels.size} pixels up to a permutation")
 
         masks = render_masks((ROUND_TRIP_Z, Ys, Xs), rng)
@@ -4890,6 +4920,408 @@ def model_plates_phase(dev: torch.device) -> None:
         set_precision(saved_precision)
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+
+# Phase 27: the store's codecs and the last eight entries. Phase 23's fuse
+# input and a camera-like copy in the reference's three written layouts (the
+# sharded one as concatenate writes it with chunks_czyx (1, 64, 256, 1024)
+# and shards_ratio (1, 1, 4, 1, 1): a shard a volume); characterize-psf on
+# one volume of the beads frame with CODEC_PSF_BEADS rendered beads
+# CODEC_PSF_STEP voxels apart; estimate-crop's arms and their boxes;
+# estimate-bleaching's decay (minutes a frame, the lifetime in minutes).
+CODEC_LAYOUTS = (("v2 blosc-zstd", "0.4", None), ("v3 bytes+zstd", "0.5", None),
+                 ("v3 sharded", "0.5", [1, 1, 4, 1, 1]))
+CODEC_SHARD_CHUNKS = [1, 1, 64, 256, 1024]
+CODEC_PSF_FRAME = (118, 1043, 518)
+CODEC_PSF_STEP = 240
+CODEC_PSF_PEAK = 2000.0
+CROP_TZYX = (2, 86, 1024, 484)
+CROP_BOXES = {"lf": ((4, 80), (40, 1000), (20, 470)), "ls": ((8, 84), (20, 980), (30, 460))}
+BLEACH_TCZYX = (6, 2, 86, 1024, 484)
+BLEACH_MINUTES, BLEACH_TAU = 10.0, 30.0
+BLEACH_MEAN_TOL, BLEACH_TAU_TOL = 1e-6, 0.01
+FWHM_TOL = 0.10
+
+
+def binning_sum_rule(czyx: np.ndarray, factor) -> np.ndarray:
+    """The reference's ``binning_czyx`` in sum mode (process_data.py:36),
+    for the check of process-with-config."""
+    bz, by, bx = factor
+    C, Z, Y, X = czyx.shape
+    nz, ny, nx = Z // bz, Y // by, X // bx
+    out = np.zeros((C, nz, ny, nx), np.float32)
+    top = np.iinfo(czyx.dtype).max if np.issubdtype(czyx.dtype, np.integer) else 65535
+    for c in range(C):
+        out[c] = czyx[c, : nz * bz, : ny * by, : nx * bx].astype(np.float32).reshape(
+            nz, bz, ny, by, nx, bx).sum(axis=(1, 3, 5))
+        if out[c].max() > 0 and out[c].max() - out[c].min() > 0:
+            out[c] = (out[c] - out[c].min()) * top / (out[c].max() - out[c].min())
+    return out.astype(czyx.dtype)
+
+
+def codecs_phase(dev: torch.device, psf: np.ndarray) -> None:
+    """Phase 27: the store's codecs at full size and the last eight CLI
+    entries (module docstring)."""
+    import csv
+    import ctypes.util
+    import pickle
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    import biahub_tpu_torch.characterize_psf as cpsf
+    import biahub_tpu_torch.estimate_bleaching as bleach
+    from biahub_tpu_torch.cli.yaml_reader import load_file
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.kernels.deskew import get_deskewed_data_shape
+    from biahub_tpu_torch.kernels.peaks import detect_peaks
+
+    card = gpu_info()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_codecs_"))
+    phase_t0 = time.perf_counter()
+    here = Path(__file__).resolve().parent
+
+    def line(what: str, text: str) -> None:
+        print(f"27 {what}: {text}; card {card}; {time.perf_counter() - phase_t0:.1f} s into "
+              "the phase")
+
+    def du(path) -> int:
+        return sum(f.stat().st_size for f in Path(path).rglob("*") if f.is_file())
+
+    zstd_lib, blosc_lib = ctypes.util.find_library("zstd"), ctypes.util.find_library("blosc")
+    line("libraries", f"find_library('zstd') = {zstd_lib!r}, find_library('blosc') = "
+         f"{blosc_lib!r}")
+    require(zstd_lib is not None, "phase 27: ctypes.util.find_library('zstd') finds no libzstd")
+    try:
+        names = ["GFP", "Phase3D"]
+        scale = [1.0, 1.0, FUSE_DESKEW["scan_step_um"], FUSE_DESKEW["pixel_size_um"],
+                 FUSE_DESKEW["pixel_size_um"]]
+        tc = [(t, c) for t in range(FUSE_T) for c in range(FUSE_C)]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        kinds = {"uniform": torch.randint(0, 65536, (FUSE_T, FUSE_C) + SHAPE, generator=gen,
+                                          device=dev, dtype=torch.int32).to(torch.uint16)}
+        gen27 = torch.Generator(device=dev).manual_seed(27)
+        field = 100.0 + 1000.0 * smooth_rand(SHAPE, gen27)
+        kinds["camera"] = torch.stack([torch.stack([
+            torch.poisson(field, generator=gen27) for _ in range(FUSE_C)])
+            for _ in range(FUSE_T)]).clamp_(max=65535).to(torch.int32).to(torch.uint16)
+        del field
+        kinds = {k: v.cpu().numpy() for k, v in kinds.items()}
+        raw_mb = kinds["uniform"].nbytes / 1e6
+
+        # -- the codecs: each layout written and read on the I/O threads -----
+        positions = []
+        for row, (kind, data) in zip("AB", kinds.items()):
+            for col, (layout, version, ratio) in enumerate(
+                    (("uncompressed", "0.4", None),) + CODEC_LAYOUTS, start=1):
+                root = tmp / f"{kind}_{col}.zarr"
+                plate = open_ome_zarr(root, layout="hcs", mode="w", channel_names=names,
+                                      version=version)
+                pos = plate.create_position(row, str(col), "0")
+                arr = pos.create_zeros(
+                    "0", data.shape, data.dtype,
+                    chunks=CODEC_SHARD_CHUNKS if ratio else None, shards_ratio=ratio,
+                    compressor=None if col == 1 else "zstd",
+                    transform=[TransformationMeta(type="scale", scale=scale)])
+                t0 = time.perf_counter()
+                for f in [arr.write_async(key, data[key]) for key in tc]:
+                    f.result()
+                write_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back = [f.result() for f in [arr.read_async(key) for key in tc]]
+                read_s = time.perf_counter() - t0
+                require(all(np.array_equal(b, data[key]) for b, key in zip(back, tc)),
+                        f"codecs: {kind} {layout} does not read back bit-equal")
+                del back
+                t0 = time.perf_counter()
+                for key in tc:
+                    arr[key]
+                serial_s = time.perf_counter() - t0
+                ratio_c = data.nbytes / du(root / row / str(col) / "0" / "0")
+                positions.append(root / row / str(col) / "0")
+                line(f"codec {kind} {layout}", f"{FUSE_T}x{FUSE_C} uint16 {SHAPE} "
+                     f"({raw_mb:.1f} MB): write {1e3 * write_s:.1f} ms ({raw_mb / write_s:.1f} "
+                     f"MB/s encode and file), read {1e3 * read_s:.1f} ms ({raw_mb / read_s:.1f} "
+                     f"MB/s file and decode; page cache warm), {len(tc)} volumes on the "
+                     f"{len(tc)} I/O threads; one after another on one thread the read takes "
+                     f"{1e3 * serial_s:.1f} ms ({serial_s / read_s:.2f}x the threads' time); ratio "
+                     f"{ratio_c:.3f}; read back bit-equal")
+
+        # -- the fuse verb on every plate at once (one transfer function) ----
+        psf_plate = open_ome_zarr(tmp / "psf.zarr", layout="hcs", mode="w",
+                                  channel_names=["PSF"])
+        psf_plate.create_position("0", "0", "0").create_image(
+            "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=scale)])
+        frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
+        users = {"flat_field": {"channel_names": ["GFP"]},
+                 "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
+                 "registration": {"affine_transform_zyx": inplane_about_centre(
+                     FUSE_REG_DEG, FUSE_REG_SHIFT, frame).tolist()},
+                 "stabilization": {"affine_transform_zyx_list": [
+                     inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame).tolist()
+                     for t in range(FUSE_T)]}}
+        (tmp / "fuse.yml").write_text(yaml_flow(users) + "\n")
+        out = tmp / "fused.zarr"
+        seconds, launches, stats, _ = run_verb(
+            ["fuse", "-i", *map(str, positions), "-c", str(tmp / "fuse.yml"), "-o", str(out),
+             "-p", str(tmp / "psf.zarr")])
+        n_units = len(positions) * len(tc)
+        for name in ("fwd_yx", "z_filter", "inv_yx"):
+            require(launches.get(name) == n_units,
+                    f"fuse on the codecs' plates: {name} launched {launches.get(name)} times")
+        for name in ("deskew", "warp_zy", "warp_x"):
+            require(launches.get(name, 0) >= 1, f"fuse on the codecs' plates: {name} not "
+                    "launched")
+        fused = {}
+        for p in positions:
+            key = "/".join(p.parts[-3:])
+            fused[key] = open_ome_zarr(out / key).data[...]
+        for row in "AB":
+            want = fused[f"{row}/1/0"].view(np.int32)
+            for col in (2, 3, 4):
+                require(np.array_equal(fused[f"{row}/{col}/0"].view(np.int32), want),
+                        f"fuse: the {CODEC_LAYOUTS[col - 2][0]} plate ({row}) differs from the "
+                        "uncompressed plate's")
+        line("fuse verb on the codecs' plates", f"{len(positions)} positions (2 kinds x the "
+             f"uncompressed and 3 compressed layouts), {n_units} (t, c) volumes, phase 23's "
+             f"settings: {1e3 * seconds:.1f} ms for the whole call (host clock; the runner "
+             f"{1e3 * stats['wall_s']:.1f} ms, its reads waited {1e3 * stats['read_s']:.1f} "
+             f"ms, its writes {1e3 * stats['write_s']:.1f} ms); every compressed plate's "
+             f"output bit-equal to the uncompressed plate's; launches {launches}")
+
+        # -- the output volume written uncompressed and at zstd level 1 ------
+        vol_out = fused["B/1/0"]
+        del fused
+        shutil.rmtree(out)
+        for p in positions[1:]:
+            shutil.rmtree(p.parents[2])
+        mb_out = vol_out.nbytes / 1e6
+        notes = []
+        for label, version, compressor in (("uncompressed", "0.4", None),
+                                           ("v2 blosc-zstd", "0.4", "zstd"),
+                                           ("v3 bytes+zstd", "0.5", "zstd")):
+            pos = open_ome_zarr(tmp / f"out_{label.split()[0]}.zarr", layout="fov", mode="w",
+                                channel_names=names, version=version)
+            arr = pos.create_zeros("0", vol_out.shape, vol_out.dtype, compressor=compressor)
+            t0 = time.perf_counter()
+            for f in [arr.write_async(key, vol_out[key]) for key in tc]:
+                f.result()
+            w = time.perf_counter() - t0
+            notes.append(f"{label} {1e3 * w:.1f} ms ({mb_out / w:.1f} MB/s, ratio "
+                         f"{vol_out.nbytes / du(tmp / f'out_{label.split()[0]}.zarr' / '0'):.3f})")
+        line("output write", f"the fused camera-like volume ({tuple(vol_out.shape)} float32, "
+             f"{mb_out:.1f} MB) on the I/O threads: " + "; ".join(notes))
+        del vol_out
+        for label in ("uncompressed", "v2", "v3"):
+            shutil.rmtree(tmp / f"out_{label}.zarr")
+
+        # -- process-with-config: the example binning on phase 23's plate ----
+        proc = load_file(here / "settings" / "example_process_with_config_settings.yml")
+        proc["processing_functions"][0]["input_channels"] = [names[0]]
+        factor = proc["processing_functions"][0]["kwargs"]["binning_factor_zyx"]
+        (tmp / "proc.yml").write_text(yaml_flow(proc) + "\n")
+        seconds_p, _, _, _ = run_verb(["process-with-config", "-i", str(positions[0]), "-c",
+                                       str(tmp / "proc.yml"), "-o", str(tmp / "binned.zarr")])
+        binned = open_ome_zarr(tmp / "binned.zarr" / "A/1/0").data[...]
+        want = np.stack([binning_sum_rule(kinds["uniform"][t], factor)
+                         for t in range(FUSE_T)]).astype(np.float32)
+        require(binned.shape == want.shape and np.array_equal(binned.view(np.int32),
+                                                              want.view(np.int32)),
+                "process-with-config: the plate differs from binning_czyx's rule")
+        line("process-with-config", f"the example binning {factor} (sum) of phase 23's plate "
+             f"-> {binned.shape} float32: {1e3 * seconds_p:.1f} ms for the whole call (host "
+             "clock, on the host as the reference); bit-equal to the rule in NumPy")
+        del binned, want, kinds
+
+        # -- characterize-psf on one volume of the beads frame ---------------
+        _, voxel = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG,
+                                           FUSE_DESKEW["pixel_size_um"])
+        zs, ys, xs = CODEC_PSF_FRAME
+        rng = np.random.default_rng(27)
+        centres = torch.tensor([[zs / 2 + rng.uniform(-0.5, 0.5), y + rng.uniform(-0.5, 0.5),
+                                 x + rng.uniform(-0.5, 0.5)]
+                                for y in range(CODEC_PSF_STEP // 2, ys - 30, CODEC_PSF_STEP)
+                                for x in range(CODEC_PSF_STEP // 2, xs - 30, CODEC_PSF_STEP)],
+                               dtype=torch.float64, device=dev)
+        grid = torch.stack(torch.meshgrid(*[torch.arange(n, device=dev, dtype=torch.float64)
+                                            for n in CODEC_PSF_FRAME], indexing="ij"), -1)
+        sig = torch.tensor(BEAD_SIGMA, dtype=torch.float64, device=dev)
+        beads = torch.zeros(CODEC_PSF_FRAME, dtype=torch.float64, device=dev)
+        r = 6
+        for cz, cy, cx in centres.tolist():
+            sl = tuple(slice(int(c) - r, int(c) + r + 1) for c in (cz, cy, cx))
+            d = (grid[sl] - torch.tensor([cz, cy, cx], dtype=torch.float64, device=dev)) / sig
+            beads[sl] += CODEC_PSF_PEAK * torch.exp(-0.5 * (d * d).sum(-1))
+        beads += torch.normal(100.0, 3.0, CODEC_PSF_FRAME, generator=gen27, device=dev,
+                              dtype=torch.float64)
+        beads = torch.round(beads).clamp_(0, 65535).to(torch.int32).to(torch.uint16)
+        del grid
+        bead_np = beads.cpu().numpy()
+        bead_plate = open_ome_zarr(tmp / "beads.zarr", layout="hcs", mode="w",
+                                   channel_names=["GFP"])
+        bead_plate.create_position("0", "0", "0").create_image(
+            "0", bead_np[None, None],
+            transform=[TransformationMeta(type="scale", scale=[1.0, 1.0, *voxel])])
+        detect_s = []
+        real_detect = cpsf.detect_peaks
+
+        def timed_detect(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out_peaks = real_detect(*args, **kwargs)
+            torch.cuda.synchronize()
+            detect_s.append(time.perf_counter() - t0)
+            return out_peaks
+
+        cpsf.detect_peaks = timed_detect
+        try:
+            seconds_c, launches_c, _, _ = run_verb([
+                "characterize-psf", "-i", str(tmp / "beads.zarr" / "0/0/0"), "-c",
+                str(here / "settings" / "example_characterize_settings.yml"), "-o",
+                str(tmp / "psf_report")])
+        finally:
+            cpsf.detect_peaks = real_detect
+        require(launches_c.get("block_max_argmin") == 1,
+                f"characterize-psf: G launched {launches_c.get('block_max_argmin')} times")
+        with open(tmp / "psf_report" / "peaks.pkl", "rb") as f:
+            peaks = pickle.load(f)
+        settings_c = load_file(here / "settings" / "example_characterize_settings.yml")
+        with plain_kernels(), contextlib.redirect_stdout(io.StringIO()):
+            plain_peaks = detect_peaks(
+                beads, block_size=tuple(settings_c["block_size"]),
+                nms_distance=settings_c["nms_distance"],
+                min_distance=settings_c["min_distance"],
+                threshold_abs=settings_c["threshold_abs"],
+                max_num_peaks=settings_c["max_num_peaks"],
+                exclude_border=tuple(settings_c["exclude_border"]),
+                blur_kernel_size=settings_c["blur_kernel_size"], device=dev)
+        require(np.array_equal(peaks, plain_peaks), "characterize-psf: the peaks differ from "
+                "the plain route's")
+        require(len(peaks) == len(centres), f"characterize-psf: {len(peaks)} peaks of "
+                f"{len(centres)} beads")
+        with open(tmp / "psf_report" / "psf_gaussian_fit.csv") as f:
+            rows = list(csv.DictReader(f))
+        fwhm_notes = []
+        for axis, (name, sigma, um) in enumerate(zip("zyx", BEAD_SIGMA, voxel)):
+            want_fwhm = 2 * math.sqrt(2 * math.log(2)) * sigma * um
+            got_fwhm = float(np.mean([float(r[f"zyx_{name}_fwhm"]) for r in rows]))
+            require(abs(got_fwhm / want_fwhm - 1) <= FWHM_TOL,
+                    f"characterize-psf: mean {name} FWHM {got_fwhm:.4f} um, rendered "
+                    f"{want_fwhm:.4f}")
+            fwhm_notes.append(f"{name} {got_fwhm:.4f} (rendered {want_fwhm:.4f})")
+        require((tmp / "psf_report" / "psf_analysis_report.html").exists()
+                and (tmp / "psf_report" / "psf_1d_peak_width.csv").exists(),
+                "characterize-psf: the report's files")
+        line("characterize-psf", f"{len(centres)} integer-valued beads (sigma {BEAD_SIGMA} "
+             f"voxels) in {CODEC_PSF_FRAME} uint16 at {np.round(voxel, 4).tolist()} um, the "
+             f"example settings: {1e3 * seconds_c:.1f} ms for the whole call (host clock), "
+             f"detect_peaks {1e3 * detect_s[0]:.1f} ms of it (the volume to the card, G, the "
+             f"candidates' filtering), the rest {1e3 * (seconds_c - detect_s[0]):.1f} ms on "
+             f"the host (patches, {len(rows)} Gaussian fits, report); G launched once; "
+             f"peaks equal to the plain route's; mean FWHM um " + ", ".join(fwhm_notes))
+        del beads, bead_np
+
+        # -- estimate-crop on two arms with zero borders ---------------------
+        for arm, box in CROP_BOXES.items():
+            data = np.zeros((CROP_TZYX[0], 1) + CROP_TZYX[1:], np.uint16)
+            inner = (slice(None), slice(None)) + tuple(slice(a, b) for a, b in box)
+            data[inner] = torch.randint(1, 65536, data[inner].shape, generator=gen27,
+                                        device=dev, dtype=torch.int32).to(
+                torch.uint16).cpu().numpy()
+            plate = open_ome_zarr(tmp / f"{arm}.zarr", layout="hcs", mode="w",
+                                  channel_names=[arm])
+            plate.create_position("A", "1", "0").create_image("0", data)
+        (tmp / "concat.yml").write_text(yaml_flow({
+            "concat_data_paths": ["lf.zarr/*/*/*", "ls.zarr/*/*/*"],
+            "time_indices": "all", "channel_names": ["all", "all"]}) + "\n")
+        seconds_e, _, _, _ = run_verb(["estimate-crop", "-c", str(tmp / "concat.yml"), "-o",
+                                       str(tmp / "cropped.yml")])
+        cropped = load_file(tmp / "cropped.yml")
+        truth = [[max(a[0], b[0]), min(a[1], b[1])]
+                 for a, b in zip(CROP_BOXES["lf"], CROP_BOXES["ls"])]
+        got_crop = [cropped["Z_slice"], cropped["Y_slice"], cropped["X_slice"]]
+        require(got_crop == truth, f"estimate-crop: {got_crop}, want {truth}")
+        line("estimate-crop", f"two (T {CROP_TZYX[0]}, {CROP_TZYX[1:]}) uint16 arms with zero "
+             f"borders: {1e3 * seconds_e:.1f} ms for the whole call (host clock); the crop "
+             f"{got_crop} is the boxes' intersection")
+
+        # -- estimate-bleaching on a rendered decay ---------------------------
+        T_b, C_b = BLEACH_TCZYX[:2]
+        lam = [[(300.0 + 200.0 * c) * math.exp(-t * BLEACH_MINUTES / BLEACH_TAU) + 200.0
+                for c in range(C_b)] for t in range(T_b)]
+        bleach_np = np.stack([np.stack([torch.poisson(
+            torch.full(BLEACH_TCZYX[2:], lam[t][c], device=dev), generator=gen27).to(
+            torch.int32).to(torch.uint16).cpu().numpy() for c in range(C_b)])
+            for t in range(T_b)])
+        plate = open_ome_zarr(tmp / "bleach.zarr", layout="hcs", mode="w",
+                              channel_names=["GFP", "mCherry"])
+        plate.create_position("A", "1", "0").create_image("0", bleach_np)
+        plate.update_zattrs({"Summary": {"Interval_ms": BLEACH_MINUTES * 60000}})
+        record = {}
+        real_stats, real_fit = bleach.bleaching_statistics, bleach.fit_bleaching
+
+        def stats_rec(*args, **kwargs):
+            record["stats"] = real_stats(*args, **kwargs)
+            return record["stats"]
+
+        def fit_rec(*args, **kwargs):
+            record["fits"] = real_fit(*args, **kwargs)
+            return record["fits"]
+
+        bleach.bleaching_statistics, bleach.fit_bleaching = stats_rec, fit_rec
+        try:
+            seconds_b, _, _, text_b = run_verb(["estimate-bleaching", "-i",
+                                                str(tmp / "bleach.zarr" / "A/1/0"), "-o",
+                                                str(tmp / "bleaching")])
+        finally:
+            bleach.bleaching_statistics, bleach.fit_bleaching = real_stats, real_fit
+        means, stds = record["stats"]
+        host_means = bleach_np.mean(axis=(2, 3, 4), dtype=np.float64)
+        worst = float(np.max(np.abs(means / host_means - 1)))
+        require(worst <= BLEACH_MEAN_TOL, f"estimate-bleaching: card means {worst:.3g} off numpy's")
+        taus = [float(p[1]) for p in record["fits"]]
+        require(all(abs(tau / BLEACH_TAU - 1) <= BLEACH_TAU_TOL for tau in taus),
+                f"estimate-bleaching: lifetimes {taus}, rendered {BLEACH_TAU}")
+        require(text_b.count("Curve fit successful!") == C_b, "estimate-bleaching: the fits' lines")
+        line("estimate-bleaching", f"{BLEACH_TCZYX} uint16, {BLEACH_MINUTES} minutes a frame, "
+             f"rendered lifetime {BLEACH_TAU} minutes: {1e3 * seconds_b:.1f} ms for the whole "
+             f"call (host clock); card means within {worst:.3g} of numpy's (tol "
+             f"{BLEACH_MEAN_TOL}); fitted lifetimes {[round(t, 4) for t in taus]} minutes "
+             f"(tol {BLEACH_TAU_TOL:.0%})")
+        del bleach_np
+
+        # -- estimate-deskew, check-disk-space, nf, crop-background ----------
+        rect = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, 100.0], [100 * RATIO, 0.0, 100.0],
+                         [100 * RATIO, 0.0, 0.0]])
+        np.savetxt(tmp / "rect.csv", rect, delimiter=",")
+        theta = math.radians(ANGLE)
+        np.savetxt(tmp / "line.csv", np.array([[0.0, 0.0], [math.cos(theta) * RATIO, 1.0]]),
+                   delimiter=",")
+        run_verb(["estimate-deskew", "-i", str(positions[0]), "-o", str(tmp / "deskew.yml"),
+                  "--pixel-size-um", str(FUSE_DESKEW["pixel_size_um"]), "--scan-step-um",
+                  str(FUSE_DESKEW["scan_step_um"]), "--rect-points", str(tmp / "rect.csv"),
+                  "--line-points", str(tmp / "line.csv")])
+        measured = load_file(tmp / "deskew.yml")
+        require(measured["ls_angle_deg"] == ANGLE and measured["px_to_scan_ratio"] == RATIO,
+                f"estimate-deskew: {measured}")
+        _, _, _, text_d = run_verb(["check-disk-space", "-i", str(positions[0].parents[2]),
+                                    "-o", str(tmp / "next.zarr")])
+        _, _, _, text_n = run_verb(["nf", "list-positions", str(positions[0].parents[2])])
+        require(text_n.split() == ["A/1/0"], f"nf list-positions: {text_n!r}")
+        (tmp / "videos").mkdir()
+        (tmp / "videos" / "a.mp4").write_bytes(b"not a video")
+        _, _, _, text_v = run_verb(["crop-background", str(tmp / "videos"),
+                                    str(tmp / "cropped_videos")])
+        require("No crop detected for" in text_v, f"crop-background: {text_v!r}")
+        line("estimate-deskew, check-disk-space, nf, crop-background",
+             f"the point files give {measured['ls_angle_deg']} deg and ratio "
+             f"{measured['px_to_scan_ratio']}; check-disk-space: "
+             f"{text_d.strip().splitlines()[-1]!r}; nf list-positions: {text_n.split()}; "
+             f"crop-background (ffmpeg {'found' if shutil.which('ffmpeg') else 'absent'}): "
+             f"{text_v.strip().splitlines()[-1]!r}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def main() -> int:
@@ -5241,6 +5673,7 @@ def main() -> int:
     estimate_plates_phase(dev)
     assembly_plates_phase(dev, psf)
     model_plates_phase(dev)
+    codecs_phase(dev, psf)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

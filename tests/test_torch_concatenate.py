@@ -7,7 +7,8 @@ runs the reference verb through click's runner and the port's through
 two plates (float32 and uint16: cast to float32), duplicate channels,
 a crop with a time subset, duplicate positions suffixed, per-path crops,
 a glob into OME-Zarr 0.5 with ``chunks_czyx``, resolve mode, ``--init``
-then ``--resume``, and a position with pyramid levels (refused). The data
+then ``--resume``, a sharded OME-Zarr 0.5 output (``shards_ratio``), and a
+position with pyramid levels (refused). The data
 is bit-equal and the metadata equal (every group's attributes, each
 array's shape, chunks and dtype; the codecs differ). The settings reader
 and the resolve mode's YAML (its text) equal the reference model's.
@@ -157,12 +158,21 @@ def test_init_then_resume_twice(plates, capsys):
 
 
 def test_sharded_output_is_refused_by_name(plates):
+    """``shards_ratio`` writes the reference's sharded OME-Zarr 0.5 arrays:
+    the same data and metadata, the codecs included; a ratio without one
+    entry an axis is refused, naming ``shards_ratio``."""
     settings = config(concat_data_paths=[str(plates / "two.zarr/A/1/0")],
-                      channel_names=["all"], shards_ratio=[1, 1, 2, 1, 1])
-    (plates / "sharded.yml").write_text(yaml.safe_dump(settings))
+                      channel_names=["all"], chunks_czyx=[1, 2, 4, 5],
+                      shards_ratio=[1, 1, 2, 2, 2])
+    ref, port = run_both(plates, "sharded", settings)
+    same_plates(ref, port)
+    assert ((port / "A/1/0/0/zarr.json").read_text()
+            == (ref / "A/1/0/0/zarr.json").read_text())
+    settings["shards_ratio"] = [1, 2, 2, 2]
+    (plates / "sharded_bad.yml").write_text(yaml.safe_dump(settings))
     with pytest.raises(ValueError, match="shards_ratio"):
-        main(["concatenate", "-c", str(plates / "sharded.yml"), "-o",
-              str(plates / "sharded.zarr")], device="cpu")
+        main(["concatenate", "-c", str(plates / "sharded_bad.yml"), "-o",
+              str(plates / "sharded_bad.zarr")], device="cpu")
 
 
 SETTINGS = [

@@ -249,8 +249,11 @@ def test_init_only_creates_the_plate_and_computes_nothing(plates, monkeypatch, c
 
 def test_unported_verbs_and_the_device(plates, capsys):
     tmp, _ = plates
-    assert main(["estimate-crop", "-i", "x"], device="cpu") == 2
-    assert "not ported yet" in capsys.readouterr().err
+    # Every entry is ported: a bad option is the verb's own usage error.
+    with pytest.raises(SystemExit) as exc:
+        main(["estimate-crop", "-i", "x"], device="cpu")
+    assert exc.value.code == 2
+    assert "required: --config-filepath/-c" in capsys.readouterr().err
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main(argv("deskew", tmp, tmp / "port" / "nocard.zarr"))
     with pytest.raises(SystemExit) as exc:
