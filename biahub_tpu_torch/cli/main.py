@@ -220,7 +220,7 @@ def _run_without_positions(ns: argparse.Namespace, config) -> None:
         estimate_crop(config, ns.output_filepath, ns.lf_mask_radius, ns.sbatch_filepath,
                       ns.local)
     elif ns.verb == "check-disk-space":
-        from biahub_tpu_torch.cli.utils import check_disk_space_with_du
+        from biahub_tpu_torch.cli.disk import check_disk_space_with_du
 
         if check_disk_space_with_du(ns.input_path, ns.output_path, ns.margin, ns.verbose):
             print("Disk space check passed. Good to go!")

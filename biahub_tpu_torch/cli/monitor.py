@@ -11,9 +11,25 @@ from __future__ import annotations
 import sys
 import time
 
-__all__ = ["monitor_jobs"]
+__all__ = ["monitor_jobs", "JobLike"]
 
 _TERMINAL = ("DONE", "COMPLETED", "FAILED", "CANCELLED")
+
+
+class JobLike:
+    """Minimal job facade: a named state machine with done()/cancel()."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.state = "PENDING"
+        self.error: str | None = None
+
+    def done(self) -> bool:
+        return self.state in _TERMINAL
+
+    def cancel(self) -> None:
+        if not self.done():
+            self.state = "CANCELLED"
 
 
 def _render(jobs, names, clear: bool = True) -> list[str]:

@@ -177,8 +177,7 @@ def registration_channels(parser: argparse.ArgumentParser) -> None:
 
 
 def point_files(parser: argparse.ArgumentParser) -> None:
-    """The manual method's headless point files (refused by the port's
-    estimate-registration, which does not port that method)."""
+    """The manual method's headless point files."""
     parser.add_argument("--source-points", default=None,
                         help="Manual method, headless: (N, 3) ZYX source point file "
                              "(.csv/.npy) picked on the pre-aligned overlay.")

@@ -1,22 +1,22 @@
 """CLI-layer utilities: settings files, output paths, provenance keys.
 
-Counterpart of ``biahub_tpu/cli/utils.py`` (and its ``cli/disk.py``
-preflight): ``yaml_to_model`` reads a settings file with the port's YAML
-reader and validates it through one of the readers of
+Counterpart of ``biahub_tpu/cli/utils.py``: ``yaml_to_model`` reads a
+settings file with the port's YAML reader and validates it through one of
+the readers of
 :mod:`biahub_tpu_torch.convert`, which refuse unknown fields as the
 reference's models do; ``model_to_yaml`` writes a settings dict as the
 reference's ``model_to_yaml`` writes its model (:mod:`biahub_tpu_torch.cli.
-yaml_writer`).
+yaml_writer`); ``update_model`` merges into a settings dict as the
+reference's merges into its model.
 """
 
 from __future__ import annotations
 
-import shutil
-import subprocess
 from collections.abc import Callable
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from biahub_tpu_torch.cli.yaml_reader import load_file
 from biahub_tpu_torch.cli.yaml_writer import dump_file
@@ -26,10 +26,13 @@ __all__ = [
     "PROVENANCE_METADATA_KEYS",
     "yaml_to_model",
     "model_to_yaml",
+    "update_model",
     "get_output_paths",
     "resolve_ome_zarr_version",
     "append_channels",
-    "check_disk_space_with_du",
+    "copy_n_paste",
+    "copy_n_paste_czyx",
+    "get_empty_frame_indices",
 ]
 
 #: fnmatch allowlist of per-position attribute keys carried into output
@@ -56,6 +59,19 @@ def model_to_yaml(model: dict, yaml_path: Path) -> None:
     if not isinstance(model, dict):
         raise TypeError(f"model_to_yaml: want a settings dict, got {type(model).__name__}")
     dump_file({k: v for k, v in model.items() if v is not None}, yaml_path)
+
+
+def update_model(model: dict, update_dict: dict) -> dict:
+    """A copy of the settings dict ``model`` with ``update_dict``'s entries:
+    a dict merged one level into a nested settings dict, anything else
+    replacing the entry (the reference's ``update_model`` on its model)."""
+    updated = dict(model)
+    for key, value in update_dict.items():
+        if isinstance(value, dict) and isinstance(model.get(key), dict):
+            updated[key] = {**model[key], **value}
+        else:
+            updated[key] = value
+    return updated
 
 
 def get_output_paths(input_paths: list[Path], output_zarr_path: Path,
@@ -100,29 +116,27 @@ def append_channels(input_data_path: Path, target_data_path: Path) -> None:
         position.create_image("0", new)
 
 
-def _size_bytes(path: str | Path) -> int:
-    """Total size of a file or directory (``du -sb``, else a walk)."""
-    try:
-        out = subprocess.run(["du", "-sb", str(path)], capture_output=True, text=True,
-                             check=True)
-        return int(out.stdout.split()[0])
-    except (subprocess.CalledProcessError, FileNotFoundError, ValueError, IndexError):
-        p = Path(path)
-        if p.is_file():
-            return p.stat().st_size
-        return sum(f.stat().st_size for f in p.rglob("*") if f.is_file())
+def copy_n_paste(zyx_data, zyx_slicing_params: list):
+    """Crop a ZYX array (numpy or a tensor) by [z_slice, y_slice, x_slice],
+    NaNs zeroed first."""
+    if isinstance(zyx_data, torch.Tensor):
+        zyx_data = torch.nan_to_num(zyx_data, nan=0.0)
+    else:
+        zyx_data = np.nan_to_num(zyx_data, nan=0)
+    return zyx_data[zyx_slicing_params[0], zyx_slicing_params[1], zyx_slicing_params[2]]
 
 
-def check_disk_space_with_du(input_path: str | Path, output_path: str | Path,
-                             margin: float = 1.1, verbose: bool = False) -> bool:
-    """True when the output's filesystem has ``margin`` x the input's size free."""
-    input_size = _size_bytes(input_path)
-    required = int(input_size * margin)
-    out_parent = Path(output_path).resolve()
-    while not out_parent.exists():
-        out_parent = out_parent.parent
-    free = shutil.disk_usage(out_parent).free
-    if verbose:
-        print(f"Disk preflight: input={input_size / 2**30:.2f} GiB, "
-              f"required={required / 2**30:.2f} GiB, free={free / 2**30:.2f} GiB")
-    return free >= required
+def copy_n_paste_czyx(czyx_data, czyx_slicing_params: list):
+    """Crop a CZYX array by [z_slice, y_slice, x_slice] on its last axes."""
+    return czyx_data[:, czyx_slicing_params[0], czyx_slicing_params[1],
+                     czyx_slicing_params[2]]
+
+
+def get_empty_frame_indices(input_array) -> list[int]:
+    """Indices of the all-zero or all-NaN Z slices of a 3D array (numpy or a
+    tensor)."""
+    if input_array.ndim != 3:
+        raise ValueError("Input array must be 3D.")
+    # x != x holds exactly at NaN, for numpy and torch alike.
+    return [z for z, frame in enumerate(input_array)
+            if bool((frame != frame).all() or (frame == 0).all())]

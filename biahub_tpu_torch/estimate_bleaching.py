@@ -27,7 +27,8 @@ from biahub_tpu_torch.device import resolve_device
 from biahub_tpu_torch.io.ngff import open_ome_zarr
 from biahub_tpu_torch.plots import pyplot
 
-__all__ = ["bleaching_statistics", "fit_bleaching", "estimate_bleaching"]
+__all__ = ["bleaching_statistics", "fit_bleaching", "plot_bleaching_curves",
+           "estimate_bleaching"]
 
 MSECS_PER_MINUTE = 60000
 
@@ -114,6 +115,19 @@ def _plot(times, means, fits, channel_names, output_file, title) -> None:
     plt.close()
 
 
+def plot_bleaching_curves(times, tczyx_data, channel_names, output_file, title="",
+                          device: str | torch.device = "cuda"):
+    """Per-channel mean intensity over time with exponential decay fits,
+    plotted to ``output_file`` (the reference's ``plot_bleaching_curves``:
+    the means on ``device``, the fits on the host, the plot only where
+    matplotlib is installed); returns the means, standard deviations and
+    fits."""
+    means, stds = bleaching_statistics(tczyx_data, device)
+    fits = fit_bleaching(times, means, stds, channel_names)
+    _plot(times, means, fits, channel_names, output_file, title)
+    return means, stds, fits
+
+
 def estimate_bleaching(input_position_dirpaths, output_dirpath,
                        device: str | torch.device = "cuda") -> dict:
     """The estimate-bleaching verb (module docstring); returns
@@ -142,9 +156,8 @@ def estimate_bleaching(input_position_dirpaths, output_dirpath,
         output_file = os.path.join(output_dirpath, well_name)
         os.makedirs(output_file, exist_ok=True)
         title = str(input_position_dirpath) + f" - position = {well_name}"
-        means, stds = bleaching_statistics(tczyx_data, device)
-        fits = fit_bleaching(times, means, stds, reader.channel_names)
-        _plot(times, means, fits, reader.channel_names,
-              os.path.join(output_file, "bleaching.svg"), title)
+        means, stds, fits = plot_bleaching_curves(
+            times, tczyx_data, reader.channel_names,
+            os.path.join(output_file, "bleaching.svg"), title, device)
         results[well_name] = (times, means, stds, fits)
     return results

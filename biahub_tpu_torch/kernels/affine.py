@@ -62,6 +62,9 @@ __all__ = [
     "affine_warp_auto",
     "affine_warp_auto_batched",
     "make_batched_warp",
+    "rotation_matrix_zyx",
+    "scale_matrix_zyx",
+    "flip_matrix_zyx",
 ]
 
 # inplane_coefficients' layout: pass 1's z and y coefficient triples, pass
@@ -82,6 +85,41 @@ def matrix_4x4(matrix=None) -> np.ndarray:
         out[:3, :3] = m
         return out
     raise ValueError(f"Expected a 3x3 or 4x4 matrix, got shape {m.shape}")
+
+
+def rotation_matrix_zyx(angle_deg: float, axis: int = 0, center=None) -> np.ndarray:
+    """Rotation about one of the z/y/x axes, optionally about a center point."""
+    theta = np.deg2rad(angle_deg)
+    c, s = np.cos(theta), np.sin(theta)
+    rot3 = np.eye(3)
+    other = [i for i in range(3) if i != axis]
+    rot3[other[0], other[0]] = c
+    rot3[other[0], other[1]] = -s
+    rot3[other[1], other[0]] = s
+    rot3[other[1], other[1]] = c
+    out = np.eye(4)
+    out[:3, :3] = rot3
+    if center is not None:
+        center = np.asarray(center, dtype=np.float64)
+        out[:3, 3] = center - rot3 @ center
+    return out
+
+
+def scale_matrix_zyx(scale) -> np.ndarray:
+    """Axis scaling by ``scale`` (z, y, x)."""
+    out = np.eye(4)
+    out[:3, :3] = np.diag(np.asarray(scale, dtype=np.float64))
+    return out
+
+
+def flip_matrix_zyx(shape, flip=(False, False, False)) -> np.ndarray:
+    """Matrix flipping selected axes of a volume of the given shape in-place."""
+    out = np.eye(4)
+    for ax, (do_flip, size) in enumerate(zip(flip, shape)):
+        if do_flip:
+            out[ax, ax] = -1.0
+            out[ax, 3] = size - 1
+    return out
 
 
 def is_translation_matrix(matrix, atol: float = 1e-9) -> bool:

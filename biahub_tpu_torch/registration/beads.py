@@ -20,12 +20,15 @@ Settings are the reference models' dicts
 :func:`~biahub_tpu_torch.convert.affine_transform_settings_from_reference`).
 ``output_filepath`` saves the best transform as ``.npy`` and
 ``output_folder_path`` each timepoint's (``<t>.npy``, under
-``xyz_transforms/`` for a stack), as the reference's. ``optimize_matches``
-is not ported yet.
+``xyz_transforms/`` for a stack), as the reference's.
+:func:`optimize_matches` grid-searches the matching settings (reference
+:456-562), each trial warped and scored on the device.
 """
 
 from __future__ import annotations
 
+import copy
+from itertools import product
 from pathlib import Path
 from typing import Literal
 
@@ -48,6 +51,7 @@ __all__ = [
     "transform_from_matches",
     "overlap_score",
     "optimize_transform",
+    "optimize_matches",
     "estimate",
     "estimate_tzyx",
     "estimate_tczyx",
@@ -205,6 +209,98 @@ def optimize_transform(transform, mov, ref, beads_match_settings: dict,
     if not np.isnan(score_after) and score_after >= score_before:
         return composed, score_after
     return np.asarray(transform), score_before
+
+
+# optimize_matches' grid keys, each the path of the entry it sets in the
+# beads match settings dict (the reference's setters, beads.py:500-520).
+_GRID_PATHS = {
+    "min_distance_quantile": ("filter_matches_settings", "min_distance_quantile"),
+    "max_distance_quantile": ("filter_matches_settings", "max_distance_quantile"),
+    "direction_threshold": ("filter_matches_settings", "direction_threshold"),
+    "cost_threshold": ("hungarian_match_settings", "cost_threshold"),
+    "max_ratio": ("hungarian_match_settings", "max_ratio"),
+    "k": ("hungarian_match_settings", "edge_graph_settings", "k"),
+    **{f"weights_{w}": ("hungarian_match_settings", "cost_matrix_settings", "weights", w)
+       for w in ("dist", "edge_angle", "edge_length", "pca_dir", "pca_aniso",
+                 "edge_descriptor")},
+}
+DEFAULT_PARAM_GRID = {
+    "min_distance_quantile": [0, 0.01],
+    "max_distance_quantile": [0, 0.99],
+    "direction_threshold": [0, 50],
+    "k": [5, 10],
+}
+
+
+def optimize_matches(mov, ref, approx_transform, beads_match_settings: dict,
+                     affine_transform_settings: dict, param_grid: dict | None = None,
+                     verbose: bool = False, device: str | torch.device = "cuda") -> dict:
+    """The beads match settings of the grid's best trial: for each
+    combination of ``param_grid`` (default :data:`DEFAULT_PARAM_GRID`, 16
+    trials) match the peaks of the approximately registered pair, fit and
+    compose the correction, warp again and score the peaks' overlap; the
+    settings unchanged when too few peaks are found or no trial scores.
+    A trial that meets too few or degenerate matches on the host
+    (``ValueError``, ``LinAlgError``) is skipped; a device error is raised."""
+    dev = resolve_device(device)
+    bms = beads_match_settings_from_reference(beads_match_settings)
+    ats = affine_transform_settings_from_reference(affine_transform_settings)
+    param_grid = DEFAULT_PARAM_GRID if param_grid is None else param_grid
+    score_radius = bms["qc_settings"]["score_centroid_mask_radius"]
+    peak_settings = (bms["source_peaks_settings"], bms["target_peaks_settings"])
+    approx = np.asarray(approx_transform, dtype=np.float64)
+    ref = as_tensor(ref, dev)
+    mov = as_tensor(mov, dev)
+
+    print("Detecting peaks in approximately registered space for grid search...")
+    mov_peaks, ref_peaks = peaks_from_beads(_warp(mov, approx, ref.shape, dev), ref,
+                                            *peak_settings, device=dev)
+    if mov_peaks is None or ref_peaks is None:
+        print("Not enough peaks detected for optimization, returning original settings.")
+        return bms
+
+    grid_keys = list(param_grid)
+    grid_values = [param_grid[k] for k in grid_keys]
+    print(f"Starting grid search: {len(mov_peaks)} mov peaks, {len(ref_peaks)} ref peaks, "
+          f"{np.prod([len(v) for v in grid_values])} parameter combinations.")
+
+    best_score, best_settings = -1.0, bms
+    for combo in product(*grid_values):
+        params = dict(zip(grid_keys, combo))
+        trial = copy.deepcopy(bms)
+        for key, value in params.items():
+            if key in _GRID_PATHS:
+                *parents, leaf = _GRID_PATHS[key]
+                node = trial
+                for name in parents:
+                    node = node[name]
+                node[leaf] = value
+        try:
+            matches = matches_from_beads(mov_peaks, ref_peaks, trial)
+            if len(matches) < 3:
+                continue
+            _, inv = transform_from_matches(matches, mov_peaks, ref_peaks, ats,
+                                            ndim=mov_peaks.shape[1])
+        except (ValueError, np.linalg.LinAlgError) as e:
+            if verbose:
+                print(f"  {params} -> failed: {e}")
+            continue
+        composed = approx @ inv
+        peaks_opt = peaks_from_beads(_warp(mov, composed, ref.shape, dev), ref, *peak_settings,
+                                     device=dev)
+        if peaks_opt[0] is None:
+            continue
+        score = overlap_score(peaks_opt[0], peaks_opt[1], radius=score_radius)
+        if np.isnan(score):
+            continue
+        if verbose:
+            print(f"  {params} -> matches={len(matches)}, score={score:.4f}")
+        if score > best_score:
+            best_score, best_settings = score, trial
+
+    if verbose:
+        print(f"Best score: {best_score:.4f}")
+    return best_settings
 
 
 def estimate(mov, ref, beads_match_settings: dict | None = None,

@@ -31,6 +31,7 @@ __all__ = [
     "evaluate_transforms",
     "save_transforms",
     "plot_translations",
+    "load_transforms",
     "approx_transform_from_scale",
     "get_3D_rescaling_matrix",
     "get_3D_rotation_matrix",
@@ -282,6 +283,12 @@ def plot_translations(transforms_zyx, output_filepath) -> None:
     axs[2].set_title("Y-Translation")
     plt.savefig(output_filepath, dpi=300, bbox_inches="tight")
     plt.close()
+
+
+def load_transforms(folder: Path, pattern: str = "*.npy") -> dict[str, np.ndarray]:
+    """Per-FOV transform stacks saved as ``.npy`` files in ``folder``, by
+    file stem, in sorted order."""
+    return {path.stem: np.load(path) for path in sorted(Path(folder).glob(pattern))}
 
 
 def approx_transform_from_scale(

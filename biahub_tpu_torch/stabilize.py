@@ -30,7 +30,8 @@ import numpy as np
 import torch
 
 from biahub_tpu_torch.apply_inverse_transfer_function import time_indices as select_times
-from biahub_tpu_torch.cli.utils import check_disk_space_with_du, yaml_to_model
+from biahub_tpu_torch.cli.disk import check_disk_space_with_du
+from biahub_tpu_torch.cli.utils import yaml_to_model
 from biahub_tpu_torch.convert import stabilize_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES

@@ -2,17 +2,21 @@
 
 Counterpart of ``biahub_tpu/transforms/lir.py:15`` (which replaces the
 ``largestinteriorrectangle`` dependency of the reference's overlap crop):
-the histogram-stack algorithm, O(H*W), on the host. The reference runs a
-compiled helper when it can build one and this loop otherwise; both keep
-the first rectangle of the largest area in row-major scan order (a strict
-``>`` on the area), and so does the port. The loop runs on Python ints.
+the histogram-stack algorithm, O(H*W), on the host.
+:func:`largest_interior_rectangle` runs the compiled helper
+(:func:`biahub_tpu_torch._native.lir_2d`); :func:`largest_interior_rectangle_plain`
+is the same loop in Python, its plain version. Both keep the first
+rectangle of the largest area in row-major scan order (a strict ``>`` on
+the area), as the reference's helper and loop do.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["largest_interior_rectangle"]
+from biahub_tpu_torch._native import lir_2d
+
+__all__ = ["largest_interior_rectangle", "largest_interior_rectangle_plain", "lir"]
 
 
 def largest_interior_rectangle(mask: np.ndarray) -> tuple[int, int, int, int]:
@@ -21,6 +25,11 @@ def largest_interior_rectangle(mask: np.ndarray) -> tuple[int, int, int, int]:
     Returns (x, y, width, height) with x = column of the left edge and
     y = row of the top edge — the same convention as ``lir.lir``.
     """
+    return lir_2d(np.asarray(mask, dtype=bool))
+
+
+def largest_interior_rectangle_plain(mask: np.ndarray) -> tuple[int, int, int, int]:
+    """:func:`largest_interior_rectangle` as a loop on Python ints."""
     mask = np.asarray(mask, dtype=bool)
     h, w = mask.shape
     best_area = 0
@@ -46,3 +55,6 @@ def largest_interior_rectangle(mask: np.ndarray) -> tuple[int, int, int, int]:
                     best = (left, row - hs[top] + 1, width, hs[top])
     return best
 
+
+# Alias matching the lir package's entry point
+lir = largest_interior_rectangle

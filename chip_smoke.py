@@ -338,7 +338,7 @@ Then the verbs on plates, through the command line a user calls:
     diameter 40: resized on the card), its output on one slice within the
     same bounds of the host's float32 run and that slice's labels under
     TF32 and under highest against the plain route's up to a permutation
-    (both counts printed); the flow round trip on
+    (both counts printed; under highest none may differ); the flow round trip on
     rendered instance masks at 1024 x 484 (``masks_to_flows`` ->
     ``compute_masks_zyx`` on the card: every instance recovered, equal to
     the plain route up to a permutation; ``follow_flows`` timed per
@@ -371,6 +371,23 @@ Then the verbs on plates, through the command line a user calls:
     lifetimes within BLEACH_TAU_TOL); estimate-deskew from point files (the
     known angle and ratio); check-disk-space, nf list-positions and
     crop-background.
+28. the last library modules: ``optimize_matches`` with the default grid
+    on a (118, 1043, 518) pair of rendered beads an affine offset apart
+    (whole-call ms, G's and H's launches, which join the kernels line's,
+    the host share against torch.profiler's device time; the chosen trial's
+    overlap at least 0.9), and on a small pair the card's chosen settings
+    and score equal to the CPU route's; ``Transform.apply`` with an
+    in-plane (E, F) and a general (H) matrix within WARP_TOL of the plain
+    route; estimate-registration's manual method through ``cli.main`` on
+    two plates of other voxel sizes with point files (.npy and napari's
+    CSV; the YAML's matrix within 1e-12 of ``registration_from_point_pairs``
+    on the host) and without (exit 1, the headless message); the compiled
+    host helper's ``find_lir`` on the register verb's mask at (86, 1024,
+    484) equal to the Python loop, ms for both, and the register verb's
+    whole call with each in turns (loop, helper, helper, loop), the plates
+    equal; ``composite_channels`` (``render_frame``'s composite) on the
+    card equal to the CPU route's, and ``render_frame`` drawing with PIL or
+    raising its ``ImportError`` where PIL is absent.
 
 Times are CUDA-event medians on this card.
 
@@ -4778,6 +4795,11 @@ def model_plates_phase(dev: torch.device) -> None:
         highest_labels = cpnet_segment_czyx(one, str(cp_ckpt), device=dev, **seg_kwargs)
         set_precision(None)
         plain_labels = cpnet_segment_czyx(one, str(cp_ckpt), device="cpu", **seg_kwargs)
+        # Under highest the network is float32 on the card and the labels
+        # follow the CPU route's; TF32's are printed, not bounded.
+        highest_off = label_mismatch(highest_labels, plain_labels)
+        require(highest_off == 0, f"segment: CPnet slice 0 under highest differs from the "
+                f"plain route in {highest_off} pixels")
         line("segment", f"{SEG_TCZYX} float32, threshold_otsu and CPnet {CPNET_WIDTH} (random "
              f"weights and BatchNorm statistics, diameter {SEG_DIAMETER}: rescaled to "
              f"{round(Ys * 30 / SEG_DIAMETER)} x {round(Xs * 30 / SEG_DIAMETER)}, cellprob "
@@ -4787,8 +4809,8 @@ def model_plates_phase(dev: torch.device) -> None:
              f"labels ({int(card_labels.max())} on the card under TF32, the default, "
              f"{int(highest_labels.max())} under highest, {int(plain_labels.max())} on the "
              f"plain route) differ from the plain route's in "
-             f"{label_mismatch(card_labels, plain_labels)} (TF32) and "
-             f"{label_mismatch(highest_labels, plain_labels)} (highest) of "
+             f"{label_mismatch(card_labels, plain_labels)} (TF32, unbounded) and "
+             f"{highest_off} (highest, bound 0) of "
              f"{card_labels.size} pixels up to a permutation")
 
         masks = render_masks((ROUND_TRIP_Z, Ys, Xs), rng)
@@ -5324,6 +5346,290 @@ def codecs_phase(dev: torch.device, psf: np.ndarray) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# Phase 28: the last library modules. optimize_matches on PERF.md row 11's
+# beads frame: MATCH_BEADS rendered beads, the moving frame an affine offset
+# of the reference (MATCH_TRUTH_*), the approximate warp part of the way
+# there; the card's route against the CPU route on a crop (MATCH_CROP, a
+# pair rendered at that shape). Transform.apply, the manual verb on plates,
+# the host helper's LIR on the register verb's mask, render_frame's
+# composite.
+MATCH_FRAME = (118, 1043, 518)
+MATCH_CROP = (32, 160, 128)
+MATCH_BEADS = 400
+MATCH_TRUTH_DEG, MATCH_TRUTH_SHIFT = (0.6, -0.4, 0.8), (1.5, -2.0, 2.5)
+MATCH_TRUTH_SCALE = (1.0, 1.01, 0.99)  # the affine part: Y and X stretched
+MANUAL_SCALES = ([1.0, 1.0, 0.174, 0.1494, 0.1494], [1.0, 1.0, 0.2, 0.1, 0.1])
+MANUAL_POINTS = 6
+
+
+def affine_offset(shape, frac: float = 1.0) -> np.ndarray:
+    """``frac`` of phase 28's offset: a rigid drift about the centre with
+    the Y and X axes stretched about it (output -> input)."""
+    m = rigid_about_centre(np.multiply(MATCH_TRUTH_DEG, frac),
+                           np.multiply(MATCH_TRUTH_SHIFT, frac), shape)
+    centre = (np.asarray(shape) - 1) / 2
+    scale = np.eye(4)
+    scale[:3, :3] = np.diag(1 + frac * (np.asarray(MATCH_TRUTH_SCALE) - 1))
+    scale[:3, 3] = centre - scale[:3, :3] @ centre
+    return m @ scale
+
+
+def bead_pair(shape, n: int, seed: int, dev: torch.device):
+    """(reference, moving) rendered at ``shape``: bead q at q in the
+    reference and at truth @ q in the moving frame (each rendered anew)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    points = np.random.default_rng(seed).uniform(10, np.asarray(shape) - 10, (n, 3))
+    truth = affine_offset(shape)
+    moved = points @ truth[:3, :3].T + truth[:3, 3]
+    return (render_beads(torch.tensor(points, device=dev), shape, gen),
+            render_beads(torch.tensor(moved, device=dev), shape, gen))
+
+
+def chosen_score(mov, ref, approx, bms: dict, ats: dict, dev) -> float:
+    """The overlap score of the optimize_matches trial with ``bms``."""
+    from biahub_tpu_torch.registration import beads
+
+    peak_settings = (bms["source_peaks_settings"], bms["target_peaks_settings"])
+    mov_peaks, ref_peaks = beads.peaks_from_beads(beads._warp(mov, approx, ref.shape, dev), ref,
+                                                  *peak_settings, device=dev)
+    matches = beads.matches_from_beads(mov_peaks, ref_peaks, bms)
+    _, inv = beads.transform_from_matches(matches, mov_peaks, ref_peaks, ats)
+    peaks = beads.peaks_from_beads(beads._warp(mov, approx @ inv, ref.shape, dev), ref,
+                                   *peak_settings, device=dev)
+    return beads.overlap_score(*peaks, radius=bms["qc_settings"]["score_centroid_mask_radius"])
+
+
+def leftovers_phase(dev: torch.device, records: dict) -> None:
+    """Phase 28: optimize_matches, Transform.apply, the manual method of
+    estimate-registration, the host helper and render_frame (module
+    docstring)."""
+    import importlib.util
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from biahub_tpu_torch import _native
+    from biahub_tpu_torch import register as treg
+    from biahub_tpu_torch.cli.main import main as cli_main
+    from biahub_tpu_torch.cli.yaml_reader import load_file
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.estimate_registration import (
+        HEADLESS_MESSAGE,
+        registration_from_point_pairs,
+    )
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.registration.beads import optimize_matches
+    from biahub_tpu_torch.transforms import Transform
+    from biahub_tpu_torch.transforms.lir import largest_interior_rectangle_plain
+    from biahub_tpu_torch.visualize.animation_utils import composite_channels, render_frame
+
+    card = gpu_info()
+    phase_t0 = time.perf_counter()
+    ats = {"transform_type": "affine"}
+
+    # -- (a) optimize_matches at full width, then card against CPU on a crop
+    ref, mov = bead_pair(MATCH_FRAME, MATCH_BEADS, 28, dev)
+    approx = affine_offset(MATCH_FRAME, 0.5)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        best, launches = counted(lambda: optimize_matches(mov, ref, approx, {}, ats, device=dev))
+        call_ms = 1e3 * (time.perf_counter() - t0)
+    require(launches.get("block_max_argmin", 0) >= 1 and launches.get("resample_pass", 0) >= 1,
+            f"optimize_matches launches {launches}: G and H must both run")
+    grid_line = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Starting grid")]
+    score = chosen_score(mov, ref, approx, best, ats, dev)
+    require(score >= 0.9, f"optimize_matches: the chosen trial's overlap {score:.4f} < 0.9")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with contextlib.redirect_stdout(io.StringIO()), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        optimize_matches(mov, ref, approx, {}, ats, device=dev)
+        torch.cuda.synchronize()
+    device_ms = sum(getattr(ev, "self_device_time_total", 0) for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA) / 1e3
+    # G's and H's launches here join those of their path (phase 9's runs,
+    # one dict the two records share: each record gets its own sum).
+    for name in ("block_max_argmin", "resample_pass"):
+        runs = records[name]["runs"]
+        records[name]["runs"] = {**runs, name: runs.get(name, 0) + launches[name]}
+    hm = best["hungarian_match_settings"]
+    fm = best["filter_matches_settings"]
+    print(f"28a optimize_matches {MATCH_FRAME}, {MATCH_BEADS} beads, affine offset, the "
+          f"default grid (16 trials; {grid_line[0] if grid_line else 'no grid line'}): "
+          f"{call_ms:.1f} ms for the call (host clock), device {device_ms:.1f} ms "
+          f"(torch.profiler, a second call), host share {1 - device_ms / call_ms:.1%}; chosen "
+          f"k {hm['edge_graph_settings']['k']}, quantiles {fm['min_distance_quantile']}/"
+          f"{fm['max_distance_quantile']}, direction {fm['direction_threshold']}, overlap "
+          f"{score:.4f}; launches {launches}; card {card}")
+    del ref, mov
+
+    ref_c, mov_c = bead_pair(MATCH_CROP, 40, 281, dev)
+    approx_c = affine_offset(MATCH_CROP, 0.5)
+    with contextlib.redirect_stdout(io.StringIO()):
+        card_best = optimize_matches(mov_c, ref_c, approx_c, {}, ats, device=dev)
+        cpu_best = optimize_matches(mov_c.cpu(), ref_c.cpu(), approx_c, {}, ats, device="cpu")
+        card_score = chosen_score(mov_c, ref_c, approx_c, card_best, ats, dev)
+        cpu_score = chosen_score(mov_c.cpu(), ref_c.cpu(), approx_c, cpu_best, ats,
+                                 torch.device("cpu"))
+    require(card_best == cpu_best, "optimize_matches: the card's chosen settings differ from "
+            "the CPU route's")
+    require(card_score == cpu_score, f"optimize_matches: the card's score {card_score} differs "
+            f"from the CPU route's {cpu_score}")
+    print(f"28a optimize_matches on a {MATCH_CROP} pair (40 beads): the card's chosen settings "
+          f"and score ({card_score:.4f}) equal the CPU route's")
+    del ref_c, mov_c
+
+    # -- (b) Transform.apply, in-plane (E, F) and general (H) ----------------
+    vol = bead_pair(MATCH_FRAME, MATCH_BEADS, 282, dev)[0]
+    general = affine_offset(MATCH_FRAME)
+    inplane = inplane_about_centre(2.0, (-3.0, 2.25), MATCH_FRAME)
+    for kind, m, want_kernels in (("in-plane", inplane, ("warp_zy", "warp_x")),
+                                  ("general", general, ("resample_pass",))):
+        t = Transform(np.linalg.inv(m))  # forward: apply warps with its inverse, m
+        got, launches_t = counted(lambda: t.apply(vol, device=dev))
+        with all_plain():
+            plain = t.apply(vol, device=dev)
+        _, err = rel_err(got, plain)
+        require(err <= WARP_TOL, f"Transform.apply ({kind}): rel err {err:.3g} > {WARP_TOL}")
+        require(all(launches_t.get(k, 0) >= 1 for k in want_kernels),
+                f"Transform.apply ({kind}) launches {launches_t}")
+        ms = time_ms(lambda: t.apply(vol, device=dev))
+        print(f"28b Transform.apply {kind} on {MATCH_FRAME}: rel err {err:.3g} of the plain "
+              f"route (tol {WARP_TOL}); {ms:.4f} ms; launches {launches_t}")
+    del vol, got, plain
+
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_leftovers_"))
+    try:
+        # -- (c) the manual method through the command line -----------------
+        paths = []
+        gen = torch.Generator(device=dev).manual_seed(283)
+        for name, scale, names in (("src", MANUAL_SCALES[0], ["GFP", "BF"]),
+                                   ("tgt", MANUAL_SCALES[1], ["Phase3D"])):
+            root = open_ome_zarr(tmp / f"{name}.zarr", layout="hcs", mode="w",
+                                 channel_names=names)
+            root.create_position("0", "0", "0").create_image(
+                "0", torch.rand((1, len(names)) + LAPSE_SHAPE, generator=gen,
+                                device=dev).cpu().numpy(),
+                transform=[TransformationMeta(type="scale", scale=scale)])
+            paths.append(str(tmp / f"{name}.zarr" / "0" / "0" / "0"))
+        rng = np.random.default_rng(283)
+        src_pts = rng.uniform(0, LAPSE_SHAPE, (MANUAL_POINTS, 3))
+        tgt_pts = src_pts @ affine_offset(LAPSE_SHAPE)[:3, :3].T + [2.0, -5.0, 7.5]
+        np.save(tmp / "src.npy", src_pts)
+        (tmp / "tgt.csv").write_text("index,axis-0,axis-1,axis-2\n" + "".join(
+            f"{i},{z},{y},{x}\n" for i, (z, y, x) in enumerate(tgt_pts.tolist())))
+        manual = {"target_channel_name": "Phase3D", "source_channel_name": "GFP",
+                  "estimation_method": "manual",
+                  "manual_registration_settings": {"time_index": 0,
+                                                   "affine_90degree_rotation": 0,
+                                                   "affine_fliplr": False},
+                  "affine_transform_settings": {"transform_type": "similarity"},
+                  "verbose": True}
+        (tmp / "manual.yml").write_text(yaml_flow(manual) + "\n")
+        pair = ["estimate-registration", "-s", paths[0], "-t", paths[1], "-c",
+                str(tmp / "manual.yml")]
+        seconds, launches_m, _, _ = run_verb(
+            [*pair, "-o", str(tmp / "reg" / "manual.yml"), "--source-points",
+             str(tmp / "src.npy"), "--target-points", str(tmp / "tgt.csv")])
+        got_m = np.asarray(load_file(tmp / "reg" / "manual.yml")["affine_transform_zyx"])
+        want_m = registration_from_point_pairs(
+            src_pts, tgt_pts, LAPSE_SHAPE, LAPSE_SHAPE, MANUAL_SCALES[0][-3:],
+            MANUAL_SCALES[1][-3:], True, 0, False, "pre_aligned")
+        far_m = float(np.abs(got_m - want_m).max())
+        require(far_m <= 1e-12, f"manual verb: {far_m:.3g} from registration_from_point_pairs")
+        err_buf = io.StringIO()
+        with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(err_buf):
+            rc = cli_main([*pair, "-o", str(tmp / "headless" / "manual.yml")])
+        require(rc == 1 and HEADLESS_MESSAGE in err_buf.getvalue(),
+                f"manual verb without point files: exit {rc}, stderr {err_buf.getvalue()!r}")
+        print(f"28c estimate-registration manual (similarity, {MANUAL_POINTS} point pairs, .npy "
+              f"and napari CSV): {1e3 * seconds:.1f} ms for the whole call, {far_m:.3g} from "
+              f"registration_from_point_pairs on the host; launches {launches_m}; without "
+              f"point files exit 1 with the headless message")
+
+        # -- (d) the host helper: LIR of the register verb's mask -----------
+        mask = (treg.apply_affine_transform(
+            torch.ones(LAPSE_SHAPE, device=dev), general_lapse(), LAPSE_SHAPE,
+            device=dev) > 0).cpu().numpy()
+        crop = treg.find_lir(mask)
+        native_ms = host_ms(lambda: treg.find_lir(mask))
+        saved = treg.largest_interior_rectangle
+        treg.largest_interior_rectangle = largest_interior_rectangle_plain
+        try:
+            loop_crop = treg.find_lir(mask)
+            loop_ms = host_ms(lambda: treg.find_lir(mask), reps=1)
+        finally:
+            treg.largest_interior_rectangle = saved
+        require(crop == loop_crop, f"find_lir: the helper's {crop} differs from the loop's "
+                f"{loop_crop}")
+        print(f"28d find_lir on the register verb's mask {LAPSE_SHAPE} (crop "
+              f"{[(c.start, c.stop) for c in crop]}): compiled helper {native_ms:.2f} ms, "
+              f"Python loop {loop_ms:.1f} ms (host clock), equal; the helper "
+              f"{_native._target(_native._compiler()).name}")
+
+        (tmp / "register.yml").write_text(yaml_flow(
+            {"source_channel_names": ["GFP"], "target_channel_name": "Phase3D",
+             "affine_transform_zyx": general_lapse().tolist()}) + "\n")
+        walls = {"helper": [], "loop": []}
+        outputs = {}
+        for turn, which in enumerate(("loop", "helper", "helper", "loop")):
+            if which == "loop":
+                treg.largest_interior_rectangle = largest_interior_rectangle_plain
+            try:
+                out = tmp / f"registered{turn}.zarr"
+                sec, launches_r, _, _ = run_verb(["register", "-s", paths[0], "-t", paths[1],
+                                                  "-c", str(tmp / "register.yml"), "-o",
+                                                  str(out)])
+            finally:
+                treg.largest_interior_rectangle = saved
+            walls[which].append(1e3 * sec)
+            outputs.setdefault(which, open_ome_zarr(out / "0" / "0" / "0").data[...])
+            shutil.rmtree(out)
+        require(np.array_equal(outputs["helper"].view(np.int32), outputs["loop"].view(np.int32)),
+                "register verb: the helper's plate differs from the loop's")
+        print(f"28d register verb {LAPSE_SHAPE}, general matrix, cropped to the LIR: "
+              f"{', '.join(f'{w:.1f}' for w in walls['loop'])} ms with the Python loop, "
+              f"{', '.join(f'{w:.1f}' for w in walls['helper'])} with the compiled helper "
+              f"(whole call, host clock, in turns loop, helper, helper, loop); plates equal; "
+              f"launches {launches_r}; card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # -- (e) render_frame's composite on the card against the CPU's --------
+    gen = torch.Generator(device=dev).manual_seed(284)
+    channels = [torch.rand(LAPSE_SHAPE[1:], generator=gen, device=dev) * 4000 for _ in range(3)]
+    frame = composite_channels(channels, device=dev)
+    cpu_frame = composite_channels([c.cpu() for c in channels], device="cpu")
+    require(torch.equal(frame.cpu(), cpu_frame), "composite_channels: the card's frame differs "
+            "from the CPU route's")
+    limits = [(float(c.min()), float(c.max())) for c in channels]
+    comp_ms = time_ms(lambda: composite_channels(channels, limits, device=dev))
+    has_pil = importlib.util.find_spec("PIL") is not None
+    if has_pil:
+        render_frame(channels, limits, pixel_size_um=0.116, scale_bar_um=10.0, text="t",
+                     device=dev)
+    else:
+        try:
+            render_frame(channels, limits, device=dev)
+        except ImportError as e:
+            require("PIL" in str(e), f"render_frame without PIL: {e}")
+        else:
+            require(False, "render_frame without PIL did not raise ImportError")
+    print(f"28e composite_channels (3 channels, {LAPSE_SHAPE[1:]}): equal to the CPU route's "
+          f"frame; {comp_ms:.4f} ms; PIL {'present' if has_pil else 'absent'}, render_frame "
+          f"{'drew bars and text' if has_pil else 'raised its ImportError'}")
+    print(f"28: {time.perf_counter() - phase_t0:.1f} s for the phase")
+
+
+def general_lapse() -> np.ndarray:
+    """The register verb's matrix in phase 28: phase 28's offset at the
+    deskewed FOV (a general 3D matrix: H, and a cropped LIR)."""
+    return affine_offset(LAPSE_SHAPE)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5352,6 +5658,12 @@ def main() -> int:
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s (nvcc, {len(_build.SOURCES)} "
           "sources in parallel)")
+    from biahub_tpu_torch import _native
+
+    t0 = time.perf_counter()
+    _native.library()
+    print(f"host helper: {time.perf_counter() - t0:.1f} s ({_native._compiler()} "
+          f"{' '.join(_native.CXX_FLAGS)} _native/fastops.cpp)")
 
     z, y, x = SHAPE
     xh = x // 2 + 1
@@ -5674,6 +5986,7 @@ def main() -> int:
     assembly_plates_phase(dev, psf)
     model_plates_phase(dev)
     codecs_phase(dev, psf)
+    leftovers_phase(dev, records)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

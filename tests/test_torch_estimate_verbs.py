@@ -434,14 +434,110 @@ def test_register_reads_the_estimated_registration(runs, capsys):
     assert np.isfinite(registered.data[...]).all() and registered.data[0, 0].any()
 
 
-def test_estimate_registration_refuses_manual(runs, tmp_path, capsys):
-    tmp, paths, _ = runs
+MANUAL = yaml.safe_load((ROOT / "settings/example_estimate_registration_settings_manual.yml")
+                        .read_text())
+# (N, 3) ZYX point pairs in the frames of the manual plates.
+SOURCE_POINTS = np.array([[2.0, 10.5, 12.0], [5.0, 30.25, 8.0], [7.5, 20.0, 33.0],
+                          [3.0, 40.0, 40.5], [6.0, 12.0, 44.0]])
+TARGET_POINTS = SOURCE_POINTS @ np.array([[1.0, 0.0, 0.0], [0.0, 0.998, -0.05],
+                                          [0.0, 0.05, 0.998]]).T + [1.0, -2.0, 3.0]
+
+
+@pytest.fixture(scope="module")
+def manual_plates(tmp_path_factory) -> dict:
+    """A source and a target position of other shapes and voxel sizes, the
+    channels the manual example settings name among others."""
+    tmp = tmp_path_factory.mktemp("manual")
+    rng = np.random.default_rng(7)
+    paths = {}
+    for name, shape, scale, names in (
+            ("src", (1, 2, 8, 48, 50), [1.0, 1.0, 0.5, 0.2, 0.2], ["BF", "GFP"]),
+            ("tgt", (1, 2, 10, 60, 40), [1.0, 1.0, 0.4, 0.1, 0.1], ["DAPI", "Phase3D"])):
+        root = open_ome_zarr(tmp / f"{name}.zarr", layout="hcs", mode="w", channel_names=names)
+        root.create_position("0", "0", "0").create_image(
+            "0", rng.random(shape).astype(np.float32),
+            transform=[TransformationMeta(type="scale", scale=scale)])
+        paths[name] = [str(tmp / f"{name}.zarr" / "0" / "0" / "0")]
+    return paths
+
+
+def write_points(path: Path, pts: np.ndarray, fmt: str) -> Path:
+    """``pts`` as a ``.npy`` file, a headerless CSV, or napari's "Save
+    Points layer" export (a header row and a leading index column)."""
+    if fmt == "npy":
+        np.save(path.with_suffix(".npy"), pts)
+        return path.with_suffix(".npy")
+    path = path.with_suffix(".csv")
+    if fmt == "csv":
+        np.savetxt(path, pts, delimiter=",")
+    else:
+        rows = [f"{i},{z},{y},{x}" for i, (z, y, x) in enumerate(pts.tolist())]
+        path.write_text("\n".join(["index,axis-0,axis-1,axis-2", *rows]) + "\n")
+    return path
+
+
+@pytest.mark.parametrize("fmt", ["npy", "csv", "napari"])
+@pytest.mark.parametrize("frame", ["pre_aligned", "original"])
+@pytest.mark.parametrize("kind", ["euclidean", "similarity"])
+def test_manual_method_from_point_files_writes_the_reference_matrix(manual_plates, tmp_path,
+                                                                    fmt, frame, kind):
+    """The reference's manual example settings (similarity; euclidean with
+    a 90 degree pre-rotation and a flip) and point files: the port's YAML
+    equals the reference verb's (click's runner) and the reference's
+    ``registration_from_point_pairs`` within 1e-12."""
+    from biahub_tpu.estimate_registration import registration_from_point_pairs
+
+    paths = manual_plates
+    settings = json.loads(json.dumps(MANUAL))
+    settings["affine_transform_settings"]["transform_type"] = kind
+    if kind == "euclidean":
+        settings["manual_registration_settings"].update(affine_90degree_rotation=1,
+                                                        affine_fliplr=True)
     config = tmp_path / "manual.yml"
-    config.write_text(yaml.safe_dump(dict(ants(), estimation_method="manual")))
+    config.write_text(yaml.safe_dump(settings, sort_keys=False))
+    points = ["--source-points", str(write_points(tmp_path / "src", SOURCE_POINTS, fmt)),
+              "--target-points", str(write_points(tmp_path / "tgt", TARGET_POINTS, fmt)),
+              "--source-points-frame", frame]
+    pair = ["-s", *paths["src"], "-t", *paths["tgt"], "-c", str(config)]
+    res = CliRunner().invoke(reference_cli, ["estimate-registration", *pair, "-o",
+                                             str(tmp_path / "ref" / "out.yml"), *points])
+    assert res.exit_code == 0, (res.output, res.exception)
+    assert main(["estimate-registration", *pair, "-o", str(tmp_path / "port" / "out.yml"),
+                 *points], device="cpu") == 0
+    got, want = read_yaml(tmp_path / "port" / "out.yml"), read_yaml(tmp_path / "ref" / "out.yml")
+    assert same(got, want, 1e-12)
+    source = reference_open(paths["src"][0])
+    target = reference_open(paths["tgt"][0])
+    manual = settings["manual_registration_settings"]
+    host = registration_from_point_pairs(
+        SOURCE_POINTS, TARGET_POINTS, source.data.shape[-3:], target.data.shape[-3:],
+        source.scale[-3:], target.scale[-3:], kind == "similarity",
+        manual["affine_90degree_rotation"], manual["affine_fliplr"], frame)
+    np.testing.assert_allclose(got["affine_transform_zyx"], host, rtol=0, atol=1e-12)
+    assert not np.allclose(host, np.eye(4))
+
+
+def test_estimate_registration_refuses_manual(manual_plates, tmp_path, capsys):
+    """Without point files (and without napari) the manual method exits 1
+    with the reference's headless message, and so does one point file
+    alone with the reference's pairing message; nothing is written."""
+    from biahub_tpu.estimate_registration import user_assisted_registration
+
+    paths = manual_plates
+    config = tmp_path / "manual.yml"
+    config.write_text(yaml.safe_dump(MANUAL, sort_keys=False))
+    with pytest.raises(RuntimeError) as headless:
+        user_assisted_registration(np.zeros((2, 4, 4)), "GFP", (1, 1, 1), np.zeros((2, 4, 4)),
+                                   "Phase3D", (1, 1, 1))
+    pair = ["estimate-registration", "-s", *paths["src"], "-t", *paths["tgt"], "-o",
+            str(tmp_path / "out.yml"), "-c", str(config)]
     capsys.readouterr()
-    assert main(["estimate-registration", "-s", *paths["src1"], "-t", *paths["tgt1"], "-o",
-                 str(tmp_path / "out.yml"), "-c", str(config)], device="cpu") == 1
-    assert "manual estimation method" in capsys.readouterr().err
+    assert main(pair, device="cpu") == 1
+    assert f"Error: {headless.value}" in capsys.readouterr().err
+    one = write_points(tmp_path / "src", SOURCE_POINTS, "npy")
+    assert main([*pair, "--source-points", str(one)], device="cpu") == 1
+    assert "--source-points and --target-points must be given together" in \
+        capsys.readouterr().err
     assert not (tmp_path / "out.yml").exists()
 
 

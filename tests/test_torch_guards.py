@@ -49,6 +49,8 @@ from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.parallel import sharded_fft
 from biahub_tpu_torch.recon import optics
 from biahub_tpu_torch.registration import beads, intensity
+from biahub_tpu_torch.transforms import Transform
+from biahub_tpu_torch.visualize import animation_utils
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "biahub_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
@@ -117,6 +119,9 @@ ENTRY_POINTS = {
     "estimate_psf_arrays": lambda: estimate_psf_arrays(VOL[None]),
     "beads.estimate": lambda: beads.estimate(VOL, VOL),
     "beads.estimate_tczyx": lambda: beads.estimate_tczyx(VOL[None, None], VOL[None, None], 0),
+    "beads.optimize_matches": lambda: beads.optimize_matches(VOL, VOL, SHIFT, {}, {}),
+    "Transform.apply": lambda: Transform(TILT).apply(VOL),
+    "composite_channels": lambda: animation_utils.composite_channels([VOL[0]], [(0.0, 1.0)]),
     "make_traced_multipass_warp": lambda: multipass_warp.make_traced_multipass_warp(
         SHAPE, SHAPE),
     "intensity.estimate": lambda: intensity.estimate(VOL, VOL),

@@ -30,6 +30,7 @@ from scipy.ndimage import gaussian_filter
 from scipy.spatial.transform import Rotation
 
 import biahub_tpu._native
+from biahub_tpu import estimate_registration as jer
 from biahub_tpu import register as jreg
 from biahub_tpu.kernels import affine as jaff
 from biahub_tpu.kernels.multipass_warp import (
@@ -370,10 +371,18 @@ def test_estimate_registration_dispatches_beads_and_refuses_manual(monkeypatch):
         == {"method": "knn", "k": 5, "radius": None}
     assert out["stabilization_method"] == "beads"
     assert len(out["affine_transform_zyx_list"]) == 12
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estimate_registration_arrays(stack, stack, ["GFP"], ["Phase3D"],
-                                     {**settings, "estimation_method": "manual"}, [1.0] * 5,
+    # The manual method: headless without point pairs, the fitted pairs with.
+    manual = {**settings, "estimation_method": "manual"}
+    with pytest.raises(RuntimeError, match="requires an interactive napari session"):
+        estimate_registration_arrays(stack, stack, ["GFP"], ["Phase3D"], manual, [1.0] * 5,
                                      device="cpu")
+    pts = np.random.default_rng(2).random((4, 3)) * [4, 8, 8]
+    out = estimate_registration_arrays(stack, stack, ["GFP"], ["Phase3D"], manual, [1.0] * 5,
+                                       (0.2, 0.1, 0.1), source_points=pts,
+                                       target_points=pts + 0.5, device="cpu")
+    assert out["affine_transform_zyx"] == jer.registration_from_point_pairs(
+        pts, pts + 0.5, (4, 8, 8), (4, 8, 8), (0.2, 0.1, 0.1), (1.0, 1.0, 1.0),
+        source_points_frame="pre_aligned").tolist()
 
 
 @pytest.mark.parametrize("name", ["", "_beads", "_manual"])
