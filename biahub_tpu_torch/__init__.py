@@ -167,7 +167,7 @@ from biahub_tpu_torch.parallel.distributed import (
     process_count,
     process_index,
 )
-from biahub_tpu_torch.parallel.mesh import Mesh, get_mesh
+from biahub_tpu_torch.parallel.mesh import GlobalMesh, Mesh, get_global_mesh, get_mesh
 from biahub_tpu_torch.parallel.sharded_fft import (
     ShardedFilter,
     deconvolve_zyx_sharded,
@@ -231,7 +231,9 @@ __all__ = [
     "output_channel_names",
     "deconvolve_arrays",
     "deconvolve_settings_from_reference",
+    "GlobalMesh",
     "Mesh",
+    "get_global_mesh",
     "get_mesh",
     "ShardedFilter",
     "deconvolve_zyx_sharded",

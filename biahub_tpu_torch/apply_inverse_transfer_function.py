@@ -36,6 +36,7 @@ from biahub_tpu_torch.convert import (
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels import fft as kfft
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.recon.birefringence import (
     birefringence_from_stokes,
     stokes_from_intensities,
@@ -158,10 +159,12 @@ def apply_inverse_transfer_function(
     monitor: bool = True,
     init_only: bool = False,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The apply-inv-tf verb on plates (module docstring): a float32 output
     plate of the selected timepoints and the reconstructed channels, with
-    the input's scale, provenance and the ``biahub-reconstruct`` attribute;
+    the input's scale, provenance and the ``biahub-reconstruct`` attribute,
+    in device batches split over ``mesh`` (default: every card);
     ``init_only`` creates it and computes nothing."""
     dev = resolve_device(device)
     output_dirpath = Path(output_dirpath)
@@ -196,19 +199,21 @@ def apply_inverse_transfer_function(
         _check_transfer_functions(settings, tfs)
     except ValueError as exc:
         raise CommandError(str(exc)) from None
-    recon = _make_recon_kernel(settings, tfs, (Z, Y, X), dev)
+    resolved = resolve_cluster(cluster=cluster)
+    print(f"Running on-device batches (mode='{resolved}')")
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
+    # The prepared filters once for each device of the mesh.
+    recons = {d: _make_recon_kernel(settings, tfs, (Z, Y, X), d) for d in runner.devices}
     n_out = len(output_channels)
 
     def kernel(vols: torch.Tensor) -> torch.Tensor:
         out = torch.empty((vols.shape[0], n_out, Z, Y, X), dtype=torch.float32,
                           device=vols.device)
         for czyx, o in zip(vols, out):
-            recon(czyx, o)
+            recons[vols.device](czyx, o)
         return out
 
     input_channels = tuple(all_channel_names.index(n) for n in settings["input_channel_names"])
-    resolved = resolve_cluster(cluster=cluster)
-    print(f"Running on-device batches (mode='{resolved}')")
     input_positions = [open_ome_zarr(p, mode="r") for p in input_position_dirpaths]
     output_positions = [open_ome_zarr(p, mode="r+")
                         for p in get_output_paths(input_position_dirpaths, output_dirpath)]
@@ -216,7 +221,6 @@ def apply_inverse_transfer_function(
         out_pos.update_zattrs({"biahub-reconstruct": settings})
     units = [WorkUnit(p_idx, int(t), input_channels, tuple(range(n_out)), t_out)
              for p_idx in range(len(input_positions)) for t_out, t in enumerate(times)]
-    runner = BatchRunner(cluster=resolved, device=dev)
     n = runner.run_units(kernel, units, input_positions, output_positions, resume=False,
                          resume_token=settings_fingerprint(settings),
                          monitor=monitor and resolved != "debug")

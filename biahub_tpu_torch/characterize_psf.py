@@ -32,7 +32,8 @@ from biahub_tpu_torch.kernels.peaks import detect_peaks
 from biahub_tpu_torch.plots import pyplot
 from biahub_tpu_torch.psf.analysis import analyze_psf, compute_noise_level, extract_beads
 
-__all__ = ["characterize_psf", "characterize_psf_volume", "generate_report", "write_csv"]
+__all__ = ["characterize_psf", "characterize_psf_volume", "generate_report", "plot_fwhm_vs_acq_axes",
+           "plot_psf_amp", "plot_psf_slices", "write_csv"]
 
 
 def write_csv(path, columns: list, rows: list[dict]) -> None:
@@ -89,6 +90,50 @@ def _plot_fwhm_scatter(plt, plots_dir: Path, xs, ys, axis_labels) -> list[Path]:
         plt.close(fig)
         paths.append(path)
     return paths
+
+
+def plot_psf_slices(plots_dir, beads, zyx_scale, axis_labels, bead_numbers=None):
+    """The XY, XZ and YZ mid-planes of each bead to ``plots_dir /
+    psf_slices.png`` (the reference's ``plot_psf_slices``,
+    characterize_psf.py:267); returns the path, or None without
+    matplotlib."""
+    plots_dir = Path(plots_dir)
+    plt = pyplot(plots_dir / "psf_slices.png")
+    if plt is None:
+        return None
+    return _plot_psf_slices(plt, plots_dir, beads, bead_numbers if bead_numbers is not None
+                            else list(range(len(beads))))
+
+
+def plot_fwhm_vs_acq_axes(plots_dir, x, y, z, fwhm_x, fwhm_y, fwhm_z, axis_labels):
+    """The three FWHMs against each bead coordinate, one file an axis label
+    (the reference's ``plot_fwhm_vs_acq_axes``, characterize_psf.py:274, as
+    its report draws them); returns the paths, or None without
+    matplotlib."""
+    plots_dir = Path(plots_dir)
+    plt = pyplot(plots_dir / "fwhm.png")
+    if plt is None:
+        return None
+    return _plot_fwhm_scatter(plt, plots_dir, [x, y, z], [fwhm_z, fwhm_y, fwhm_x], axis_labels)
+
+
+def plot_psf_amp(plots_dir, x, y, z, amp, axis_labels=("z", "y", "x")):
+    """Bead amplitude against each coordinate to ``plots_dir / psf_amp.png``
+    (the reference's ``plot_psf_amp``, characterize_psf.py:289); returns the
+    path, or None without matplotlib."""
+    out = Path(plots_dir) / "psf_amp.png"
+    plt = pyplot(out)
+    if plt is None:
+        return None
+    fig, axes = plt.subplots(1, 3, figsize=(12, 3.5))
+    for ax, coord, label in zip(axes, (x, y, z), axis_labels[::-1]):
+        ax.scatter(coord, amp, s=8)
+        ax.set_xlabel(label)
+        ax.set_ylabel("amplitude")
+    fig.tight_layout()
+    fig.savefig(out, dpi=120)
+    plt.close(fig)
+    return out
 
 
 def generate_report(output_path, data_dir, dataset: str, beads: list, peaks: np.ndarray,

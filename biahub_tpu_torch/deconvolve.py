@@ -18,7 +18,8 @@ every (position, t, c) volume, on one of two routes:
 :func:`deconvolve_arrays` returns the transfer function for the caller to
 store; :func:`deconvolve` is the verb on plates: it writes
 ``transfer_function.zarr`` beside the output plate and runs the batched
-route through the batch runner or, under the reference's
+route through the batch runner, each batch split over ``mesh`` (default:
+every card), or, under the reference's
 ``BIAHUB_TPU_SHARDED_FFT=1`` with a mesh of more than one shard
 (``mesh=``, default :func:`~biahub_tpu_torch.parallel.mesh.get_mesh`: every
 card) over which the volume's shape shards, the sharded route (:160-203):
@@ -139,10 +140,11 @@ def deconvolve(
     :45-213): the output plate, the transfer function of
     ``psf.zarr/0/0/0`` written to ``transfer_function.zarr`` (a FOV store
     beside the output, the PSF's scale), then every (t, c) volume through
-    kernels A, B, C in device batches, uint16 volumes sent as they are;
-    under ``BIAHUB_TPU_SHARDED_FFT=1`` each volume sharded over ``mesh``
-    (default: every card) when it has more than one shard and the shape
-    shards over it (:func:`_deconvolve_sharded`)."""
+    kernels A, B, C in device batches split over ``mesh`` (default: every
+    card, or the CPU for ``device="cpu"``), uint16 volumes sent as they
+    are; under ``BIAHUB_TPU_SHARDED_FFT=1`` each volume sharded over
+    ``mesh`` (default: every card) when it has more than one shard and the
+    shape shards over it (:func:`_deconvolve_sharded`)."""
     dev = resolve_device(device)
     output_dirpath = Path(output_dirpath)
     output_position_paths = get_output_paths(input_position_dirpaths, output_dirpath)
@@ -188,18 +190,20 @@ def deconvolve(
             _deconvolve_sharded(input_positions, output_positions, tf_half,
                                 settings["regularization_strength"], mesh)
             return
-    filt = prepare_fourier_filter((Z, Y, X), tf_half, settings["regularization_strength"], dev)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
+    filt = prepare_fourier_filter((Z, Y, X), tf_half, settings["regularization_strength"],
+                                  runner.device)
 
-    def kernel(vols: torch.Tensor) -> torch.Tensor:
-        return torch.stack([deconvolve_zyx(v, prepared=filt, device=dev) for v in vols])
+    def kernel(vols: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+        return torch.stack([deconvolve_zyx(v, prepared=filt, device=vols.device)
+                            for v in vols])
 
     # Kernel A reads uint16 itself.
     kernel.native_ingest_dtypes = ("uint16",)
-    runner = BatchRunner(cluster=resolved, device=dev)
-    # The spectrum of a volume beside its input and output.
+    # The reference's batch plan (input and output, no workspace); the
+    # filter copied once to each device of the mesh.
     n = runner.run_zyx(kernel, input_positions, output_positions,
-                       monitor=monitor and resolved != "debug",
-                       unit_workspace_bytes=4 * Z * Y * X)
+                       monitor=monitor and resolved != "debug", broadcast_params={"filt": filt})
     print(f"Deconvolved {n} (t, c) volumes across {len(input_positions)} positions")
     runner.echo_stats()
 

@@ -46,6 +46,7 @@ from biahub_tpu_torch.kernels.deskew import (
     overhang_mask,
 )
 from biahub_tpu_torch.kernels.deskew_cuda import deskew as deskew_batch
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.runtime.executor import (
     BatchRunner,
     resolve_cluster,
@@ -170,10 +171,12 @@ def deskew(
     init_only: bool = False,
     resume: bool = False,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The deskew verb on plates (the reference's ``deskew``, :143-296):
     the output plate at the deskewed shape and voxel size, then every (t, c)
-    volume through kernel D and the fill in device batches; over the batch
+    volume through kernel D and the fill in device batches split over
+    ``mesh`` (default: every card); over the batch
     budget, each volume in X slabs and a chunked fill
     (:func:`deskew_slabbed`, :func:`fill_overhang_chunked`)."""
     dev = resolve_device(device)
@@ -219,7 +222,7 @@ def deskew(
         out_pos.update_zattrs({"biahub-deskew": settings})
     fill = overhang_fill_value(dk["keep_overhang"], dk["overhang_fill"])
     token = settings_fingerprint(settings)
-    runner = BatchRunner(cluster=resolved, device=dev)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
     volume_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx)))
     if volume_bytes > runner.max_batch_bytes:
         n_splits = -(-volume_bytes // runner.max_batch_bytes)

@@ -53,6 +53,7 @@ from biahub_tpu_torch.io.ngff import open_ome_zarr
 from biahub_tpu_torch.kernels.focus import focus_from_transverse_band_tzyx
 from biahub_tpu_torch.kernels.pcc import (
     _pcc_peak_indices_pairwise,
+    _plot_corr,
     _pcc_peak_indices_vs_first,
     match_shape,
     pcc_shifts_pairwise,
@@ -74,6 +75,10 @@ __all__ = [
     "get_tform_from_pcc",
     "estimate_stabilization_arrays",
     "estimate_stabilization",
+    "plot_corr_max_min_sum",
+    "plot_cross_correlation",
+    "plot_pcc_drifts",
+    "remove_beads_fov_from_path_list",
 ]
 
 NA_DET = 1.35
@@ -519,13 +524,64 @@ def _write_csv(path: Path, columns, rows) -> None:
         writer.writerows(rows)
 
 
-def _remove_beads_fov(paths: list, skip_beads_fov: str) -> list:
-    """Drop the beads FOV from the estimation inputs (the reference matches
-    the string in the path)."""
+def remove_beads_fov_from_path_list(position_dirpaths: list, skip_beads_fov: str) -> list:
+    """Drop the beads FOV from the estimation inputs (the reference's
+    ``remove_beads_fov_from_path_list``, estimate_stabilization.py:60: it
+    matches the string in the path; ``"0"`` drops nothing)."""
     if skip_beads_fov != "0":
         print(f"Removing beads FOV {skip_beads_fov} from input data paths")
-        paths = [p for p in paths if skip_beads_fov not in str(p)]
-    return paths
+        position_dirpaths = [p for p in position_dirpaths if skip_beads_fov not in str(p)]
+    return position_dirpaths
+
+
+def plot_cross_correlation(corr, title: str = "Cross-Correlation", output_path=None) -> None:
+    """The heatmap of a correlation volume (its max along Z) to
+    ``output_path`` (the reference's ``plot_cross_correlation``,
+    estimate_stabilization.py:721, which draws it with the PCC's own plot;
+    ``title`` is not drawn there either)."""
+    if output_path is None:
+        raise ValueError("output_path is required")
+    _plot_corr(np.asarray(corr.cpu() if isinstance(corr, torch.Tensor) else corr), output_path)
+
+
+def _plot_over_time(table, columns, ylabels, output_path, shape, figsize, legend) -> None:
+    """``table[column]`` against ``table["TimepointID"]`` (a DataFrame or a
+    dict of columns), one axis per column (``shape[0] > 1``) or all on one;
+    nothing without matplotlib."""
+    plt = pyplot(output_path)
+    if plt is None:
+        return
+    fig, axes = plt.subplots(*shape, sharex=True, figsize=figsize)
+    axes = np.atleast_1d(axes)
+    for i, col in enumerate(columns):
+        ax = axes[min(i, len(axes) - 1)]
+        if legend:
+            ax.plot(table["TimepointID"], table[col], label=col)
+        else:
+            ax.plot(table["TimepointID"], table[col], marker="o", ms=2)
+            ax.set_ylabel(ylabels[i])
+    axes[-1].set_xlabel("timepoint")
+    if legend:
+        axes[-1].legend()
+    fig.tight_layout()
+    fig.savefig(output_path, dpi=120)
+    plt.close(fig)
+
+
+def plot_pcc_drifts(shifts_df, output_path) -> None:
+    """Per-axis drift over time from a table of ``TimepointID``, ``ShiftZ``,
+    ``ShiftY`` and ``ShiftX`` (the reference's ``plot_pcc_drifts``,
+    estimate_stabilization.py:731)."""
+    columns = ["ShiftZ", "ShiftY", "ShiftX"]
+    _plot_over_time(shifts_df, columns, columns, output_path, (3, 1), (8, 6), legend=False)
+
+
+def plot_corr_max_min_sum(corr_stats_df, output_path) -> None:
+    """The correlation's max, min and sum over time, those of the columns
+    ``corr_max``, ``corr_min``, ``corr_sum`` the table has (the
+    reference's ``plot_corr_max_min_sum``, estimate_stabilization.py:749)."""
+    columns = [c for c in ("corr_max", "corr_min", "corr_sum") if c in corr_stats_df]
+    _plot_over_time(corr_stats_df, columns, columns, output_path, (1, 1), (8, 4), legend=True)
 
 
 def _on_device(path, channel_index: int, dev) -> ArrayPosition:
@@ -563,7 +619,8 @@ def estimate_z_stabilization(input_position_dirpaths: list, output_folder_path: 
     them, one row per (position, time_idx), sorted. ``{fov: transforms}``,
     ``{"average": transforms}`` with ``average_across_wells`` (over the
     whole file), or None with ``estimate_z_index``."""
-    paths = _remove_beads_fov(input_position_dirpaths, focus_finding_settings["skip_beads_fov"])
+    paths = remove_beads_fov_from_path_list(input_position_dirpaths,
+                                            focus_finding_settings["skip_beads_fov"])
     output_folder_path = Path(output_folder_path)
     output_folder_path.mkdir(parents=True, exist_ok=True)
     rows, fov_focus = [], {}
@@ -604,7 +661,8 @@ def estimate_xy_stabilization(input_position_dirpaths: list, output_folder_path:
     """XY transforms per FOV from the focus slices that
     ``positions_focus.csv`` names, the file written first when absent
     (reference :261-312)."""
-    paths = _remove_beads_fov(input_position_dirpaths, stack_reg_settings["skip_beads_fov"])
+    paths = remove_beads_fov_from_path_list(input_position_dirpaths,
+                                            stack_reg_settings["skip_beads_fov"])
     output_folder_path = Path(output_folder_path)
     output_folder_path.mkdir(parents=True, exist_ok=True)
     focus_csv = output_folder_path / "positions_focus.csv"
@@ -634,8 +692,8 @@ def estimate_xyz_stabilization_pcc(input_position_dirpaths: list, output_folder_
                                    device: str | torch.device = "cuda") -> dict[str, list]:
     """Volumetric PCC transforms per FOV (reference :439-462); when
     ``verbose`` each FOV's shifts as ``shifts_per_position/<fov>.csv``."""
-    paths = _remove_beads_fov(input_position_dirpaths,
-                              phase_cross_corr_settings["skip_beads_fov"])
+    paths = remove_beads_fov_from_path_list(input_position_dirpaths,
+                                            phase_cross_corr_settings["skip_beads_fov"])
     Path(output_folder_path).mkdir(parents=True, exist_ok=True)
     out = {}
     for path in paths:

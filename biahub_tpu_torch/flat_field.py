@@ -19,6 +19,7 @@ from biahub_tpu_torch.convert import flat_field_settings_from_reference
 from biahub_tpu_torch.device import as_tensor, resolve_device
 from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels.flat_field import flat_field_zyx
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.runtime.executor import BatchRunner, resolve_cluster
 from biahub_tpu_torch.runtime.resources import (
     echo_resources,
@@ -93,11 +94,13 @@ def flat_field(
     init_only: bool = False,
     resume: bool = False,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The flat-field verb on plates (the reference's ``flat_field``,
     :74-147): a float32 output plate of the input's shape, the target
     channels corrected by :func:`~biahub_tpu_torch.kernels.flat_field.
-    flat_field_zyx` in device batches, the others copied."""
+    flat_field_zyx` in device batches split over ``mesh`` (default: every
+    card), the others copied."""
     dev = resolve_device(device)
     output_dirpath = Path(output_dirpath)
     settings = yaml_to_model(config_filepath, flat_field_settings_from_reference)
@@ -135,9 +138,9 @@ def flat_field(
         out_pos.update_zattrs({"biahub-flat_field": settings})
 
     def kernel(vols: torch.Tensor) -> torch.Tensor:
-        return torch.stack([flat_field_zyx(v, device=dev) for v in vols])
+        return torch.stack([flat_field_zyx(v, device=vols.device) for v in vols])
 
-    runner = BatchRunner(cluster=resolved, device=dev)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
     n = runner.run_zyx(kernel, input_positions, output_positions,
                        channel_pairs=[(c, c) for c in target_indices], resume=resume,
                        resume_token=settings_fingerprint(settings),

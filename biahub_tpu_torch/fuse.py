@@ -99,6 +99,7 @@ from biahub_tpu_torch.kernels.spectral import (
     run_spectral_warp,
     spectral_deskew_supported,
 )
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.runtime.executor import (
     BatchRunner,
     WorkUnit,
@@ -407,6 +408,7 @@ def fuse(
     init_only: bool = False,
     resume: bool = False,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The fuse verb on plates (the reference's ``fuse``, :376-749): the
     output plate (the deskewed frame's shape and voxel size, or
@@ -414,7 +416,7 @@ def fuse(
     transfer function of ``psf.zarr/0/0/0`` written to
     ``transfer_function.zarr`` when a deconvolve stage is set, then every
     (t, c) unit of ``time_indices`` through :func:`_fuse_batch` in device
-    batches, or, when one unit exceeds the budget, through the standalone
+    batches split over ``mesh`` (default: every card), or, when one unit exceeds the budget, through the standalone
     verbs' chunked routes one unit at a time. ``--resume`` skips the units
     recorded under this settings' fingerprint."""
     dev = resolve_device(device)
@@ -478,7 +480,12 @@ def fuse(
                               transform=[TransformationMeta(type="scale",
                                                             scale=psf_dataset.scale)])
         tf_half = transfer_function[..., : X // 2 + 1]
-    plan = _Plan(fs, (Z, Y, X), tf_half, times, dev, spectral=False)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
+    # The plan's prepared state (filter, warp, tables) once for each device
+    # of the mesh: a shard's kernel runs on its own device's.
+    plans = {d: _Plan(fs, (Z, Y, X), tf_half, times, d, spectral=False)
+             for d in runner.devices}
+    plan = plans[runner.device]
     other_stages = plan.decon is not None or plan.dk is not None or plan.warped
     targets: set[int] = set()
     if fs["flat_field"] is not None:
@@ -492,7 +499,6 @@ def fuse(
     for out_pos in output_positions:
         out_pos.update_zattrs({"biahub-fuse": settings})
     token = settings_fingerprint(settings)
-    runner = BatchRunner(cluster=resolved, device=dev)
     units = [WorkUnit(p, int(t), c, c, int(t_out)) for p in range(len(input_positions))
              for t_out, t in enumerate(times) for c in range(C)]
     unit_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx))) + plan.workspace
@@ -519,7 +525,8 @@ def fuse(
 
     def make_kernel(flat: bool):
         def kernel(vols: torch.Tensor, t: np.ndarray) -> torch.Tensor:
-            return _fuse_batch(plan, vols, [int(x) for x in t], flat, other_stages)
+            return _fuse_batch(plans[vols.device], vols, [int(x) for x in t], flat,
+                               other_stages)
 
         # uint16 volumes go to the card as they are (kernel A, or the cast).
         kernel.native_ingest_dtypes = ("uint16",)

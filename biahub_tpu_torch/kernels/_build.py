@@ -44,16 +44,20 @@ _lock = threading.Lock()
 
 # Kernel launches since the last reset, by kernel name. Each wrapper adds one
 # where it launches its kernel, and nowhere else (the plain versions do not
-# count), so a run can show that its path went through the kernels.
+# count), so a run can show that its path went through the kernels. The
+# update holds ``_lock``, so wrappers called from several threads at once
+# lose no count.
 launch_counts: dict[str, int] = {}
 
 
 def count_launch(name: str) -> None:
-    launch_counts[name] = launch_counts.get(name, 0) + 1
+    with _lock:
+        launch_counts[name] = launch_counts.get(name, 0) + 1
 
 
 def reset_launch_counts() -> None:
-    launch_counts.clear()
+    with _lock:
+        launch_counts.clear()
 
 
 def _nvcc() -> str:

@@ -28,6 +28,7 @@ from biahub_tpu_torch.device import as_tensor, resolve_device
 __all__ = [
     "get_deskewed_data_shape",
     "deskew_transform_matrix",
+    "uncentered_deskew_matrix",
     "average_n_slices",
     "DeskewGeometry",
     "deskew_geometry",
@@ -38,6 +39,7 @@ __all__ = [
     "fill_overhang_",
     "deskew_zyx",
     "deskew_zyx_batched",
+    "deskew_czyx",
 ]
 
 
@@ -91,6 +93,21 @@ def deskew_transform_matrix(ls_angle_deg: float, px_to_scan_ratio: float) -> np.
             [0, 0, 0, 1],
         ]
     )
+
+
+def uncentered_deskew_matrix(raw_shape: tuple[int, int, int], output_shape: tuple[int, int, int],
+                             ls_angle_deg: float, px_to_scan_ratio: float) -> np.ndarray:
+    """:func:`deskew_transform_matrix` in index coordinates (the convention
+    of ``affine_warp_zyx`` and scipy): the centres of both frames folded
+    into the translation column (the reference's
+    ``uncentered_deskew_matrix``, kernels/deskew.py:90)."""
+    m = deskew_transform_matrix(ls_angle_deg, px_to_scan_ratio)
+    c_in = (np.asarray(raw_shape, dtype=np.float64) - 1) / 2
+    c_out = (np.asarray(output_shape, dtype=np.float64) - 1) / 2
+    out = np.eye(4)
+    out[:3, :3] = m[:3, :3]
+    out[:3, 3] = c_in - m[:3, :3] @ c_out
+    return out
 
 
 def average_n_slices(data: torch.Tensor, window: int = 1) -> torch.Tensor:
@@ -286,3 +303,20 @@ def deskew_zyx(
         as_tensor(raw_data, dev)[None], ls_angle_deg, px_to_scan_ratio,
         keep_overhang, average_window, overhang_fill, skip_flip, dev,
     )[0]
+
+
+def deskew_czyx(
+    czyx,
+    ls_angle_deg: float,
+    px_to_scan_ratio: float,
+    keep_overhang: bool,
+    average_window: int = 1,
+    overhang_fill: str | float = 0,
+    device: str | torch.device = "cuda",
+) -> torch.Tensor:
+    """Deskew each channel of a (C, Z, Y, X) volume -> (C, groups, Y_out,
+    X_out) float32: :func:`deskew_zyx_batched` with the channels as the
+    batch (the reference's ``deskew_czyx``, kernels/deskew.py:336, a vmap
+    of ``deskew_zyx``)."""
+    return deskew_zyx_batched(czyx, ls_angle_deg, px_to_scan_ratio, keep_overhang,
+                              average_window, overhang_fill, device=device)

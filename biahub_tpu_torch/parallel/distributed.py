@@ -17,6 +17,12 @@ reference::
 ``BIAHUB_TPU_DISTRIBUTED=auto`` under ``torchrun``, whose variables
 ``init_method="env://"`` reads. The backend is NCCL in a process that has a
 card, gloo otherwise.
+
+The collectives a sharded computation needs across processes,
+:func:`all_to_all` and :func:`all_reduce`, run on the started group: NCCL
+carries card tensors, gloo CPU tensors, and a tensor the group's backend
+does not carry raises, naming the backend; nothing is staged through the
+host on the way.
 """
 
 from __future__ import annotations
@@ -33,7 +39,12 @@ __all__ = [
     "process_count",
     "is_coordinator",
     "barrier",
+    "all_to_all",
+    "all_reduce",
 ]
+
+# The device type each backend carries.
+_BACKEND_DEVICE = {"nccl": "cuda", "gloo": "cpu"}
 
 
 def _int_env(name: str) -> int | None:
@@ -132,3 +143,47 @@ def barrier(name: str = "biahub-barrier", timeout_s: float | None = None) -> Non
         # Other failures (a connection reset, a bad group) keep the real
         # error in front: calling them a peer's death misleads the operator.
         raise RuntimeError(f"barrier {name!r} failed: {msg}") from exc
+
+
+def _check_transport(tensors, what: str) -> None:
+    """Raise unless a group is started and its backend carries every one of
+    ``tensors``' devices."""
+    if not dist.is_initialized():
+        raise RuntimeError(f"{what}: no process group is started "
+                           "(maybe_initialize_distributed)")
+    backend = dist.get_backend()
+    for t in tensors:
+        if _BACKEND_DEVICE.get(backend) != t.device.type:
+            raise RuntimeError(
+                f"{what}: a {t.device.type} tensor on a {backend} group; {backend} "
+                f"carries {_BACKEND_DEVICE.get(backend, 'no')} tensors (NCCL card "
+                "tensors, gloo CPU tensors), and nothing is staged through the host")
+
+
+def _real(t: torch.Tensor) -> torch.Tensor:
+    return torch.view_as_real(t) if t.is_complex() else t
+
+
+def all_to_all(output: torch.Tensor, input: torch.Tensor) -> torch.Tensor:
+    """Every process sends block q of ``input``'s leading axis (split into
+    ``process_count()`` equal blocks) to process q, and receives process
+    p's block into block p of ``output`` (``all_to_all_single``); complex
+    tensors travel as their float pairs. Both contiguous, of one shape and
+    dtype, on a device the group's backend carries. Returns ``output``."""
+    _check_transport((output, input), "all_to_all")
+    if output.shape != input.shape or output.dtype != input.dtype:
+        raise ValueError(f"all_to_all: output {tuple(output.shape)} {output.dtype} for "
+                         f"input {tuple(input.shape)} {input.dtype}")
+    if input.shape[0] % process_count():
+        raise ValueError(f"all_to_all: a leading axis of {input.shape[0]} does not split "
+                         f"over {process_count()} processes")
+    dist.all_to_all_single(_real(output), _real(input.contiguous()))
+    return output
+
+
+def all_reduce(tensor: torch.Tensor) -> torch.Tensor:
+    """``tensor`` summed over every process in place, on a device the
+    group's backend carries. Returns ``tensor``."""
+    _check_transport((tensor,), "all_reduce")
+    dist.all_reduce(tensor)
+    return tensor

@@ -31,6 +31,7 @@ from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
 from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels.affine import affine_warp_auto, affine_warp_auto_batched
 from biahub_tpu_torch.kernels.multipass_warp import chunked_affine_warp_zyx, common_frame_bytes
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.runtime.executor import BatchRunner, resolve_cluster, stripe_units
 from biahub_tpu_torch.runtime.resources import estimate_resources
 from biahub_tpu_torch.transforms.lir import largest_interior_rectangle
@@ -45,6 +46,8 @@ __all__ = [
     "rescale_voxel_size",
     "register_arrays",
     "register",
+    "convert_transform_to_ants",
+    "convert_transform_to_numpy",
 ]
 
 # Interpolation names that take the nearest neighbour (order 0).
@@ -289,12 +292,14 @@ def register(
     sbatch_filepath: str | None = None,
     monitor: bool = True,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The register verb on plates (the reference's ``register_cli``,
     :197-398): the output plate in the target's frame (cropped to the
     overlap's LIR without ``keep_overhang``, the crop start folded into the
     matrix) at :func:`rescale_voxel_size`, the named source channels warped
-    by ``affine_warp_auto`` in device batches (over the budget in output
+    by ``affine_warp_auto`` in device batches split over ``mesh`` (default:
+    every card; over the budget in output
     chunks, read from and written to the plates), the target's other
     channels copied cropped."""
     dev = resolve_device(device)
@@ -348,7 +353,7 @@ def register(
         out_pos.update_zattrs({"biahub-register": {
             "affine_transformation": {"transform_matrix": matrix.tolist()},
             "settings": settings}})
-    runner = BatchRunner(cluster=resolved, device=dev)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
     pairs = [(source_channel_names.index(name), output_channel_names.index(name))
              for name in source_channel_names if name in settings["source_channel_names"]]
     workspace = common_frame_bytes(warp_matrix, source_shape, out_shape)
@@ -374,7 +379,7 @@ def register(
     else:
         def kernel(vols: torch.Tensor) -> torch.Tensor:
             return affine_warp_auto_batched(vols, warp_matrix, out_shape, order=order,
-                                            device=dev)
+                                            device=vols.device)
 
         n = runner.run_zyx(kernel, source_positions, output_positions, channel_pairs=pairs,
                            time_indices=times, monitor=monitor and resolved != "debug",
@@ -392,3 +397,22 @@ def register(
         f.result()
     print(f"Registered {n} (t, c) volumes")
     runner.echo_stats()
+
+
+def convert_transform_to_ants(T_numpy):
+    """The reference's shim (register.py:430): ANTs transform objects are
+    not part of the port either; every warp and registration function takes
+    the 4x4 matrix itself. Raises ``ImportError``."""
+    raise ImportError(
+        "ANTs transform objects are not part of biahub_tpu_torch; pass the 4x4 "
+        "numpy matrix directly (every warp and registration function takes it)."
+    )
+
+
+def convert_transform_to_numpy(T_ants):
+    """The reference's shim (register.py:441); see
+    :func:`convert_transform_to_ants`. Raises ``ImportError``."""
+    raise ImportError(
+        "ANTs transform objects are not part of biahub_tpu_torch; transforms are "
+        "already plain 4x4 numpy matrices here."
+    )

@@ -55,6 +55,8 @@ __all__ = [
     "estimate",
     "estimate_tzyx",
     "estimate_tczyx",
+    "estimate_with_propagation",
+    "estimate_independently",
 ]
 
 
@@ -463,3 +465,23 @@ def estimate_tczyx(
         else:
             transforms.append(None)
     return [t if t is not None else np.eye(4).tolist() for t in transforms]
+
+
+def _with_propagation(kwargs: dict, flag: bool) -> dict:
+    settings = dict(kwargs.get("affine_transform_settings") or {})
+    settings["use_prev_t_transform"] = flag
+    return dict(kwargs, affine_transform_settings=settings)
+
+
+def estimate_with_propagation(*args, **kwargs) -> list:
+    """:func:`estimate_tczyx` with each timepoint's result seeding the next
+    (``use_prev_t_transform`` set; the reference's
+    ``estimate_with_propagation``, registration/beads.py:572)."""
+    return estimate_tczyx(*args, **_with_propagation(kwargs, True))
+
+
+def estimate_independently(*args, **kwargs) -> list:
+    """:func:`estimate_tczyx` with every timepoint estimated from scratch
+    (``use_prev_t_transform`` unset; the reference's
+    ``estimate_independently``, registration/beads.py:578)."""
+    return estimate_tczyx(*args, **_with_propagation(kwargs, False))

@@ -3,10 +3,23 @@
 Counterpart of ``biahub_tpu/runtime/executor.py``. The caller enumerates
 (position, t, c) work units; the runner groups them by input volume shape
 and dtype, sizes batches to the device budget, and runs each batch through
-a plain torch callable on a (B, ...) batch on the device:
+a plain torch callable on (b, ...) shards of it on the devices of a
+:class:`~biahub_tpu_torch.parallel.mesh.Mesh` (default: every card of the
+process, :func:`~biahub_tpu_torch.parallel.mesh.get_mesh`):
 
 - **reads** run one batch ahead on the I/O threads, straight into pinned
   host buffers that are allocated once per shape group and reused;
+- **shards**: a batch of B units (a multiple of the mesh size, as the
+  reference's ``_batch_size`` rounds it) splits along B into one shard a
+  mesh device (:func:`~biahub_tpu_torch.parallel.mesh.batch_sharding`); a
+  short chunk is padded with copies of its last unit, as the reference
+  pads it, and the padding is dropped after the fetch. Each shard is copied
+  to its device, computed and copied back on its own stream (on one
+  device: the device's current stream), with its own events and its own
+  rows of the pinned buffers; one controller thread launches every shard,
+  and the launches are asynchronous. ``broadcast_params`` are copied once
+  to each device (:func:`~biahub_tpu_torch.parallel.mesh.
+  replicated_sharding`) and a shard's kernel gets its device's copy;
 - the copy to the card is ``non_blocking``; volumes go as the store keeps
   them and are cast to float32 there (uint16 -> float32 is exact, so the
   result is bit-equal to a host cast), unless the kernel takes the dtype
@@ -23,15 +36,17 @@ a plain torch callable on a (B, ...) batch on the device:
 next one is read and dispatched. ``last_stats`` holds the wall-time split of
 the last ``run_units``: time the host waited on reads and on writes, the
 stream time of the host-to-device copies, of the kernel and of the
-device-to-host copies (CUDA events; host clock on the CPU), and the bytes;
+device-to-host copies (CUDA events, the slowest shard of each batch; host
+clock on the CPU), the bytes, and the mesh's shard count (``n_shards``);
 ``total_stats`` sums them over the runner's runs.
 
 Budget: ``BIAHUB_TPU_MAX_BATCH_BYTES`` (default 4 GiB), as the reference
-reads it.
+reads it; a batch's budget covers all of its shards.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
@@ -50,6 +65,7 @@ from biahub_tpu_torch.device import resolve_device
 from biahub_tpu_torch.io.ngff import Position
 from biahub_tpu_torch.io.progress import ProgressStore
 from biahub_tpu_torch.parallel.distributed import process_count, process_index
+from biahub_tpu_torch.parallel.mesh import Mesh, batch_sharding, get_mesh, replicated_sharding
 from biahub_tpu_torch.runtime.profiling import batch_timer
 
 __all__ = [
@@ -208,19 +224,31 @@ class _Clock:
         return [y - x for x, y in zip(a, b)]
 
 
+def _on_shard(dev: torch.device, stream) -> contextlib.AbstractContextManager:
+    """The shard's device and stream as the current ones (nothing on the
+    CPU)."""
+    if dev.type != "cuda":
+        return contextlib.nullcontext()
+    stack = contextlib.ExitStack()
+    stack.enter_context(torch.cuda.device(dev))
+    stack.enter_context(torch.cuda.stream(stream))
+    return stack
+
+
 @dataclass
 class _Batch:
     """A batch between its dispatch and its flush."""
 
     units: list[WorkUnit]
-    result: torch.Tensor       # host (pinned on the card) result
-    clock: _Clock
+    result: torch.Tensor       # host (pinned on the card) result, padding dropped
+    clocks: list[_Clock]       # one a shard
     slot: int
     unit_bytes: int
 
 
 class BatchRunner:
-    """Runs a kernel on (B, ...) batches of plate work units on one device.
+    """Runs a kernel on (B, ...) batches of plate work units, each batch
+    split along B over the devices of a mesh.
 
     Parameters
     ----------
@@ -228,26 +256,48 @@ class BatchRunner:
         'debug' synchronizes after every batch; 'local' pipelines reads,
         compute and writes.
     max_batch_bytes : int
-        Device budget for one batch (input, output and workspace); default
-        ``BIAHUB_TPU_MAX_BATCH_BYTES`` or 4 GiB.
+        Device budget for one batch (input, output and workspace, all
+        shards); default ``BIAHUB_TPU_MAX_BATCH_BYTES`` or 4 GiB.
     device : str or torch.device
-        ``"cuda"`` (default; raises without a card) or ``"cpu"``.
+        ``"cuda"`` (default; raises without a card): every card of the
+        process (``get_mesh()``), or the one card an index names; ``"cpu"``:
+        the CPU. Read only when ``mesh`` is None.
+    mesh : Mesh, optional
+        The devices the batch's leading axis is split over, the
+        reference's ``mesh=`` (``Mesh.virtual(device, n)``: n shards on one
+        device).
     """
 
-    n_devices = 1
-
     def __init__(self, cluster: str = "local", max_batch_bytes: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh: Mesh | None = None):
         self.cluster = cluster
         if max_batch_bytes is None:
             max_batch_bytes = int(os.environ.get("BIAHUB_TPU_MAX_BATCH_BYTES",
                                                  DEFAULT_MAX_BATCH_BYTES))
         self.max_batch_bytes = max_batch_bytes
-        self.device = resolve_device(device)
+        if mesh is None:
+            dev = resolve_device(device)
+            mesh = Mesh((dev,)) if dev.index is not None else get_mesh(device=dev)
+        self.mesh = mesh
+        self.device = mesh.devices[0]
         self.jobs: dict[int, PositionJob] = {}
         self._cancel = threading.Event()
+        self._streams: list | None = None
         self.last_stats: dict | None = None
-        self.total_stats = dict.fromkeys(_STAT_KEYS, 0)
+        self.total_stats = self._new_stats()
+
+    @property
+    def n_devices(self) -> int:
+        return self.mesh.size
+
+    @property
+    def devices(self) -> tuple[torch.device, ...]:
+        """The mesh's devices, each once: where a verb builds state that is
+        not a tensor, it builds it once for each of these."""
+        return self.mesh.unique_devices
+
+    def _new_stats(self) -> dict:
+        return dict.fromkeys(_STAT_KEYS, 0) | {"n_shards": self.mesh.size}
 
     # -- planning ------------------------------------------------------------
 
@@ -256,14 +306,20 @@ class BatchRunner:
         """Units per batch: the budget (halved unless ``debug``, since a
         dispatched batch and the next one coexist) over one unit's input
         (a non-float32 input costs its itemsize plus 4 bytes a voxel: the
-        float32 copy lives beside it), output and workspace bytes."""
+        float32 copy lives beside it), output and workspace bytes, rounded
+        up to a multiple of the mesh size (at most the units rounded up)."""
         in_bpv = in_itemsize + (4 if in_itemsize != 4 else 0)
         unit_bytes = int(np.prod(unit_shape)) * in_bpv + int(out_bytes) + int(workspace_bytes)
         budget = self.max_batch_bytes
         if self.cluster != "debug":
             budget //= 2
         by_mem = max(1, budget // max(unit_bytes, 1))
-        return max(int(min(n_units, by_mem)), 1)
+        b = int(min(n_units, by_mem))
+        # A multiple of the shard count, so that every shard gets as many.
+        nd = self.n_devices
+        if b % nd:
+            b = min(-(-b // nd) * nd, -(-n_units // nd) * nd)
+        return max(b, 1)
 
     # -- execution -----------------------------------------------------------
 
@@ -329,7 +385,7 @@ class BatchRunner:
                 job.state = "COMPLETED"
             self.jobs[u.pos_idx] = job
 
-        self.last_stats = dict.fromkeys(_STAT_KEYS, 0)
+        self.last_stats = self._new_stats()
         if not units:
             return 0
         args = (kernel, units, input_positions, output_positions, out_dtype, resume, progress,
@@ -380,9 +436,28 @@ class BatchRunner:
     def _execute(self, kernel, units, input_positions, output_positions, out_dtype, resume,
                  progress, per_unit_params, unit_workspace_bytes, post_fetch,
                  broadcast_params) -> int:
-        dev = self.device
-        broadcast = {k: (v if v is None else torch.as_tensor(v).to(dev))
-                     for k, v in (broadcast_params or {}).items()}
+        mesh = self.mesh
+        n_shards = mesh.size
+        pin = self.device.type == "cuda"
+        # One copy of each broadcast array a device; a shard gets its device's.
+        copies = {k: None if v is None else replicated_sharding(mesh, v)
+                  for k, v in (broadcast_params or {}).items()}
+        broadcast = {dev: {k: None if c is None else c[dev] for k, c in copies.items()}
+                     for dev in mesh.unique_devices}
+        # One device keeps its current stream; shards each take a stream of
+        # their own (the runner's, so that the caching allocator reuses
+        # their blocks run after run), which first waits for the broadcast
+        # copies.
+        if not pin:
+            streams = [None] * n_shards
+        elif n_shards == 1:
+            streams = [torch.cuda.current_stream(self.device)]
+        else:
+            if self._streams is None:
+                self._streams = [torch.cuda.Stream(dev) for dev in mesh.devices]
+            streams = self._streams
+            for st, dev in zip(streams, mesh.devices):
+                st.wait_stream(torch.cuda.current_stream(dev))
         native = {np.dtype(d) for d in getattr(kernel, "native_ingest_dtypes", ())}
         groups: dict[tuple, _Group] = {}
         for u in units:
@@ -399,9 +474,12 @@ class BatchRunner:
             nonlocal n_done, pending
             with batch_timer(f"batch of {len(batch.units)}", len(batch.units),
                              batch.unit_bytes):
-                batch.clock.wait()
-            for key, span in zip(("h2d_s", "device_s", "d2h_s"), batch.clock.spans_s()):
-                stats[key] += span
+                for clock in batch.clocks:
+                    clock.wait()
+            # The slowest shard's span of each stage.
+            spans = [clock.spans_s() for clock in batch.clocks]
+            for i, key in enumerate(("h2d_s", "device_s", "d2h_s")):
+                stats[key] += max(sp[i] for sp in spans)
             host = batch.result.numpy()
             futures = []
             for i, u in enumerate(batch.units):
@@ -433,10 +511,10 @@ class BatchRunner:
             B = self._batch_size(group.shape, len(group.units), out_bytes,
                                  unit_workspace_bytes, in_itemsize=group.dtype.itemsize)
             chunks = [group.units[i:i + B] for i in range(0, len(group.units), B)]
-            pin = dev.type == "cuda"
             in_bufs = [torch.empty((B,) + group.shape, dtype=_torch_dtype(group.dtype),
                                    pin_memory=pin) for _ in range(min(2, len(chunks)))]
-            in_free = [None] * len(in_bufs)  # an event: the buffer's copy to the card is done
+            # Events a buffer: the shards' copies of it to their devices are done.
+            in_free: list[list] = [[] for _ in in_bufs]
             # Results come back into two pinned buffers in turn; a buffer is
             # reused once the writes from it have landed (``out_slots``).
             out_bufs = [torch.empty((B,) + out_shape, dtype=torch.float32, pin_memory=pin)
@@ -461,41 +539,59 @@ class BatchRunner:
                 stats["read_s"] += time.perf_counter() - t0
                 stats["bytes_read"] += len(chunk) * unit_bytes
                 slot = ci % len(in_bufs)
-                vols_host = in_bufs[slot][:len(chunk)]
+                # Several shards: every chunk padded to B (the reference's
+                # :716-724), then to a multiple of the shard count, with
+                # copies of the chunk's last unit.
+                n_rows = len(chunk)
+                if n_shards > 1:
+                    n_rows = B if len(chunks) > 1 else -(-n_rows // n_shards) * n_shards
+                    in_bufs[slot][len(chunk):n_rows] = in_bufs[slot][len(chunk) - 1]
+                vols_host = in_bufs[slot][:n_rows]
                 if ci + 1 < len(chunks):
                     nxt = (ci + 1) % len(in_bufs)
-                    if in_free[nxt] is not None:
-                        in_free[nxt].synchronize()
+                    for ev in in_free[nxt]:
+                        ev.synchronize()
                     reads = _start_reads(chunks[ci + 1], input_positions, in_bufs[nxt])
 
                 params = {}
                 if per_unit_params is not None:
                     per_unit = [per_unit_params(u) for u in chunk]
+                    per_unit += per_unit[-1:] * (n_rows - len(chunk))
                     params = {k: np.stack([np.asarray(p[k]) for p in per_unit])
                               for k in per_unit[0]}
                 out_slot = ci % len(out_bufs)
                 wait_writes(out_slots[out_slot])
-                clock = _Clock(dev)
-                clock.mark()
-                vols = vols_host.to(dev, non_blocking=True)
-                if pin:
-                    in_free[slot] = torch.cuda.Event()
-                    in_free[slot].record()
-                clock.mark()
-                if group.dtype not in native:
-                    vols = vols.to(torch.float32)
-                result = kernel(vols, **params, **broadcast)
-                clock.mark()
+                clocks, in_free[slot] = [], []
                 buf = out_bufs[out_slot]
-                if buf.shape[1:] != result.shape[1:] or buf.dtype != result.dtype:
-                    buf = torch.empty((B,) + tuple(result.shape[1:]), dtype=result.dtype,
-                                      pin_memory=pin)
-                    out_bufs[out_slot] = buf
-                host = buf[:len(chunk)]
-                host.copy_(result, non_blocking=True)
-                clock.mark()
-                del vols, result
-                batch = _Batch(chunk, host, clock, out_slot, unit_bytes)
+                for s, rows in enumerate(batch_sharding(mesh, n_rows)):
+                    dev = mesh.devices[s]
+                    with _on_shard(dev, streams[s]):
+                        clock = _Clock(dev)
+                        clock.mark()
+                        vols = vols_host[rows].to(dev, non_blocking=True)
+                        if pin:
+                            in_free[slot].append(torch.cuda.Event())
+                            in_free[slot][-1].record()
+                        clock.mark()
+                        if group.dtype not in native:
+                            vols = vols.to(torch.float32)
+                        result = kernel(vols, **{k: v[rows] for k, v in params.items()},
+                                        **broadcast[dev])
+                        clock.mark()
+                        if buf.shape[1:] != result.shape[1:] or buf.dtype != result.dtype:
+                            if s:
+                                raise ValueError(
+                                    f"shard {s} returned {tuple(result.shape[1:])} "
+                                    f"{result.dtype}, shard 0 {tuple(buf.shape[1:])} "
+                                    f"{buf.dtype}")
+                            buf = torch.empty((B,) + tuple(result.shape[1:]),
+                                              dtype=result.dtype, pin_memory=pin)
+                            out_bufs[out_slot] = buf
+                        buf[rows].copy_(result, non_blocking=True)
+                        clock.mark()
+                        del vols, result
+                    clocks.append(clock)
+                batch = _Batch(chunk, buf[:len(chunk)], clocks, out_slot, unit_bytes)
                 if inflight is not None:
                     flush(inflight, out_slots)
                 inflight = batch

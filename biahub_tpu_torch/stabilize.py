@@ -38,6 +38,7 @@ from biahub_tpu_torch.estimate_stabilization import DEFAULT_MAX_BATCH_BYTES
 from biahub_tpu_torch.kernels.affine import affine_warp_auto, make_batched_warp
 from biahub_tpu_torch.io.ngff import create_empty_plate, get_ome_zarr_version, open_ome_zarr
 from biahub_tpu_torch.kernels.multipass_warp import chunked_affine_warp_zyx
+from biahub_tpu_torch.parallel.mesh import Mesh
 from biahub_tpu_torch.runtime.executor import (
     BatchRunner,
     WorkUnit,
@@ -180,14 +181,16 @@ def stabilize(
     local: bool = False,
     monitor: bool = True,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> None:
     """The stabilize verb on plates (the reference's ``stabilize``,
     :85-279): the output plate (YX swapped when the first settings file's
     first transform turns by ~90 deg, ``output_voxel_size`` as the scale),
     then every (t, c) unit warped by its position's float32 matrix of
     timepoint t, the kernel chosen from every position's matrices
-    (:func:`~biahub_tpu_torch.kernels.affine.make_batched_warp`); over the
-    batch budget in output chunks read from and written to the plates."""
+    (:func:`~biahub_tpu_torch.kernels.affine.make_batched_warp`), in device
+    batches split over ``mesh`` (default: every card); over the batch
+    budget in output chunks read from and written to the plates."""
     dev = resolve_device(device)
     settings = yaml_to_model(config_filepaths[0], stabilize_settings_from_reference)
     output_dirpath = Path(output_dirpath)
@@ -232,8 +235,11 @@ def stabilize(
         out_pos.update_zattrs({"biahub-stabilize": fov_settings})
     units = [WorkUnit(p, int(t), c, c, int(t_out)) for p in range(len(input_positions))
              for t_out, t in enumerate(times) for c in range(C)]
-    warp, workspace = make_batched_warp(np.concatenate(per_position), (Z, Y, X), out_zyx, dev)
-    runner = BatchRunner(cluster=resolved, device=dev)
+    runner = BatchRunner(cluster=resolved, device=dev, mesh=mesh)
+    # The warp once for each device of the mesh.
+    warps = {d: make_batched_warp(np.concatenate(per_position), (Z, Y, X), out_zyx, d)
+             for d in runner.devices}
+    workspace = warps[runner.device][1]
     volume_bytes = 4 * (Z * Y * X + int(np.prod(out_zyx))) + workspace
     if volume_bytes > runner.max_batch_bytes:
         n_splits = max(1, int(np.ceil(volume_bytes / runner.max_batch_bytes)))
@@ -256,7 +262,7 @@ def stabilize(
         return
 
     def kernel(vols: torch.Tensor, matrix: np.ndarray) -> torch.Tensor:
-        return warp(vols, matrix.astype(np.float64))
+        return warps[vols.device][0](vols, matrix.astype(np.float64))
 
     n = runner.run_units(kernel, units, input_positions, output_positions,
                          per_unit_params=lambda u: {"matrix": per_position[u.pos_idx][u.t]},

@@ -388,6 +388,19 @@ Then the verbs on plates, through the command line a user calls:
     equal; ``composite_channels`` (``render_frame``'s composite) on the
     card equal to the CPU route's, and ``render_frame`` drawing with PIL or
     raising its ``ImportError`` where PIL is absent.
+29. the batch verbs over several shards, in a ``tempfile.mkdtemp()``
+    directory: phase 23's fuse verb (its settings, a (T 2, C 2) uint16 plate
+    of the headline volume, seed 29) and the deconvolve verb on the same
+    plate, each through the runner over one shard and over
+    ``Mesh.virtual(cuda:0, SHARDS_N)``: the plates bit-equal, every shard's
+    stream launching the verb's kernels (A-F, A-C), whole-call ms and the
+    ``RUN_STATS`` split of each; over ``get_mesh()`` (every card) the same
+    where the process has more than one card; the process-group sharded
+    FFT (``deconvolve_zyx_sharded`` over a ``GlobalMesh`` of PG_FFT_RANKS
+    NCCL processes, one card each, this script's ``--pg-fft-worker``) on
+    the headline volume within 1e-5 x max|ref| of the one-process route,
+    where there are that many cards. On one card the last two print why
+    they did not run.
 
 Times are CUDA-event medians on this card.
 
@@ -3740,6 +3753,23 @@ def run_verb(argv: list[str]) -> tuple[float, dict, dict, str]:
     return seconds, launches, (stats[-1] if stats else {}), text
 
 
+def fuse_plate_settings() -> tuple[tuple[int, int, int], dict]:
+    """The fuse verb's settings on the plates of phases 23, 27 and 29 (22a's
+    stages: flat-field on GFP, deconvolve, the example deskew, register and
+    stabilize per timepoint in the plane) and their deskewed frame."""
+    from biahub_tpu_torch.kernels.deskew import get_deskewed_data_shape
+
+    frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
+    m_reg = inplane_about_centre(FUSE_REG_DEG, FUSE_REG_SHIFT, frame)
+    return frame, {
+        "flat_field": {"channel_names": ["GFP"]},
+        "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
+        "registration": {"affine_transform_zyx": m_reg.tolist()},
+        "stabilization": {"affine_transform_zyx_list": [
+            inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame).tolist()
+            for t in range(FUSE_T)]}}
+
+
 def chunk_stamps(root) -> dict:
     """Modification times of the chunk files of a plate."""
     return {p: p.stat().st_mtime_ns for p in root.rglob("*")
@@ -3758,7 +3788,6 @@ def plates_phase(dev: torch.device, psf: np.ndarray) -> None:
     from biahub_tpu_torch.device import gpu_info
     from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
     from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function
-    from biahub_tpu_torch.kernels.deskew import get_deskewed_data_shape
 
     card = gpu_info()
     tmp = Path(tempfile.mkdtemp(prefix="biahub_plates_"))
@@ -3778,14 +3807,7 @@ def plates_phase(dev: torch.device, psf: np.ndarray) -> None:
         psf_plate.create_position("0", "0", "0").create_image(
             "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=scale)])
         write_s = time.perf_counter() - t0
-        frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
-        m_reg = inplane_about_centre(FUSE_REG_DEG, FUSE_REG_SHIFT, frame)
-        users = {"flat_field": {"channel_names": ["GFP"]},
-                 "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
-                 "registration": {"affine_transform_zyx": m_reg.tolist()},
-                 "stabilization": {"affine_transform_zyx_list": [
-                     inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame).tolist()
-                     for t in range(FUSE_T)]}}
+        frame, users = fuse_plate_settings()
         (tmp / "fuse.yml").write_text(yaml_flow(users) + "\n")
         position = str(tmp / "raw.zarr" / "A" / "1" / "0")
         out = tmp / "fused.zarr"
@@ -5075,14 +5097,7 @@ def codecs_phase(dev: torch.device, psf: np.ndarray) -> None:
                                   channel_names=["PSF"])
         psf_plate.create_position("0", "0", "0").create_image(
             "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=scale)])
-        frame, _ = get_deskewed_data_shape(SHAPE, ANGLE, RATIO, True, AVG)
-        users = {"flat_field": {"channel_names": ["GFP"]},
-                 "deconvolve": {"regularization_strength": REG}, "deskew": FUSE_DESKEW,
-                 "registration": {"affine_transform_zyx": inplane_about_centre(
-                     FUSE_REG_DEG, FUSE_REG_SHIFT, frame).tolist()},
-                 "stabilization": {"affine_transform_zyx_list": [
-                     inplane_about_centre(0.2 * t, (0.5 * t, -0.75 * t), frame).tolist()
-                     for t in range(FUSE_T)]}}
+        frame, users = fuse_plate_settings()
         (tmp / "fuse.yml").write_text(yaml_flow(users) + "\n")
         out = tmp / "fused.zarr"
         seconds, launches, stats, _ = run_verb(
@@ -5630,10 +5645,242 @@ def general_lapse() -> np.ndarray:
     return affine_offset(LAPSE_SHAPE)
 
 
+# Phase 29: the batch verbs over several shards: SHARDS_N shards of one
+# card (Mesh.virtual), then every card of the process where it has more
+# than one; the process-group sharded FFT as PG_FFT_RANKS NCCL processes,
+# one card each, on the headline volume (PG_FFT_LIMIT_S seconds each).
+SHARDS_N = 4
+PG_FFT_RANKS = 2
+PG_FFT_LIMIT_S = 300
+SHARD_KERNELS = {"fuse": ("fwd_yx", "z_filter", "inv_yx", "deskew", "warp_zy", "warp_x"),
+                 "deconvolve": ("fwd_yx", "z_filter", "inv_yx")}
+
+
+def launches_by_stream(fn) -> tuple[object, dict, dict]:
+    """``fn()``'s result, its launches (as :func:`counted`) and the same
+    launches by (card, stream) they were made on: each shard of the runner
+    launches on a stream of its own."""
+    from biahub_tpu_torch.kernels import _build
+
+    by_stream: dict = {}
+    count = _build.count_launch
+
+    def count_where(name: str) -> None:
+        count(name)
+        st = torch.cuda.current_stream()
+        per = by_stream.setdefault((st.device.index, st.cuda_stream), {})
+        per[name] = per.get(name, 0) + 1
+
+    _build.count_launch = count_where
+    try:
+        out, launches = counted(fn)
+    finally:
+        _build.count_launch = count
+    return out, launches, by_stream
+
+
+def shards_phase(dev: torch.device, psf: np.ndarray) -> None:
+    """Phase 29: the fuse and deconvolve verbs through the runner over one
+    shard, over ``Mesh.virtual(dev, SHARDS_N)`` and over every card; the
+    process-group sharded FFT (module docstring)."""
+    import shutil
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    from biahub_tpu_torch import deconvolve as deconvolve_verb
+    from biahub_tpu_torch import fuse as fuse_verb
+    from biahub_tpu_torch.device import gpu_info
+    from biahub_tpu_torch.io.ngff import TransformationMeta, open_ome_zarr
+    from biahub_tpu_torch.kernels.deconvolve import compute_transfer_function, deconvolve_zyx
+    from biahub_tpu_torch.parallel.mesh import Mesh, get_mesh
+
+    card = gpu_info()
+    n_cards = torch.cuda.device_count()
+    tmp = Path(tempfile.mkdtemp(prefix="biahub_shards_"))
+    phase_t0 = time.perf_counter()
+    try:
+        names = ["GFP", "Phase3D"]
+        scale = [1.0, 1.0, FUSE_DESKEW["scan_step_um"], FUSE_DESKEW["pixel_size_um"],
+                 FUSE_DESKEW["pixel_size_um"]]
+        gen = torch.Generator(device=dev).manual_seed(29)
+        raw = torch.randint(0, 65536, (FUSE_T, FUSE_C) + SHAPE, generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint16).cpu().numpy()
+        plate = open_ome_zarr(tmp / "raw.zarr", layout="hcs", mode="w", channel_names=names)
+        plate.create_position("A", "1", "0").create_image(
+            "0", raw, transform=[TransformationMeta(type="scale", scale=scale)])
+        del raw
+        psf_plate = open_ome_zarr(tmp / "psf.zarr", layout="hcs", mode="w",
+                                  channel_names=["PSF"])
+        psf_plate.create_position("0", "0", "0").create_image(
+            "0", psf[None, None], transform=[TransformationMeta(type="scale", scale=scale)])
+        _, users = fuse_plate_settings()
+        (tmp / "fuse.yml").write_text(yaml_flow(users) + "\n")
+        (tmp / "deconvolve.yml").write_text(yaml_flow({"regularization_strength": REG}) + "\n")
+        positions = [tmp / "raw.zarr" / "A" / "1" / "0"]
+        n_units = FUSE_T * FUSE_C
+
+        def run(verb: str, mesh: Mesh, out: Path):
+            if verb == "fuse":
+                fuse_verb.fuse(positions, tmp / "fuse.yml", out, psf_dirpath=tmp / "psf.zarr",
+                               cluster="local", monitor=False, device=dev, mesh=mesh)
+            else:
+                deconvolve_verb.deconvolve(positions, tmp / "psf.zarr", tmp / "deconvolve.yml",
+                                           out, monitor=False, device=dev, mesh=mesh)
+
+        def shard_run(verb: str, mesh: Mesh, tag: str) -> np.ndarray:
+            """The verb over ``mesh``: its plate, after the checks that each
+            shard launched the verb's kernels and the runner saw the mesh."""
+            out = tmp / f"{verb}-{tag}.zarr"
+            buf = io.StringIO()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                _, launches, by_stream = launches_by_stream(lambda: run(verb, mesh, out))
+            seconds = time.perf_counter() - t0
+            stats = [json.loads(line[len("RUN_STATS:"):]) for line in buf.getvalue().splitlines()
+                     if line.startswith("RUN_STATS:")][-1]
+            require(stats["n_shards"] == mesh.size and stats["n_units"] == n_units,
+                    f"29 {verb} over {tag}: RUN_STATS {stats}")
+            full = [key for key, per in by_stream.items()
+                    if all(per.get(k, 0) >= 1 for k in SHARD_KERNELS[verb])]
+            require(len(full) >= mesh.size,
+                    f"29 {verb} over {tag}: {len(full)} of {mesh.size} shards launched "
+                    f"{SHARD_KERNELS[verb]} ({by_stream})")
+            if mesh.size > 1:
+                cards = sorted({key[0] for key in full})
+                require(cards == sorted({d.index for d in mesh.devices}),
+                        f"29 {verb} over {tag}: kernels launched on cards {cards}")
+            wall = stats["wall_s"]
+            split = ", ".join(f"{k[:-2]} {1e3 * stats[k] / n_units:.3f} ms/volume "
+                              f"({stats[k] / wall:.1%})"
+                              for k in ("read_s", "h2d_s", "device_s", "d2h_s", "write_s"))
+            print(f"29 {verb} verb over {tag} ({mesh.size} shards, T {FUSE_T}, C {FUSE_C}, "
+                  f"uint16 {SHAPE}): {1e3 * seconds:.1f} ms the whole call (host clock), "
+                  f"{1e3 * seconds / n_units:.1f} ms/volume; the runner {1e3 * wall:.1f} ms; "
+                  f"split of its wall: {split}; launches {launches}; streams with every "
+                  f"kernel {len(full)}; card {card}; "
+                  f"{time.perf_counter() - phase_t0:.1f} s into the phase")
+            return open_ome_zarr(out / "A" / "1" / "0").data[...]
+
+        one: dict = {}
+        for verb in ("fuse", "deconvolve"):
+            one[verb] = shard_run(verb, Mesh((dev,)), "1 shard")
+            got = shard_run(verb, Mesh.virtual(dev, SHARDS_N), f"Mesh.virtual({dev}, {SHARDS_N})")
+            require(np.array_equal(got.view(np.int32), one[verb].view(np.int32)),
+                    f"29a {verb}: the plate over {SHARDS_N} shards differs from one shard's")
+            print(f"29a {verb}: the plate over {SHARDS_N} shards of one card bit-equal to one "
+                  "shard's; each shard launched the verb's kernels")
+        if n_cards > 1:
+            cards = get_mesh(device="cuda")
+            for verb in ("fuse", "deconvolve"):
+                got = shard_run(verb, cards, f"get_mesh() ({n_cards} cards)")
+                require(np.array_equal(got.view(np.int32), one[verb].view(np.int32)),
+                        f"29b {verb}: the plate over {n_cards} cards differs from one card's")
+                print(f"29b {verb}: the plate over {n_cards} cards bit-equal to one card's")
+        else:
+            print("29b did not run: this process has one card (torch.cuda.device_count() == "
+                  "1); a mesh of real cards needs two or more")
+        del one
+
+        if n_cards >= PG_FFT_RANKS:
+            vol = np.random.default_rng(29).random(SHAPE, dtype=np.float32)
+            tf_half = compute_transfer_function(psf, SHAPE)[..., : SHAPE[2] // 2 + 1]
+            np.save(tmp / "volume.npy", vol)
+            np.save(tmp / "tf_half.npy", tf_half)
+            want = deconvolve_zyx(vol, tf_half, REG, device=dev).cpu().numpy()
+            procs = []
+            port = free_port()
+            for rank in range(PG_FFT_RANKS):
+                procs.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--pg-fft-worker", str(rank),
+                     str(PG_FFT_RANKS), str(port), str(tmp)],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            outputs = []
+            try:
+                for p in procs:
+                    outputs.append(p.communicate(timeout=PG_FFT_LIMIT_S)[0])
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+            for rank, (p, text) in enumerate(zip(procs, outputs)):
+                require(p.returncode == 0, f"29c rank {rank} exited {p.returncode}:\n{text}")
+            got = np.concatenate([np.load(tmp / f"pg-{rank}.npy")
+                                  for rank in range(PG_FFT_RANKS)])
+            err = float(np.abs(got - want).max() / np.abs(want).max())
+            require(err <= 1e-5, f"29c process-group FFT rel err {err:.3g} > 1e-5")
+            lines = [ln for text in outputs for ln in text.splitlines()
+                     if ln.startswith("PG-FFT ")]
+            print(f"29c process-group sharded FFT ({PG_FFT_RANKS} NCCL processes, one card "
+                  f"each, {SHAPE}): rel err {err:.3g} against the one-process route (tol "
+                  f"1e-5), bit-equal {np.array_equal(got.view(np.int32), want.view(np.int32))}; "
+                  f"{'; '.join(lines)}; card {card}")
+        else:
+            print(f"29c did not run: the process-group FFT takes {PG_FFT_RANKS} processes on "
+                  f"{PG_FFT_RANKS} cards and this machine has {n_cards}; NCCL refuses two "
+                  "ranks on one card")
+        print(f"29 done in {time.perf_counter() - phase_t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def pg_fft_worker(argv: list[str]) -> int:
+    """One rank of phase 29c: ``chip_smoke.py --pg-fft-worker RANK NRANKS
+    PORT DIR``. Starts the group on ``tcp://localhost:PORT`` (NCCL with a
+    card, rank r on card r; gloo on the CPU otherwise), runs
+    ``deconvolve_zyx_sharded`` over the global mesh on its rows of
+    ``DIR/volume.npy`` and writes its slabs to ``DIR/pg-RANK.npy``, with
+    the sharded call's CUDA-event median (:func:`time_ms`)."""
+    from pathlib import Path
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from biahub_tpu_torch.parallel import distributed
+    from biahub_tpu_torch.parallel.mesh import Mesh, get_global_mesh
+    from biahub_tpu_torch.parallel.sharded_fft import (
+        deconvolve_zyx_sharded,
+        gather,
+        prepare_sharded_filter,
+    )
+
+    rank, nranks, port, tmp = int(argv[0]), int(argv[1]), argv[2], Path(argv[3])
+    cuda = torch.cuda.is_available()
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    distributed.maybe_initialize_distributed(f"tcp://localhost:{port}", nranks, rank)
+    vol = np.load(tmp / "volume.npy", mmap_mode="r")
+    rows = vol.shape[0] // nranks
+    mine = torch.from_numpy(np.array(vol[rank * rows:(rank + 1) * rows])).to(dev)
+    mesh = get_global_mesh(Mesh((dev,)))
+    prepared = prepare_sharded_filter(vol.shape, np.load(tmp / "tf_half.npy"), REG, mesh)
+    slabs = deconvolve_zyx_sharded(mine, None, mesh, prepared=prepared)
+    np.save(tmp / f"pg-{rank}.npy", gather(slabs, "cpu").numpy())
+    note = ""
+    if cuda:
+        ms = time_ms(lambda: deconvolve_zyx_sharded(mine, None, mesh, prepared=prepared))
+        note = f", {ms:.4f} ms a volume (CUDA-event median of the sharded call)"
+    distributed.barrier("pg-fft-done")
+    print(f"PG-FFT rank {rank}/{nranks} on {dev}{note}", flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--pg-fft-worker"]:
+        return pg_fft_worker(sys.argv[2:])
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from biahub_tpu_torch import DeconvolveDeskew, DeconvolveDeskewWarp, gpu_info
     from biahub_tpu_torch.kernels import _build
@@ -5987,6 +6234,7 @@ def main() -> int:
     model_plates_phase(dev)
     codecs_phase(dev, psf)
     leftovers_phase(dev, records)
+    shards_phase(dev, psf)
 
     # -- the per-kernel line: launches from each kernel's path (the chain's,
     # D's xzy store's from the xzy route's, Bx's from estimate-stabilization,

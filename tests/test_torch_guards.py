@@ -18,6 +18,7 @@ from biahub_tpu_torch import (
     chain_from_reference,
     compute_transfer_function_arrays,
     deconvolve_arrays,
+    get_global_mesh,
     get_mesh,
     module_from_reference,
     reconstruct_arrays,
@@ -48,6 +49,7 @@ from biahub_tpu_torch.kernels.warp_cuda import warp_x, warp_zy
 from biahub_tpu_torch.optimize_registration import optimize_registration_arrays
 from biahub_tpu_torch.parallel import sharded_fft
 from biahub_tpu_torch.recon import optics
+from biahub_tpu_torch.runtime.executor import BatchRunner
 from biahub_tpu_torch.registration import beads, intensity
 from biahub_tpu_torch.transforms import Transform
 from biahub_tpu_torch.visualize import animation_utils
@@ -154,6 +156,9 @@ ENTRY_POINTS = {
         SHAPE, RECON_TFS["phase"], 1e-3),
     "get_mesh": lambda: get_mesh(),
     "Mesh.virtual": lambda: Mesh.virtual("cuda", 2),
+    "get_global_mesh": lambda: get_global_mesh(),
+    "BatchRunner": lambda: BatchRunner(),
+    "deskew_czyx": lambda: deskew.deskew_czyx(VOL[None], 30.0, 0.4, False),
     "deconvolve_arrays": lambda: deconvolve_arrays(
         {"A/1/0": ArrayPosition(VOL[None, None], [1.0] * 5, ["a"])}, np.ones((3, 3, 3)),
         [1.0] * 5, {}),
